@@ -1,0 +1,80 @@
+"""Fused input-downsampling convolution (k=2, s=2, pad=1) + bias (+ SELU),
+the port of ``multimodal_3d_image_segmentation_tpu/kernels/conv_in.py``.
+
+The learnable 2x input resize reads the channel-first input and emits the
+channels-last half-resolution grid in one pass. One CUDA kernel
+(``csrc/conv_in.cu``) covers both Pallas variants (even and odd D/H);
+``conv_in_plain`` is ``F.conv3d`` (cuDNN on the GPU, TF32 off) + SELU,
+the reference's ``_reference_xla``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import device as _device  # noqa: F401  (fp32 policy)
+from . import _build
+
+__all__ = ["conv_in_s2d", "conv_in_plain", "SUPPORTED_FEATURES"]
+
+# template instances in the .cu: the configs' width 24, and 8 for tests
+SUPPORTED_FEATURES = (8, 24)
+_MAX_SMEM_BYTES = 48 * 1024
+
+
+def conv_in_plain(x_cf: torch.Tensor, weight: torch.Tensor,
+                  bias: torch.Tensor, apply_selu: bool = True
+                  ) -> torch.Tensor:
+    """The conv as plain tensor ops: the kernel's oracle and CPU path."""
+    y = F.conv3d(x_cf, weight, bias, stride=2, padding=1)
+    if apply_selu:
+        y = torch.selu(y)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def conv_in_s2d(x_cf: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor, apply_selu: bool = True
+                ) -> torch.Tensor:
+    """k=2/s=2/pad=1 conv + bias (+ SELU unless ``apply_selu`` is False,
+    as V-Net-DS applies GroupNorm + ELU outside).
+
+    Args:
+        x_cf: channel-first input (B, C, D, H, W).
+        weight: (F, C, 2, 2, 2) conv weight (torch layout).
+        bias: (F,).
+
+    Returns:
+        Channels-last (B, D//2+1, H//2+1, W//2+1, F). A CPU tensor runs
+        ``conv_in_plain``; a CUDA tensor launches the kernel (fp32,
+        contiguous, F in ``SUPPORTED_FEATURES``) or raises. Forward only.
+    """
+    if x_cf.dim() != 5:
+        raise ValueError(f"x_cf must be (B, C, D, H, W), got "
+                         f"{tuple(x_cf.shape)}")
+    b, c, d, h, w = x_cf.shape
+    f = weight.shape[0]
+    if tuple(weight.shape) != (f, c, 2, 2, 2) or tuple(bias.shape) != (f,):
+        raise ValueError(f"weight {tuple(weight.shape)} / bias "
+                         f"{tuple(bias.shape)} do not fit C={c}")
+    if x_cf.device.type == "cpu":
+        return conv_in_plain(x_cf, weight, bias, apply_selu)
+    _build.check_cuda_input("x_cf", x_cf, x_cf.device, 5)
+    _build.check_cuda_input("weight", weight, x_cf.device, 5)
+    _build.check_cuda_input("bias", bias, x_cf.device, 1)
+    _build.check_forward_only(x_cf, weight, bias)
+    if f not in SUPPORTED_FEATURES:
+        raise ValueError(f"conv_in kernel has no instance for F={f} "
+                         f"(supported: {SUPPORTED_FEATURES})")
+    if 4 * (8 * c * f + f) > _MAX_SMEM_BYTES:
+        raise ValueError(f"C={c}, F={f} weights exceed the kernel's shared "
+                         "memory")
+    if x_cf.numel() == 0:
+        raise ValueError("empty input")
+    out = torch.empty((b, d // 2 + 1, h // 2 + 1, w // 2 + 1, f),
+                      dtype=torch.float32, device=x_cf.device)
+    # (F, C, kz, ky, kx) -> rows ((kz*2+ky)*2+kx)*C + c, columns f
+    w_packed = weight.permute(2, 3, 4, 1, 0).reshape(8 * c, f).contiguous()
+    _build.launch("conv_in", "m3seg_conv_in", x_cf.device,
+                  x_cf.data_ptr(), w_packed.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), b, c, d, h, w, f, int(bool(apply_selu)))
+    return out

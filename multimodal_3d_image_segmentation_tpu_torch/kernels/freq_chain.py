@@ -1,0 +1,75 @@
+"""Fused frequency-resident convolution chain of HNOSeg-XS, the port of
+``multimodal_3d_image_segmentation_tpu/kernels/freq_chain.py``.
+
+The HNO-XS block applies n channel-mixing convolutions with identity skips
+and SELU on the packed corner spectrum (upstream ``nets/hnosegxs.py``)::
+
+    x <- selu(x @ W_k^T + x),  k = 1..n
+
+Every frequency point is independent (the weights are shared across
+modes), so the spectrum is a set of rows of C channels. The CUDA kernel
+(``csrc/freq_chain.cu``) keeps each row in registers through the whole
+chain; ``freq_chain_plain`` is the same chain in PyTorch.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from .. import device as _device  # noqa: F401  (fp32 policy)
+from . import _build
+
+__all__ = ["fused_freq_chain", "freq_chain_plain", "SUPPORTED_CHANNELS"]
+
+# template instances in the .cu: the configs' width 24, and 8 for tests
+SUPPORTED_CHANNELS = (8, 24)
+_MAX_WEIGHT_BYTES = 48 * 1024  # dynamic shared memory without opt-in
+
+
+def freq_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor]
+                     ) -> torch.Tensor:
+    """The chain as plain tensor ops: the kernel's oracle and CPU path."""
+    for w in weights:
+        x = torch.selu(F.linear(x, w) + x)
+    return x
+
+
+def fused_freq_chain(x: torch.Tensor, weights: Sequence[torch.Tensor]
+                     ) -> torch.Tensor:
+    """Apply the chain to a channels-last packed spectrum (B, *modes, C).
+
+    ``weights`` are (out, in) matrices with out == in == C. A CPU tensor
+    runs ``freq_chain_plain``; a CUDA tensor launches the kernel (fp32,
+    contiguous, C in ``SUPPORTED_CHANNELS``) or raises. Forward only.
+    """
+    c = x.shape[-1]
+    for w in weights:
+        if tuple(w.shape) != (c, c):
+            raise ValueError("fused chain requires square shared weights "
+                             f"({c}, {c}), got {tuple(w.shape)}")
+    if not weights:  # a 0-conv chain is the identity
+        return x
+    if x.device.type == "cpu":
+        return freq_chain_plain(x, weights)
+    for i, w in enumerate(weights):
+        _build.check_cuda_input(f"weights[{i}]", w, x.device, 2)
+    _build.check_cuda_input("x", x, x.device, x.dim())
+    _build.check_forward_only(x, *weights)
+    if c not in SUPPORTED_CHANNELS:
+        raise ValueError(f"freq_chain kernel has no instance for C={c} "
+                         f"(supported: {SUPPORTED_CHANNELS})")
+    if 4 * len(weights) * c * c > _MAX_WEIGHT_BYTES:
+        raise ValueError(f"{len(weights)} weights of {c}x{c} exceed the "
+                         "kernel's shared memory")
+    n_rows = x.numel() // c
+    out = torch.empty_like(x)
+    if n_rows == 0:
+        return out
+    # '...i,oi->...o' == x @ W^T: the kernel reads wt[k][i][o] = W_k[o][i]
+    wt = torch.stack([w.t() for w in weights]).contiguous()
+    _build.launch("freq_chain", "m3seg_freq_chain", x.device,
+                  x.data_ptr(), wt.data_ptr(), out.data_ptr(), n_rows, c,
+                  len(weights))
+    return out

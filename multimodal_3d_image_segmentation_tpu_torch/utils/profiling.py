@@ -1,0 +1,132 @@
+"""Device-time profile of the HNOSeg-XS serving step on one CUDA card.
+
+    python -m multimodal_3d_image_segmentation_tpu_torch.utils.profiling \
+        [--trace trace.json]
+
+At the flagship width (seeded random weights, one normalized random
+4-modality 240x240x155 volume already on the card) it prints:
+
+  * forward + argmax in ms (CUDA events; median, min, max of 20 runs
+    after 3 warm-ups) of the plain path and the kernel path, in the order
+    plain, kernels, kernels, plain, so drift between the two shows;
+  * ``torch.profiler``'s table of 5 kernel-path steps, by self device time;
+  * per step: the device busy time, each hand-written kernel's time, and
+    the device's idle share over the span of the 5 back-to-back steps.
+
+It excludes the host side of serving (NIfTI reads, the host-to-device
+copy, the label readback), which ``runtime/train_test.py::testing``
+measures.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import subprocess
+
+import numpy as np
+import torch
+
+from ..models import HNOSegXS
+from ..runtime.steps import make_predict_step
+
+__all__ = ["step_ms", "profile_steps"]
+
+FLAGSHIP = dict(in_channels=4, out_channels=4, filters=24,
+                num_transform_blocks=[3] * 8, num_modes=(10, 14, 14))
+SIZE = (240, 240, 155)
+SEED = 0
+N_TIMED = 20
+OWN_KERNELS = ("conv_in_kernel", "freq_chain_kernel", "tail_kernel")
+N_PROFILED = 5
+
+
+def step_ms(step, x, runs: int, warmup: int = 3):
+    """CUDA-event times in ms of ``runs`` calls of ``step(x)``."""
+    for _ in range(warmup):
+        step(x)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(x)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
+
+
+def _busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, -np.inf
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def profile_steps(step, x, trace=None):
+    """Profile ``N_PROFILED`` steps; returns the profiler and a summary."""
+    from torch.profiler import ProfilerActivity, profile
+    step(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(N_PROFILED):
+            step(x)
+        torch.cuda.synchronize()
+    if trace:
+        prof.export_chrome_trace(trace)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in dev]
+    summary = {"device_events": len(dev)}
+    if spans:
+        span = max(e for _, e in spans) - min(s for s, _ in spans)
+        busy = _busy_us(spans)
+        summary.update(
+            busy_ms_per_step=busy / 1e3 / N_PROFILED,
+            idle_share=1 - busy / span,
+            kernels_per_step=len(dev) / N_PROFILED,
+            **{f"{k}_ms_per_step": sum(
+                e.time_range.end - e.time_range.start for e in dev
+                if k in e.name) / 1e3 / N_PROFILED
+               for k in OWN_KERNELS})
+    return prof, summary
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", help="write a Chrome trace here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA device")
+    dev = torch.device("cuda:0")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (1, 4) + SIZE, dtype=np.float32)).to(dev)
+    steps = {}
+    for use_kernels in (False, True):
+        model = HNOSegXS(**FLAGSHIP, use_kernels=use_kernels, device=dev,
+                         generator=torch.Generator().manual_seed(SEED))
+        steps[use_kernels] = make_predict_step(model.eval())
+    for name, use_kernels in (("plain", False), ("kernels", True),
+                              ("kernels", True), ("plain", False)):
+        t = step_ms(steps[use_kernels], x, N_TIMED)
+        print(f"{name} forward+argmax ms median {statistics.median(t):.4f} "
+              f"min {min(t):.4f} max {max(t):.4f} ({N_TIMED} runs, "
+              f"size {SIZE})")
+    prof, summary = profile_steps(steps[True], x, args.trace)
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=20))
+    print(f"kernel path, {N_PROFILED} back-to-back steps: " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in summary.items()))
+
+
+if __name__ == "__main__":
+    main()
