@@ -3,27 +3,42 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-Drives the port's HNOSeg-XS serving path once at the flagship width
-(filters 24, blocks [3]*8, modes (10,14,14), 4-modality 240x240x155
-volumes, batch 1, fp32, random weights from a seed) and checks it:
+Drives the port's two serving paths once at full width on 4-modality
+240x240x155 volumes, batch 1, fp32, random weights from a seed: HNOSeg-XS
+(filters 24, blocks [3]*8, modes (10,14,14)) and V-Net-DS (base 24, blocks
+[1,2,3,3,3], right leg [0..4], 22,547,764 parameters). It checks them:
 
   1. device   the card's name and power limit, torch and CUDA versions;
-  2. build    compile the CUDA kernels from ``csrc/`` (nvcc, sm_90a);
-  3. kernels  each kernel against its plain PyTorch version at the serving
-              shapes, with its time and the plain version's;
+  2. build    compile the CUDA kernels from ``csrc/`` (one nvcc per source,
+              all at once, sm_90a);
+  3. kernels  conv_in, freq_chain and tail_resize against their plain
+              PyTorch versions at the serving shapes, with their times, the
+              plain versions' and the bound;
   4. serve    ``runtime/inference.py::run_inference`` on 3 synthetic NIfTI
               cases through ``configs/config_inference_hnoseg_xs.ini``; the
-              launch counts of the three kernels must grow by 3 / 24 / 3;
-  5. model    the kernel path against the plain path (``use_kernels=False``)
-              with the same weights, both held to a float64 evaluation of
-              the model: on one served volume on the card, and on a small
-              volume against the CPU. Two controls, the kernel path fed
-              TF32-rounded operands (as a kernel on TF32 tensor cores would
-              compute), must fail the same bars.
+              launch counts (reset just before) must be 3 / 24 / 3;
+  5. model    the HNOSeg-XS kernel path against the plain path
+              (``use_kernels=False``) with the same weights, both held to a
+              float64 evaluation: on one served volume on the card, and on
+              a small volume against the CPU. Two controls, the kernel path
+              fed TF32-rounded operands (as a kernel on TF32 tensor cores
+              would compute), must fail the same bars;
+  6. conv3    every conv3 call of one V-Net-DS forward (recorded with its
+              real inputs) against the plain version, with the kernel's,
+              the plain version's and ``F.conv3d``'s times and the bound;
+  7. serve    run_inference serves the same cases through
+              ``configs/config_vnet-ds.ini``; launches (reset just before)
+              must be conv_in 3, conv3 87, tail_resize 3;
+  8. model    the V-Net-DS kernel path against its plain path and float64,
+              on a served volume and on a small volume against the CPU; a
+              control with conv3's operands in TF32 must fail the bars.
 
 Every failed check raises, so the exit code is not 0. The script refuses
 to run without CUDA. The line before the last is a JSON object with the
-kernels' numbers; the last line is
+kernels' numbers (``launches`` summed over the two serving runs; times are
+medians of CUDA-event runs, ``bound_ms`` the larger of the bytes over
+3.35 TB/s and the operations over 67 TFLOP/s fp32, the H100 SXM's data
+sheet rates); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import json
@@ -41,6 +56,10 @@ SEED = 0
 SHAPE = (240, 240, 155)
 FLAGSHIP = dict(in_channels=4, out_channels=4, filters=24,
                 num_transform_blocks=[3] * 8, num_modes=(10, 14, 14))
+VNET = dict(in_channels=4, out_channels=4, base_num_filters=24,
+            num_blocks=[1, 2, 3, 3, 3], right_leg_indexes=[0, 1, 2, 3, 4])
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+FP32_FLOPS = 67e12          # H100 SXM data sheet, CUDA cores
 N_CASES = 3
 N_TIMED = 25
 # (kernel, source, the TPU kernel's pallas_call it replaces)
@@ -53,9 +72,14 @@ KERNELS = [
     ("tail_resize",
      "multimodal_3d_image_segmentation_tpu_torch/csrc/tail_resize.cu",
      "multimodal_3d_image_segmentation_tpu/kernels/tail_resize.py:149"),
+    ("conv3", "multimodal_3d_image_segmentation_tpu_torch/csrc/conv3.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/conv3d_flat.py:305"),
 ]
-# the main path's launches per volume
-PER_VOLUME = {"conv_in": 1, "freq_chain": 8, "tail_resize": 1}
+# each main path's launches per volume
+PER_VOLUME_HNOSEG = {"conv_in": 1, "freq_chain": 8, "tail_resize": 1,
+                     "conv3": 0}
+PER_VOLUME_VNET = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
+                   "conv3": 29}
 
 
 def check(cond, msg):
@@ -80,6 +104,18 @@ def median_ms(torch, fn, n=N_TIMED, warmup=3):
     return float(np.median(times))
 
 
+def bound(flops, nbytes):
+    """(ms, 'bytes' or 'operations'): the least time on the card."""
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
 def phase_device(torch):
     print("== device", flush=True)
     smi = subprocess.run(
@@ -97,11 +133,17 @@ def phase_build(kernels):
     lib = kernels.library()
     print(f"kernel library {lib.path.name}: nvcc {lib.build_seconds:.2f} s, "
           f"build + load {time.perf_counter() - t0:.2f} s")
+    # each kernel's registers, shared memory and spills (ptxas -v)
+    for line in lib.build_log.splitlines():
+        if "Used" in line or "spill" in line:
+            print(line.strip())
 
 
 def phase_kernels(torch, kernels, dev):
-    """Each kernel against its plain version at the serving shapes."""
+    """Each HNOSeg-XS kernel against its plain version at the serving
+    shapes."""
     print("== kernels", flush=True)
+    import torch.nn.functional as F
     rng = np.random.default_rng(SEED)
 
     def t(a):
@@ -113,17 +155,28 @@ def phase_kernels(torch, kernels, dev):
     spec = t(rng.standard_normal((1, 20, 28, 28, 24)))
     ws = [t(rng.standard_normal((24, 24)) / np.sqrt(24)) for _ in range(3)]
     logits = t(rng.standard_normal((1, 4, 121, 121, 78)))
-    cases = {
+    out_cl = 121 * 121 * 78
+    rows = spec.numel() // 24
+    cases = {  # kernel, plain, tolerance, bound, library call
         "conv_in": (lambda: kernels.conv_in_s2d(x, w, b),
-                    lambda: kernels.conv_in_plain(x, w, b), 1e-5),
+                    lambda: kernels.conv_in_plain(x, w, b), 1e-5,
+                    bound(2 * out_cl * 8 * 4 * 24,
+                          nbytes(x, w, b) + out_cl * 24 * 4),
+                    lambda: F.conv3d(x, w, b, stride=2, padding=1)),
         "freq_chain": (lambda: kernels.fused_freq_chain(spec, ws),
-                       lambda: kernels.freq_chain_plain(spec, ws), 1e-5),
+                       lambda: kernels.freq_chain_plain(spec, ws), 1e-5,
+                       bound(3 * 2 * rows * 24 * 24,
+                             2 * nbytes(spec) + nbytes(*ws)), None),
         "tail_resize": (lambda: kernels.fused_tail_softmax(logits, SHAPE),
-                        lambda: kernels.tail_plain(logits, SHAPE), 1e-6),
+                        lambda: kernels.tail_plain(logits, SHAPE), 1e-6,
+                        # 7 lerps and the softmax's exp, sum and divide
+                        bound(17 * 4 * int(np.prod(SHAPE)),
+                              nbytes(logits) + 4 * 4 * int(np.prod(SHAPE))),
+                        None),
     }
     results = {}
     with torch.inference_mode():
-        for name, (kern, plain, tol) in cases.items():
+        for name, (kern, plain, tol, (b_ms, b_by), lib) in cases.items():
             before = kernels.LAUNCHES[name]
             got = kern()
             torch.cuda.synchronize()
@@ -137,11 +190,15 @@ def phase_kernels(torch, kernels, dev):
                   f"{name}: max abs err {err} > {tol}")
             ms = median_ms(torch, kern)
             plain_ms = median_ms(torch, plain)
+            lib_ms = median_ms(torch, lib) if lib is not None else None
             results[name] = {"max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms}
+                             "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": lib_ms}
             print(f"{name}: out {tuple(got.shape)} max_abs_err {err:.3e} "
                   f"(tol {tol:g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
-                  "ms (median of 25, CUDA events)")
+                  f"ms  library {lib_ms if lib_ms is None else round(lib_ms, 4)}"
+                  f" ms  bound {b_ms:.4f} ms ({b_by}) (medians of "
+                  f"{N_TIMED}, CUDA events)")
     return results
 
 
@@ -174,38 +231,33 @@ def _write_cases(root: Path):
     return paths
 
 
-def phase_serve(torch, kernels, work: Path):
-    """The main path: run_inference through the serving config."""
-    print("== serve", flush=True)
+def phase_serve(torch, kernels, work: Path, list_paths, label, config,
+                model, n_params, per_volume):
+    """A main path: run_inference through a serving config, its launch
+    counts set to 0 just before and read just after."""
+    print(f"== serve {label}", flush=True)
     from multimodal_3d_image_segmentation_tpu_torch.data import read_img
-    from multimodal_3d_image_segmentation_tpu_torch.models import HNOSegXS
     from multimodal_3d_image_segmentation_tpu_torch.runtime.config import \
         get_config
     from multimodal_3d_image_segmentation_tpu_torch.runtime.inference import \
         run_inference
 
-    t0 = time.perf_counter()
-    list_paths = _write_cases(work / "data")
-    out_dir = work / "run"
-    model = HNOSegXS(**FLAGSHIP,
-                     generator=torch.Generator().manual_seed(SEED))
-    check(sum(p.numel() for p in model.parameters()) == 28248,
-          "flagship parameter count != 28,248")
+    out_dir = work / label
+    check(sum(p.numel() for p in model.parameters()) == n_params,
+          f"{label} parameter count != {n_params:,}")
     (out_dir / "model").mkdir(parents=True)
     torch.save(model.state_dict(), out_dir / "model" / "model.pt")
-    cfg = get_config(str(REPO / "configs" / "config_inference_hnoseg_xs.ini"))
+    cfg = get_config(str(REPO / "configs" / config))
     cfg["main"]["output_dir"] = str(out_dir)
     cfg["input_lists"]["data_dir"] = str(work / "data")
     cfg["input_lists"]["data_lists_test_paths"] = list_paths
-    print(f"set-up (synthetic cases, weights): "
-          f"{time.perf_counter() - t0:.2f} s")
 
     kernels.reset_launch_counts()
     stats = run_inference(cfg)
     launches = dict(kernels.LAUNCHES)
-    want = {k: v * N_CASES for k, v in PER_VOLUME.items()}
+    want = {k: v * N_CASES for k, v in per_volume.items()}
     check(launches == want, f"main-path launches {launches} != {want}")
-    print(f"main-path launches: {launches}")
+    print(f"main-path launches ({N_CASES} volumes): {launches}")
 
     pred_dir = out_dir / cfg["test"]["output_folder"] / "images"
     for i in range(N_CASES):
@@ -214,29 +266,34 @@ def phase_serve(torch, kernels, work: Path):
         check(set(np.unique(y).tolist()) <= {0, 1, 2, 3},
               f"labels {np.unique(y)} outside 0..3")
     check(stats["n_volumes"] == N_CASES, f"{stats['n_volumes']} volumes")
-    print(f"serving: {N_CASES} predictions of {SHAPE}; average prediction "
-          f"time {stats['avg_time_s'] * 1e3:.3f} ms/volume (wall clock with "
-          f"readback, mean of the {N_CASES - 1} volumes after the first), "
-          f"device "
-          f"{stats['avg_device_ms']:.3f} ms (CUDA events); peak allocated "
-          f"{stats['peak_mib']:.1f} MiB, peak reserved "
+    print(f"serving {label}: {N_CASES} predictions of {SHAPE}; average "
+          f"prediction time {stats['avg_time_s'] * 1e3:.3f} ms/volume (wall "
+          f"clock with readback, mean of the {N_CASES - 1} volumes after the "
+          f"first), device {stats['avg_device_ms']:.3f} ms (CUDA events); "
+          f"peak allocated {stats['peak_mib']:.1f} MiB, peak reserved "
           f"{stats['peak_reserved_mib']:.1f} MiB")
-    return launches, model.state_dict(), work / "data" / "case_0"
+    return launches
 
 
 # Whole-model bars. The random-init flagship grows activations to
 # O(100-500), so rounding differences of a few ulp (conv_in against cuDNN)
 # reach the softmax at the 1e-4 class, on the plain path as much as on the
 # kernel path. So the kernel path is held to the plain path's own distance
-# from a float64 evaluation of the model, times RATIO, and to ABS_LIMIT
-# against the plain path; argmax agreement must reach AGREE. On an H100
+# from a float64 evaluation of the model times "ratio", and to "abs"
+# against the plain path; argmax agreement must reach "agree". On an H100
 # (700 W) the sound kernel path read ratio 1.03, 1.5e-4 and 0.9999985 at
 # the served volume; the two TF32 controls below read ratios 407 and 457,
 # 4.4e-2 and 4.9e-2, agreement 0.99919 and 0.99894. The bars sit between,
 # nearer the sound side, and the controls must fail them.
-RATIO = 2.0
-ABS_LIMIT = 1e-3
-AGREE = 0.9999
+BARS_HNOSEG = {"ratio": 2.0, "abs": 1e-3, "agree": 0.9999}
+# V-Net-DS normalizes every conv output (GroupNorm), so its activations
+# stay O(1) and fp32 rounding differences stay near 1e-6 on the
+# probabilities; the bars were set from a prediction written down before
+# the first run on the card (PERF.md, Findings). On an H100 (700 W) the
+# sound kernel path read ratio 0.37-0.93, 2.5e-6 to 2.8e-6 and 0.9999977
+# or more; the TF32 control 299-350x, 7.3e-4 to 8.6e-4 and 0.99934-0.99936,
+# and must fail them.
+BARS_VNET = {"ratio": 4.0, "abs": 1e-4, "agree": 0.9999}
 
 
 def readings(torch, fast, plain, ref):
@@ -250,19 +307,20 @@ def readings(torch, fast, plain, ref):
             "finite": bool(torch.isfinite(fast).all())}
 
 
-def failed_bars(r):
-    bars = {"finite": r["finite"],
-            "agreement": r["agree"] >= AGREE,
-            "ratio": r["kernel_vs_fp64"] <= RATIO * r["plain_vs_fp64"] + 1e-6,
-            "abs": r["kernel_vs_plain"] <= ABS_LIMIT}
-    return [k for k, ok in bars.items() if not ok]
+def failed_bars(r, bars):
+    ok = {"finite": r["finite"],
+          "agreement": r["agree"] >= bars["agree"],
+          "ratio": r["kernel_vs_fp64"] <= bars["ratio"] * r["plain_vs_fp64"]
+          + 1e-6,
+          "abs": r["kernel_vs_plain"] <= bars["abs"]}
+    return [k for k, passed in ok.items() if not passed]
 
 
-def compare(torch, label, fast, plain, ref, control=False):
+def compare(torch, label, fast, plain, ref, bars, control=False):
     """Print the readings; a sound path must pass every bar, a control
     must fail at least one."""
     r = readings(torch, fast, plain, ref)
-    failed = failed_bars(r)
+    failed = failed_bars(r, bars)
     print(f"{label}: max abs err kernel-vs-plain {r['kernel_vs_plain']:.3e}, "
           f"kernel-vs-fp64 {r['kernel_vs_fp64']:.3e}, plain-vs-fp64 "
           f"{r['plain_vs_fp64']:.3e} (ratio "
@@ -280,12 +338,25 @@ def _tf32(torch, t):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def phase_model(torch, state, case_dir: Path, dev):
-    """Kernel path against the plain path with the same weights, both held
-    to a float64 evaluation of the model, and two controls."""
-    print("== model", flush=True)
+def served_volume(torch, case_dir: Path, dev):
+    """Case 0 as the serving flow reads it: 4 modalities, z-scored."""
     from multimodal_3d_image_segmentation_tpu_torch.data import (
         normalize_modalities, read_img)
+    x = np.stack([read_img(str(case_dir / f"{m}.nii"))
+                  for m in ("t1c", "t1n", "t2f", "t2w")])
+    return torch.from_numpy(normalize_modalities(x)[None]).to(dev)
+
+
+def small_volume(torch):
+    return torch.from_numpy(np.random.default_rng(SEED + 2)
+                            .standard_normal((1, 4, 32, 30, 21))
+                            .astype(np.float32))
+
+
+def phase_model_hnoseg(torch, state, case_dir: Path, dev):
+    """HNOSeg-XS: kernel path against the plain path with the same weights, both held
+    to a float64 evaluation of the model, and two controls."""
+    print("== model HNOSeg-XS", flush=True)
     from multimodal_3d_image_segmentation_tpu_torch.models import HNOSegXS
 
     def build(use_kernels, device, dtype=torch.float32, weights=state):
@@ -297,12 +368,8 @@ def phase_model(torch, state, case_dir: Path, dev):
         return {k: _tf32(torch, v) if pick(k) else v
                 for k, v in state.items()}
 
-    x = np.stack([read_img(str(case_dir / f"{m}.nii"))
-                  for m in ("t1c", "t1n", "t2f", "t2w")])
-    x = torch.from_numpy(normalize_modalities(x)[None]).to(dev)
-    xs = torch.from_numpy(np.random.default_rng(SEED + 2)
-                          .standard_normal((1, 4, 32, 30, 21))
-                          .astype(np.float32))
+    x, xs = served_volume(torch, case_dir, dev), small_volume(torch)
+    bars = BARS_HNOSEG
     with torch.inference_mode():
         fast = build(True, dev)(x)
         check(fast.shape == (1, 4) + SHAPE, f"output shape {fast.shape}")
@@ -311,7 +378,7 @@ def phase_model(torch, state, case_dir: Path, dev):
         plain = build(False, dev)(x)
         ref = build(False, dev, torch.float64)(x.double())
         torch.cuda.synchronize()
-        compare(torch, f"full volume {SHAPE}", fast, plain, ref)
+        compare(torch, f"full volume {SHAPE}", fast, plain, ref, bars)
         # controls: conv_in on TF32 operands (input and weight), and the
         # frequency chain on TF32 weights (these feed nothing else on the
         # kernel path)
@@ -319,12 +386,12 @@ def phase_model(torch, state, case_dir: Path, dev):
         fast = build(True, dev, weights=rounded(
             lambda k: k == "conv_in.op.weight"))(_tf32(torch, x))
         compare(torch, "control: conv_in operands in TF32", fast, plain, ref,
-                control=True)
+                bars, control=True)
         del fast
         fast = build(True, dev, weights=rounded(
             lambda k: ".conv_blocks." in k))(x)
         compare(torch, "control: freq_chain weights in TF32", fast, plain,
-                ref, control=True)
+                ref, bars, control=True)
         del fast, plain, ref
 
         # small volume: the GPU kernel path against the CPU plain paths
@@ -332,7 +399,196 @@ def phase_model(torch, state, case_dir: Path, dev):
         plain = build(False, "cpu")(xs)
         ref = build(False, "cpu", torch.float64)(xs.double())
         compare(torch, "small volume (1,4,32,30,21), GPU kernels vs CPU",
-                fast, plain, ref)
+                fast, plain, ref, bars)
+
+
+def _taps(n_in, n_out, stride, dilation):
+    """(output, tap) pairs along one axis whose tap reads a voxel."""
+    count = 0
+    for o in range(n_out):
+        for k in range(3):
+            q = o * stride + k - 1
+            count += (q >= 0 and q % 2 == 0 and q // 2 < n_in
+                      if dilation == 2 else 0 <= q < n_in)
+    return count
+
+
+def conv3_work(args, kw, y):
+    """(flops, bytes) a conv3 call needs: valid taps only, each input read
+    and each output written once."""
+    x, w = args[0], args[1]
+    x2, res = kw.get("x2"), kw.get("residual")
+    ci, co = w.shape[1], w.shape[0]
+    stride, dil = kw.get("stride", 1), kw.get("dilation", 1)
+    macs = ci * co * int(np.prod([
+        _taps(n, m, stride, dil) for n, m in zip(x.shape[1:4], y.shape[1:4])]))
+    moved = nbytes(x, x2, w, args[2], *(kw.get("prologue") or ()), y)
+    if res is not None:
+        macs += ci * co * int(np.prod(y.shape[1:4]))
+        moved += nbytes(*res) + nbytes(y)  # the residual output
+    if kw.get("emit_stats"):
+        moved += 2 * co * 4 * (2 if res is not None else 1)
+    return 2 * macs, moved
+
+
+def record_conv3_calls(torch, model, x):
+    """Every conv3 call of one kernel-path forward, with its real inputs."""
+    from multimodal_3d_image_segmentation_tpu_torch.models import \
+        architectures
+    calls, real = [], architectures.conv3
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    architectures.conv3 = recording
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        architectures.conv3 = real
+    return calls
+
+
+def _describe(args, kw):
+    x, w = args[0], args[1]
+    opts = [k for k in ("x2", "prologue", "residual") if kw.get(k) is not None]
+    opts += [f"{k}2" for k in ("stride", "dilation") if kw.get(k, 1) == 2]
+    opts += ["stats"] if kw.get("emit_stats") else []
+    return (f"{tuple(x.shape[1:4])} ci {w.shape[1]} co {w.shape[0]} "
+            f"{'+'.join(opts) or 'bare'}"
+            + (f" act {kw['prologue_act']}" if kw.get("prologue") else ""))
+
+
+def phase_conv3(torch, kernels, calls):
+    """conv3 against its plain version at every call of one V-Net-DS
+    forward. Tolerance: 1e-4 of the output's largest magnitude (at least
+    1): the kernel sums up to 27 x 384 products in another order than
+    cuDNN; TF32 products would miss by about 5e-4 of it. The moment sums
+    are held to float64 sums of the kernel's own output."""
+    print(f"== conv3 ({len(calls)} calls of one V-Net-DS forward)",
+          flush=True)
+    import torch.nn.functional as F
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
+           "bytes": 0, "max_abs_err": 0.0}
+    with torch.inference_mode():
+        for i, (args, kw) in enumerate(calls):
+            def kern():
+                return kernels.conv3(*args, **kw)
+
+            def plain():
+                return kernels.conv3_plain(*args, **kw)
+            before = kernels.LAUNCHES["conv3"]
+            got = kern()
+            torch.cuda.synchronize()
+            check(kernels.LAUNCHES["conv3"] == before + 1,
+                  f"conv3 call {i}: launch count did not move")
+            want = plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            n_out = 2 if kw.get("residual") is not None else 1
+            err = 0.0
+            for g, wt in zip(got[:n_out], want[:n_out]):
+                check(g.shape == wt.shape, f"conv3 call {i}: shape")
+                e = float((g - wt).abs().max())
+                tol = 1e-4 * max(1.0, float(wt.abs().max()))
+                check(np.isfinite(e) and e <= tol,
+                      f"conv3 call {i}: max abs err {e} > {tol}")
+                err = max(err, e)
+            for y, st in zip(got[:n_out], got[n_out:]):
+                y64 = y.double().reshape(-1, y.shape[-1])
+                exact = torch.stack([y64.sum(0), (y64 * y64).sum(0)])
+                scale = torch.stack([y64.abs().sum(0), (y64 * y64).sum(0)])
+                check(bool(((st.double() - exact).abs()
+                            <= 1e-5 * scale).all()),
+                      f"conv3 call {i}: moment sums off")
+            # the library yardstick: the conv + bias alone in one call
+            xin = args[0] if kw.get("x2") is None else torch.cat(
+                [args[0], kw["x2"]], -1)
+            xcf = xin.permute(0, 4, 1, 2, 3)
+            w, b = args[1], args[2]
+            if kw.get("dilation", 1) == 2:
+                wt_ = w.flip(2, 3, 4).transpose(0, 1).contiguous()
+
+                def lib():
+                    return F.conv_transpose3d(xcf, wt_, b, stride=2,
+                                              padding=1, output_padding=1)
+            else:
+                def lib():
+                    return F.conv3d(xcf, w, b, stride=kw.get("stride", 1),
+                                    padding=1)
+            ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
+            lib_ms = median_ms(torch, lib)
+            flops, moved = conv3_work(args, kw, got[0])
+            b_ms, b_by = bound(flops, moved)
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("flops", flops),
+                         ("bytes", moved)):
+                tot[k] += v
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            print(f"conv3[{i}] {_describe(args, kw)}: err {err:.2e} kernel "
+                  f"{ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} "
+                  f"bound {b_ms:.4f} ms ({b_by}), {flops / ms / 1e9:.2f} "
+                  "TFLOP/s")
+    b_ms, b_by = bound(tot["flops"], tot["bytes"])
+    print(f"conv3, the {len(calls)} calls of one forward: kernel "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, F.conv3d "
+          f"{tot['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{tot['flops'] / 1e12:.4f} TFLOP, {tot['bytes'] / 1e9:.4f} GB); "
+          f"{tot['flops'] / tot['ms'] / 1e9:.2f} TFLOP/s (sums of medians "
+          f"of {N_TIMED} CUDA-event runs)")
+    return {"max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": tot["library_ms"]}
+
+
+def phase_model_vnet(torch, state, case_dir: Path, dev):
+    """V-Net-DS: kernel path against plain path and float64 on a served
+    volume and on a small one against the CPU; a control with conv3's
+    operands (inputs and weights) rounded to TF32 must fail the bars."""
+    print("== model V-Net-DS", flush=True)
+    from multimodal_3d_image_segmentation_tpu_torch.models import (
+        VNetDS, architectures)
+
+    def build(use_kernels, device, dtype=torch.float32):
+        m = VNetDS(**VNET, use_kernels=use_kernels).to(device, dtype)
+        m.load_state_dict(state)
+        return m
+
+    x, xs = served_volume(torch, case_dir, dev), small_volume(torch)
+    bars = BARS_VNET
+    with torch.inference_mode():
+        fast = build(True, dev)(x)
+        check(fast.shape == (1, 4) + SHAPE, f"output shape {fast.shape}")
+        sum_err = float((fast.sum(1) - 1).abs().max())
+        check(sum_err <= 1e-5, f"probabilities sum off 1 by {sum_err}")
+        plain = build(False, dev)(x)
+        ref = build(False, dev, torch.float64)(x.double())
+        torch.cuda.synchronize()
+        compare(torch, f"V-Net-DS full volume {SHAPE}", fast, plain, ref,
+                bars)
+        del fast
+        real = architectures.conv3
+
+        def tf32_conv3(x1, w, b, **kw):
+            if kw.get("x2") is not None:
+                kw["x2"] = _tf32(torch, kw["x2"])
+            return real(_tf32(torch, x1), _tf32(torch, w), b, **kw)
+
+        architectures.conv3 = tf32_conv3
+        try:
+            fast = build(True, dev)(x)
+        finally:
+            architectures.conv3 = real
+        compare(torch, "V-Net-DS control: conv3 operands in TF32", fast,
+                plain, ref, bars, control=True)
+        del fast, plain, ref
+
+        fast = build(True, dev)(xs.to(dev)).cpu()
+        plain = build(False, "cpu")(xs)
+        ref = build(False, "cpu", torch.float64)(xs.double())
+        compare(torch, "V-Net-DS small volume (1,4,32,30,21), GPU kernels "
+                "vs CPU", fast, plain, ref, bars)
 
 
 def main():
@@ -342,6 +598,8 @@ def main():
                  "script checks the port on a GPU and does not run on CPU")
     sys.path.insert(0, str(REPO))
     from multimodal_3d_image_segmentation_tpu_torch import kernels
+    from multimodal_3d_image_segmentation_tpu_torch.models import (HNOSegXS,
+                                                                   VNetDS)
     dev = torch.device("cuda:0")
 
     phase_device(torch)
@@ -350,8 +608,34 @@ def main():
     (REPO / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="smoke_", dir=REPO / "build"))
     try:
-        launches, state, case0 = phase_serve(torch, kernels, work)
-        phase_model(torch, state, case0, dev)
+        t0 = time.perf_counter()
+        list_paths = _write_cases(work / "data")
+        case0 = work / "data" / "case_0"
+        print(f"set-up (synthetic cases): {time.perf_counter() - t0:.2f} s")
+        gen = torch.Generator().manual_seed(SEED)
+        hnoseg = HNOSegXS(**FLAGSHIP, generator=gen)
+        launches = phase_serve(
+            torch, kernels, work, list_paths, "HNOSeg-XS",
+            "config_inference_hnoseg_xs.ini", hnoseg, 28248,
+            PER_VOLUME_HNOSEG)
+        phase_model_hnoseg(torch, hnoseg.state_dict(), case0, dev)
+
+        vnet = VNetDS(**VNET, generator=torch.Generator().manual_seed(SEED))
+        fast = VNetDS(**VNET, use_kernels=True, device=dev)
+        fast.load_state_dict(vnet.state_dict())
+        calls = record_conv3_calls(torch, fast,
+                                   served_volume(torch, case0, dev))
+        check(len(calls) == PER_VOLUME_VNET["conv3"],
+              f"{len(calls)} conv3 calls per forward")
+        results["conv3"] = phase_conv3(torch, kernels, calls)
+        del calls, fast
+        torch.cuda.empty_cache()
+        launches_v = phase_serve(
+            torch, kernels, work, list_paths, "V-Net-DS",
+            "config_vnet-ds.ini", vnet, 22547764, PER_VOLUME_VNET)
+        for k, v in launches_v.items():
+            launches[k] += v
+        phase_model_vnet(torch, vnet.state_dict(), case0, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")

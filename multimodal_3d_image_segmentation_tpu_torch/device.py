@@ -37,12 +37,22 @@ def check_transform_precision(mode: str) -> None:
             f"for the Dice gate (ROADMAP Open items 1, item 12)")
 
 
-def resolve_device(visible_devices: Optional[Union[str, int]] = None
-                   ) -> torch.device:
-    """``[main] visible_devices`` -> ``cuda:<i>`` when CUDA is present,
-    else the CPU. A malformed or out-of-range index raises."""
-    if not torch.cuda.is_available():
+def resolve_device(visible_devices: Optional[Union[str, int, torch.device]]
+                   = None) -> torch.device:
+    """``[main] visible_devices`` -> ``cuda:<i>``. The CPU serves only when
+    the caller asks for it: ``'cpu'`` or ``torch.device('cpu')``. Without
+    CUDA any other value raises, so a run meant for the card never falls
+    back to the CPU unnoticed. A malformed or out-of-range index raises."""
+    if isinstance(visible_devices, torch.device):
+        if visible_devices.type == "cpu":
+            return visible_devices
+        visible_devices = visible_devices.index
+    if str(visible_devices).strip().lower() == "cpu":
         return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"visible_devices={visible_devices!r} needs CUDA, which is not "
+            "available; set visible_devices = 'cpu' to run on the CPU")
     idx = 0 if visible_devices is None else int(str(visible_devices).strip())
     if not 0 <= idx < torch.cuda.device_count():
         raise ValueError(f"visible_devices={idx} out of range for "

@@ -1,8 +1,10 @@
 """Build, load and launch the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes`` at first
-use (never at import: the CPU tests import every module). The library lands
+Each ``csrc/*.cu`` source compiles with its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects link into one shared library with a
+plain C interface, loaded with ``ctypes`` at first use (never at import:
+the CPU tests import every module). ``-Xptxas -v`` puts each kernel's
+registers, shared memory and spills in the build log. The library lands
 in ``csrc/build/`` under a name keyed by a hash of the sources and flags, so
 an edited source rebuilds and a finished build is reused. A missing
 ``nvcc`` or a failed build raises; nothing falls back.
@@ -30,7 +32,7 @@ __all__ = ["LAUNCHES", "library", "launch", "reset_launch_counts",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream as c_void_p)
@@ -39,9 +41,13 @@ _SIGNATURES = {
     "m3seg_conv_in": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "m3seg_tail_resize_softmax": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _P],
+    "m3seg_conv3": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _I, _I, _I, _P],
+    "m3seg_conv3_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I),
+                         ctypes.POINTER(_I)],
 }
 
-LAUNCHES = {"conv_in": 0, "freq_chain": 0, "tail_resize": 0}
+LAUNCHES = {"conv_in": 0, "freq_chain": 0, "tail_resize": 0, "conv3": 0}
 
 _lock = threading.Lock()
 _library = None
@@ -50,10 +56,12 @@ _library = None
 class KernelLibrary:
     """The loaded ``.so`` plus how it was obtained."""
 
-    def __init__(self, cdll: ctypes.CDLL, path: Path, build_seconds: float):
+    def __init__(self, cdll: ctypes.CDLL, path: Path, build_seconds: float,
+                 build_log: str):
         self.cdll = cdll
         self.path = path
         self.build_seconds = build_seconds  # 0.0 when a build was reused
+        self.build_log = build_log          # "" when a build was reused
 
 
 def _nvcc() -> str:
@@ -69,6 +77,19 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def _run(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(proc: subprocess.Popen, cmd) -> str:
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}")
+    return out
+
+
 def _build() -> KernelLibrary:
     cu, cuh = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -76,17 +97,25 @@ def _build() -> KernelLibrary:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     path = BUILD_DIR / f"libm3seg_kernels_{digest.hexdigest()[:16]}.so"
-    seconds = 0.0
+    seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        nvcc = _nvcc()
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        objs, jobs = [], []
+        for src in cu:  # one nvcc per source, all at once
+            obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            objs.append(obj)
+            jobs.append((_run(cmd), cmd))
+        log = "".join(_wait(p, cmd) for p, cmd in jobs)
+        tmp = path.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        log += _wait(_run(cmd), cmd)
+        for obj in objs:
+            obj.unlink()
         seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
         os.replace(tmp, path)  # atomic: concurrent builds race safely
     cdll = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
@@ -95,7 +124,7 @@ def _build() -> KernelLibrary:
         fn.restype = ctypes.c_int
     cdll.m3seg_error_string.argtypes = [ctypes.c_int]
     cdll.m3seg_error_string.restype = ctypes.c_char_p
-    return KernelLibrary(cdll, path, seconds)
+    return KernelLibrary(cdll, path, seconds, log)
 
 
 def library() -> KernelLibrary:

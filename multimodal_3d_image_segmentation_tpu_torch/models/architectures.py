@@ -1,0 +1,369 @@
+"""V-Net-DS, the port of ``VNetDS`` in
+``multimodal_3d_image_segmentation_tpu/models/architectures.py``.
+
+V-Net with deep supervision (reference ``nets/architectures.py:26-253``):
+an encoder of k=3 conv sections with parallel 1x1 residual convs and
+stride-2 down convs, a decoder of transposed up convs whose output is
+concatenated with the encoder's, and a deep-supervision right leg whose
+legs are projected, nearest-upsampled and summed by a 1x1 ``conv_ds``.
+Every conv is followed by GroupNorm(1) and the activation (SELU alone in
+the self-normalizing variant).
+
+Input and output are channel-first (B, C, *spatial); internals are
+channels-last. Two execution paths share one module tree, whose
+``state_dict()`` keys are those of
+``utils/torch_compat.py::export_reference_state_dict``:
+
+  * the module path (``use_kernels=False``), the counterpart of the
+    reference's ``VNetDS.__call__``;
+  * the kernel path (``use_kernels=True``), the counterpart of its
+    ``_flat_forward``: conv_in through the ``conv_in`` kernel, every k=3
+    conv through the ``conv3`` kernel, the output tail through the
+    ``tail_resize`` kernel. It keeps the reference's fusions: each chain
+    conv emits its GroupNorm moment sums; a non-final chain conv defers
+    its GroupNorm + activation into the next conv's prologue; a section's
+    1x1 residual rides its first chain conv as a tap; the decoder's first
+    conv reads (up, skip) as a virtual concat. Batch 1, channel-first IO
+    and k=3 only; CPU tensors run each kernel's plain version.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import torch
+from torch import nn
+
+from .. import device as _device  # noqa: F401  (fp32 policy)
+from .. import not_ported
+from ..kernels.conv3 import KERNEL_ACTS, _moments, conv3
+from ..kernels.conv_in import conv_in_s2d
+from ..kernels.tail_resize import fused_tail_softmax, tail_supported
+from ..ops.activations import get_activation, is_selu
+from ..ops.convs import (ConcatConvNormAct, ConvNormAct,
+                         ConvTransposeNormAct, _SplitKernelConv1x1)
+from ..ops.padcrop import spatial_padcrop
+from ..ops.resize import resize_linear
+
+__all__ = ["VNetDS"]
+
+
+def _apply_output_activation(x, output_activation, dim=-1):
+    if output_activation == "softmax":
+        return torch.softmax(x, dim=dim)
+    act = get_activation(output_activation)
+    return act(x) if act is not None else x
+
+
+def _channel_first_tail(x, image_size, use_resize, in_dtype,
+                        output_activation, use_kernels=False):
+    """Output tail: channel-first while the tensor is small, upsample,
+    pad/crop, activation over the channels. With ``use_kernels`` the
+    resize + softmax run as the fused tail kernel where it applies."""
+    x = x.permute(0, 4, 1, 2, 3)
+    if (use_kernels and use_resize and output_activation == "softmax"
+            and tail_supported(tuple(x.shape), image_size)):
+        return fused_tail_softmax(x.contiguous(), image_size).to(in_dtype)
+    if use_resize:
+        x = resize_linear(x, image_size, channel_first=True)
+    x = spatial_padcrop(x, image_size, channel_first=True)
+    return _apply_output_activation(x.to(in_dtype), output_activation, dim=1)
+
+
+def _gn_affine(stats, n_voxels, norm, eps=1e-5):
+    """Per-channel (scale, shift) with ``GroupNorm(1)(y) == y * scale +
+    shift``, from the (2, C) moment sums of y (reference
+    ``_flat_gn_eff``: var = E[y^2] - E[y]^2 in the sums' dtype)."""
+    n_valid = n_voxels * stats.shape[1]
+    m = stats[0].sum() / n_valid
+    var = stats[1].sum() / n_valid - m * m
+    inv = torch.rsqrt(var + eps)
+    scale = inv * norm.weight.to(stats.dtype)
+    shift = norm.bias.to(stats.dtype) - m * scale
+    return scale, shift
+
+
+class VNetDS(nn.Module):
+    """V-Net-DS (reference ``nets/architectures.py:26-253``): input (B, C,
+    *spatial) channel-first, output probabilities (B, out_channels,
+    *spatial).
+
+    ``num_blocks`` describes the encoding path (e.g. [1, 2, 3, 3, 3]); the
+    decoding path mirrors it without the last entry. ``right_leg_indexes``
+    selects the section outputs for deep supervision (default [0]).
+    ``generator`` seeds the init (default: seeded with 0); ``device``
+    places the parameters. The model computes in its parameters' dtype
+    (fp32, or float64 after ``.double()`` as a reference, which runs
+    ``use_kernels=False`` on the card). Options the port does not cover
+    yet raise ``NotImplementedError`` naming their ROADMAP item.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 base_num_filters: int, num_blocks: Sequence[int],
+                 use_resize: bool = True,
+                 right_leg_indexes: Optional[Sequence[int]] = None,
+                 kernel_size: int = 3, activation="elu",
+                 use_snn: bool = False, output_activation="softmax",
+                 use_residual: bool = True, ndim: int = 5,
+                 channel_first_io: bool = True,
+                 compute_dtype: str = "float32", use_kernels: bool = False,
+                 spatial_shard=None, *,
+                 generator: Optional[torch.Generator] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        if ndim != 5:
+            not_ported("VNetDS ndim=4 (2D)", 11)
+        if compute_dtype != "float32":
+            not_ported(f"compute_dtype={compute_dtype!r}", 12)
+        if spatial_shard is not None:
+            not_ported("VNetDS spatial_shard (depth-sharded flat path)", 15)
+        if use_kernels and (kernel_size != 3 or not channel_first_io):
+            raise ValueError("VNetDS use_kernels takes kernel_size 3 and "
+                             "channel-first IO only")
+        rli = [0] if right_leg_indexes is None else list(right_leg_indexes)
+        if 0 not in rli:
+            raise ValueError("right_leg_indexes must hold 0 (the legs are "
+                             "upsampled to section 0's size)")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.num_blocks = [int(n) for n in num_blocks]
+        self.use_resize = use_resize
+        self.right_leg_indexes = rli
+        self.activation = activation
+        self.use_snn = use_snn
+        self.output_activation = output_activation
+        self.use_residual = use_residual
+        self.channel_first_io = channel_first_io
+        self.use_kernels = use_kernels
+        g = dict(generator=generator)
+        na = dict(activation=activation, use_snn=use_snn)
+        k = kernel_size
+        ns = len(self.num_blocks)
+
+        self.conv_in = (ConvNormAct(in_channels, base_num_filters, 2, 2,
+                                    **na, **g) if use_resize else None)
+        cur = base_num_filters if use_resize else in_channels
+        enc = []
+        for i, nb in enumerate(self.num_blocks):
+            f = base_num_filters * 2 ** i
+            sec = [ConvNormAct(cur if j == 0 else f, f, k, **na, **g)
+                   for j in range(nb)]
+            if use_residual:
+                sec.append(ConvNormAct(cur, f, 1, **na, **g))
+            if i != ns - 1:
+                sec.append(ConvNormAct(f, f, k, 2, **na, **g))
+            enc.append(nn.ModuleList(sec))
+            cur = f
+        self.encode_layers = nn.ModuleList(enc)
+        legs = [cur] if ns - 1 in rli else []
+        dec = [None] * (ns - 1)
+        for i in reversed(range(ns - 1)):
+            f = base_num_filters * 2 ** i
+            sec = [ConvTransposeNormAct(cur, f, k, activation=activation,
+                                        **g)]
+            sec += [ConvNormAct(2 * f if j == 0 else f, f, k, **na, **g)
+                    for j in range(self.num_blocks[i])]
+            if use_residual:
+                sec.append(ConvNormAct(2 * f, f, 1, **na, **g))
+            dec[i] = nn.ModuleList(sec)
+            cur = f
+            if i in rli:
+                legs.append(f)
+        self.decode_layers = nn.ModuleList(dec)
+        self.conv_ds = (ConcatConvNormAct(sum(legs), out_channels, **na, **g)
+                        if len(legs) > 1 else None)
+        self.conv_out = _SplitKernelConv1x1(
+            out_channels if self.conv_ds is not None else cur, out_channels,
+            use_bias=False, snn_init=use_snn and is_selu(activation), **g)
+        if device is not None:
+            self.to(device)
+
+    def _section(self, side, i):
+        """(chain convs, residual conv or None, last conv or None): the
+        down conv of an encoder section, the up conv of a decoder one."""
+        sec = (self.encode_layers if side == "encode"
+               else self.decode_layers)[i]
+        nb = self.num_blocks[i]
+        first = 0 if side == "encode" else 1
+        convs = list(sec[first:first + nb])
+        res = sec[first + nb] if self.use_residual else None
+        if side == "encode":
+            extra = (sec[nb + int(self.use_residual)]
+                     if i != len(self.num_blocks) - 1 else None)
+        else:
+            extra = sec[0]
+        return convs, res, extra
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != 5:
+            raise ValueError(f"expected (B, C, D, H, W), got "
+                             f"{tuple(x.shape)}")
+        if self.use_kernels:
+            return self._kernel_forward(x)
+        return self._module_forward(x)
+
+    # ---- module path ----------------------------------------------------
+
+    def _module_forward(self, x):
+        if self.channel_first_io:
+            x = x.permute(0, 2, 3, 4, 1)
+        in_dtype = x.dtype
+        x = x.to(self.conv_out.weight.dtype)
+        image_size = tuple(x.shape[1:-1])
+        if self.use_resize:
+            x = self.conv_in(x)
+        ns = len(self.num_blocks)
+        encode, legs = {}, {}
+        for i in range(ns):
+            convs, res, down = self._section("encode", i)
+            tmp = x
+            for conv in convs:
+                x = conv(x)
+            if res is not None:
+                x = x + res(tmp)
+            if down is not None:
+                encode[i] = x
+                x = down(x)
+            elif i in self.right_leg_indexes:
+                legs[i] = x
+        for i in reversed(range(ns - 1)):
+            convs, res, up = self._section("decode", i)
+            x = spatial_padcrop(up(x), encode[i].shape[1:-1])
+            x = torch.cat([x, encode[i]], dim=-1)
+            tmp = x
+            for conv in convs:
+                x = conv(x)
+            if res is not None:
+                x = x + res(tmp)
+            if i in self.right_leg_indexes:
+                legs[i] = x
+        return self._head(x, legs, image_size, in_dtype)
+
+    def _head(self, x, legs, image_size, in_dtype):
+        """Deep-supervision head (project, then nearest-upsample, to
+        section 0's size), conv_out and the output tail."""
+        if self.conv_ds is not None:
+            x = self.conv_ds(tuple(legs.values()),
+                             upsample_to=legs[0].shape[1:-1])
+        else:
+            x = legs[0]
+        x = _channel_first_tail(self.conv_out(x), image_size,
+                                self.use_resize, in_dtype,
+                                self.output_activation, self.use_kernels)
+        if not self.channel_first_io:
+            x = x.permute(0, 2, 3, 4, 1)
+        return x
+
+    # ---- kernel path ----------------------------------------------------
+
+    def _kernel_act(self):
+        """The activation's name where the conv3 prologue can take it."""
+        act = "none" if self.activation is None else self.activation
+        return act if act in KERNEL_ACTS else None
+
+    def _finish(self, module, y, stats, n_voxels=None):
+        """Materialize ``module``'s GroupNorm (from the kernel-emitted
+        moments over ``n_voxels``, by default y's; computed here when
+        None) and activation on its raw conv output ``y``."""
+        if module.normalization is not None:
+            if stats is None:
+                stats = _moments(y)
+            if n_voxels is None:
+                n_voxels = y[0, ..., 0].numel()
+            scale, shift = _gn_affine(stats, n_voxels, module.normalization)
+            y = y * scale.to(y.dtype) + shift.to(y.dtype)
+        return module.act(y) if module.act is not None else y
+
+    def _deferred(self, module, y, stats):
+        """(scale, shift, act) that the next conv's prologue applies."""
+        if module.normalization is not None:
+            scale, shift = _gn_affine(stats, y[0, ..., 0].numel(),
+                                      module.normalization)
+        else:  # self-normalizing: the activation alone
+            scale = torch.ones(y.shape[-1], dtype=y.dtype, device=y.device)
+            shift = torch.zeros_like(scale)
+        return scale.to(y.dtype), shift.to(y.dtype), self._kernel_act()
+
+    def _chain(self, x0, convs, res):
+        """k=3 conv chain of one section; returns (output, residual output
+        or None). ``x0`` is a tensor or an (up, skip) pair."""
+        parts = x0 if isinstance(x0, tuple) else (x0,)
+        stats_on = not self.use_snn
+        if not convs:
+            # a 0-block section: no chain conv for the tap to ride
+            xc = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+            return xc, (self._finish(res, res.op(xc), None)
+                        if res is not None else None)
+        xc, pend, r_out = parts[0], None, None
+        defer_ok = self._kernel_act() is not None
+        for idx, conv in enumerate(convs):
+            kw = dict(emit_stats=stats_on)
+            if idx == 0 and len(parts) > 1:
+                kw["x2"] = parts[1]
+            if pend is not None:
+                kw.update(prologue=pend[:2], prologue_act=pend[2])
+            tap = idx == 0 and res is not None
+            if tap:
+                kw["residual"] = (res.op.weight.reshape(res.op.weight.shape[:2]),
+                                  res.op.bias)
+            out = conv3(xc, conv.op.weight, conv.op.bias, **kw)
+            out = out if isinstance(out, tuple) else (out,)
+            y = out[0]
+            st = out[-2 if tap else -1] if stats_on else None
+            if tap:
+                r_out = self._finish(res, out[1],
+                                     out[-1] if stats_on else None)
+            if defer_ok and idx != len(convs) - 1:
+                xc, pend = y, self._deferred(conv, y, st)
+            else:
+                xc, pend = self._finish(conv, y, st), None
+        return xc, r_out
+
+    def _kernel_forward(self, x):
+        if x.shape[0] != 1:
+            raise ValueError(f"VNetDS's kernel path serves batch 1, got "
+                             f"{x.shape[0]}")
+        in_dtype = x.dtype
+        dtype = self.conv_out.weight.dtype
+        image_size = tuple(x.shape[2:])
+        x = x.to(dtype).contiguous()
+        if self.use_resize:
+            op = self.conv_in.op
+            snn = self.use_snn and is_selu(self.activation)
+            y = conv_in_s2d(x, op.weight, op.bias, apply_selu=snn)
+            x = y if snn else self._finish(self.conv_in, y, None)
+        else:
+            x = x.permute(0, 2, 3, 4, 1).contiguous()
+        stats_on = not self.use_snn
+        ns = len(self.num_blocks)
+        encode, legs = {}, {}
+        for i in range(ns):
+            convs, res, down = self._section("encode", i)
+            x, r = self._chain(x, convs, res)
+            if r is not None:
+                x = x + r
+            if down is not None:
+                encode[i] = x
+                out = conv3(x, down.op.weight, down.op.bias, stride=2,
+                            emit_stats=stats_on)
+                x = self._finish(down, *(out if stats_on else (out, None)))
+            elif i in self.right_leg_indexes:
+                legs[i] = x
+        for i in reversed(range(ns - 1)):
+            convs, res, up = self._section("decode", i)
+            # torch's transposed conv == a conv over the 2x-dilated input
+            # with the flipped kernel in conv layout
+            w = up.op.weight.flip(2, 3, 4).transpose(0, 1).contiguous()
+            stats_up = up.normalization is not None
+            out = conv3(x, w, up.op.bias, dilation=2, emit_stats=stats_up)
+            y, st = out if stats_up else (out, None)
+            # GroupNorm over the whole 2n output, applied after the crop to
+            # the encoder's size
+            n_full = y[0, ..., 0].numel()
+            y = spatial_padcrop(y, encode[i].shape[1:-1])
+            x = self._finish(up, y, st, n_full).contiguous()
+            x, r = self._chain((x, encode[i]), convs, res)
+            if r is not None:
+                x = x + r
+            if i in self.right_leg_indexes:
+                legs[i] = x
+        return self._head(x, legs, image_size, in_dtype)

@@ -7,8 +7,9 @@ the upstream torch layout (O, I, *k), so ``state_dict()`` keys and shapes
 are those of ``export_reference_state_dict``. Activations are channels-last
 (B, *spatial, C): a 1x1 conv is one matrix product over the last axis.
 
-Only the SELU / self-normalizing variants are ported; GroupNorm (non-SELU)
-raises.
+Both variants of the reference are ported: self-normalizing (SELU, no
+normalization, SNN init) and GroupNorm(num_groups=1) + activation (torch's
+default init), as V-Net-DS uses.
 """
 from __future__ import annotations
 
@@ -20,11 +21,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import device as _device  # noqa: F401  (fp32 policy)
-from .. import not_ported
 from . import initializers as inits
 from .activations import get_activation, is_selu
+from .resize import resize_nearest
 
-__all__ = ["Conv", "ConvNormAct", "ConcatConvNormAct", "_SplitKernelConv1x1"]
+__all__ = ["Conv", "ConvTranspose", "ConvNormAct", "ConvTransposeNormAct",
+           "ConcatConvNormAct", "GroupNorm1", "_SplitKernelConv1x1"]
 
 
 def _tuple(v, nd: int):
@@ -46,8 +48,9 @@ def _bias_init(fan_in: int, snn_init: bool):
 
 class Conv(nn.Module):
     """Plain 3D convolution on channels-last tensors with torch-parity
-    padding and init: a 1x1 stride-1 conv, or a strided conv with padding
-    k//2 (``F.conv3d``; TF32 is off, see ``device.py``)."""
+    padding and init: a 1x1 stride-1 conv as a matrix product, else
+    ``F.conv3d`` with SAME padding at stride 1 and padding k//2 at other
+    strides (TF32 is off, see ``device.py``)."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Union[int, Sequence[int]] = 1,
@@ -59,8 +62,6 @@ class Conv(nn.Module):
         self.strides = _tuple(strides, 3)
         pointwise = (all(k == 1 for k in self.kernel_size)
                      and all(s == 1 for s in self.strides))
-        if not pointwise and all(s == 1 for s in self.strides):
-            not_ported("stride-1 convolutions with k > 1 (V-Net-DS)", 8)
         fan_in = in_features * int(np.prod(self.kernel_size))
         self.weight = nn.Parameter(_weight_init(fan_in, snn_init)(
             (features, in_features) + self.kernel_size, generator))
@@ -72,17 +73,66 @@ class Conv(nn.Module):
         if self.pointwise:
             w = self.weight.reshape(self.weight.shape[:2])
             return F.linear(x, w, self.bias)
+        same = all(s == 1 for s in self.strides)
         y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight, self.bias,
                      stride=self.strides,
-                     padding=tuple(k // 2 for k in self.kernel_size))
+                     padding="same" if same else
+                     tuple(k // 2 for k in self.kernel_size))
         return y.permute(0, 2, 3, 4, 1)
+
+
+class ConvTranspose(nn.Module):
+    """Transposed 3D convolution with torch semantics (stride 2, padding
+    k//2, output_padding 1: k=3 doubles each axis) on channels-last
+    tensors. Weight in torch's transposed layout (I, O, *k), whose fan-in
+    is O * prod(k)."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Union[int, Sequence[int]] = 2,
+                 use_bias: bool = True, snn_init: bool = False, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.kernel_size = _tuple(kernel_size, 3)
+        fan_in = features * int(np.prod(self.kernel_size))
+        self.weight = nn.Parameter(_weight_init(fan_in, snn_init)(
+            (in_features, features) + self.kernel_size, generator))
+        self.bias = (nn.Parameter(_bias_init(fan_in, snn_init)(
+            (features,), generator)) if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), self.weight,
+                               self.bias, stride=2,
+                               padding=tuple(k // 2 for k in
+                                             self.kernel_size),
+                               output_padding=1)
+        return y.permute(0, 2, 3, 4, 1)
+
+
+class GroupNorm1(nn.Module):
+    """GroupNorm with one group (eps 1e-5) over the spatial and channel
+    axes of each sample of a channels-last tensor, with a per-channel
+    affine (reference names ``weight``, ``bias``; init ones, zeros)."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dims = tuple(range(1, x.dim()))
+        var, mean = torch.var_mean(x, dim=dims, unbiased=False, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
 
 
 class _SplitKernelConv1x1(nn.Module):
     """1x1 conv over a virtual concatenation of channels-last inputs
     (``in_features`` = sum C_i): one (O, sum C_i, 1, 1, 1) weight, computed
     as ``sum_i x_i @ W_i^T`` so the concatenated tensor is never
-    materialized."""
+    materialized. ``upsample_to`` (call argument): parts may arrive at
+    coarser sizes; each is nearest-upsampled to this spatial size after its
+    projection (exact: the gather commutes with the per-voxel product)."""
 
     def __init__(self, in_features: int, features: int,
                  use_bias: bool = True, snn_init: bool = False, *,
@@ -94,9 +144,12 @@ class _SplitKernelConv1x1(nn.Module):
         self.bias = (nn.Parameter(_bias_init(fan_in, snn_init)(
             (features,), generator)) if use_bias else None)
 
-    def forward(self, inputs) -> torch.Tensor:
+    def forward(self, inputs, upsample_to: Optional[Sequence[int]] = None
+                ) -> torch.Tensor:
         if isinstance(inputs, torch.Tensor):
             inputs = (inputs,)
+        if upsample_to is not None:
+            upsample_to = tuple(int(n) for n in upsample_to)
         cins = [x.shape[-1] for x in inputs]
         if sum(cins) != self.in_features:
             raise ValueError(f"input channels {cins} do not sum to "
@@ -106,6 +159,9 @@ class _SplitKernelConv1x1(nn.Module):
         off = 0
         for x, c in zip(inputs, cins):
             part = F.linear(x, w[:, off:off + c])
+            if (upsample_to is not None
+                    and tuple(part.shape[1:-1]) != upsample_to):
+                part = resize_nearest(part, upsample_to)
             y = part if y is None else y + part
             off += c
         if self.bias is not None:
@@ -117,13 +173,25 @@ def _check_snn(activation, use_snn: bool) -> None:
     if use_snn and not is_selu(activation):
         raise RuntimeError(
             "Self-normalizing neural network (SNN) must be used with SELU.")
-    if not use_snn:
-        not_ported("GroupNorm (non-SNN) conv blocks", 5)
 
 
-class ConvNormAct(nn.Module):
-    """Convolution + SELU (the self-normalizing variant: no normalization)
-    under the upstream names ``op.{weight,bias}``."""
+class _NormAct(nn.Module):
+    """GroupNorm (unless self-normalizing) + activation after ``op``."""
+
+    def _setup_norm_act(self, features: int, activation, use_snn: bool):
+        self.normalization = None if use_snn else GroupNorm1(features)
+        self.act = get_activation(activation)
+
+    def _norm_act(self, y: torch.Tensor) -> torch.Tensor:
+        if self.normalization is not None:
+            y = self.normalization(y)
+        return self.act(y) if self.act is not None else y
+
+
+class ConvNormAct(_NormAct):
+    """Convolution + GroupNorm(1) + activation, or + SELU alone in the
+    self-normalizing variant, under the upstream names
+    ``op.{weight,bias}`` and ``normalization.{weight,bias}``."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Union[int, Sequence[int]] = 1,
@@ -134,16 +202,37 @@ class ConvNormAct(nn.Module):
         super().__init__()
         _check_snn(activation, use_snn)
         self.op = Conv(in_features, features, kernel_size, strides,
-                       use_bias=use_bias, snn_init=True, generator=generator)
-        self.act = get_activation(activation)
+                       use_bias=use_bias,
+                       snn_init=use_snn and is_selu(activation),
+                       generator=generator)
+        self._setup_norm_act(features, activation, use_snn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.op(x))
+        return self._norm_act(self.op(x))
 
 
-class ConcatConvNormAct(nn.Module):
+class ConvTransposeNormAct(_NormAct):
+    """Transposed convolution + GroupNorm(1) + activation; normalization
+    is skipped (and the init is SNN) for SELU."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Union[int, Sequence[int]] = 2,
+                 use_bias: bool = True, activation: Optional[str] = "selu",
+                 *, generator: torch.Generator):
+        super().__init__()
+        snn = is_selu(activation)
+        self.op = ConvTranspose(in_features, features, kernel_size,
+                                use_bias=use_bias, snn_init=snn,
+                                generator=generator)
+        self._setup_norm_act(features, activation, snn)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._norm_act(self.op(x))
+
+
+class ConcatConvNormAct(_NormAct):
     """``ConvNormAct(kernel=1)`` over a virtual concat of inputs, same
-    state-dict names (``op.{weight,bias}``)."""
+    state-dict names; ``upsample_to`` as in ``_SplitKernelConv1x1``."""
 
     def __init__(self, in_features: int, features: int,
                  use_bias: bool = True,
@@ -152,9 +241,11 @@ class ConcatConvNormAct(nn.Module):
         super().__init__()
         _check_snn(activation, use_snn)
         self.op = _SplitKernelConv1x1(in_features, features,
-                                      use_bias=use_bias, snn_init=True,
+                                      use_bias=use_bias,
+                                      snn_init=use_snn and is_selu(activation),
                                       generator=generator)
-        self.act = get_activation(activation)
+        self._setup_norm_act(features, activation, use_snn)
 
-    def forward(self, inputs) -> torch.Tensor:
-        return self.act(self.op(inputs))
+    def forward(self, inputs, upsample_to: Optional[Sequence[int]] = None
+                ) -> torch.Tensor:
+        return self._norm_act(self.op(inputs, upsample_to))

@@ -18,7 +18,7 @@ import torch
 
 from .. import device as _device  # noqa: F401  (fp32 policy)
 
-__all__ = ["resize_linear"]
+__all__ = ["resize_linear", "resize_nearest"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,4 +71,21 @@ def resize_linear(x: torch.Tensor, sizes: Sequence[int],
         if n_in == n_out:
             continue
         x = _axis_matmul(x, n_out, ax)
+    return x
+
+
+def resize_nearest(x: torch.Tensor, sizes: Sequence[int],
+                   channel_first: bool = False) -> torch.Tensor:
+    """Nearest-neighbour resize (floor indexing, PyTorch 'nearest') of
+    the spatial axes of (B, *spatial, C), or of (B, C, *spatial) with
+    ``channel_first=True``."""
+    axes = range(2, x.ndim) if channel_first else range(1, x.ndim - 1)
+    for ax, n_out in zip(axes, sizes):
+        n_in = x.shape[ax]
+        n_out = int(n_out)
+        if n_in == n_out:
+            continue
+        idx = np.minimum(np.floor(np.arange(n_out) * (n_in / n_out)),
+                         n_in - 1).astype(np.int64)
+        x = torch.index_select(x, ax, torch.from_numpy(idx).to(x.device))
     return x

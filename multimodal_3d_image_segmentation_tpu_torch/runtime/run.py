@@ -11,13 +11,13 @@ import torch
 
 from .. import not_ported
 from ..device import check_transform_precision
-from ..models import HNOSegXS
+from ..models import HNOSegXS, VNetDS
 
 __all__ = ["get_data_lists"]
 
 # model families of the reference -> ROADMAP item that ports them
-_UNPORTED_MODELS = {"VNetDS": 8, "HartleyMHASeg": 9,
-                    "NeuralOperatorSeg": 10}
+_UNPORTED_MODELS = {"HartleyMHASeg": 9, "NeuralOperatorSeg": 10}
+_MODELS = {"HNOSegXS": HNOSegXS, "VNetDS": VNetDS}
 
 
 def get_data_lists(data_lists_paths, data_dir=None):
@@ -36,7 +36,7 @@ def get_data_lists(data_lists_paths, data_dir=None):
 
 
 def _build_model(config_args, input_data, image_size_getter,
-                 device: Optional[torch.device] = None) -> HNOSegXS:
+                 device: Optional[torch.device] = None) -> torch.nn.Module:
     """``[model]`` section -> the port's model on ``device``.
 
     ``use_pallas`` maps to ``use_kernels``; ``transform_precision`` 'high'
@@ -51,9 +51,9 @@ def _build_model(config_args, input_data, image_size_getter,
     model_name = model_args.pop("model_name")
     if model_name in _UNPORTED_MODELS:
         not_ported(f"model {model_name}", _UNPORTED_MODELS[model_name])
-    if model_name != "HNOSegXS":
+    if model_name not in _MODELS:
         raise ValueError(f"unknown model_name {model_name!r}")
     model_args["use_kernels"] = bool(model_args.pop("use_pallas", False))
     if isinstance(model_args.get("num_modes"), list):
         model_args["num_modes"] = tuple(model_args["num_modes"])
-    return HNOSegXS(**model_args, device=device)
+    return _MODELS[model_name](**model_args, device=device)

@@ -1,10 +1,12 @@
-"""Device-time profile of the HNOSeg-XS serving step on one CUDA card.
+"""Device-time profile of a serving step on one CUDA card.
 
     python -m multimodal_3d_image_segmentation_tpu_torch.utils.profiling \
-        [--trace trace.json]
+        [--model hnosegxs|vnetds] [--trace trace.json]
 
-At the flagship width (seeded random weights, one normalized random
-4-modality 240x240x155 volume already on the card) it prints:
+At the width of the serving config (HNOSeg-XS: filters 24, blocks [3]*8;
+V-Net-DS: base 24, blocks [1,2,3,3,3], right leg [0..4]; seeded random
+weights, one random 4-modality 240x240x155 volume already on the card) it
+prints:
 
   * forward + argmax in ms (CUDA events; median, min, max of 20 runs
     after 3 warm-ups) of the plain path and the kernel path, in the order
@@ -26,17 +28,24 @@ import subprocess
 import numpy as np
 import torch
 
-from ..models import HNOSegXS
+from ..models import HNOSegXS, VNetDS
 from ..runtime.steps import make_predict_step
 
 __all__ = ["step_ms", "profile_steps"]
 
-FLAGSHIP = dict(in_channels=4, out_channels=4, filters=24,
-                num_transform_blocks=[3] * 8, num_modes=(10, 14, 14))
+MODELS = {
+    "hnosegxs": (HNOSegXS, dict(in_channels=4, out_channels=4, filters=24,
+                                num_transform_blocks=[3] * 8,
+                                num_modes=(10, 14, 14))),
+    "vnetds": (VNetDS, dict(in_channels=4, out_channels=4,
+                            base_num_filters=24, num_blocks=[1, 2, 3, 3, 3],
+                            right_leg_indexes=[0, 1, 2, 3, 4])),
+}
 SIZE = (240, 240, 155)
 SEED = 0
 N_TIMED = 20
-OWN_KERNELS = ("conv_in_kernel", "freq_chain_kernel", "tail_kernel")
+OWN_KERNELS = ("conv_in_kernel", "freq_chain_kernel", "tail_kernel",
+               "conv3_kernel", "conv3_split_sum")
 N_PROFILED = 5
 
 
@@ -99,6 +108,7 @@ def profile_steps(step, x, trace=None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="hnosegxs")
     ap.add_argument("--trace", help="write a Chrome trace here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -109,15 +119,17 @@ def main(argv=None):
                          text=True).stdout.strip())
     x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
         (1, 4) + SIZE, dtype=np.float32)).to(dev)
+    cls, kw = MODELS[args.model]
     steps = {}
     for use_kernels in (False, True):
-        model = HNOSegXS(**FLAGSHIP, use_kernels=use_kernels, device=dev,
-                         generator=torch.Generator().manual_seed(SEED))
+        model = cls(**kw, use_kernels=use_kernels, device=dev,
+                    generator=torch.Generator().manual_seed(SEED))
         steps[use_kernels] = make_predict_step(model.eval())
     for name, use_kernels in (("plain", False), ("kernels", True),
                               ("kernels", True), ("plain", False)):
         t = step_ms(steps[use_kernels], x, N_TIMED)
-        print(f"{name} forward+argmax ms median {statistics.median(t):.4f} "
+        print(f"{args.model} {name} forward+argmax ms median "
+              f"{statistics.median(t):.4f} "
               f"min {min(t):.4f} max {max(t):.4f} ({N_TIMED} runs, "
               f"size {SIZE})")
     prof, summary = profile_steps(steps[True], x, args.trace)

@@ -8,6 +8,10 @@ imports no JAX, so it also runs where only PyTorch is installed:
 (``--noconftest`` skips the repository conftest, which configures JAX.)
 Tolerances: 1e-5 absolute for conv_in and freq_chain (fp32 FMA order
 against cuDNN / cuBLAS in full fp32), 1e-6 on the tail's probabilities.
+conv3 sums up to 27 x 768 products in another order than cuDNN: 1e-4
+times the output's largest magnitude (at least 1); a TF32 product would
+miss by about 5e-4 of it. Its moment sums are held to float64 sums of its
+own output, to 1e-5 of the sum of magnitudes.
 """
 import numpy as np
 import pytest
@@ -106,3 +110,78 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         kernels.conv_in_s2d(x, wg, b)                  # forward only
     with torch.no_grad():
         kernels.conv_in_s2d(x, wg, b)
+
+
+def _moments64(y):
+    y = y.double().reshape(-1, y.shape[-1])
+    return torch.stack([y.sum(0), (y * y).sum(0)]), torch.stack(
+        [y.abs().sum(0), (y * y).sum(0)])
+
+
+def _close(got, want):
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= tol
+
+
+CONV3_OPTIONS = ["bare", "x2", "prologue_elu", "prologue_selu",
+                 "residual_stats", "x2_residual_stats", "stride2",
+                 "dilation2"]
+
+
+@pytest.mark.parametrize("sizes,ci,co", [
+    # small grids: the taps split over blocks (but in the dilated mode)
+    *[(s, ci, co) for s in ((9, 8, 7), (8, 6, 10))
+      for ci, co in ((24, 24), (48, 96), (384, 384), (8, 12))],
+    ((48, 40, 30), 24, 24),   # enough blocks: one pass, no split
+    ((31, 31, 20), 96, 96),
+])
+@pytest.mark.parametrize("option", CONV3_OPTIONS)
+def test_conv3_kernel_matches_plain(dev, sizes, ci, co, option):
+    c2 = ci if option.startswith("x2") else 0
+    x = _t((1,) + sizes + (ci,), 20, dev)
+    x2 = _t((1,) + sizes + (c2,), 21, dev) if c2 else None
+    w = _t((co, ci + c2, 3, 3, 3), 22, dev, 1 / np.sqrt(27 * (ci + c2)))
+    b = _t((co,), 23, dev, 0.1)
+    kw = dict(x2=x2)
+    if option.startswith("prologue"):
+        kw.update(prologue=(_t((ci,), 24, dev, 0.3) + 1, _t((ci,), 25, dev)),
+                  prologue_act=option.split("_")[1], emit_stats=True)
+    if option.endswith("residual_stats"):
+        kw.update(residual=(_t((co, ci + c2), 26, dev,
+                               1 / np.sqrt(ci + c2)), _t((co,), 27, dev)),
+                  emit_stats=True)
+    if option == "stride2":
+        kw.update(stride=2, emit_stats=True)
+    if option == "dilation2":
+        kw.update(dilation=2, emit_stats=True)
+    with torch.no_grad():
+        got = _launched("conv3", lambda: kernels.conv3(x, w, b, **kw))
+        want = kernels.conv3_plain(x, w, b, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    n_out = 2 if "residual" in kw and kw["residual"] is not None else 1
+    for g, wt in zip(got[:n_out], want[:n_out]):
+        _close(g, wt)
+    for y, st in zip(got[:n_out], got[n_out:]):
+        exact, scale = _moments64(y)
+        assert float(((st.double() - exact).abs() - 1e-5 * scale).max()) <= 0
+
+
+def test_conv3_refuses_what_it_does_not_take(dev):
+    x = _t((1, 6, 6, 6, 24), 30, dev)
+    w = _t((24, 24, 3, 3, 3), 31, dev, 0.05)
+    b = _t((24,), 32, dev)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        kernels.conv3(x.bfloat16(), w, b)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        kernels.conv3(x, w, b, halo=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.conv3(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError, match="cpu"):
+        kernels.conv3(x, w.cpu(), b)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        kernels.conv3(x[..., :6].contiguous(), w[:, :6].contiguous(), b)
+    with pytest.raises(TypeError):
+        kernels.conv3(x.double(), w.double(), b.double())

@@ -123,6 +123,8 @@ def test_spatial_padcrop_matches_jax(shape, target, channel_first):
     ((1, 8, 6, 5, 3), 1, 1),
     ((1, 8, 6, 6, 4), 2, 2),   # even spatial sizes
     ((2, 7, 5, 9, 3), 2, 2),   # odd spatial sizes, batch 2
+    ((1, 7, 6, 5, 4), 3, 1),   # k=3 SAME (V-Net-DS)
+    ((1, 7, 6, 5, 4), 3, 2),   # k=3 stride 2, padding 1 (V-Net's down)
 ])
 def test_conv_matches_jax(shape, k, s):
     x = _rand(shape, 6)
@@ -166,6 +168,83 @@ def test_conv_norm_act_matches_jax():
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+@pytest.mark.parametrize("k,s,act", [(3, 1, "elu"), (3, 2, "relu"),
+                                     (2, 2, None)])
+def test_group_norm_conv_norm_act_matches_jax(k, s, act):
+    """The GroupNorm(1) variant (V-Net-DS): torch init, norm, activation."""
+    x = _rand((1, 7, 6, 5, 3), 19)
+    jm = jconvs.ConvNormAct(4, kernel_size=k, strides=s, activation=act,
+                            use_snn=False)
+    params = jm.init(jax.random.PRNGKey(4), jnp.asarray(x))["params"]
+    params = jax.tree_util.tree_map(  # a non-trivial GroupNorm affine
+        lambda v: v + 0.1 * _rand(v.shape, 20), params)
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    tm = convs.ConvNormAct(3, 4, kernel_size=k, strides=s, activation=act,
+                           use_snn=False, generator=_gen())
+    sd = state_dict_from_jax(jax.device_get(params))
+    assert set(sd) == {"op.weight", "op.bias", "normalization.weight",
+                       "normalization.bias"}
+    tm.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("act,shape", [("elu", (1, 4, 3, 5, 3)),
+                                       ("selu", (2, 3, 4, 2, 5))])
+def test_conv_transpose_norm_act_matches_jax(act, shape):
+    """k=3 transposed conv doubles each axis; the weight is (I, O, *k)."""
+    x = _rand(shape, 21)
+    jm = jconvs.ConvTransposeNormAct(4, kernel_size=3, activation=act)
+    params = jm.init(jax.random.PRNGKey(5), jnp.asarray(x))["params"]
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    tm = convs.ConvTransposeNormAct(shape[-1], 4, kernel_size=3,
+                                    activation=act, generator=_gen())
+    sd = state_dict_from_jax({"decode_0_up": jax.device_get(params)},
+                             num_blocks=[1])
+    tm.load_state_dict({k.replace("decode_layers.0.0.", ""): v
+                        for k, v in sd.items()}, strict=True)
+    assert tuple(tm.op.weight.shape) == (shape[-1], 4, 3, 3, 3)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    assert got.shape == (shape[0],) + tuple(2 * n for n in shape[1:4]) + (4,)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_concat_conv_upsample_to_matches_jax():
+    """Deep-supervision head: legs projected, then nearest-upsampled."""
+    sizes = ((6, 5, 4), (3, 3, 2), (2, 2, 1))
+    xs = [_rand((1,) + sz + (c,), 22 + i)
+          for i, (sz, c) in enumerate(zip(sizes, (4, 6, 8)))]
+    jm = jconvs.ConcatConvNormAct(3, activation="elu", use_snn=False,
+                                  upsample_to=sizes[0])
+    jin = tuple(jnp.asarray(x) for x in xs)
+    params = jm.init(jax.random.PRNGKey(6), jin)["params"]
+    want = np.asarray(jm.apply({"params": params}, jin))
+    tm = convs.ConcatConvNormAct(18, 3, activation="elu", use_snn=False,
+                                 generator=_gen())
+    tm.load_state_dict(state_dict_from_jax(jax.device_get(params)),
+                       strict=True)
+    with torch.no_grad():
+        got = tm(tuple(torch.from_numpy(x) for x in xs),
+                 upsample_to=sizes[0]).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape,sizes,channel_first", [
+    ((1, 3, 5, 2, 4), (7, 10, 3), False),
+    ((2, 3, 4, 4, 2), (8, 9, 4), True),
+])
+def test_resize_nearest_matches_jax(shape, sizes, channel_first):
+    x = _rand(shape, 25)
+    want = np.asarray(jresize.resize_nearest(jnp.asarray(x), sizes,
+                                             channel_first=channel_first))
+    got = resize.resize_nearest(torch.from_numpy(x), sizes,
+                                channel_first=channel_first).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_initializer_distributions():
     g = _gen(3)
     w = initializers.kaiming_normal_linear(64)((256, 64), g)
@@ -181,11 +260,6 @@ def test_initializer_distributions():
 
 
 def test_unported_op_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convs.Conv(4, 4, kernel_size=3, strides=1, generator=_gen())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convs.ConvNormAct(4, 4, activation="relu", use_snn=False,
-                          generator=_gen())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         operators.HartleyOperator(4, 4, (2, 2, 2),
                                   weights_type="individual",

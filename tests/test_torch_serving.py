@@ -53,7 +53,7 @@ output_dir = '{out}'
 is_train = False
 is_test = True
 is_statistics = False
-visible_devices = '0'
+visible_devices = 'cpu'
 
 [input_lists]
 data_dir = '{data}'
@@ -149,12 +149,12 @@ def test_serving_matches_jax_testing(tmp_path, use_pallas):
 
 def test_port_never_imports_jax(tmp_path):
     """A fresh interpreter that imports the port, parses a config and runs
-    a CPU forward never loads jax, flax or any module of the JAX
+    CPU forwards of both models never loads jax, flax or any module of the JAX
     package."""
     code = (
         "import sys, torch\n"
         "from multimodal_3d_image_segmentation_tpu_torch.models import "
-        "HNOSegXS\n"
+        "HNOSegXS, VNetDS\n"
         "from multimodal_3d_image_segmentation_tpu_torch.runtime import "
         "inference, config\n"
         "from multimodal_3d_image_segmentation_tpu_torch.utils import "
@@ -166,6 +166,10 @@ def test_port_never_imports_jax(tmp_path):
         "with torch.no_grad():\n"
         "    y = m(torch.randn(1, 2, 12, 10, 8))\n"
         "assert y.shape == (1, 3, 12, 10, 8)\n"
+        "v = VNetDS(2, 3, 4, [1, 1], right_leg_indexes=[0, 1], "
+        "use_kernels=True)\n"
+        "with torch.no_grad():\n"
+        "    assert v(torch.randn(1, 2, 12, 10, 8)).shape == (1, 3, 12, 10, 8)\n"
         f"config.get_config({str(REPO / 'configs' / 'config_inference_hnoseg_xs.ini')!r})\n"
         "print('jax' in sys.modules, 'flax' in sys.modules, any(\n"
         "    n.split('.')[0] == 'multimodal_3d_image_segmentation_tpu'\n"
@@ -208,7 +212,7 @@ def test_build_model_from_the_serving_config():
     with pytest.raises(ValueError, match="transform_precision"):
         _build_model(cfg, _Sizes(), lambda: (240, 240, 155))
     cfg["model"]["transform_precision"] = "highest"
-    cfg["model"]["model_name"] = "VNetDS"
+    cfg["model"]["model_name"] = "HartleyMHASeg"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _build_model(cfg, _Sizes(), lambda: (240, 240, 155))
 
@@ -241,11 +245,15 @@ def test_remap_labels_matches_jax(as_tensor):
     assert remap_labels(y, None) is y
 
 
-def test_resolve_device_without_cuda():
-    if torch.cuda.is_available():
-        assert resolve_device("0") == torch.device("cuda:0")
-    else:
-        assert resolve_device("0") == torch.device("cpu")
+def test_resolve_device_without_cuda(monkeypatch):
+    """Without CUDA only an explicit CPU request serves; anything else
+    raises instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for asked in ("0", 0, None, torch.device("cuda", 0)):
+        with pytest.raises(RuntimeError, match="visible_devices = 'cpu'"):
+            resolve_device(asked)
+    for asked in ("cpu", " CPU ", torch.device("cpu")):
+        assert resolve_device(asked) == torch.device("cpu")
 
 
 def test_profiling_busy_time_is_the_union_of_intervals():
