@@ -3,15 +3,18 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-Drives the port's two serving paths once at full width on 4-modality
+Drives the port's three serving paths once at full width on 4-modality
 240x240x155 volumes, batch 1, fp32, random weights from a seed: HNOSeg-XS
-(filters 24, blocks [3]*8, modes (10,14,14)) and V-Net-DS (base 24, blocks
-[1,2,3,3,3], right leg [0..4], 22,547,764 parameters). It checks them:
+(filters 24, blocks [3]*8, modes (10,14,14)), V-Net-DS (base 24, blocks
+[1,2,3,3,3], right leg [0..4], 22,547,764 parameters) and HartleyMHASeg
+(filters 24, 16 blocks, 4 heads, modes (8,12,12), patch 2, deep
+supervision, 178,532 parameters). It checks them:
 
   1. device   the card's name and power limit, torch and CUDA versions;
   2. build    compile the CUDA kernels from ``csrc/`` (one nvcc per source,
               all at once, sm_90a);
-  3. kernels  conv_in, freq_chain and tail_resize against their plain
+  3. kernels  conv_in (also at the odd-D/H shape 239x239x155),
+              freq_chain, tail_resize and tower_block against their plain
               PyTorch versions at the serving shapes, with their times, the
               plain versions' and the bound;
   4. serve    ``runtime/inference.py::run_inference`` on 3 synthetic NIfTI
@@ -31,11 +34,18 @@ Drives the port's two serving paths once at full width on 4-modality
               must be conv_in 3, conv3 87, tail_resize 3;
   8. model    the V-Net-DS kernel path against its plain path and float64,
               on a served volume and on a small volume against the CPU; a
-              control with conv3's operands in TF32 must fail the bars.
+              control with conv3's operands in TF32 must fail the bars;
+  9. serve    run_inference serves the same cases through
+              ``configs/config_hartleymha.ini``; launches (reset just before)
+              must be conv_in 3, tower_block 48, tail_resize 3;
+ 10. model    the HartleyMHASeg kernel path against its plain path and
+              float64, on a served volume and on a small volume against the
+              CPU; a control with tower_block's operands in TF32 must fail
+              the bars.
 
 Every failed check raises, so the exit code is not 0. The script refuses
 to run without CUDA. The line before the last is a JSON object with the
-kernels' numbers (``launches`` summed over the two serving runs; times are
+kernels' numbers (``launches`` summed over the three serving runs; times are
 medians of CUDA-event runs, ``bound_ms`` the larger of the bytes over
 3.35 TB/s and the operations over 67 TFLOP/s fp32, the H100 SXM's data
 sheet rates); the last line is
@@ -58,6 +68,8 @@ FLAGSHIP = dict(in_channels=4, out_channels=4, filters=24,
                 num_transform_blocks=[3] * 8, num_modes=(10, 14, 14))
 VNET = dict(in_channels=4, out_channels=4, base_num_filters=24,
             num_blocks=[1, 2, 3, 3, 3], right_leg_indexes=[0, 1, 2, 3, 4])
+MHA = dict(in_channels=4, out_channels=4, filters=24, num_transform_blocks=16,
+           num_heads=4, num_modes=(8, 12, 12), patch_size=2)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # H100 SXM data sheet, CUDA cores
 N_CASES = 3
@@ -74,12 +86,17 @@ KERNELS = [
      "multimodal_3d_image_segmentation_tpu/kernels/tail_resize.py:149"),
     ("conv3", "multimodal_3d_image_segmentation_tpu_torch/csrc/conv3.cu",
      "multimodal_3d_image_segmentation_tpu/kernels/conv3d_flat.py:305"),
+    ("tower_block",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/tower_block.py:377"),
 ]
 # each main path's launches per volume
 PER_VOLUME_HNOSEG = {"conv_in": 1, "freq_chain": 8, "tail_resize": 1,
-                     "conv3": 0}
+                     "conv3": 0, "tower_block": 0}
 PER_VOLUME_VNET = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
-                   "conv3": 29}
+                   "conv3": 29, "tower_block": 0}
+PER_VOLUME_MHA = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
+                  "conv3": 0, "tower_block": 16}
 
 
 def check(cond, msg):
@@ -150,6 +167,9 @@ def phase_kernels(torch, kernels, dev):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
     x = t(rng.standard_normal((1, 4) + SHAPE))
+    odd = (239, 239, 155)  # odd D and H: the Pallas kernel's other variant
+    x_odd = t(rng.standard_normal((1, 4) + odd))
+    out_odd = 120 * 120 * 78
     w = t(rng.standard_normal((24, 4, 2, 2, 2)) / np.sqrt(32))
     b = t(rng.uniform(-0.1, 0.1, 24))
     spec = t(rng.standard_normal((1, 20, 28, 28, 24)))
@@ -163,6 +183,11 @@ def phase_kernels(torch, kernels, dev):
                     bound(2 * out_cl * 8 * 4 * 24,
                           nbytes(x, w, b) + out_cl * 24 * 4),
                     lambda: F.conv3d(x, w, b, stride=2, padding=1)),
+        "conv_in_odd": (lambda: kernels.conv_in_s2d(x_odd, w, b),
+                        lambda: kernels.conv_in_plain(x_odd, w, b), 1e-5,
+                        bound(2 * out_odd * 8 * 4 * 24,
+                              nbytes(x_odd, w, b) + out_odd * 24 * 4),
+                        lambda: F.conv3d(x_odd, w, b, stride=2, padding=1)),
         "freq_chain": (lambda: kernels.fused_freq_chain(spec, ws),
                        lambda: kernels.freq_chain_plain(spec, ws), 1e-5,
                        bound(3 * 2 * rows * 24 * 24,
@@ -177,10 +202,11 @@ def phase_kernels(torch, kernels, dev):
     results = {}
     with torch.inference_mode():
         for name, (kern, plain, tol, (b_ms, b_by), lib) in cases.items():
-            before = kernels.LAUNCHES[name]
+            launched = name.removesuffix("_odd")
+            before = kernels.LAUNCHES[launched]
             got = kern()
             torch.cuda.synchronize()
-            check(kernels.LAUNCHES[name] == before + 1,
+            check(kernels.LAUNCHES[launched] == before + 1,
                   f"{name}: launch count did not move")
             want = plain()
             check(got.shape == want.shape,
@@ -200,6 +226,85 @@ def phase_kernels(torch, kernels, dev):
                   f" ms  bound {b_ms:.4f} ms ({b_by}) (medians of "
                   f"{N_TIMED}, CUDA events)")
     return results
+
+
+def tower_block_work(spec):
+    """(flops, bytes) of one tower_block call: x, z and ds_prev read once,
+    out, f and ds written once (weights and stage matrices are KB)."""
+    d, h, w = spec.sizes
+    c, kh, kw, nds = spec.channels, spec.kh, spec.kw, spec.n_ds
+    macs = d * (4 * c * kh * kw * w            # inverse W stage
+                + h * w * c * 2 * kh           # inverse H stage
+                + h * w * c * (2 * c + nds)    # p, q and ds
+                + h * w * c * c                # W_cc_t
+                + c * w * 2 * kh * h           # forward H stage
+                + 4 * c * kh * kw * w)         # forward W stage
+    moved = 4 * 2 * (d * h * w * c + d * 2 * c * kh * kw + d * h * w * nds)
+    return 2 * macs, moved
+
+
+def phase_tower_block(torch, kernels, dev):
+    """tower_block against its plain version at HartleyMHASeg's serving
+    shape (grid 121x121x78, C 24, modes (8,12,12), 4 deep-supervision
+    rows). Tolerance: 1e-5 of each output's largest magnitude (at least 1):
+    the kernel sums up to 52 fp32 products in another order than cuBLAS; a
+    TF32 operand would miss by about 5e-4 of it."""
+    print("== tower_block", flush=True)
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        tower_block as tb
+    rng = np.random.default_rng(SEED + 3)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    c, nds = 24, 4
+    spec = tb.make_tower_spec("Hartley", (121, 121, 78), (8, 12, 12), c,
+                              n_ds=nds)
+    with torch.inference_mode():
+        x = t(rng.standard_normal(spec.sizes + (c,)))
+        # a block's z: the depth inverse of an updated packed spectrum
+        s = tb.d_stage_forward(tb.entry_forward_hw(x, spec), spec)
+        z = tb.d_stage_inverse(torch.selu(s), spec).contiguous()
+        w_cat = t(rng.standard_normal((2 * c + nds, c)) / np.sqrt(c))
+        w_cc_t = t(rng.standard_normal((c, c)) / np.sqrt(c))
+        b_cat = t(rng.uniform(-0.1, 0.1, 2 * c))
+        ds_prev = t(rng.standard_normal(spec.sizes + (nds,)))
+        args = (x, z, w_cat, w_cc_t, b_cat, spec, ds_prev)
+
+        def kern():
+            return kernels.fused_tower_block(*args)
+
+        def plain():
+            return kernels.tower_block_plain(*args)
+        before = kernels.LAUNCHES["tower_block"]
+        got = kern()
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES["tower_block"] == before + 1,
+              "tower_block: launch count did not move")
+        want = plain()
+        err = 0.0
+        for name, g, wt in zip(("out", "f", "ds"), got, want):
+            check(g.shape == wt.shape, f"tower_block {name}: shape")
+            e = float((g - wt).abs().max())
+            tol = 1e-5 * max(1.0, float(wt.abs().max()))
+            check(np.isfinite(e) and e <= tol,
+                  f"tower_block {name}: max abs err {e} > {tol}")
+            print(f"tower_block {name} {tuple(g.shape)}: max abs err "
+                  f"{e:.3e} (tol {tol:.3e}, largest |value| "
+                  f"{float(wt.abs().max()):.3f})")
+            err = max(err, e)
+        # f is a sum over tiles in a fixed order: the same from run to run
+        check(all(bool(torch.equal(a, b)) for a, b in zip(kern(), got)),
+              "tower_block: a second run differs")
+        ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
+    flops, moved = tower_block_work(spec)
+    b_ms, b_by = bound(flops, moved)
+    print(f"tower_block: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"library None  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.3f} "
+          f"GFLOP, {moved / 1e6:.1f} MB), {flops / ms / 1e9:.2f} TFLOP/s "
+          f"(medians of {N_TIMED}, CUDA events)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def _write_cases(root: Path):
@@ -294,6 +399,10 @@ BARS_HNOSEG = {"ratio": 2.0, "abs": 1e-3, "agree": 0.9999}
 # or more; the TF32 control 299-350x, 7.3e-4 to 8.6e-4 and 0.99934-0.99936,
 # and must fail them.
 BARS_VNET = {"ratio": 4.0, "abs": 1e-4, "agree": 0.9999}
+# HartleyMHASeg is, like HNOSeg-XS, a random-init SNN without normalization;
+# the bars are HNOSeg-XS's, set from a prediction written down before the
+# first run on the card (PERF.md, Findings).
+BARS_MHA = {"ratio": 2.0, "abs": 1e-3, "agree": 0.9999}
 
 
 def readings(torch, fast, plain, ref):
@@ -542,6 +651,59 @@ def phase_conv3(torch, kernels, calls):
             "library_ms": tot["library_ms"]}
 
 
+def phase_model_mha(torch, state, case_dir: Path, dev):
+    """HartleyMHASeg: kernel path against plain path and float64 on a
+    served volume and on a small one against the CPU; a control with
+    tower_block's operands (the volume, z and the weights) rounded to TF32
+    must fail the bars."""
+    print("== model HartleyMHASeg", flush=True)
+    from multimodal_3d_image_segmentation_tpu_torch.models import (
+        HartleyMHASeg, architectures)
+
+    def build(use_kernels, device, dtype=torch.float32):
+        m = HartleyMHASeg(**MHA, use_kernels=use_kernels).to(device, dtype)
+        m.load_state_dict(state)
+        return m
+
+    x = served_volume(torch, case_dir, dev)
+    # the tower grid must hold 2 * modes = (16, 24, 24)
+    xs = torch.from_numpy(np.random.default_rng(SEED + 4).standard_normal(
+        (1, 4, 32, 48, 48)).astype(np.float32))
+    bars = BARS_MHA
+    with torch.inference_mode():
+        fast = build(True, dev)(x)
+        check(fast.shape == (1, 4) + SHAPE, f"output shape {fast.shape}")
+        sum_err = float((fast.sum(1) - 1).abs().max())
+        check(sum_err <= 1e-5, f"probabilities sum off 1 by {sum_err}")
+        plain = build(False, dev)(x)
+        ref = build(False, dev, torch.float64)(x.double())
+        torch.cuda.synchronize()
+        compare(torch, f"HartleyMHASeg full volume {SHAPE}", fast, plain,
+                ref, bars)
+        del fast
+        real = architectures.fused_tower_block
+
+        def tf32_tower(x1, z, w_cat, w_cc_t, b_cat, spec, ds_prev=None):
+            return real(_tf32(torch, x1), _tf32(torch, z),
+                        _tf32(torch, w_cat), _tf32(torch, w_cc_t), b_cat,
+                        spec, ds_prev)
+
+        architectures.fused_tower_block = tf32_tower
+        try:
+            fast = build(True, dev)(x)
+        finally:
+            architectures.fused_tower_block = real
+        compare(torch, "HartleyMHASeg control: tower_block operands in TF32",
+                fast, plain, ref, bars, control=True)
+        del fast, plain, ref
+
+        fast = build(True, dev)(xs.to(dev)).cpu()
+        plain = build(False, "cpu")(xs)
+        ref = build(False, "cpu", torch.float64)(xs.double())
+        compare(torch, "HartleyMHASeg small volume (1,4,32,48,48), GPU "
+                "kernels vs CPU", fast, plain, ref, bars)
+
+
 def phase_model_vnet(torch, state, case_dir: Path, dev):
     """V-Net-DS: kernel path against plain path and float64 on a served
     volume and on a small one against the CPU; a control with conv3's
@@ -598,13 +760,14 @@ def main():
                  "script checks the port on a GPU and does not run on CPU")
     sys.path.insert(0, str(REPO))
     from multimodal_3d_image_segmentation_tpu_torch import kernels
-    from multimodal_3d_image_segmentation_tpu_torch.models import (HNOSegXS,
-                                                                   VNetDS)
+    from multimodal_3d_image_segmentation_tpu_torch.models import (
+        HartleyMHASeg, HNOSegXS, VNetDS)
     dev = torch.device("cuda:0")
 
     phase_device(torch)
     phase_build(kernels)
     results = phase_kernels(torch, kernels, dev)
+    results["tower_block"] = phase_tower_block(torch, kernels, dev)
     (REPO / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="smoke_", dir=REPO / "build"))
     try:
@@ -636,6 +799,17 @@ def main():
         for k, v in launches_v.items():
             launches[k] += v
         phase_model_vnet(torch, vnet.state_dict(), case0, dev)
+        del vnet
+        torch.cuda.empty_cache()
+
+        mha = HartleyMHASeg(**MHA,
+                            generator=torch.Generator().manual_seed(SEED))
+        launches_m = phase_serve(
+            torch, kernels, work, list_paths, "HartleyMHASeg",
+            "config_hartleymha.ini", mha, 178532, PER_VOLUME_MHA)
+        for k, v in launches_m.items():
+            launches[k] += v
+        phase_model_mha(torch, mha.state_dict(), case0, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")

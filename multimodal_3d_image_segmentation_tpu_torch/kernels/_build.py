@@ -45,9 +45,11 @@ _SIGNATURES = {
                     _I, _I, _I, _I, _I, _I, _I, _P],
     "m3seg_conv3_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I),
                          ctypes.POINTER(_I)],
+    "m3seg_tower_block": [_P] * 11 + [_I] * 7 + [_P],
 }
 
-LAUNCHES = {"conv_in": 0, "freq_chain": 0, "tail_resize": 0, "conv3": 0}
+LAUNCHES = {"conv_in": 0, "freq_chain": 0, "tail_resize": 0, "conv3": 0,
+            "tower_block": 0}
 
 _lock = threading.Lock()
 _library = None

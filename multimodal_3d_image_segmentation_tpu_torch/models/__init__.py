@@ -1,2 +1,2 @@
-from .architectures import VNetDS  # noqa: F401
+from .architectures import HartleyMHABlock, HartleyMHASeg, VNetDS  # noqa: F401
 from .hnosegxs import HNOSegXS, HNOXSBlock  # noqa: F401

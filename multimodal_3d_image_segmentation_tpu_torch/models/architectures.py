@@ -25,12 +25,22 @@ channels-last. Two execution paths share one module tree, whose
     1x1 residual rides its first chain conv as a tap; the decoder's first
     conv reads (up, skip) as a virtual concat. Batch 1, channel-first IO
     and k=3 only; CPU tensors run each kernel's plain version.
+
+HartleyMHASeg, the port of ``HartleyMHASeg`` (reference
+``nets/architectures.py:432-508``): conv_in -> conv1 -> a tower of
+Hartley-MHA blocks -> the deep-supervision sum (``conv_ds``) -> conv_out ->
+upsample -> softmax, on the tower skeleton ``_TransSegBase`` that
+NeuralOperatorSeg shares. Its kernel path (``use_kernels=True``) is the
+counterpart of ``_fused_mha_forward``: conv_in through the ``conv_in``
+kernel, every block through the ``tower_block`` kernel with the attention
+as the spectrum update between kernels, the exit through ``tail_resize``.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import device as _device  # noqa: F401  (fp32 policy)
@@ -38,13 +48,19 @@ from .. import not_ported
 from ..kernels.conv3 import KERNEL_ACTS, _moments, conv3
 from ..kernels.conv_in import conv_in_s2d
 from ..kernels.tail_resize import fused_tail_softmax, tail_supported
+from ..kernels.tower_block import (d_stage_forward, d_stage_inverse,
+                                   entry_forward_hw, fused_tower_block,
+                                   make_tower_spec)
 from ..ops.activations import get_activation, is_selu
-from ..ops.convs import (ConcatConvNormAct, ConvNormAct,
-                         ConvTransposeNormAct, _SplitKernelConv1x1)
+from ..ops.attention import HartleyMultiHeadAttention
+from ..ops.convs import (ConcatConvNormAct, Conv, ConvNormAct,
+                         ConvTransposeNormAct, GroupNorm1,
+                         _SplitKernelConv1x1)
 from ..ops.padcrop import spatial_padcrop
 from ..ops.resize import resize_linear
+from ..ops.spectral import normalize_modes
 
-__all__ = ["VNetDS"]
+__all__ = ["VNetDS", "HartleyMHASeg", "HartleyMHABlock"]
 
 
 def _apply_output_activation(x, output_activation, dim=-1):
@@ -367,3 +383,270 @@ class VNetDS(nn.Module):
             if i in self.right_leg_indexes:
                 legs[i] = x
         return self._head(x, legs, image_size, in_dtype)
+
+
+# ---- the spectral towers ------------------------------------------------
+
+
+class _TransBlockMixin:
+    """Shared tail of the tower blocks (reference
+    ``nets/architectures.py:511-548``): add the two branches, GroupNorm(1)
+    unless self-normalizing, the activation, then the block skip (concat +
+    1x1 ``conv_concat``, or an add)."""
+
+    def _setup_tail(self, in_channels: int, out_channels: int, activation,
+                    use_block_skip: bool, use_block_concat: bool,
+                    generator: torch.Generator) -> None:
+        snn = is_selu(activation)
+        self.out_channels = out_channels
+        self.use_block_skip = use_block_skip
+        self.normalization = None if snn else GroupNorm1(out_channels)
+        self.act = get_activation(activation)
+        self.conv_concat = (
+            ConcatConvNormAct(out_channels + in_channels, out_channels,
+                              use_bias=True, activation=activation,
+                              use_snn=snn, generator=generator)
+            if use_block_skip and use_block_concat else None)
+
+    def _block_tail(self, x1, x2, tmp):
+        x = x1 + x2
+        if self.normalization is not None:
+            x = self.normalization(x)
+        if self.act is not None:
+            x = self.act(x)
+        if self.use_block_skip:
+            if self.conv_concat is not None:
+                return self.conv_concat((x, tmp))
+            x = x + tmp
+        return x
+
+
+class HartleyMHABlock(_TransBlockMixin, nn.Module):
+    """Hartley-MHA block (reference ``nets/architectures.py:611-635``):
+    the attention branch ``op`` and a parallel 1x1 ``conv_branch`` (the
+    reference's ``use_conv_branch``, which no model turns off)."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_heads: int,
+                 num_modes, patch_size=None, attention_activation="selu",
+                 activation="selu", use_bias_conv_branch: bool = False,
+                 use_block_skip: bool = True, use_block_concat: bool = True,
+                 *, generator: torch.Generator):
+        super().__init__()
+        # the reference's SNN re-init skips the MHA projections
+        # (``nets/nets_utils.py:108-117``): default init always
+        self.op = HartleyMultiHeadAttention(
+            in_channels, out_channels, num_heads, num_modes,
+            patch_size=patch_size, attention_activation=attention_activation,
+            snn_init=False, generator=generator)
+        self.conv_branch = Conv(in_channels, out_channels, 1,
+                                use_bias=use_bias_conv_branch,
+                                snn_init=is_selu(activation),
+                                generator=generator)
+        self._setup_tail(in_channels, out_channels, activation,
+                         use_block_skip, use_block_concat, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._block_tail(self.op(x), self.conv_branch(x), x)
+
+    def tower_weights(self):
+        """(w_cat, w_cc_t, b_cat) of ``fused_tower_block``: rows [W_conv ;
+        the conv_concat columns of the block input], the conv_concat
+        columns of the activated branch, and [conv-branch bias or zeros ;
+        conv_concat bias]. Needs the concat skip."""
+        c = self.out_channels
+        w_conv = self.conv_branch.weight.reshape(c, -1)
+        w_cc = self.conv_concat.op.weight.reshape(c, -1)
+        b_conv = (self.conv_branch.bias if self.conv_branch.bias is not None
+                  else torch.zeros_like(self.conv_concat.op.bias))
+        return (torch.cat([w_conv, w_cc[:, c:]]).contiguous(),
+                w_cc[:, :c].contiguous(),
+                torch.cat([b_conv, self.conv_concat.op.bias]).contiguous())
+
+
+class _TransSegBase(nn.Module):
+    """Shared tower skeleton (reference ``nets/architectures.py:282-353``):
+    conv_in -> conv1 -> N blocks -> deep-supervision sum -> conv_out ->
+    output tail, for HartleyMHASeg and (later) NeuralOperatorSeg.
+
+    Deep supervision folds each part (conv1's output and every block's)
+    into a running out_channels-wide sum through its rows of ``conv_ds``,
+    in the order of ``ConcatConvNormAct``'s split-kernel sum, so the
+    (blocks + 1) parts are never held at once."""
+
+    def _setup_tower(self, in_channels: int, out_channels: int, filters: int,
+                     num_transform_blocks: int, use_resize: bool,
+                     use_deep_supervision: bool, activation,
+                     output_activation, channel_first_io: bool, make_block,
+                     generator: torch.Generator) -> None:
+        snn = is_selu(activation)
+        g = dict(generator=generator)
+        self.out_channels = out_channels
+        self.filters = filters
+        self.use_resize = use_resize
+        self.activation = activation
+        self.output_activation = output_activation
+        self.channel_first_io = channel_first_io
+        self.conv_in = (ConvNormAct(in_channels, filters, 2, 2,
+                                    activation=activation, use_snn=snn, **g)
+                        if use_resize else None)
+        self.conv1 = ConvNormAct(filters if use_resize else in_channels,
+                                 filters, activation=activation, use_snn=snn,
+                                 **g)
+        self.layers = nn.ModuleList(make_block(filters, **g)
+                                    for _ in range(num_transform_blocks))
+        self.conv_ds = (ConcatConvNormAct(
+            filters * (num_transform_blocks + 1), out_channels,
+            activation=activation, use_snn=snn, **g)
+            if use_deep_supervision else None)
+        self.conv_out = Conv(out_channels if use_deep_supervision
+                             else filters, out_channels, 1, use_bias=False,
+                             snn_init=snn, **g)
+
+    def _ds_rows(self, idx: int) -> torch.Tensor:
+        """conv_ds's (out, filters) matrix of deep-supervision part idx."""
+        w = self.conv_ds.op.weight.reshape(self.out_channels, -1)
+        return w[:, idx * self.filters:(idx + 1) * self.filters]
+
+    def _ds_fold(self, acc, part, idx):
+        if self.conv_ds is None:
+            return None
+        p = F.linear(part, self._ds_rows(idx))
+        return p if acc is None else acc + p
+
+    def _module_tower(self, x: torch.Tensor) -> torch.Tensor:
+        if self.channel_first_io:
+            x = x.permute(0, 2, 3, 4, 1)
+        in_dtype = x.dtype
+        x = x.to(self.conv_out.weight.dtype)
+        image_size = tuple(x.shape[1:-1])
+        if self.conv_in is not None:
+            x = self.conv_in(x)
+        x = self.conv1(x)
+        acc = self._ds_fold(None, x, 0)
+        for i, block in enumerate(self.layers):
+            x = block(x)
+            acc = self._ds_fold(acc, x, i + 1)
+        if acc is not None:
+            x = self.conv_ds._norm_act(acc + self.conv_ds.op.bias)
+        return self._output(self.conv_out(x), image_size, in_dtype, False)
+
+    def _output(self, x, image_size, in_dtype, use_kernels):
+        x = _channel_first_tail(x, image_size, self.use_resize, in_dtype,
+                                self.output_activation, use_kernels)
+        return x if self.channel_first_io else x.permute(0, 2, 3, 4, 1)
+
+    def _kernel_entry(self, x: torch.Tensor) -> torch.Tensor:
+        """conv_in (the conv_in kernel, SELU fused) and conv1 on the
+        channel-first batch-1 input -> the tower grid (D, H, W, filters)."""
+        if x.shape[0] != 1:
+            raise ValueError(f"the kernel path serves batch 1, got "
+                             f"{x.shape[0]}")
+        x = x.to(self.conv_out.weight.dtype).contiguous()
+        if self.conv_in is not None:
+            x = conv_in_s2d(x, self.conv_in.op.weight, self.conv_in.op.bias)
+        else:
+            x = x.permute(0, 2, 3, 4, 1)
+        return self.conv1(x)[0].contiguous()
+
+    def _kernel_exit(self, x, ds, image_size, in_dtype):
+        """The last block's deep-supervision part, conv_ds's bias + SELU,
+        conv_out, and the output tail (the tail_resize kernel)."""
+        if ds is not None:
+            ds = ds + F.linear(x, self._ds_rows(len(self.layers)))
+            x = torch.selu(ds + self.conv_ds.op.bias)
+        return self._output(self.conv_out(x)[None], image_size, in_dtype,
+                            True)
+
+
+class HartleyMHASeg(_TransSegBase):
+    """HartleyMHASeg (reference ``nets/architectures.py:432-508``): input
+    (B, C, *spatial) channel-first, output probabilities (B, out_channels,
+    *spatial).
+
+    ``use_kernels=True`` runs the counterpart of the reference's
+    ``_fused_mha_forward``: batch 1, channel-first IO, SELU, the concat
+    block skip; the tower grid must hold 2 * num_modes on every axis (the
+    reference falls back to the module path there; this raises).
+    ``generator`` seeds the init (default: seeded with 0); ``device``
+    places the parameters. The model computes in its parameters' dtype
+    (fp32, or float64 after ``.double()`` as a reference, which runs
+    ``use_kernels=False`` on the card).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, filters: int,
+                 num_transform_blocks: int, num_heads: int,
+                 num_modes: Union[int, Sequence[int]],
+                 patch_size=None, attention_activation="selu",
+                 use_resize: bool = True, use_deep_supervision: bool = True,
+                 use_bias_conv_branch: bool = False,
+                 use_block_skip: bool = True, use_block_concat: bool = True,
+                 activation="selu", output_activation="softmax",
+                 ndim: int = 5, channel_first_io: bool = True,
+                 compute_dtype: str = "float32", use_kernels: bool = False,
+                 *, generator: Optional[torch.Generator] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        if ndim != 5:
+            not_ported("HartleyMHASeg ndim=4 (2D)", 11)
+        if compute_dtype != "float32":
+            not_ported(f"compute_dtype={compute_dtype!r}", 12)
+        if use_kernels and not (is_selu(activation) and use_block_skip
+                                and use_block_concat and channel_first_io):
+            raise ValueError("HartleyMHASeg use_kernels takes SELU, the "
+                             "concat block skip and channel-first IO only")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.num_modes = num_modes
+        self.use_kernels = use_kernels
+
+        def make_block(c, generator):
+            return HartleyMHABlock(
+                c, filters, num_heads, num_modes, patch_size=patch_size,
+                attention_activation=attention_activation,
+                activation=activation,
+                use_bias_conv_branch=use_bias_conv_branch,
+                use_block_skip=use_block_skip,
+                use_block_concat=use_block_concat, generator=generator)
+
+        self._setup_tower(in_channels, out_channels, filters,
+                          num_transform_blocks, use_resize,
+                          use_deep_supervision, activation,
+                          output_activation, channel_first_io, make_block,
+                          generator)
+        if device is not None:
+            self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != 5:
+            raise ValueError(f"expected (B, C, D, H, W), got "
+                             f"{tuple(x.shape)}")
+        if self.use_kernels:
+            return self._kernel_forward(x)
+        return self._module_tower(x)
+
+    def _kernel_forward(self, x):
+        in_dtype = x.dtype
+        image_size = tuple(x.shape[2:])
+        x = self._kernel_entry(x)
+        sizes = tuple(x.shape[:3])
+        n_ds = self.out_channels if self.conv_ds is not None else 0
+        spec = make_tower_spec("Hartley", sizes,
+                               normalize_modes(self.num_modes, 3),
+                               self.filters, n_ds=n_ds)
+        f = entry_forward_hw(x, spec)
+        ds = (torch.zeros(sizes + (n_ds,), dtype=x.dtype, device=x.device)
+              if n_ds else None)
+        for i, block in enumerate(self.layers):
+            # the spectrum update between kernels: depth forward stage,
+            # attention on the packed spectrum, depth inverse stage
+            s = d_stage_forward(f, spec).permute(0, 2, 3, 1)[None]
+            y = block.op.attend(s, s, s)[0].permute(0, 3, 1, 2)
+            z = d_stage_inverse(y, spec).contiguous()
+            w_cat, w_cc_t, b_cat = block.tower_weights()
+            if n_ds:
+                w_cat = torch.cat([w_cat, self._ds_rows(i)]).contiguous()
+            res = fused_tower_block(x, z, w_cat, w_cc_t, b_cat, spec,
+                                    ds if n_ds else None)
+            x, f = res[0], res[1]
+            ds = res[2] if n_ds else None
+        return self._kernel_exit(x, ds, image_size, in_dtype)

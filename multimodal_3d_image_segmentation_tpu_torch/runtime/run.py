@@ -11,13 +11,14 @@ import torch
 
 from .. import not_ported
 from ..device import check_transform_precision
-from ..models import HNOSegXS, VNetDS
+from ..models import HartleyMHASeg, HNOSegXS, VNetDS
 
 __all__ = ["get_data_lists"]
 
 # model families of the reference -> ROADMAP item that ports them
-_UNPORTED_MODELS = {"HartleyMHASeg": 9, "NeuralOperatorSeg": 10}
-_MODELS = {"HNOSegXS": HNOSegXS, "VNetDS": VNetDS}
+_UNPORTED_MODELS = {"NeuralOperatorSeg": 10}
+_MODELS = {"HartleyMHASeg": HartleyMHASeg, "HNOSegXS": HNOSegXS,
+           "VNetDS": VNetDS}
 
 
 def get_data_lists(data_lists_paths, data_dir=None):
@@ -54,6 +55,9 @@ def _build_model(config_args, input_data, image_size_getter,
     if model_name not in _MODELS:
         raise ValueError(f"unknown model_name {model_name!r}")
     model_args["use_kernels"] = bool(model_args.pop("use_pallas", False))
-    if isinstance(model_args.get("num_modes"), list):
-        model_args["num_modes"] = tuple(model_args["num_modes"])
+    # the rest (HartleyMHASeg's num_heads, attention_activation, ...) passes
+    # through by name
+    for key in ("num_modes", "patch_size"):
+        if isinstance(model_args.get(key), list):
+            model_args[key] = tuple(model_args[key])
     return _MODELS[model_name](**model_args, device=device)

@@ -11,13 +11,18 @@ against cuDNN / cuBLAS in full fp32), 1e-6 on the tail's probabilities.
 conv3 sums up to 27 x 768 products in another order than cuDNN: 1e-4
 times the output's largest magnitude (at least 1); a TF32 product would
 miss by about 5e-4 of it. Its moment sums are held to float64 sums of its
-own output, to 1e-5 of the sum of magnitudes.
+own output, to 1e-5 of the sum of magnitudes. tower_block sums up to 52
+fp32 products per output in another order than cuBLAS: 1e-5 times each
+output's largest magnitude (at least 1); a TF32 operand would miss by about
+5e-4 of it.
 """
 import numpy as np
 import pytest
 import torch
 
 from multimodal_3d_image_segmentation_tpu_torch import kernels
+from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+    tower_block as tb
 
 pytestmark = pytest.mark.cuda
 
@@ -185,3 +190,82 @@ def test_conv3_refuses_what_it_does_not_take(dev):
         kernels.conv3(x[..., :6].contiguous(), w[:, :6].contiguous(), b)
     with pytest.raises(TypeError):
         kernels.conv3(x.double(), w.double(), b.double())
+
+
+def _tower_inputs(dev, sizes, modes, c, n_ds, seed=40):
+    spec = tb.make_tower_spec("Hartley", sizes, modes, c, n_ds=n_ds)
+    x = _t(sizes + (c,), seed, dev)
+    with torch.no_grad():
+        s = tb.d_stage_forward(tb.entry_forward_hw(x, spec), spec)
+        z = tb.d_stage_inverse(torch.selu(s), spec).contiguous()
+    w_cat = _t((2 * c + n_ds, c), seed + 1, dev, 1 / np.sqrt(c))
+    w_cc_t = _t((c, c), seed + 2, dev, 1 / np.sqrt(c))
+    b_cat = _t((2 * c,), seed + 3, dev, 0.1)
+    ds_prev = _t(sizes + (n_ds,), seed + 4, dev) if n_ds else None
+    return (x, z, w_cat, w_cc_t, b_cat, spec, ds_prev)
+
+
+@pytest.mark.parametrize("sizes,modes", [
+    ((7, 9, 6), (2, 3, 2)),       # one ragged W tile, one ragged H chunk
+    ((9, 37, 21), (3, 5, 4)),     # ragged tiles and chunks, odd sizes
+    ((6, 64, 16), (2, 4, 3)),     # whole tiles and chunks
+    ((16, 33, 30), (8, 12, 12)),  # the config's modes
+])
+@pytest.mark.parametrize("c", [8, 24])
+@pytest.mark.parametrize("n_ds", [0, 3, 4])
+def test_tower_block_kernel_matches_plain(dev, sizes, modes, c, n_ds):
+    args = _tower_inputs(dev, sizes, modes, c, n_ds)
+    with torch.no_grad():
+        got = _launched("tower_block", lambda: kernels.fused_tower_block(*args))
+        want = kernels.tower_block_plain(*args)
+        again = kernels.fused_tower_block(*args)
+    assert len(got) == len(want) == (3 if n_ds else 2)
+    for g, wt, a in zip(got, want, again):
+        assert g.shape == wt.shape and g.dtype == torch.float32
+        tol = 1e-5 * max(1.0, float(wt.abs().max()))
+        assert float((g - wt).abs().max()) <= tol
+        assert torch.equal(g, a)  # no atomics: the same from run to run
+
+
+def test_tower_block_refuses_what_it_does_not_take(dev):
+    x, z, w_cat, w_cc_t, b_cat, spec, ds_prev = _tower_inputs(
+        dev, (7, 9, 6), (2, 3, 2), 24, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.fused_tower_block(x, z.transpose(3, 4).contiguous()
+                                  .transpose(3, 4), w_cat, w_cc_t, b_cat,
+                                  spec, ds_prev)
+    with pytest.raises(ValueError, match="cpu"):
+        kernels.fused_tower_block(x, z, w_cat.cpu(), w_cc_t, b_cat, spec,
+                                  ds_prev)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.fused_tower_block(*(t.double() for t in (x, z, w_cat,
+                                                         w_cc_t, b_cat)),
+                                  spec, ds_prev.double())
+    x12, z12, w12, wc12, b12, spec12, _ = _tower_inputs(dev, (7, 9, 6),
+                                                        (2, 3, 2), 12, 0)
+    with pytest.raises(ValueError, match="no instance for C=12"):
+        kernels.fused_tower_block(x12, z12, w12, wc12, b12, spec12)
+    wg = w_cat.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.fused_tower_block(x, z, wg, w_cc_t, b_cat, spec, ds_prev)
+
+
+@pytest.mark.parametrize("patch", [None, 2])
+def test_hartleymha_kernel_path_matches_plain_path(dev, patch):
+    from multimodal_3d_image_segmentation_tpu_torch.models import \
+        HartleyMHASeg
+    kw = dict(in_channels=2, out_channels=3, filters=8,
+              num_transform_blocks=2, num_heads=2, num_modes=(2, 3, 2),
+              patch_size=patch)
+    plain = HartleyMHASeg(**kw, device=dev)
+    fast = HartleyMHASeg(**kw, use_kernels=True, device=dev)
+    fast.load_state_dict(plain.state_dict())
+    x = _t((1, 2, 15, 17, 13), 50, dev)
+    before = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        got, want = fast(x), plain(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tower_block"] == before["tower_block"] + 2
+    assert kernels.LAUNCHES["conv_in"] == before["conv_in"] + 1
+    assert kernels.LAUNCHES["tail_resize"] == before["tail_resize"] + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=3e-5)

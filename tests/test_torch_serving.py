@@ -154,7 +154,7 @@ def test_port_never_imports_jax(tmp_path):
     code = (
         "import sys, torch\n"
         "from multimodal_3d_image_segmentation_tpu_torch.models import "
-        "HNOSegXS, VNetDS\n"
+        "HartleyMHASeg, HNOSegXS, VNetDS\n"
         "from multimodal_3d_image_segmentation_tpu_torch.runtime import "
         "inference, config\n"
         "from multimodal_3d_image_segmentation_tpu_torch.utils import "
@@ -170,6 +170,10 @@ def test_port_never_imports_jax(tmp_path):
         "use_kernels=True)\n"
         "with torch.no_grad():\n"
         "    assert v(torch.randn(1, 2, 12, 10, 8)).shape == (1, 3, 12, 10, 8)\n"
+        "a = HartleyMHASeg(2, 3, 4, 2, 2, (2, 2, 2), patch_size=2, "
+        "use_kernels=True)\n"
+        "with torch.no_grad():\n"
+        "    assert a(torch.randn(1, 2, 12, 10, 8)).shape == (1, 3, 12, 10, 8)\n"
         f"config.get_config({str(REPO / 'configs' / 'config_inference_hnoseg_xs.ini')!r})\n"
         "print('jax' in sys.modules, 'flax' in sys.modules, any(\n"
         "    n.split('.')[0] == 'multimodal_3d_image_segmentation_tpu'\n"
@@ -212,7 +216,7 @@ def test_build_model_from_the_serving_config():
     with pytest.raises(ValueError, match="transform_precision"):
         _build_model(cfg, _Sizes(), lambda: (240, 240, 155))
     cfg["model"]["transform_precision"] = "highest"
-    cfg["model"]["model_name"] = "HartleyMHASeg"
+    cfg["model"]["model_name"] = "NeuralOperatorSeg"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _build_model(cfg, _Sizes(), lambda: (240, 240, 155))
 
@@ -261,3 +265,71 @@ def test_profiling_busy_time_is_the_union_of_intervals():
         _busy_us
     assert _busy_us([]) == 0.0
     assert _busy_us([(0, 4), (2, 6), (10, 11), (3, 5)]) == 7.0
+
+
+MHA_CONFIG = """
+[main]
+output_dir = '{out}'
+visible_devices = 'cpu'
+
+[input_lists]
+data_dir = '{data}'
+data_lists_test_paths = [{lists}]
+
+[input_args]
+idx_x_modalities = [0, 1]
+idx_y_modalities = [2]
+batch_size = 1
+num_workers = 0
+use_data_normalization = True
+
+[model]
+model_name = 'HartleyMHASeg'
+out_channels = 3
+filters = 4
+num_transform_blocks = 2
+num_heads = 2
+num_modes = (2, 2, 2)
+patch_size = 2
+use_pallas = True
+transform_precision = 'high'
+
+[test]
+output_folder = 'inference'
+"""
+
+
+def test_serving_hartleymha_matches_jax_testing(tmp_path, monkeypatch):
+    """run_inference serves a tiny HartleyMHASeg on its kernel path (plain
+    versions on the CPU); its label maps match the JAX engine's testing()
+    (the JAX module path; its fused path is gated to the TPU) with the same
+    weights."""
+    from multimodal_3d_image_segmentation_tpu.ops import spectral
+    monkeypatch.setattr(spectral, "PRECISION", jax.lax.Precision.HIGHEST)
+    lists = _write_cases(tmp_path / "data")
+    cfg = config.get_config(StringIO(MHA_CONFIG.format(
+        out=tmp_path / "out", data=tmp_path / "data",
+        lists=", ".join(f"'{p}'" for p in lists))), "serve.ini")
+    data_lists = [[str(tmp_path / "data" / n)
+                   for n in Path(p).read_text().splitlines()] for p in lists]
+    jm = jmodels.HartleyMHASeg(2, 3, 4, 2, 2, (2, 2, 2), patch_size=2,
+                               use_pallas=True)
+    params = jm.init(jax.random.PRNGKey(0),
+                     jnp.zeros((1, 2) + SHAPE))["params"]
+    input_data = InputData(reader=read_img, data_lists_test=data_lists,
+                           idx_x_modalities=[0, 1], idx_y_modalities=[2],
+                           x_processing=normalize_modalities, batch_size=1,
+                           num_workers=0)
+    jtesting(jm, params, input_data, str(tmp_path / "jax"), is_print=False)
+
+    (tmp_path / "out" / "model").mkdir(parents=True)
+    torch.save(state_dict_from_jax(jax.device_get(params)),
+               tmp_path / "out" / "model" / "model.pt")
+    assert run_inference(cfg)["n_volumes"] == 2
+    for i in range(2):
+        want = read_img(str(tmp_path / "jax" / "images" /
+                            f"case{i}_pred.nii.gz"))
+        got = read_img(str(tmp_path / "out" / "inference" / "images" /
+                           f"case{i}_pred.nii.gz"))
+        assert got.shape == SHAPE
+        assert np.mean(got != want) <= 1e-4
