@@ -3,20 +3,24 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-Drives the port's three serving paths once at full width on 4-modality
+Drives the port's five serving paths once at full width on 4-modality
 240x240x155 volumes, batch 1, fp32, random weights from a seed: HNOSeg-XS
 (filters 24, blocks [3]*8, modes (10,14,14)), V-Net-DS (base 24, blocks
-[1,2,3,3,3], right leg [0..4], 22,547,764 parameters) and HartleyMHASeg
+[1,2,3,3,3], right leg [0..4], 22,547,764 parameters), HartleyMHASeg
 (filters 24, 16 blocks, 4 heads, modes (8,12,12), patch 2, deep
-supervision, 178,532 parameters). It checks them:
+supervision, 178,532 parameters), and HNOSeg and FNOSeg (NeuralOperatorSeg:
+filters 24, 24 blocks, modes (10,14,14), shared weights, Hartley or
+Fourier, 57,360 and 71,184 parameters). It checks them:
 
   1. device   the card's name and power limit, torch and CUDA versions;
   2. build    compile the CUDA kernels from ``csrc/`` (one nvcc per source,
               all at once, sm_90a);
   3. kernels  conv_in (also at the odd-D/H shape 239x239x155),
-              freq_chain, tail_resize and tower_block against their plain
-              PyTorch versions at the serving shapes, with their times, the
-              plain versions' and the bound;
+              freq_chain, tail_resize, tower_block (also with FNOSeg's
+              Fourier matrices) and tower_block_s (at HNOSeg's, FNOSeg's
+              and HartleyMHASeg's shapes) against their plain PyTorch
+              versions at the serving shapes, with their times, the plain
+              versions' and the bound, and both tower kernels' occupancy;
   4. serve    ``runtime/inference.py::run_inference`` on 3 synthetic NIfTI
               cases through ``configs/config_inference_hnoseg_xs.ini``; the
               launch counts (reset just before) must be 3 / 24 / 3;
@@ -40,12 +44,21 @@ supervision, 178,532 parameters). It checks them:
               must be conv_in 3, tower_block 48, tail_resize 3;
  10. model    the HartleyMHASeg kernel path against its plain path and
               float64, on a served volume and on a small volume against the
-              CPU; a control with tower_block's operands in TF32 must fail
-              the bars.
+              CPU, with both tower kernels; a control with tower_block's
+              operands in TF32 must fail the bars;
+ 11. serve    run_inference serves the same cases through
+              ``configs/config_hnoseg.ini`` and ``configs/config_fnoseg.ini``;
+              launches (reset just before each) must be conv_in 3,
+              tower_block_s 72, tail_resize 3;
+ 12. model    for each of the two, the kernel path against its plain path
+              and float64 on a served volume and on a small volume against
+              the CPU; a control with tower_block_s's operands in TF32 must
+              fail the bars; forward + argmax times of the two tower
+              kernels.
 
 Every failed check raises, so the exit code is not 0. The script refuses
 to run without CUDA. The line before the last is a JSON object with the
-kernels' numbers (``launches`` summed over the three serving runs; times are
+kernels' numbers (``launches`` summed over the five serving runs; times are
 medians of CUDA-event runs, ``bound_ms`` the larger of the bytes over
 3.35 TB/s and the operations over 67 TFLOP/s fp32, the H100 SXM's data
 sheet rates); the last line is
@@ -70,6 +83,10 @@ VNET = dict(in_channels=4, out_channels=4, base_num_filters=24,
             num_blocks=[1, 2, 3, 3, 3], right_leg_indexes=[0, 1, 2, 3, 4])
 MHA = dict(in_channels=4, out_channels=4, filters=24, num_transform_blocks=16,
            num_heads=4, num_modes=(8, 12, 12), patch_size=2)
+NOSEG = dict(in_channels=4, out_channels=4, filters=24,
+             num_transform_blocks=24, num_modes=(10, 14, 14))
+# the tower grid of a 240x240x155 volume after conv_in (k 2, stride 2, pad 1)
+GRID = (121, 121, 78)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # H100 SXM data sheet, CUDA cores
 N_CASES = 3
@@ -89,14 +106,19 @@ KERNELS = [
     ("tower_block",
      "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block.cu",
      "multimodal_3d_image_segmentation_tpu/kernels/tower_block.py:377"),
+    ("tower_block_s",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block_s.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/tower_block_s.py:332"),
 ]
 # each main path's launches per volume
 PER_VOLUME_HNOSEG = {"conv_in": 1, "freq_chain": 8, "tail_resize": 1,
-                     "conv3": 0, "tower_block": 0}
+                     "conv3": 0, "tower_block": 0, "tower_block_s": 0}
 PER_VOLUME_VNET = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
-                   "conv3": 29, "tower_block": 0}
+                   "conv3": 29, "tower_block": 0, "tower_block_s": 0}
 PER_VOLUME_MHA = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
-                  "conv3": 0, "tower_block": 16}
+                  "conv3": 0, "tower_block": 16, "tower_block_s": 0}
+PER_VOLUME_NOSEG = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
+                    "conv3": 0, "tower_block": 0, "tower_block_s": 24}
 
 
 def check(cond, msg):
@@ -152,7 +174,7 @@ def phase_build(kernels):
           f"build + load {time.perf_counter() - t0:.2f} s")
     # each kernel's registers, shared memory and spills (ptxas -v)
     for line in lib.build_log.splitlines():
-        if "Used" in line or "spill" in line:
+        if "Used" in line or "spill" in line or "Function properties" in line:
             print(line.strip())
 
 
@@ -243,32 +265,88 @@ def tower_block_work(spec):
     return 2 * macs, moved
 
 
-def phase_tower_block(torch, kernels, dev):
-    """tower_block against its plain version at HartleyMHASeg's serving
-    shape (grid 121x121x78, C 24, modes (8,12,12), 4 deep-supervision
-    rows). Tolerance: 1e-5 of each output's largest magnitude (at least 1):
-    the kernel sums up to 52 fp32 products in another order than cuBLAS; a
-    TF32 operand would miss by about 5e-4 of it."""
-    print("== tower_block", flush=True)
-    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
-        tower_block as tb
-    rng = np.random.default_rng(SEED + 3)
+def tower_block_s_work(spec, ks):
+    """(flops, bytes) of one tower_block_s call: tower_block's operations
+    plus the two depth stages (2 KS C KH KW MACs per plane each way); x,
+    sy and ds_prev read once, out, s_f and ds written once (no z or f)."""
+    d, h, w = spec.sizes
+    c, kh, kw, nds = spec.channels, spec.kh, spec.kw, spec.n_ds
+    flops = tower_block_work(spec)[0] + 2 * d * 4 * ks * c * kh * kw
+    moved = 4 * 2 * (d * h * w * c + ks * c * kh * kw + d * h * w * nds)
+    return flops, moved
+
+
+def _tower_operands(torch, tb, dev, spec, seed):
+    """Random block operands at ``spec``: x, the spectrum after a Hartley
+    SELU or a Fourier mix (the packed spectrum s, KS rows), the weights
+    and ds_prev."""
+    rng = np.random.default_rng(seed)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    c, nds = spec.channels, spec.n_ds
+    x = t(rng.standard_normal(spec.sizes + (c,)))
+    ops = [t(rng.standard_normal((c, c)) / np.sqrt(c))
+           for _ in range(1 if spec.transform == "Hartley" else 2)]
+    s = tb.spectrum_mix(tb.d_stage_forward(tb.entry_forward_hw(x, spec),
+                                           spec), ops, spec).contiguous()
+    w_cat = t(rng.standard_normal((2 * c + nds, c)) / np.sqrt(c))
+    w_cc_t = t(rng.standard_normal((c, c)) / np.sqrt(c))
+    b_cat = t(rng.uniform(-0.1, 0.1, 2 * c))
+    ds_prev = t(rng.standard_normal(spec.sizes + (nds,))) if nds else None
+    return x, s, w_cat, w_cc_t, b_cat, ds_prev
 
-    c, nds = 24, 4
-    spec = tb.make_tower_spec("Hartley", (121, 121, 78), (8, 12, 12), c,
-                              n_ds=nds)
+
+def _held_to_plain(torch, kernels, name, label, kern, plain, outs):
+    """One launch of ``kern`` against ``plain``: 1e-5 of each output's
+    largest magnitude (at least 1), and a second run bit-identical.
+    Returns the largest error."""
+    before = kernels.LAUNCHES[name]
+    got = kern()
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES[name] == before + 1,
+          f"{label}: launch count did not move")
+    want = plain()
+    err = 0.0
+    for oname, g, wt in zip(outs, got, want):
+        check(g.shape == wt.shape, f"{label} {oname}: shape")
+        e = float((g - wt).abs().max())
+        tol = 1e-5 * max(1.0, float(wt.abs().max()))
+        check(np.isfinite(e) and e <= tol,
+              f"{label} {oname}: max abs err {e} > {tol}")
+        print(f"{label} {oname} {tuple(g.shape)}: max abs err {e:.3e} (tol "
+              f"{tol:.3e}, largest |value| {float(wt.abs().max()):.3f})")
+        err = max(err, e)
+    # the partial spectra are summed in a fixed order: the same bits from
+    # run to run
+    check(all(bool(torch.equal(a, b)) for a, b in zip(kern(), got)),
+          f"{label}: a second run differs")
+    return err
+
+
+def phase_tower_block(torch, kernels, dev):
+    """tower_block against its plain version at HartleyMHASeg's serving
+    shape (grid 121x121x78, C 24, modes (8,12,12), 4 deep-supervision
+    rows), and once with FNOSeg's Fourier matrices (modes (10,14,14),
+    KW 14). Tolerance: 1e-5 of each output's largest magnitude (at least
+    1): the kernel sums up to 56 fp32 products in another order than
+    cuBLAS; a TF32 operand would miss by about 5e-4 of it."""
+    print("== tower_block", flush=True)
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        tower_block as tb
     with torch.inference_mode():
-        x = t(rng.standard_normal(spec.sizes + (c,)))
-        # a block's z: the depth inverse of an updated packed spectrum
-        s = tb.d_stage_forward(tb.entry_forward_hw(x, spec), spec)
-        z = tb.d_stage_inverse(torch.selu(s), spec).contiguous()
-        w_cat = t(rng.standard_normal((2 * c + nds, c)) / np.sqrt(c))
-        w_cc_t = t(rng.standard_normal((c, c)) / np.sqrt(c))
-        b_cat = t(rng.uniform(-0.1, 0.1, 2 * c))
-        ds_prev = t(rng.standard_normal(spec.sizes + (nds,)))
+        spec = tb.make_tower_spec("Fourier", GRID, (10, 14, 14), 24)
+        x, s, w_cat, w_cc_t, b_cat, _ = _tower_operands(torch, tb, dev, spec,
+                                                        SEED + 5)
+        z = tb.d_stage_inverse(s, spec).contiguous()
+        args = (x, z, w_cat, w_cc_t, b_cat, spec)
+        _held_to_plain(torch, kernels, "tower_block", "tower_block Fourier",
+                       lambda: kernels.fused_tower_block(*args),
+                       lambda: kernels.tower_block_plain(*args), ("out", "f"))
+        spec = tb.make_tower_spec("Hartley", GRID, (8, 12, 12), 24, n_ds=4)
+        x, s, w_cat, w_cc_t, b_cat, ds_prev = _tower_operands(
+            torch, tb, dev, spec, SEED + 3)
+        z = tb.d_stage_inverse(s, spec).contiguous()
         args = (x, z, w_cat, w_cc_t, b_cat, spec, ds_prev)
 
         def kern():
@@ -276,26 +354,8 @@ def phase_tower_block(torch, kernels, dev):
 
         def plain():
             return kernels.tower_block_plain(*args)
-        before = kernels.LAUNCHES["tower_block"]
-        got = kern()
-        torch.cuda.synchronize()
-        check(kernels.LAUNCHES["tower_block"] == before + 1,
-              "tower_block: launch count did not move")
-        want = plain()
-        err = 0.0
-        for name, g, wt in zip(("out", "f", "ds"), got, want):
-            check(g.shape == wt.shape, f"tower_block {name}: shape")
-            e = float((g - wt).abs().max())
-            tol = 1e-5 * max(1.0, float(wt.abs().max()))
-            check(np.isfinite(e) and e <= tol,
-                  f"tower_block {name}: max abs err {e} > {tol}")
-            print(f"tower_block {name} {tuple(g.shape)}: max abs err "
-                  f"{e:.3e} (tol {tol:.3e}, largest |value| "
-                  f"{float(wt.abs().max()):.3f})")
-            err = max(err, e)
-        # f is a sum over tiles in a fixed order: the same from run to run
-        check(all(bool(torch.equal(a, b)) for a, b in zip(kern(), got)),
-              "tower_block: a second run differs")
+        err = _held_to_plain(torch, kernels, "tower_block", "tower_block",
+                             kern, plain, ("out", "f", "ds"))
         ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
     flops, moved = tower_block_work(spec)
     b_ms, b_by = bound(flops, moved)
@@ -305,6 +365,68 @@ def phase_tower_block(torch, kernels, dev):
           f"(medians of {N_TIMED}, CUDA events)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def phase_tower_block_s(torch, kernels, dev):
+    """tower_block_s against its plain version at the three shapes that
+    serve it: HNOSeg's (Hartley, modes (10,14,14), KS 20, no ds rows),
+    FNOSeg's (Fourier, KS 40, KW 14) and HartleyMHASeg's (modes
+    (8,12,12), 4 ds rows), each on the 121x121x78 grid with C 24. The
+    tolerance is tower_block's, on out, s_f and ds; a second run must give
+    the same bits. Also both tower kernels' occupancy (resident blocks per
+    SM and registers, from the CUDA runtime) at those shapes. The kernels
+    line reports HNOSeg's shape."""
+    print("== tower_block_s", flush=True)
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        tower_block as tb
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        tower_block_s as tbs
+    shapes = [("HNOSeg", "Hartley", (10, 14, 14), 0),
+              ("FNOSeg", "Fourier", (10, 14, 14), 0),
+              ("HartleyMHASeg", "Hartley", (8, 12, 12), 4)]
+    results = {}
+    for i, (label, transform, modes, nds) in enumerate(shapes):
+        spec = tb.make_tower_spec(transform, GRID, modes, 24, n_ds=nds)
+        ks = tb.spectrum_rows(spec)
+        with torch.inference_mode():
+            x, sy, w_cat, w_cc_t, b_cat, ds_prev = _tower_operands(
+                torch, tb, dev, spec, SEED + 6 + i)
+            args = (x, sy, w_cat, w_cc_t, b_cat, spec, ds_prev)
+
+            def kern():
+                return kernels.fused_tower_block_s(*args)
+
+            def plain():
+                return kernels.tower_block_s_plain(*args)
+            err = _held_to_plain(torch, kernels, "tower_block_s",
+                                 f"tower_block_s {label}", kern, plain,
+                                 ("out", "s_f", "ds"))
+            ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
+            # the same block on tower_block: the depth stages as einsums
+            # around the kernel
+            def v2():
+                z = tb.d_stage_inverse(sy, spec).contiguous()
+                res = kernels.fused_tower_block(x, z, *args[2:])
+                return tb.d_stage_forward(res[1], spec)
+            v2_ms = median_ms(torch, v2)
+        flops, moved = tower_block_s_work(spec, ks)
+        b_ms, b_by = bound(flops, moved)
+        occ_s, occ_v2 = tbs.occupancy(spec), tb.occupancy(spec)
+        print(f"tower_block_s {label} ({transform}, KS {ks}, KH {spec.kh}, "
+              f"KW {spec.kw}, ds {nds}): kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  library None  bound {b_ms:.4f} ms "
+              f"({b_by}; {flops / 1e9:.3f} GFLOP, {moved / 1e6:.1f} MB), "
+              f"{flops / ms / 1e9:.2f} TFLOP/s; tower_block with the depth "
+              f"stages around it {v2_ms:.4f} ms (medians of {N_TIMED}, CUDA "
+              f"events); shared memory {tb.kernel_smem_bytes(spec)} B per "
+              f"block; occupancy (blocks per SM, registers per thread): "
+              f"tower_block_s {occ_s}, tower_block {occ_v2}")
+        results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": None}
+    out = dict(results["HNOSeg"])
+    out["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
+    return out
 
 
 def _write_cases(root: Path):
@@ -403,6 +525,11 @@ BARS_VNET = {"ratio": 4.0, "abs": 1e-4, "agree": 0.9999}
 # the bars are HNOSeg-XS's, set from a prediction written down before the
 # first run on the card (PERF.md, Findings).
 BARS_MHA = {"ratio": 2.0, "abs": 1e-3, "agree": 0.9999}
+# HNOSeg and FNOSeg are random-init SNNs without normalization too, 24
+# blocks deep; the bars are HNOSeg-XS's, set from a prediction written down
+# before the first run on the card (PERF.md, Findings).
+BARS_NOSEG = {"ratio": 2.0, "abs": 1e-3, "agree": 0.9999}
+N_STEP_TIMED = 10
 
 
 def readings(torch, fast, plain, ref):
@@ -653,15 +780,18 @@ def phase_conv3(torch, kernels, calls):
 
 def phase_model_mha(torch, state, case_dir: Path, dev):
     """HartleyMHASeg: kernel path against plain path and float64 on a
-    served volume and on a small one against the CPU; a control with
+    served volume (with both tower kernels: tower_block_s covers the ds
+    rows on a real path) and on a small one against the CPU; a control with
     tower_block's operands (the volume, z and the weights) rounded to TF32
     must fail the bars."""
     print("== model HartleyMHASeg", flush=True)
+    from multimodal_3d_image_segmentation_tpu_torch import kernels
     from multimodal_3d_image_segmentation_tpu_torch.models import (
         HartleyMHASeg, architectures)
 
-    def build(use_kernels, device, dtype=torch.float32):
-        m = HartleyMHASeg(**MHA, use_kernels=use_kernels).to(device, dtype)
+    def build(use_kernels, device, dtype=torch.float32, **kw):
+        m = HartleyMHASeg(**MHA, use_kernels=use_kernels, **kw).to(device,
+                                                                   dtype)
         m.load_state_dict(state)
         return m
 
@@ -680,6 +810,13 @@ def phase_model_mha(torch, state, case_dir: Path, dev):
         torch.cuda.synchronize()
         compare(torch, f"HartleyMHASeg full volume {SHAPE}", fast, plain,
                 ref, bars)
+        del fast
+        before = kernels.LAUNCHES["tower_block_s"]
+        fast = build(True, dev, tower_kernel="block_s")(x)
+        check(kernels.LAUNCHES["tower_block_s"] == before + MHA[
+            "num_transform_blocks"], "HartleyMHASeg block_s: launches")
+        compare(torch, f"HartleyMHASeg tower_kernel='block_s' full volume "
+                f"{SHAPE}", fast, plain, ref, bars)
         del fast
         real = architectures.fused_tower_block
 
@@ -702,6 +839,66 @@ def phase_model_mha(torch, state, case_dir: Path, dev):
         ref = build(False, "cpu", torch.float64)(xs.double())
         compare(torch, "HartleyMHASeg small volume (1,4,32,48,48), GPU "
                 "kernels vs CPU", fast, plain, ref, bars)
+
+
+def phase_model_noseg(torch, state, transform, case_dir: Path, dev):
+    """HNOSeg / FNOSeg: the kernel path (tower_block_s) against the plain
+    path and float64 on a served volume and on a small one against the
+    CPU; a control with tower_block_s's operands (the volume, the resident
+    spectrum and the weights) rounded to TF32 must fail the bars; forward +
+    argmax times of both tower kernels with the input on the card."""
+    label = "HNOSeg" if transform == "Hartley" else "FNOSeg"
+    print(f"== model {label}", flush=True)
+    from multimodal_3d_image_segmentation_tpu_torch.models import (
+        NeuralOperatorSeg, architectures)
+    from multimodal_3d_image_segmentation_tpu_torch.runtime.steps import \
+        make_predict_step
+
+    def build(use_kernels, device, dtype=torch.float32, **kw):
+        m = NeuralOperatorSeg(**NOSEG, transform_type=transform,
+                              use_kernels=use_kernels, **kw).to(device, dtype)
+        m.load_state_dict(state)
+        return m.eval()
+
+    x, xs = served_volume(torch, case_dir, dev), small_volume(torch)
+    bars = BARS_NOSEG
+    with torch.inference_mode():
+        fast = build(True, dev)(x)
+        check(fast.shape == (1, 4) + SHAPE, f"output shape {fast.shape}")
+        sum_err = float((fast.sum(1) - 1).abs().max())
+        check(sum_err <= 1e-5, f"probabilities sum off 1 by {sum_err}")
+        plain = build(False, dev)(x)
+        ref = build(False, dev, torch.float64)(x.double())
+        torch.cuda.synchronize()
+        compare(torch, f"{label} full volume {SHAPE}", fast, plain, ref, bars)
+        del fast
+        real = architectures.fused_tower_block_s
+
+        def tf32_tower(x1, sy, w_cat, w_cc_t, b_cat, spec, ds_prev=None):
+            return real(_tf32(torch, x1), _tf32(torch, sy),
+                        _tf32(torch, w_cat), _tf32(torch, w_cc_t), b_cat,
+                        spec, ds_prev)
+
+        architectures.fused_tower_block_s = tf32_tower
+        try:
+            fast = build(True, dev)(x)
+        finally:
+            architectures.fused_tower_block_s = real
+        compare(torch, f"{label} control: tower_block_s operands in TF32",
+                fast, plain, ref, bars, control=True)
+        del fast, plain, ref
+
+        fast = build(True, dev)(xs.to(dev)).cpu()
+        plain = build(False, "cpu")(xs)
+        ref = build(False, "cpu", torch.float64)(xs.double())
+        compare(torch, f"{label} small volume (1,4,32,30,21), GPU kernels vs "
+                "CPU", fast, plain, ref, bars)
+    steps = {k: make_predict_step(build(True, dev, tower_kernel=k))
+             for k in ("block_s", "block")}
+    for k in ("block_s", "block", "block", "block_s"):
+        t = median_ms(torch, lambda: steps[k](x), n=N_STEP_TIMED)
+        print(f"{label} forward + argmax, tower_kernel={k!r}: {t:.4f} ms "
+              f"(median of {N_STEP_TIMED}, CUDA events, input on the card)")
 
 
 def phase_model_vnet(torch, state, case_dir: Path, dev):
@@ -761,13 +958,14 @@ def main():
     sys.path.insert(0, str(REPO))
     from multimodal_3d_image_segmentation_tpu_torch import kernels
     from multimodal_3d_image_segmentation_tpu_torch.models import (
-        HartleyMHASeg, HNOSegXS, VNetDS)
+        HartleyMHASeg, HNOSegXS, NeuralOperatorSeg, VNetDS)
     dev = torch.device("cuda:0")
 
     phase_device(torch)
     phase_build(kernels)
     results = phase_kernels(torch, kernels, dev)
     results["tower_block"] = phase_tower_block(torch, kernels, dev)
+    results["tower_block_s"] = phase_tower_block_s(torch, kernels, dev)
     (REPO / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="smoke_", dir=REPO / "build"))
     try:
@@ -810,6 +1008,25 @@ def main():
         for k, v in launches_m.items():
             launches[k] += v
         phase_model_mha(torch, mha.state_dict(), case0, dev)
+        del mha
+        torch.cuda.empty_cache()
+
+        for transform, config, n_params in (
+                ("Hartley", "config_hnoseg.ini", 57360),
+                ("Fourier", "config_fnoseg.ini", 71184)):
+            noseg = NeuralOperatorSeg(
+                **NOSEG, transform_type=transform,
+                generator=torch.Generator().manual_seed(SEED))
+            launches_n = phase_serve(
+                torch, kernels, work, list_paths,
+                "HNOSeg" if transform == "Hartley" else "FNOSeg", config,
+                noseg, n_params, PER_VOLUME_NOSEG)
+            for k, v in launches_n.items():
+                launches[k] += v
+            phase_model_noseg(torch, noseg.state_dict(), transform, case0,
+                              dev)
+            del noseg
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")

@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "library", "launch", "reset_launch_counts",
-           "check_cuda_input", "check_forward_only"]
+           "check_cuda_input", "check_forward_only", "occupancy"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -46,10 +46,13 @@ _SIGNATURES = {
     "m3seg_conv3_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I),
                          ctypes.POINTER(_I)],
     "m3seg_tower_block": [_P] * 11 + [_I] * 7 + [_P],
+    "m3seg_tower_block_s": [_P] * 11 + [_I] * 8 + [_P],
+    "m3seg_tower_block_occupancy": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
+    "m3seg_tower_block_s_occupancy": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
 }
 
 LAUNCHES = {"conv_in": 0, "freq_chain": 0, "tail_resize": 0, "conv3": 0,
-            "tower_block": 0}
+            "tower_block": 0, "tower_block_s": 0}
 
 _lock = threading.Lock()
 _library = None
@@ -181,3 +184,17 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         msg = lib.cdll.m3seg_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: {entry} failed: {msg} ({rc})")
     LAUNCHES[kernel] += 1
+
+
+def occupancy(entry: str, *args: int):
+    """(blocks per SM, registers per thread) that C entry ``entry`` reports
+    for a kernel instance (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    with the instance's dynamic shared memory); launches nothing."""
+    lib = library()
+    blocks, regs = _I(0), _I(0)
+    rc = getattr(lib.cdll, entry)(*args, ctypes.byref(blocks),
+                                  ctypes.byref(regs))
+    if rc != 0:
+        msg = lib.cdll.m3seg_error_string(rc).decode()
+        raise RuntimeError(f"{entry} failed: {msg} ({rc})")
+    return blocks.value, regs.value

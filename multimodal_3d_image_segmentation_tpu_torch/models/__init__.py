@@ -1,2 +1,3 @@
-from .architectures import HartleyMHABlock, HartleyMHASeg, VNetDS  # noqa: F401
+from .architectures import (HartleyMHABlock, HartleyMHASeg,  # noqa: F401
+                            NeuralOperatorBlock, NeuralOperatorSeg, VNetDS)
 from .hnosegxs import HNOSegXS, HNOXSBlock  # noqa: F401

@@ -26,14 +26,20 @@ channels-last. Two execution paths share one module tree, whose
     conv reads (up, skip) as a virtual concat. Batch 1, channel-first IO
     and k=3 only; CPU tensors run each kernel's plain version.
 
-HartleyMHASeg, the port of ``HartleyMHASeg`` (reference
-``nets/architectures.py:432-508``): conv_in -> conv1 -> a tower of
-Hartley-MHA blocks -> the deep-supervision sum (``conv_ds``) -> conv_out ->
-upsample -> softmax, on the tower skeleton ``_TransSegBase`` that
-NeuralOperatorSeg shares. Its kernel path (``use_kernels=True``) is the
-counterpart of ``_fused_mha_forward``: conv_in through the ``conv_in``
-kernel, every block through the ``tower_block`` kernel with the attention
-as the spectrum update between kernels, the exit through ``tail_resize``.
+HartleyMHASeg and NeuralOperatorSeg (FNOSeg / HNOSeg), the ports of
+``HartleyMHASeg`` and ``NeuralOperatorSeg`` (reference
+``nets/architectures.py:356-508``): conv_in -> conv1 -> a tower of
+Hartley-MHA or neural-operator blocks -> the deep-supervision sum
+(``conv_ds``) -> conv_out -> upsample -> softmax, on the shared tower
+skeleton ``_TransSegBase``. Their kernel paths (``use_kernels=True``) are
+the counterparts of ``_fused_mha_forward`` and ``_fused_tower_forward``:
+conv_in through the ``conv_in`` kernel, every block through a fused tower
+block kernel with the block's spectrum operator (the attention, or the
+shared-weight mix) between kernels, the exit through ``tail_resize``. The
+tower kernel is chosen by ``tower_kernel``: ``"block_s"`` carries the
+resident packed spectrum between blocks and runs the depth stages inside
+the kernel (``tower_block_s``); ``"block"`` exchanges per-plane spectra
+with torch einsums between kernels (``tower_block``).
 """
 from __future__ import annotations
 
@@ -51,16 +57,22 @@ from ..kernels.tail_resize import fused_tail_softmax, tail_supported
 from ..kernels.tower_block import (d_stage_forward, d_stage_inverse,
                                    entry_forward_hw, fused_tower_block,
                                    make_tower_spec)
+from ..kernels.tower_block_s import (entry_spectrum_s, fused_tower_block_s,
+                                     spectrum_mix_s)
 from ..ops.activations import get_activation, is_selu
 from ..ops.attention import HartleyMultiHeadAttention
 from ..ops.convs import (ConcatConvNormAct, Conv, ConvNormAct,
                          ConvTransposeNormAct, GroupNorm1,
                          _SplitKernelConv1x1)
+from ..ops.operators import FourierOperator, HartleyOperator
 from ..ops.padcrop import spatial_padcrop
 from ..ops.resize import resize_linear
-from ..ops.spectral import normalize_modes
+from ..ops.spectral import clip_modes, normalize_modes
 
-__all__ = ["VNetDS", "HartleyMHASeg", "HartleyMHABlock"]
+__all__ = ["VNetDS", "HartleyMHASeg", "HartleyMHABlock", "NeuralOperatorSeg",
+           "NeuralOperatorBlock"]
+
+TOWER_KERNELS = ("block_s", "block")
 
 
 def _apply_output_activation(x, output_activation, dim=-1):
@@ -420,6 +432,20 @@ class _TransBlockMixin:
             x = x + tmp
         return x
 
+    def tower_weights(self):
+        """(w_cat, w_cc_t, b_cat) of the fused tower block kernels: rows
+        [W_conv ; the conv_concat columns of the block input], the
+        conv_concat columns of the activated branch, and [conv-branch bias
+        or zeros ; conv_concat bias]. Needs the concat skip."""
+        c = self.out_channels
+        w_conv = self.conv_branch.weight.reshape(c, -1)
+        w_cc = self.conv_concat.op.weight.reshape(c, -1)
+        b_conv = (self.conv_branch.bias if self.conv_branch.bias is not None
+                  else torch.zeros_like(self.conv_concat.op.bias))
+        return (torch.cat([w_conv, w_cc[:, c:]]).contiguous(),
+                w_cc[:, :c].contiguous(),
+                torch.cat([b_conv, self.conv_concat.op.bias]).contiguous())
+
 
 class HartleyMHABlock(_TransBlockMixin, nn.Module):
     """Hartley-MHA block (reference ``nets/architectures.py:611-635``):
@@ -448,25 +474,49 @@ class HartleyMHABlock(_TransBlockMixin, nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._block_tail(self.op(x), self.conv_branch(x), x)
 
-    def tower_weights(self):
-        """(w_cat, w_cc_t, b_cat) of ``fused_tower_block``: rows [W_conv ;
-        the conv_concat columns of the block input], the conv_concat
-        columns of the activated branch, and [conv-branch bias or zeros ;
-        conv_concat bias]. Needs the concat skip."""
-        c = self.out_channels
-        w_conv = self.conv_branch.weight.reshape(c, -1)
-        w_cc = self.conv_concat.op.weight.reshape(c, -1)
-        b_conv = (self.conv_branch.bias if self.conv_branch.bias is not None
-                  else torch.zeros_like(self.conv_concat.op.bias))
-        return (torch.cat([w_conv, w_cc[:, c:]]).contiguous(),
-                w_cc[:, :c].contiguous(),
-                torch.cat([b_conv, self.conv_concat.op.bias]).contiguous())
+
+class NeuralOperatorBlock(_TransBlockMixin, nn.Module):
+    """FNO / HNO block (reference ``nets/architectures.py:551-608``): the
+    spectral operator branch ``op`` (``FourierOperator`` or
+    ``HartleyOperator`` on the volume) and a parallel 1x1 ``conv_branch``,
+    then the shared tail."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_modes,
+                 transform_type: str, weights_type: str = "shared",
+                 activation="selu", use_bias_conv_branch: bool = False,
+                 use_block_skip: bool = True, use_block_concat: bool = True,
+                 *, generator: torch.Generator):
+        super().__init__()
+        if transform_type not in ("Fourier", "Hartley"):
+            raise ValueError(f"transform_type must be 'Fourier' or "
+                             f"'Hartley', got {transform_type!r}")
+        snn = is_selu(activation)
+        op_cls = (FourierOperator if transform_type == "Fourier"
+                  else HartleyOperator)
+        self.op = op_cls(in_channels, out_channels, num_modes,
+                         weights_type=weights_type, snn_init=snn,
+                         generator=generator)
+        self.conv_branch = Conv(in_channels, out_channels, 1,
+                                use_bias=use_bias_conv_branch, snn_init=snn,
+                                generator=generator)
+        self._setup_tail(in_channels, out_channels, activation,
+                         use_block_skip, use_block_concat, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._block_tail(self.op(x), self.conv_branch(x), x)
+
+    def op_weights(self):
+        """The operator's shared weights as ``spectrum_mix_s`` takes them:
+        (weight,) or (weight_real, weight_imag)."""
+        if isinstance(self.op, FourierOperator):
+            return self.op.weight_real, self.op.weight_imag
+        return (self.op.weight,)
 
 
 class _TransSegBase(nn.Module):
     """Shared tower skeleton (reference ``nets/architectures.py:282-353``):
     conv_in -> conv1 -> N blocks -> deep-supervision sum -> conv_out ->
-    output tail, for HartleyMHASeg and (later) NeuralOperatorSeg.
+    output tail, for HartleyMHASeg and NeuralOperatorSeg.
 
     Deep supervision folds each part (conv1's output and every block's)
     into a running out_channels-wide sum through its rows of ``conv_ds``,
@@ -501,6 +551,14 @@ class _TransSegBase(nn.Module):
         self.conv_out = Conv(out_channels if use_deep_supervision
                              else filters, out_channels, 1, use_bias=False,
                              snn_init=snn, **g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != 5:
+            raise ValueError(f"expected (B, C, D, H, W), got "
+                             f"{tuple(x.shape)}")
+        if self.use_kernels:
+            return self._kernel_forward(x)
+        return self._module_tower(x)
 
     def _ds_rows(self, idx: int) -> torch.Tensor:
         """conv_ds's (out, filters) matrix of deep-supervision part idx."""
@@ -548,6 +606,34 @@ class _TransSegBase(nn.Module):
             x = x.permute(0, 2, 3, 4, 1)
         return self.conv1(x)[0].contiguous()
 
+    def _kernel_tower(self, x, spec, mix):
+        """Every block of the tower through the fused tower block kernel of
+        ``self.tower_kernel``; ``mix(block, s)`` is the block's operator on
+        a packed spectrum (KS, C, KH, KW). Returns the tower's output and
+        the running deep-supervision sum (None without conv_ds)."""
+        n_ds = spec.n_ds
+        ds = (torch.zeros(spec.sizes + (n_ds,), dtype=x.dtype,
+                          device=x.device) if n_ds else None)
+        resident = self.tower_kernel == "block_s"
+        # the resident spectrum (block_s) or the per-plane spectra (block)
+        s = entry_spectrum_s(x, spec) if resident else entry_forward_hw(
+            x, spec)
+        for i, block in enumerate(self.layers):
+            w_cat, w_cc_t, b_cat = block.tower_weights()
+            if n_ds:
+                w_cat = torch.cat([w_cat, self._ds_rows(i)]).contiguous()
+            if resident:
+                res = fused_tower_block_s(x, mix(block, s).contiguous(),
+                                          w_cat, w_cc_t, b_cat, spec, ds)
+            else:
+                z = d_stage_inverse(mix(block, d_stage_forward(s, spec)),
+                                    spec).contiguous()
+                res = fused_tower_block(x, z, w_cat, w_cc_t, b_cat, spec,
+                                        ds)
+            x, s = res[0], res[1]
+            ds = res[2] if n_ds else None
+        return x, ds
+
     def _kernel_exit(self, x, ds, image_size, in_dtype):
         """The last block's deep-supervision part, conv_ds's bias + SELU,
         conv_out, and the output tail (the tail_resize kernel)."""
@@ -567,10 +653,13 @@ class HartleyMHASeg(_TransSegBase):
     ``_fused_mha_forward``: batch 1, channel-first IO, SELU, the concat
     block skip; the tower grid must hold 2 * num_modes on every axis (the
     reference falls back to the module path there; this raises).
-    ``generator`` seeds the init (default: seeded with 0); ``device``
-    places the parameters. The model computes in its parameters' dtype
-    (fp32, or float64 after ``.double()`` as a reference, which runs
-    ``use_kernels=False`` on the card).
+    ``tower_kernel`` picks its tower kernel: ``"block"`` (default; the
+    attention reads the packed spectrum from the depth forward stage of
+    the per-plane spectra) or ``"block_s"`` (the attention reads the
+    resident spectrum). ``generator`` seeds the init (default: seeded with
+    0); ``device`` places the parameters. The model computes in its
+    parameters' dtype (fp32, or float64 after ``.double()`` as a
+    reference, which runs ``use_kernels=False`` on the card).
     """
 
     def __init__(self, in_channels: int, out_channels: int, filters: int,
@@ -583,7 +672,8 @@ class HartleyMHASeg(_TransSegBase):
                  activation="selu", output_activation="softmax",
                  ndim: int = 5, channel_first_io: bool = True,
                  compute_dtype: str = "float32", use_kernels: bool = False,
-                 *, generator: Optional[torch.Generator] = None,
+                 tower_kernel: str = "block", *,
+                 generator: Optional[torch.Generator] = None,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__()
         if ndim != 5:
@@ -594,10 +684,14 @@ class HartleyMHASeg(_TransSegBase):
                                 and use_block_concat and channel_first_io):
             raise ValueError("HartleyMHASeg use_kernels takes SELU, the "
                              "concat block skip and channel-first IO only")
+        if tower_kernel not in TOWER_KERNELS:
+            raise ValueError(f"tower_kernel must be one of {TOWER_KERNELS}, "
+                             f"got {tower_kernel!r}")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.num_modes = num_modes
         self.use_kernels = use_kernels
+        self.tower_kernel = tower_kernel
 
         def make_block(c, generator):
             return HartleyMHABlock(
@@ -616,13 +710,97 @@ class HartleyMHASeg(_TransSegBase):
         if device is not None:
             self.to(device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dim() != 5:
-            raise ValueError(f"expected (B, C, D, H, W), got "
-                             f"{tuple(x.shape)}")
-        if self.use_kernels:
-            return self._kernel_forward(x)
-        return self._module_tower(x)
+    def _kernel_forward(self, x):
+        in_dtype = x.dtype
+        image_size = tuple(x.shape[2:])
+        x = self._kernel_entry(x)
+        n_ds = self.out_channels if self.conv_ds is not None else 0
+        spec = make_tower_spec("Hartley", tuple(x.shape[:3]),
+                               normalize_modes(self.num_modes, 3),
+                               self.filters, n_ds=n_ds)
+
+        def attend(block, s):
+            # the attention on the packed spectrum (KD, C, KH, KW)
+            s = s.permute(0, 2, 3, 1)[None]
+            return block.op.attend(s, s, s)[0].permute(0, 3, 1, 2)
+
+        x, ds = self._kernel_tower(x, spec, attend)
+        return self._kernel_exit(x, ds, image_size, in_dtype)
+
+
+class NeuralOperatorSeg(_TransSegBase):
+    """FNO / FNOSeg / HNOSeg (reference ``nets/architectures.py:356-429``):
+    input (B, C, *spatial) channel-first, output probabilities (B,
+    out_channels, *spatial). ``transform_type`` 'Hartley' (HNOSeg) or
+    'Fourier' (FNOSeg); shared operator weights (``weights_type=
+    'individual'`` raises naming its ROADMAP item).
+
+    ``use_kernels=True`` runs the counterpart of the reference's
+    ``_fused_tower_forward`` with the modes clipped to half the tower grid,
+    on ``tower_kernel`` ``"block_s"`` (default: the resident spectrum, the
+    depth stages inside the kernel) or ``"block"``. It keeps the
+    reference's gate (shared weights, SELU, the concat block skip, no
+    conv-branch bias, batch 1, channel-first IO) and raises outside it,
+    where the reference falls back to its module path. Deep supervision
+    rides the kernel's ds rows. ``generator`` seeds the init (default:
+    seeded with 0); ``device`` places the parameters. The model computes in
+    its parameters' dtype (fp32, or float64 after ``.double()`` as a
+    reference, which runs ``use_kernels=False`` on the card).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, filters: int,
+                 num_transform_blocks: int,
+                 num_modes: Union[int, Sequence[int]],
+                 transform_type: str = "Hartley",
+                 weights_type: str = "shared", use_resize: bool = True,
+                 use_deep_supervision: bool = False,
+                 use_bias_conv_branch: bool = False,
+                 use_block_skip: bool = True, use_block_concat: bool = True,
+                 activation="selu", output_activation="softmax",
+                 ndim: int = 5, channel_first_io: bool = True,
+                 compute_dtype: str = "float32", use_kernels: bool = False,
+                 tower_kernel: str = "block_s", *,
+                 generator: Optional[torch.Generator] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        if ndim != 5:
+            not_ported("NeuralOperatorSeg ndim=4 (2D)", 11)
+        if compute_dtype != "float32":
+            not_ported(f"compute_dtype={compute_dtype!r}", 12)
+        if weights_type == "individual":
+            not_ported("NeuralOperatorSeg weights_type='individual'", 18)
+        if use_kernels and not (
+                weights_type == "shared" and is_selu(activation)
+                and use_block_skip and use_block_concat
+                and not use_bias_conv_branch and channel_first_io):
+            raise ValueError("NeuralOperatorSeg use_kernels takes shared "
+                             "weights, SELU, the concat block skip without "
+                             "a conv-branch bias and channel-first IO only")
+        if tower_kernel not in TOWER_KERNELS:
+            raise ValueError(f"tower_kernel must be one of {TOWER_KERNELS}, "
+                             f"got {tower_kernel!r}")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.num_modes = num_modes
+        self.transform_type = transform_type
+        self.use_kernels = use_kernels
+        self.tower_kernel = tower_kernel
+
+        def make_block(c, generator):
+            return NeuralOperatorBlock(
+                c, filters, num_modes, transform_type,
+                weights_type=weights_type, activation=activation,
+                use_bias_conv_branch=use_bias_conv_branch,
+                use_block_skip=use_block_skip,
+                use_block_concat=use_block_concat, generator=generator)
+
+        self._setup_tower(in_channels, out_channels, filters,
+                          num_transform_blocks, use_resize,
+                          use_deep_supervision, activation,
+                          output_activation, channel_first_io, make_block,
+                          generator)
+        if device is not None:
+            self.to(device)
 
     def _kernel_forward(self, x):
         in_dtype = x.dtype
@@ -630,23 +808,11 @@ class HartleyMHASeg(_TransSegBase):
         x = self._kernel_entry(x)
         sizes = tuple(x.shape[:3])
         n_ds = self.out_channels if self.conv_ds is not None else 0
-        spec = make_tower_spec("Hartley", sizes,
-                               normalize_modes(self.num_modes, 3),
-                               self.filters, n_ds=n_ds)
-        f = entry_forward_hw(x, spec)
-        ds = (torch.zeros(sizes + (n_ds,), dtype=x.dtype, device=x.device)
-              if n_ds else None)
-        for i, block in enumerate(self.layers):
-            # the spectrum update between kernels: depth forward stage,
-            # attention on the packed spectrum, depth inverse stage
-            s = d_stage_forward(f, spec).permute(0, 2, 3, 1)[None]
-            y = block.op.attend(s, s, s)[0].permute(0, 3, 1, 2)
-            z = d_stage_inverse(y, spec).contiguous()
-            w_cat, w_cc_t, b_cat = block.tower_weights()
-            if n_ds:
-                w_cat = torch.cat([w_cat, self._ds_rows(i)]).contiguous()
-            res = fused_tower_block(x, z, w_cat, w_cc_t, b_cat, spec,
-                                    ds if n_ds else None)
-            x, f = res[0], res[1]
-            ds = res[2] if n_ds else None
+        spec = make_tower_spec(
+            self.transform_type, sizes,
+            clip_modes(normalize_modes(self.num_modes, 3), sizes),
+            self.filters, n_ds=n_ds)
+        x, ds = self._kernel_tower(
+            x, spec, lambda block, s: spectrum_mix_s(s, block.op_weights(),
+                                                     spec))
         return self._kernel_exit(x, ds, image_size, in_dtype)

@@ -9,16 +9,13 @@ from typing import Optional
 
 import torch
 
-from .. import not_ported
 from ..device import check_transform_precision
-from ..models import HartleyMHASeg, HNOSegXS, VNetDS
+from ..models import HartleyMHASeg, HNOSegXS, NeuralOperatorSeg, VNetDS
 
 __all__ = ["get_data_lists"]
 
-# model families of the reference -> ROADMAP item that ports them
-_UNPORTED_MODELS = {"NeuralOperatorSeg": 10}
 _MODELS = {"HartleyMHASeg": HartleyMHASeg, "HNOSegXS": HNOSegXS,
-           "VNetDS": VNetDS}
+           "NeuralOperatorSeg": NeuralOperatorSeg, "VNetDS": VNetDS}
 
 
 def get_data_lists(data_lists_paths, data_dir=None):
@@ -50,13 +47,11 @@ def _build_model(config_args, input_data, image_size_getter,
     if tp is not None:
         check_transform_precision(tp)
     model_name = model_args.pop("model_name")
-    if model_name in _UNPORTED_MODELS:
-        not_ported(f"model {model_name}", _UNPORTED_MODELS[model_name])
     if model_name not in _MODELS:
         raise ValueError(f"unknown model_name {model_name!r}")
     model_args["use_kernels"] = bool(model_args.pop("use_pallas", False))
-    # the rest (HartleyMHASeg's num_heads, attention_activation, ...) passes
-    # through by name
+    # the rest (HartleyMHASeg's num_heads, NeuralOperatorSeg's
+    # transform_type and weights_type, ...) passes through by name
     for key in ("num_modes", "patch_size"):
         if isinstance(model_args.get(key), list):
             model_args[key] = tuple(model_args[key])

@@ -19,9 +19,10 @@ covers:
     ``decode_layers.i.<nb + 1>``;
   * conv kernels: flax (*k, I, O) -> torch (O, I, *k), leaf ``weight``;
     transposed-conv kernels (modules named ``*_up``) -> torch (I, O, *k);
-  * GroupNorm ``scale`` -> ``weight``; biases, operator weights and the
-    HartleyMHA projections (``weight_query``, ``weight_key``,
-    ``weight_value``, ``weight_out``): unchanged. The deep-supervision
+  * GroupNorm ``scale`` -> ``weight``; biases, operator weights (``weight``,
+    ``weight_real``, ``weight_imag``) and the HartleyMHA projections
+    (``weight_query``, ``weight_key``, ``weight_value``, ``weight_out``):
+    unchanged. The deep-supervision
     ``conv_ds/conv`` is a 1x1 conv like any other (``conv_ds.op``).
 """
 from __future__ import annotations
@@ -37,9 +38,10 @@ __all__ = ["state_dict_from_jax"]
 _INDEXED = re.compile(r"(layers|conv_blocks)_(\d+)")
 _VNET = re.compile(r"(encode|decode)_(\d+)_(conv_(\d+)|residual|down|up)")
 _RENAME = {"conv": "op", "norm": "normalization"}
-# unchanged leaves: spectral-operator weights and HartleyMHA's projections
-_WEIGHTS = ("weight", "weight_query", "weight_key", "weight_value",
-            "weight_out")
+# unchanged leaves: spectral-operator weights (Hartley's, Fourier's real
+# pair) and HartleyMHA's projections
+_WEIGHTS = ("weight", "weight_real", "weight_imag", "weight_query",
+            "weight_key", "weight_value", "weight_out")
 
 
 def _segment(seg: str, num_blocks: Optional[Sequence[int]],

@@ -1,13 +1,15 @@
 """Device-time profile of a serving step on one CUDA card.
 
     python -m multimodal_3d_image_segmentation_tpu_torch.utils.profiling \
-        [--model hnosegxs|vnetds|hartleymha] [--trace trace.json]
+        [--model hnosegxs|vnetds|hartleymha|hnoseg|fnoseg]
+        [--trace trace.json]
 
 At the width of the serving config (HNOSeg-XS: filters 24, blocks [3]*8;
 V-Net-DS: base 24, blocks [1,2,3,3,3], right leg [0..4]; HartleyMHASeg:
-filters 24, 16 blocks, 4 heads, modes (8,12,12), patch 2; seeded random
-weights, one random 4-modality 240x240x155 volume already on the card) it
-prints:
+filters 24, 16 blocks, 4 heads, modes (8,12,12), patch 2; HNOSeg and
+FNOSeg: filters 24, 24 blocks, modes (10,14,14), shared weights, Hartley or
+Fourier; seeded random weights, one random 4-modality 240x240x155 volume
+already on the card) it prints:
 
   * forward + argmax in ms (CUDA events; median, min, max of 20 runs
     after 3 warm-ups) of the plain path and the kernel path, in the order
@@ -29,7 +31,7 @@ import subprocess
 import numpy as np
 import torch
 
-from ..models import HartleyMHASeg, HNOSegXS, VNetDS
+from ..models import HartleyMHASeg, HNOSegXS, NeuralOperatorSeg, VNetDS
 from ..runtime.steps import make_predict_step
 
 __all__ = ["step_ms", "profile_steps"]
@@ -45,13 +47,20 @@ MODELS = {
                                        filters=24, num_transform_blocks=16,
                                        num_heads=4, num_modes=(8, 12, 12),
                                        patch_size=2)),
+    **{name: (NeuralOperatorSeg, dict(in_channels=4, out_channels=4,
+                                      filters=24, num_transform_blocks=24,
+                                      num_modes=(10, 14, 14),
+                                      transform_type=transform))
+       for name, transform in (("hnoseg", "Hartley"),
+                               ("fnoseg", "Fourier"))},
 }
 SIZE = (240, 240, 155)
 SEED = 0
 N_TIMED = 20
 OWN_KERNELS = ("conv_in_kernel", "freq_chain_kernel", "tail_kernel",
                "conv3_kernel", "conv3_split_sum", "tower_block_kernel",
-               "tower_spectrum_sum")
+               "tower_spectrum_sum", "tower_block_s_kernel",
+               "tower_spectrum_depth")
 N_PROFILED = 5
 
 

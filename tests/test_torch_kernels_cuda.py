@@ -11,10 +11,10 @@ against cuDNN / cuBLAS in full fp32), 1e-6 on the tail's probabilities.
 conv3 sums up to 27 x 768 products in another order than cuDNN: 1e-4
 times the output's largest magnitude (at least 1); a TF32 product would
 miss by about 5e-4 of it. Its moment sums are held to float64 sums of its
-own output, to 1e-5 of the sum of magnitudes. tower_block sums up to 52
-fp32 products per output in another order than cuBLAS: 1e-5 times each
-output's largest magnitude (at least 1); a TF32 operand would miss by about
-5e-4 of it.
+own output, to 1e-5 of the sum of magnitudes. tower_block and
+tower_block_s sum up to 56 fp32 products per output in another order than
+cuBLAS: 1e-5 times each output's largest magnitude (at least 1); a TF32
+operand would miss by about 5e-4 of it.
 """
 import numpy as np
 import pytest
@@ -23,6 +23,8 @@ import torch
 from multimodal_3d_image_segmentation_tpu_torch import kernels
 from multimodal_3d_image_segmentation_tpu_torch.kernels import \
     tower_block as tb
+from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+    tower_block_s as tbs
 
 pytestmark = pytest.mark.cuda
 
@@ -192,17 +194,36 @@ def test_conv3_refuses_what_it_does_not_take(dev):
         kernels.conv3(x.double(), w.double(), b.double())
 
 
-def _tower_inputs(dev, sizes, modes, c, n_ds, seed=40):
-    spec = tb.make_tower_spec("Hartley", sizes, modes, c, n_ds=n_ds)
+def _tower_inputs(dev, sizes, modes, c, n_ds, seed=40, transform="Hartley",
+                  resident=False):
+    """A block's operands; the spectrum operand is z (tower_block) or,
+    with ``resident``, the resident spectrum sy (tower_block_s)."""
+    spec = tb.make_tower_spec(transform, sizes, modes, c, n_ds=n_ds)
     x = _t(sizes + (c,), seed, dev)
+    ops = [_t((c, c), seed + 5 + i, dev, 1 / np.sqrt(c))
+           for i in range(1 if transform == "Hartley" else 2)]
     with torch.no_grad():
-        s = tb.d_stage_forward(tb.entry_forward_hw(x, spec), spec)
-        z = tb.d_stage_inverse(torch.selu(s), spec).contiguous()
+        s = tb.spectrum_mix(tb.d_stage_forward(tb.entry_forward_hw(x, spec),
+                                               spec), ops, spec)
+        s = s if resident else tb.d_stage_inverse(s, spec)
     w_cat = _t((2 * c + n_ds, c), seed + 1, dev, 1 / np.sqrt(c))
     w_cc_t = _t((c, c), seed + 2, dev, 1 / np.sqrt(c))
     b_cat = _t((2 * c,), seed + 3, dev, 0.1)
     ds_prev = _t(sizes + (n_ds,), seed + 4, dev) if n_ds else None
-    return (x, z, w_cat, w_cc_t, b_cat, spec, ds_prev)
+    return (x, s.contiguous(), w_cat, w_cc_t, b_cat, spec, ds_prev)
+
+
+def _held_to_plain(name, kern, plain, args):
+    with torch.no_grad():
+        got = _launched(name, lambda: kern(*args))
+        want = plain(*args)
+        again = kern(*args)
+    assert len(got) == len(want) == (3 if args[-1] is not None else 2)
+    for g, wt, a in zip(got, want, again):
+        assert g.shape == wt.shape and g.dtype == torch.float32
+        tol = 1e-5 * max(1.0, float(wt.abs().max()))
+        assert float((g - wt).abs().max()) <= tol
+        assert torch.equal(g, a)  # no atomics: the same from run to run
 
 
 @pytest.mark.parametrize("sizes,modes", [
@@ -225,6 +246,77 @@ def test_tower_block_kernel_matches_plain(dev, sizes, modes, c, n_ds):
         tol = 1e-5 * max(1.0, float(wt.abs().max()))
         assert float((g - wt).abs().max()) <= tol
         assert torch.equal(g, a)  # no atomics: the same from run to run
+
+
+@pytest.mark.parametrize("sizes,modes", [
+    ((7, 9, 7), (2, 3, 3)),       # odd KW = 3: rows at odd offsets
+    ((9, 37, 21), (3, 5, 4)),     # ragged tiles and chunks, odd sizes
+    ((21, 33, 30), (10, 14, 14)),  # the config's modes, KW 14
+])
+@pytest.mark.parametrize("c", [8, 24])
+@pytest.mark.parametrize("n_ds", [0, 4])
+def test_tower_block_kernel_matches_plain_fourier(dev, sizes, modes, c,
+                                                  n_ds):
+    _held_to_plain("tower_block", kernels.fused_tower_block,
+                   kernels.tower_block_plain,
+                   _tower_inputs(dev, sizes, modes, c, n_ds,
+                                 transform="Fourier"))
+
+
+@pytest.mark.parametrize("transform,sizes,modes", [
+    ("Hartley", (7, 9, 6), (2, 3, 2)),     # one ragged W tile and H chunk
+    ("Hartley", (9, 37, 21), (3, 5, 4)),   # ragged tiles and chunks
+    ("Hartley", (21, 33, 30), (10, 14, 14)),  # the configs' modes, KS 20
+    ("Fourier", (7, 9, 7), (2, 3, 3)),     # odd KW = 3
+    ("Fourier", (9, 37, 21), (3, 5, 5)),   # odd sizes, odd KW = 5
+    ("Fourier", (21, 33, 30), (10, 14, 14)),  # KS 40, KW 14
+])
+@pytest.mark.parametrize("c", [8, 24])
+@pytest.mark.parametrize("n_ds", [0, 4])
+def test_tower_block_s_kernel_matches_plain(dev, transform, sizes, modes, c,
+                                            n_ds):
+    _held_to_plain("tower_block_s", kernels.fused_tower_block_s,
+                   kernels.tower_block_s_plain,
+                   _tower_inputs(dev, sizes, modes, c, n_ds, 41, transform,
+                                 resident=True))
+
+
+def test_tower_block_s_refuses_what_it_does_not_take(dev):
+    x, sy, w_cat, w_cc_t, b_cat, spec, ds_prev = _tower_inputs(
+        dev, (7, 9, 6), (2, 3, 2), 24, 4, resident=True)
+    with pytest.raises(ValueError, match="sy has shape"):
+        kernels.fused_tower_block_s(x, sy[:3].contiguous(), w_cat, w_cc_t,
+                                    b_cat, spec, ds_prev)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.fused_tower_block_s(x, sy.transpose(2, 3).contiguous()
+                                    .transpose(2, 3), w_cat, w_cc_t, b_cat,
+                                    spec, ds_prev)
+    with pytest.raises(ValueError, match="cpu"):
+        kernels.fused_tower_block_s(x, sy.cpu(), w_cat, w_cc_t, b_cat, spec,
+                                    ds_prev)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.fused_tower_block_s(*(t.double() for t in (x, sy, w_cat,
+                                                           w_cc_t, b_cat)),
+                                    spec, ds_prev.double())
+    x12, s12, w12, wc12, b12, spec12, _ = _tower_inputs(
+        dev, (7, 9, 6), (2, 3, 2), 12, 0, resident=True)
+    with pytest.raises(ValueError, match="no instance for C=12"):
+        kernels.fused_tower_block_s(x12, s12, w12, wc12, b12, spec12)
+    wg = w_cat.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.fused_tower_block_s(x, sy, wg, w_cc_t, b_cat, spec, ds_prev)
+    # 2 * KD = 66 spectrum rows hold more than a second-pass thread keeps
+    xb, sb, wb, wcb, bb, specb, _ = _tower_inputs(
+        dev, (66, 9, 6), (33, 3, 2), 8, 0, transform="Fourier",
+        resident=True)
+    with pytest.raises(ValueError, match="spectrum rows"):
+        kernels.fused_tower_block_s(xb, sb, wb, wcb, bb, specb)
+
+
+def test_tower_block_occupancy_is_reported(dev):
+    spec = tb.make_tower_spec("Hartley", (21, 33, 30), (10, 14, 14), 24)
+    for blocks, regs in (tb.occupancy(spec), tbs.occupancy(spec)):
+        assert blocks >= 1 and 0 < regs <= 128
 
 
 def test_tower_block_refuses_what_it_does_not_take(dev):
@@ -268,4 +360,50 @@ def test_hartleymha_kernel_path_matches_plain_path(dev, patch):
     assert kernels.LAUNCHES["tower_block"] == before["tower_block"] + 2
     assert kernels.LAUNCHES["conv_in"] == before["conv_in"] + 1
     assert kernels.LAUNCHES["tail_resize"] == before["tail_resize"] + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=3e-5)
+
+
+@pytest.mark.parametrize("transform", ["Hartley", "Fourier"])
+@pytest.mark.parametrize("tower_kernel", ["block_s", "block"])
+@pytest.mark.parametrize("ds", [False, True])
+def test_neuraloperatorseg_kernel_path_matches_plain_path(dev, transform,
+                                                          tower_kernel, ds):
+    from multimodal_3d_image_segmentation_tpu_torch.models import \
+        NeuralOperatorSeg
+    kw = dict(in_channels=2, out_channels=3, filters=8,
+              num_transform_blocks=3, num_modes=(2, 3, 3),
+              transform_type=transform, use_deep_supervision=ds)
+    plain = NeuralOperatorSeg(**kw, device=dev)
+    fast = NeuralOperatorSeg(**kw, use_kernels=True,
+                             tower_kernel=tower_kernel, device=dev)
+    fast.load_state_dict(plain.state_dict())
+    x = _t((1, 2, 15, 17, 13), 51, dev)
+    before = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        got, want = fast(x), plain(x)
+    torch.cuda.synchronize()
+    name = "tower_block_s" if tower_kernel == "block_s" else "tower_block"
+    assert kernels.LAUNCHES[name] == before[name] + 3
+    assert kernels.LAUNCHES["conv_in"] == before["conv_in"] + 1
+    assert kernels.LAUNCHES["tail_resize"] == before["tail_resize"] + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=3e-5)
+
+
+@pytest.mark.parametrize("patch", [None, 2])
+def test_hartleymha_block_s_kernel_path_matches_plain_path(dev, patch):
+    from multimodal_3d_image_segmentation_tpu_torch.models import \
+        HartleyMHASeg
+    kw = dict(in_channels=2, out_channels=3, filters=8,
+              num_transform_blocks=2, num_heads=2, num_modes=(2, 3, 2),
+              patch_size=patch)
+    plain = HartleyMHASeg(**kw, device=dev)
+    fast = HartleyMHASeg(**kw, use_kernels=True, tower_kernel="block_s",
+                         device=dev)
+    fast.load_state_dict(plain.state_dict())
+    x = _t((1, 2, 15, 17, 13), 52, dev)
+    before = kernels.LAUNCHES["tower_block_s"]
+    with torch.no_grad():
+        got, want = fast(x), plain(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tower_block_s"] == before + 2
     torch.testing.assert_close(got, want, rtol=0, atol=3e-5)

@@ -149,12 +149,15 @@ def test_serving_matches_jax_testing(tmp_path, use_pallas):
 
 def test_port_never_imports_jax(tmp_path):
     """A fresh interpreter that imports the port, parses a config and runs
-    CPU forwards of both models never loads jax, flax or any module of the JAX
-    package."""
+    CPU forwards of every model never loads jax, flax or any module of the
+    JAX package."""
     code = (
         "import sys, torch\n"
         "from multimodal_3d_image_segmentation_tpu_torch.models import "
-        "HartleyMHASeg, HNOSegXS, VNetDS\n"
+        "HartleyMHASeg, HNOSegXS, NeuralOperatorSeg, VNetDS\n"
+        "import multimodal_3d_image_segmentation_tpu_torch.kernels."
+        "tower_block_s\n"
+        "import multimodal_3d_image_segmentation_tpu_torch.ops.operators\n"
         "from multimodal_3d_image_segmentation_tpu_torch.runtime import "
         "inference, config\n"
         "from multimodal_3d_image_segmentation_tpu_torch.utils import "
@@ -174,6 +177,12 @@ def test_port_never_imports_jax(tmp_path):
         "use_kernels=True)\n"
         "with torch.no_grad():\n"
         "    assert a(torch.randn(1, 2, 12, 10, 8)).shape == (1, 3, 12, 10, 8)\n"
+        "for t in ('Hartley', 'Fourier'):\n"
+        "    n = NeuralOperatorSeg(2, 3, 4, 2, (2, 2, 2), t, "
+        "use_kernels=True)\n"
+        "    with torch.no_grad():\n"
+        "        assert n(torch.randn(1, 2, 12, 10, 8)).shape == "
+        "(1, 3, 12, 10, 8)\n"
         f"config.get_config({str(REPO / 'configs' / 'config_inference_hnoseg_xs.ini')!r})\n"
         "print('jax' in sys.modules, 'flax' in sys.modules, any(\n"
         "    n.split('.')[0] == 'multimodal_3d_image_segmentation_tpu'\n"
@@ -216,7 +225,8 @@ def test_build_model_from_the_serving_config():
     with pytest.raises(ValueError, match="transform_precision"):
         _build_model(cfg, _Sizes(), lambda: (240, 240, 155))
     cfg["model"]["transform_precision"] = "highest"
-    cfg["model"]["model_name"] = "NeuralOperatorSeg"
+    cfg["model"].update(model_name="NeuralOperatorSeg",
+                        num_transform_blocks=2, weights_type="individual")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _build_model(cfg, _Sizes(), lambda: (240, 240, 155))
 

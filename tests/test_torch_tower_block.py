@@ -181,5 +181,5 @@ def test_wrapper_refuses_what_it_does_not_take():
                              ds_prev)
     with pytest.raises(ValueError, match="smaller than 2 \\* modes"):
         tb.make_tower_spec("Hartley", (8, 5, 5), MODES, C)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tb.make_tower_spec("Fourier", (8, 6, 5), MODES, C)
+    with pytest.raises(ValueError, match="'Hartley' or 'Fourier'"):
+        tb.make_tower_spec("Cosine", (8, 6, 5), MODES, C)
