@@ -3,24 +3,28 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-Drives the port's five serving paths once at full width on 4-modality
+Drives the port's seven serving paths once at full width on 4-modality
 240x240x155 volumes, batch 1, fp32, random weights from a seed: HNOSeg-XS
 (filters 24, blocks [3]*8, modes (10,14,14)), V-Net-DS (base 24, blocks
 [1,2,3,3,3], right leg [0..4], 22,547,764 parameters), HartleyMHASeg
 (filters 24, 16 blocks, 4 heads, modes (8,12,12), patch 2, deep
 supervision, 178,532 parameters), and HNOSeg and FNOSeg (NeuralOperatorSeg:
 filters 24, 24 blocks, modes (10,14,14), shared weights, Hartley or
-Fourier, 57,360 and 71,184 parameters). It checks them:
+Fourier, 57,360 and 71,184 parameters), the last two on two tower kernels
+(``tower_kernel`` 'block_s', the configs' default, and 'resident'). It
+checks them:
 
   1. device   the card's name and power limit, torch and CUDA versions;
   2. build    compile the CUDA kernels from ``csrc/`` (one nvcc per source,
               all at once, sm_90a);
   3. kernels  conv_in (also at the odd-D/H shape 239x239x155),
               freq_chain, tail_resize, tower_block (also with FNOSeg's
-              Fourier matrices) and tower_block_s (at HNOSeg's, FNOSeg's
-              and HartleyMHASeg's shapes) against their plain PyTorch
-              versions at the serving shapes, with their times, the plain
-              versions' and the bound, and both tower kernels' occupancy;
+              Fourier matrices), tower_block_s (at HNOSeg's, FNOSeg's
+              and HartleyMHASeg's shapes) and tower_resident (the whole
+              24-block tower at HNOSeg's and FNOSeg's shapes) against their
+              plain PyTorch versions at the serving shapes, with their
+              times, the plain versions' and the bound, and the tower
+              kernels' occupancy and tower_resident's persistent grid;
   4. serve    ``runtime/inference.py::run_inference`` on 3 synthetic NIfTI
               cases through ``configs/config_inference_hnoseg_xs.ini``; the
               launch counts (reset just before) must be 3 / 24 / 3;
@@ -49,16 +53,19 @@ Fourier, 57,360 and 71,184 parameters). It checks them:
  11. serve    run_inference serves the same cases through
               ``configs/config_hnoseg.ini`` and ``configs/config_fnoseg.ini``;
               launches (reset just before each) must be conv_in 3,
-              tower_block_s 72, tail_resize 3;
- 12. model    for each of the two, the kernel path against its plain path
-              and float64 on a served volume and on a small volume against
-              the CPU; a control with tower_block_s's operands in TF32 must
-              fail the bars; forward + argmax times of the two tower
+              tower_block_s 72, tail_resize 3; then again with
+              ``tower_kernel = 'resident'`` set on the loaded config:
+              conv_in 3, tower_resident 3, tail_resize 3;
+ 12. model    for each of the two, the kernel paths on tower_block_s and
+              on tower_resident against the plain path and float64 on a
+              served volume, and the first on a small volume against the
+              CPU; a control with each tower kernel's operands in TF32 must
+              fail the bars; forward + argmax times of the three tower
               kernels.
 
 Every failed check raises, so the exit code is not 0. The script refuses
 to run without CUDA. The line before the last is a JSON object with the
-kernels' numbers (``launches`` summed over the five serving runs; times are
+kernels' numbers (``launches`` summed over the seven serving runs; times are
 medians of CUDA-event runs, ``bound_ms`` the larger of the bytes over
 3.35 TB/s and the operations over 67 TFLOP/s fp32, the H100 SXM's data
 sheet rates); the last line is
@@ -109,16 +116,34 @@ KERNELS = [
     ("tower_block_s",
      "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block_s.cu",
      "multimodal_3d_image_segmentation_tpu/kernels/tower_block_s.py:332"),
+    ("tower_resident",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_resident.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/tower_resident.py:244"),
 ]
 # each main path's launches per volume
 PER_VOLUME_HNOSEG = {"conv_in": 1, "freq_chain": 8, "tail_resize": 1,
-                     "conv3": 0, "tower_block": 0, "tower_block_s": 0}
+                     "conv3": 0, "tower_block": 0, "tower_block_s": 0,
+                     "tower_resident": 0}
 PER_VOLUME_VNET = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
-                   "conv3": 29, "tower_block": 0, "tower_block_s": 0}
+                   "conv3": 29, "tower_block": 0, "tower_block_s": 0,
+                   "tower_resident": 0}
 PER_VOLUME_MHA = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
-                  "conv3": 0, "tower_block": 16, "tower_block_s": 0}
+                  "conv3": 0, "tower_block": 16, "tower_block_s": 0,
+                  "tower_resident": 0}
 PER_VOLUME_NOSEG = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
-                    "conv3": 0, "tower_block": 0, "tower_block_s": 24}
+                    "conv3": 0, "tower_block": 0, "tower_block_s": 24,
+                    "tower_resident": 0}
+PER_VOLUME_NOSEG_RESIDENT = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
+                             "conv3": 0, "tower_block": 0,
+                             "tower_block_s": 0, "tower_resident": 1}
+
+
+T0 = time.perf_counter()
+
+
+def header(text):
+    """A phase's header line, with the seconds since the script started."""
+    print(f"{text} (at {time.perf_counter() - T0:.0f} s)", flush=True)
 
 
 def check(cond, msg):
@@ -156,7 +181,7 @@ def nbytes(*tensors):
 
 
 def phase_device(torch):
-    print("== device", flush=True)
+    header("== device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -167,7 +192,7 @@ def phase_device(torch):
 
 
 def phase_build(kernels):
-    print("== build", flush=True)
+    header("== build")
     t0 = time.perf_counter()
     lib = kernels.library()
     print(f"kernel library {lib.path.name}: nvcc {lib.build_seconds:.2f} s, "
@@ -181,7 +206,7 @@ def phase_build(kernels):
 def phase_kernels(torch, kernels, dev):
     """Each HNOSeg-XS kernel against its plain version at the serving
     shapes."""
-    print("== kernels", flush=True)
+    header("== kernels")
     import torch.nn.functional as F
     rng = np.random.default_rng(SEED)
 
@@ -276,6 +301,20 @@ def tower_block_s_work(spec, ks):
     return flops, moved
 
 
+def tower_resident_work(spec, ks, nb):
+    """(flops, bytes) of one tower_resident call of nb blocks: nb
+    tower_block_s blocks and nb operator mixes of the packed spectrum (block
+    0's entry spectrum, built before the launch, does the forward work that
+    the last block skips); x read and out written once, and the weights."""
+    c, kh, kw = spec.channels, spec.kh, spec.kw
+    pr = 1 if spec.transform == "Hartley" else 2
+    mix_macs = pr * ks * c * c * kh * kw
+    flops = nb * (tower_block_s_work(spec, ks)[0] + 2 * mix_macs)
+    moved = 4 * (2 * int(np.prod(spec.sizes)) * c
+                 + nb * (pr * c * c + 3 * c * c + 2 * c))
+    return flops, moved
+
+
 def _tower_operands(torch, tb, dev, spec, seed):
     """Random block operands at ``spec``: x, the spectrum after a Hartley
     SELU or a Fourier mix (the packed spectrum s, KS rows), the weights
@@ -331,7 +370,7 @@ def phase_tower_block(torch, kernels, dev):
     KW 14). Tolerance: 1e-5 of each output's largest magnitude (at least
     1): the kernel sums up to 56 fp32 products in another order than
     cuBLAS; a TF32 operand would miss by about 5e-4 of it."""
-    print("== tower_block", flush=True)
+    header("== tower_block")
     from multimodal_3d_image_segmentation_tpu_torch.kernels import \
         tower_block as tb
     with torch.inference_mode():
@@ -376,7 +415,7 @@ def phase_tower_block_s(torch, kernels, dev):
     the same bits. Also both tower kernels' occupancy (resident blocks per
     SM and registers, from the CUDA runtime) at those shapes. The kernels
     line reports HNOSeg's shape."""
-    print("== tower_block_s", flush=True)
+    header("== tower_block_s")
     from multimodal_3d_image_segmentation_tpu_torch.kernels import \
         tower_block as tb
     from multimodal_3d_image_segmentation_tpu_torch.kernels import \
@@ -429,6 +468,108 @@ def phase_tower_block_s(torch, kernels, dev):
     return out
 
 
+def phase_tower_resident(torch, kernels, dev):
+    """tower_resident against its plain version at HNOSeg's and FNOSeg's
+    serving shapes (grid 121x121x78, C 24, modes (10,14,14), 24 blocks) with
+    the models' own seeded weights: 1e-5 of the output's largest magnitude
+    (at least 1), the tower_block_s bar; a second run must give the same
+    bits and the input must be untouched. Beside the kernel's time: the
+    plain version's, the same 24 blocks as tower_block_s launches with the
+    operator between them, the bound, the persistent grid and the
+    occupancy. The kernels line reports HNOSeg's shape."""
+    header("== tower_resident")
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        tower_block as tb
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        tower_block_s as tbs
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        tower_resident as tr
+    from multimodal_3d_image_segmentation_tpu_torch.models import \
+        NeuralOperatorSeg
+    nb = NOSEG["num_transform_blocks"]
+    results = {}
+    for i, (label, transform) in enumerate((("HNOSeg", "Hartley"),
+                                            ("FNOSeg", "Fourier"))):
+        spec = tb.make_tower_spec(transform, GRID, NOSEG["num_modes"], 24)
+        ks = tb.spectrum_rows(spec)
+        model = NeuralOperatorSeg(**NOSEG, transform_type=transform,
+                                  generator=torch.Generator().manual_seed(
+                                      SEED), device=dev)
+        with torch.inference_mode():
+            weights = model.resident_operands()
+            x = torch.from_numpy(np.random.default_rng(SEED + 9 + i)
+                                 .standard_normal(GRID + (24,),
+                                                  dtype=np.float32)).to(dev)
+            x0 = x.clone()
+
+            def kern():
+                return kernels.resident_tower(x, *weights, spec)
+
+            def plain():
+                return kernels.resident_tower_plain(x, *weights, spec)
+
+            def chain():
+                ops, wcat, wcc, b = weights
+                y = x
+                s = tbs.spectrum_mix_s(tbs.entry_spectrum_s(y, spec), ops[0],
+                                       spec)
+                for j in range(nb):
+                    y, s_f = kernels.fused_tower_block_s(
+                        y, s.contiguous(), wcat[j], wcc[j], b[j], spec)
+                    if j + 1 < nb:
+                        s = tbs.spectrum_mix_s(s_f, ops[j + 1], spec)
+                return y
+            err = _held_to_plain(torch, kernels, "tower_resident",
+                                 f"tower_resident {label}",
+                                 lambda: (kern(),), lambda: (plain(),),
+                                 ("out",))
+            check(bool(torch.equal(x, x0)),
+                  f"tower_resident {label}: the input was written")
+            # where the 24 blocks leave fp32: the kernel's and the plain
+            # version's distance from a float64 evaluation of the tower, and
+            # the kernel's from the same blocks launched one by one
+            got = kern()
+            ref = kernels.resident_tower_plain(
+                x.double(), *(w.double() for w in weights), spec)
+            print(f"tower_resident {label}: max abs err against float64: "
+                  f"kernel {float((got.double() - ref).abs().max()):.3e}, "
+                  f"plain {float((plain().double() - ref).abs().max()):.3e}"
+                  f"; kernel against the block_s chain "
+                  f"{float((got - chain()).abs().max()):.3e}")
+            del got, ref
+            tr.phase_ms(reset=True)
+            ms = median_ms(torch, kern)
+            calls = N_TIMED + 3  # median_ms's runs and warm-up calls
+            phases = {k: v / calls for k, v in tr.phase_ms(reset=True).items()}
+            plain_ms, chain_ms = median_ms(torch, plain), median_ms(torch, chain)
+        flops, moved = tower_resident_work(spec, ks, nb)
+        b_ms, b_by = bound(flops, moved)
+        (blocks, regs), grid = tr.occupancy(spec), tr.resident_grid(spec)
+        print(f"tower_resident {label} ({transform}, {nb} blocks, KS {ks}, "
+              f"KH {spec.kh}, KW {spec.kw}): kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  library None  bound {b_ms:.4f} ms "
+              f"({b_by}; {flops / 1e9:.3f} GFLOP, {moved / 1e6:.1f} MB), "
+              f"{flops / ms / 1e9:.2f} TFLOP/s; {nb} x (spectrum_mix_s + "
+              f"fused_tower_block_s) {chain_ms:.4f} ms (medians of "
+              f"{N_TIMED}, CUDA events); persistent grid {grid} blocks, "
+              f"{blocks} per SM, {regs} registers per thread, shared memory "
+              f"{tb.kernel_smem_bytes(spec)} B per block")
+        print(f"tower_resident {label} phases per call (ms, mean of {calls} "
+              f"calls, block 0's globaltimer after each grid barrier): "
+              f"bodies of the first {nb - 1} blocks {phases['body']:.4f}, depth "
+              f"passes {phases['depth']:.4f}, operator mixes "
+              f"{phases['mix']:.4f}, last block's body "
+              f"{phases['last_body']:.4f}")
+        results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": None}
+        del model, weights, x, x0
+        torch.cuda.empty_cache()
+    out = dict(results["HNOSeg"])
+    out["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
+    return out
+
+
 def _write_cases(root: Path):
     """3 synthetic 4-modality cases + label maps as NIfTI, and list files."""
     from multimodal_3d_image_segmentation_tpu_torch.data import write_image
@@ -459,10 +600,11 @@ def _write_cases(root: Path):
 
 
 def phase_serve(torch, kernels, work: Path, list_paths, label, config,
-                model, n_params, per_volume):
-    """A main path: run_inference through a serving config, its launch
-    counts set to 0 just before and read just after."""
-    print(f"== serve {label}", flush=True)
+                model, n_params, per_volume, model_keys=None):
+    """A main path: run_inference through a serving config (with
+    ``model_keys`` set on its [model] section), its launch counts set to 0
+    just before and read just after."""
+    header(f"== serve {label}")
     from multimodal_3d_image_segmentation_tpu_torch.data import read_img
     from multimodal_3d_image_segmentation_tpu_torch.runtime.config import \
         get_config
@@ -478,6 +620,7 @@ def phase_serve(torch, kernels, work: Path, list_paths, label, config,
     cfg["main"]["output_dir"] = str(out_dir)
     cfg["input_lists"]["data_dir"] = str(work / "data")
     cfg["input_lists"]["data_lists_test_paths"] = list_paths
+    cfg["model"].update(model_keys or {})
 
     kernels.reset_launch_counts()
     stats = run_inference(cfg)
@@ -592,7 +735,7 @@ def small_volume(torch):
 def phase_model_hnoseg(torch, state, case_dir: Path, dev):
     """HNOSeg-XS: kernel path against the plain path with the same weights, both held
     to a float64 evaluation of the model, and two controls."""
-    print("== model HNOSeg-XS", flush=True)
+    header("== model HNOSeg-XS")
     from multimodal_3d_image_segmentation_tpu_torch.models import HNOSegXS
 
     def build(use_kernels, device, dtype=torch.float32, weights=state):
@@ -702,8 +845,7 @@ def phase_conv3(torch, kernels, calls):
     1): the kernel sums up to 27 x 384 products in another order than
     cuDNN; TF32 products would miss by about 5e-4 of it. The moment sums
     are held to float64 sums of the kernel's own output."""
-    print(f"== conv3 ({len(calls)} calls of one V-Net-DS forward)",
-          flush=True)
+    header(f"== conv3 ({len(calls)} calls of one V-Net-DS forward)")
     import torch.nn.functional as F
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
            "bytes": 0, "max_abs_err": 0.0}
@@ -784,7 +926,7 @@ def phase_model_mha(torch, state, case_dir: Path, dev):
     rows on a real path) and on a small one against the CPU; a control with
     tower_block's operands (the volume, z and the weights) rounded to TF32
     must fail the bars."""
-    print("== model HartleyMHASeg", flush=True)
+    header("== model HartleyMHASeg")
     from multimodal_3d_image_segmentation_tpu_torch import kernels
     from multimodal_3d_image_segmentation_tpu_torch.models import (
         HartleyMHASeg, architectures)
@@ -842,13 +984,16 @@ def phase_model_mha(torch, state, case_dir: Path, dev):
 
 
 def phase_model_noseg(torch, state, transform, case_dir: Path, dev):
-    """HNOSeg / FNOSeg: the kernel path (tower_block_s) against the plain
-    path and float64 on a served volume and on a small one against the
-    CPU; a control with tower_block_s's operands (the volume, the resident
-    spectrum and the weights) rounded to TF32 must fail the bars; forward +
-    argmax times of both tower kernels with the input on the card."""
+    """HNOSeg / FNOSeg: the kernel path on tower_block_s and on
+    tower_resident against the plain path and float64 on a served volume
+    (one float64 evaluation for both), the first also on a small one
+    against the CPU; a control with each tower kernel's operands (the
+    volume, the spectrum and the weights) rounded to TF32 must fail the
+    bars; forward + argmax times of the three tower kernels with the input
+    on the card."""
     label = "HNOSeg" if transform == "Hartley" else "FNOSeg"
-    print(f"== model {label}", flush=True)
+    header(f"== model {label}")
+    from multimodal_3d_image_segmentation_tpu_torch import kernels
     from multimodal_3d_image_segmentation_tpu_torch.models import (
         NeuralOperatorSeg, architectures)
     from multimodal_3d_image_segmentation_tpu_torch.runtime.steps import \
@@ -886,6 +1031,27 @@ def phase_model_noseg(torch, state, transform, case_dir: Path, dev):
             architectures.fused_tower_block_s = real
         compare(torch, f"{label} control: tower_block_s operands in TF32",
                 fast, plain, ref, bars, control=True)
+        del fast
+        before = kernels.LAUNCHES["tower_resident"]
+        fast = build(True, dev, tower_kernel="resident")(x)
+        check(kernels.LAUNCHES["tower_resident"] == before + 1,
+              f"{label} resident: launches")
+        compare(torch, f"{label} tower_kernel='resident' full volume "
+                f"{SHAPE}", fast, plain, ref, bars)
+        del fast
+        real_r = architectures.resident_tower
+
+        def tf32_resident(x1, ops, wcat, wcc, b, spec):
+            return real_r(_tf32(torch, x1), _tf32(torch, ops),
+                          _tf32(torch, wcat), _tf32(torch, wcc), b, spec)
+
+        architectures.resident_tower = tf32_resident
+        try:
+            fast = build(True, dev, tower_kernel="resident")(x)
+        finally:
+            architectures.resident_tower = real_r
+        compare(torch, f"{label} control: tower_resident operands in TF32",
+                fast, plain, ref, bars, control=True)
         del fast, plain, ref
 
         fast = build(True, dev)(xs.to(dev)).cpu()
@@ -894,8 +1060,9 @@ def phase_model_noseg(torch, state, transform, case_dir: Path, dev):
         compare(torch, f"{label} small volume (1,4,32,30,21), GPU kernels vs "
                 "CPU", fast, plain, ref, bars)
     steps = {k: make_predict_step(build(True, dev, tower_kernel=k))
-             for k in ("block_s", "block")}
-    for k in ("block_s", "block", "block", "block_s"):
+             for k in ("block_s", "block", "resident")}
+    for k in ("block_s", "block", "resident", "resident", "block",
+              "block_s"):
         t = median_ms(torch, lambda: steps[k](x), n=N_STEP_TIMED)
         print(f"{label} forward + argmax, tower_kernel={k!r}: {t:.4f} ms "
               f"(median of {N_STEP_TIMED}, CUDA events, input on the card)")
@@ -905,7 +1072,7 @@ def phase_model_vnet(torch, state, case_dir: Path, dev):
     """V-Net-DS: kernel path against plain path and float64 on a served
     volume and on a small one against the CPU; a control with conv3's
     operands (inputs and weights) rounded to TF32 must fail the bars."""
-    print("== model V-Net-DS", flush=True)
+    header("== model V-Net-DS")
     from multimodal_3d_image_segmentation_tpu_torch.models import (
         VNetDS, architectures)
 
@@ -966,6 +1133,7 @@ def main():
     results = phase_kernels(torch, kernels, dev)
     results["tower_block"] = phase_tower_block(torch, kernels, dev)
     results["tower_block_s"] = phase_tower_block_s(torch, kernels, dev)
+    results["tower_resident"] = phase_tower_resident(torch, kernels, dev)
     (REPO / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="smoke_", dir=REPO / "build"))
     try:
@@ -1017,12 +1185,16 @@ def main():
             noseg = NeuralOperatorSeg(
                 **NOSEG, transform_type=transform,
                 generator=torch.Generator().manual_seed(SEED))
-            launches_n = phase_serve(
-                torch, kernels, work, list_paths,
-                "HNOSeg" if transform == "Hartley" else "FNOSeg", config,
-                noseg, n_params, PER_VOLUME_NOSEG)
-            for k, v in launches_n.items():
-                launches[k] += v
+            label = "HNOSeg" if transform == "Hartley" else "FNOSeg"
+            for suffix, per_volume, keys in (
+                    ("", PER_VOLUME_NOSEG, None),
+                    ("-resident", PER_VOLUME_NOSEG_RESIDENT,
+                     {"tower_kernel": "resident"})):
+                launches_n = phase_serve(
+                    torch, kernels, work, list_paths, label + suffix, config,
+                    noseg, n_params, per_volume, keys)
+                for k, v in launches_n.items():
+                    launches[k] += v
             phase_model_noseg(torch, noseg.state_dict(), transform, case0,
                               dev)
             del noseg

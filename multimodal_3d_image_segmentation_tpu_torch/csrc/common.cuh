@@ -13,6 +13,23 @@ __device__ __forceinline__ float selu(float v) {
   return kSeluScale * (v > 0.f ? v : kSeluAlpha * expm1f(v));
 }
 
+// Loads of a buffer that one launch rewrites between grid-wide barriers
+// (kL2, the persistent tower kernel) go through L2 with ld.global.cg: the
+// read-only path (__ldg) is not coherent with those writes, and an SM's L1
+// may still hold a line that another SM has rewritten since. Otherwise
+// ldg_or_cg is __ldg and ld_or_cg a plain load.
+template <bool kL2, class T>
+__device__ __forceinline__ T ldg_or_cg(const T* p) {
+  if constexpr (kL2) return __ldcg(p);
+  else return __ldg(p);
+}
+
+template <bool kL2, class T>
+__device__ __forceinline__ T ld_or_cg(const T* p) {
+  if constexpr (kL2) return __ldcg(p);
+  else return *p;
+}
+
 }  // namespace m3seg
 
 // Every C entry point returns the launch status (cudaGetLastError) as an

@@ -103,8 +103,9 @@ tower_block_kernel(const float* __restrict__ x, const float* __restrict__ z,
                    int nds) {
   const ZFromTensor zsrc{z + (size_t)blockIdx.y * 2 * C * KH * KW, C, KH,
                          KW};
-  tower_block_body<C>(zsrc, x, wcat, wcc, bias, m, ds_prev, out, partial,
-                      ds_out, H, W, KH, KW, nds);
+  tower_block_body<C, false>(zsrc, blockIdx.y, blockIdx.x, gridDim.x, true,
+                             x, wcat, wcc, bias, m, ds_prev, out, partial,
+                             ds_out, H, W, KH, KW, nds);
 }
 
 // f[d] = sum over the tiles of partial[d][tile], in tile order.

@@ -1,6 +1,7 @@
 // The body of one fused tower block, shared by csrc/tower_block.cu (z read
-// from a tensor) and csrc/tower_block_s.cu (z formed from the resident
-// spectrum inside the block).
+// from a tensor), csrc/tower_block_s.cu (z formed from the resident
+// spectrum inside the block) and csrc/tower_resident.cu (the same, for
+// every block of the tower in one persistent launch).
 //
 // Computes, for one depth plane d of the tower grid (D, H, W), C channels,
 // and one tile of kTW columns of W, x and out channels-last (D, H, W, C):
@@ -81,23 +82,24 @@ __host__ __device__ inline int smem_floats(int C, int KH, int KW, int nds) {
          + 4 * KW * kTW;           // the tile's columns of Cwi, Swi, Cw, Sw
 }
 
-// One block of the kernel on plane blockIdx.y, W tile blockIdx.x. ZSrc
+// One block of the kernel on plane d, W tile `tile` of n_tiles. ZSrc
 // supplies the plane's z: zsrc.fill_y<C>(y_s, ny, cwi_s, swi_s, scratch)
 // writes the inverse W stage of z over the tile's columns into the y tile,
 // [2][KH][kTW][C]; every thread of the block calls it; scratch holds
-// kTH kTW C floats.
-template <int C, class ZSrc>
+// kTH kTW C floats. Without `forward` the block writes out (and ds) only,
+// no partial spectrum. kL2: x was written by the same launch (see
+// ld_or_cg); x and out never alias.
+template <int C, bool kL2, class ZSrc>
 __device__ __forceinline__ void tower_block_body(
-    const ZSrc& zsrc, const float* __restrict__ x,
-    const float* __restrict__ wcat, const float* __restrict__ wcc,
-    const float* __restrict__ bias, const Mats& m,
-    const float* __restrict__ ds_prev, float* __restrict__ out,
-    float* __restrict__ partial, float* __restrict__ ds_out, int H, int W,
-    int KH, int KW, int nds) {
+    const ZSrc& zsrc, int d, int tile, int n_tiles, bool forward,
+    const float* __restrict__ x, const float* __restrict__ wcat,
+    const float* __restrict__ wcc, const float* __restrict__ bias,
+    const Mats& m, const float* __restrict__ ds_prev,
+    float* __restrict__ out, float* __restrict__ partial,
+    float* __restrict__ ds_out, int H, int W, int KH, int KW, int nds) {
   constexpr int C4 = C / 4;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int tile = blockIdx.x, d = blockIdx.y, n_tiles = gridDim.x;
   const int w0 = tile * kTW;
   const int nw = min(kTW, W - w0);
   const int tid = threadIdx.x;
@@ -149,7 +151,7 @@ __device__ __forceinline__ void tower_block_body(
       const float4* src = reinterpret_cast<const float4*>(x + vox * C);
 #pragma unroll
       for (int q = 0; q < C4; ++q) {
-        const float4 v = src[q];
+        const float4 v = m3seg::ld_or_cg<kL2>(src + q);
         xv[4 * q] = v.x;
         xv[4 * q + 1] = v.y;
         xv[4 * q + 2] = v.z;
@@ -254,7 +256,7 @@ __device__ __forceinline__ void tower_block_body(
     const int nk4 = k2n / 4;
     const float4* o4s = reinterpret_cast<const float4*>(o_s);
     float4* f4s = reinterpret_cast<float4*>(f_s);
-    for (int e = tid; e < kTW * nk4 * C4; e += kThreads) {
+    for (int e = tid; forward && e < kTW * nk4 * C4; e += kThreads) {
       const int q = e % C4, r = e / C4;
       const int k4 = r % nk4, wl2 = r / nk4;
       float4 acc[4];
@@ -280,6 +282,7 @@ __device__ __forceinline__ void tower_block_body(
     __syncthreads();
   }
 
+  if (!forward) return;
   // ---- forward W stage over this tile's columns: the partial spectrum,
   // four channels of one (k, j) per thread
   const int ng = C * KH * KW;

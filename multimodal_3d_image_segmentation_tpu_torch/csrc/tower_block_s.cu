@@ -33,135 +33,9 @@
 // (about 14% more MACs per block at that shape, and the whole spectrum read
 // from L2 by every block, 1.8 GB per call); sharing z over a plane's tiles
 // through a thread-block cluster is later work.
-#include "tower_block.cuh"
+#include "tower_spectrum.cuh"
 
 namespace {
-
-constexpr int kMaxKS = 64;       // spectrum rows a depth-pass thread holds
-constexpr int kDepthGroups = 8;  // plane groups of the depth pass
-
-// Inverse W stage of the z rows r0 .. r0 + nr - 1 (row r = c KH + k),
-// held in shared memory as zre = zs[(r - r0) KW + j], zim = zs[chunk + ...],
-// into the y tile: one thread per (row, column) output.
-__device__ __forceinline__ void w_inverse_rows(
-    const float* zs, int chunk, int r0, int nr, const float* cwi_s,
-    const float* swi_s, float* y_s, int ny, int C, int KH, int KW) {
-  for (int o = threadIdx.x; o < nr * kTW; o += kThreads) {
-    const int rl = o / kTW, w = o % kTW;
-    const int c = (r0 + rl) / KH, k = (r0 + rl) % KH;
-    const float* za = zs + rl * KW;
-    const float* zb = za + chunk;
-    float re = 0.f, im = 0.f;
-    for (int j = 0; j < KW; ++j) {
-      const float a = za[j], b = zb[j];
-      const float cv = cwi_s[j * kTW + w], sv = swi_s[j * kTW + w];
-      re = fmaf(a, cv, fmaf(-b, sv, re));
-      im = fmaf(a, sv, fmaf(b, cv, im));
-    }
-    y_s[(k * kTW + w) * C + c] = re;
-    y_s[ny + (k * kTW + w) * C + c] = im;
-  }
-}
-
-// Adds sum_s mi[d, :, s] sy[s] at the N4 x 4 consecutive values src[0..]
-// of a chunk to za, zb: one 16-byte load per spectrum row and slot, all
-// slots' loads in flight together.
-template <int N4>
-__device__ __forceinline__ void z_values_vec(const float* src,
-                                             const float* mi, int KS, int ng,
-                                             float (&za)[N4][4],
-                                             float (&zb)[N4][4]) {
-#pragma unroll 4
-  for (int s = 0; s < KS; ++s) {
-    const float* p = src + (size_t)s * ng;
-    float4 q[N4];
-#pragma unroll
-    for (int n = 0; n < N4; ++n)
-      q[n] = __ldg(reinterpret_cast<const float4*>(p + n * 4 * kThreads));
-    const float m0 = __ldg(mi + s), m1 = __ldg(mi + KS + s);
-#pragma unroll
-    for (int n = 0; n < N4; ++n) {
-      const float v[4] = {q[n].x, q[n].y, q[n].z, q[n].w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        za[n][u] = fmaf(m0, v[u], za[n][u]);
-        zb[n][u] = fmaf(m1, v[u], zb[n][u]);
-      }
-    }
-  }
-}
-
-// The same with scalar loads, for a KW that is not a multiple of 4 (the
-// values past ne stay zero).
-template <int N4>
-__device__ __forceinline__ void z_values_scalar(const float* src,
-                                                const float* mi, int KS,
-                                                int ng, int left,
-                                                float (&za)[N4][4],
-                                                float (&zb)[N4][4]) {
-#pragma unroll 2
-  for (int s = 0; s < KS; ++s) {
-    const float* p = src + (size_t)s * ng;
-    float v[N4][4];
-#pragma unroll
-    for (int n = 0; n < N4; ++n)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = n * 4 * kThreads + u;
-        v[n][u] = i < left ? __ldg(p + i) : 0.f;
-      }
-    const float m0 = __ldg(mi + s), m1 = __ldg(mi + KS + s);
-#pragma unroll
-    for (int n = 0; n < N4; ++n)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        za[n][u] = fmaf(m0, v[n][u], za[n][u]);
-        zb[n][u] = fmaf(m1, v[n][u], zb[n][u]);
-      }
-  }
-}
-
-// Plane d's z, formed from the resident spectrum chunk by chunk: a chunk
-// is the whole rows (row r = c KH + k) of at most kTH kTW C / 2 values (the
-// scratch holds its two components); each thread forms N4 = C / 8 slots of
-// four consecutive values, z = sum_s mi[d, :, s] sy[s].
-struct ZFromSpectrum {
-  const float* sy;  // (KS, C, KH, KW)
-  const float* mi;  // mi[d]: (2, KS)
-  int KS, C, KH, KW;
-
-  template <int CC>
-  __device__ __forceinline__ void fill_y(float* y_s, int ny,
-                                         const float* cwi_s,
-                                         const float* swi_s,
-                                         float* zs) const {
-    constexpr int N4 = CC / 8, chunk = 4 * N4 * kThreads;
-    const int ng = CC * KH * KW;  // the stride of a spectrum row
-    const int rows = chunk / KW;
-    const bool vec = (KW & 3) == 0;
-    const int i0 = 4 * threadIdx.x;
-    for (int r0 = 0; r0 < CC * KH; r0 += rows) {
-      const int nr = min(rows, CC * KH - r0), ne = nr * KW;
-      const float* src = sy + (size_t)r0 * KW + i0;
-      float za[N4][4] = {}, zb[N4][4] = {};
-      if (vec && i0 + 4 * kThreads * (N4 - 1) + 3 < ne)
-        z_values_vec<N4>(src, mi, KS, ng, za, zb);
-      else if (i0 < ne)
-        z_values_scalar<N4>(src, mi, KS, ng, ne - i0, za, zb);
-#pragma unroll
-      for (int n = 0; n < N4; ++n)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + n * 4 * kThreads + u;
-          zs[i] = za[n][u];
-          zs[chunk + i] = zb[n][u];
-        }
-      __syncthreads();
-      w_inverse_rows(zs, chunk, r0, nr, cwi_s, swi_s, y_s, ny, CC, KH, KW);
-      __syncthreads();
-    }
-  }
-};
 
 template <int C>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -175,45 +49,23 @@ tower_block_s_kernel(const float* __restrict__ x,
                      float* __restrict__ out, float* __restrict__ partial,
                      float* __restrict__ ds_out, int H, int W, int KH,
                      int KW, int nds, int KS) {
-  const ZFromSpectrum zsrc{sy, mi + (size_t)blockIdx.y * 2 * KS, KS, C, KH,
-                           KW};
-  tower_block_body<C>(zsrc, x, wcat, wcc, bias, m, ds_prev, out, partial,
-                      ds_out, H, W, KH, KW, nds);
+  const ZFromSpectrum<false> zsrc{sy, mi + (size_t)blockIdx.y * 2 * KS, KS,
+                                  C, KH, KW};
+  tower_block_body<C, false>(zsrc, blockIdx.y, blockIdx.x, gridDim.x, true,
+                             x, wcat, wcc, bias, m, ds_prev, out, partial,
+                             ds_out, H, W, KH, KW, nds);
 }
 
-// groups[g][s][e] = sum over the planes d of group g, in plane order, of
-// mf[d][0][s] f0 + mf[d][1][s] f1, f_q = sum over the tiles of
-// partial[d][tile][q][e] in tile order; one thread per element e of a
-// spectrum row (C KH KW) and group, all KS rows in registers.
+// The depth pass: one thread per element e of a spectrum row (C KH KW)
+// and plane group (depth_group_element).
 __global__ void tower_spectrum_depth(const float* __restrict__ partial,
                                      const float* __restrict__ mf,
                                      float* __restrict__ groups, int D,
                                      int n_tiles, int ng, int KS) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= ng) return;
-  const int per_group = (D + kDepthGroups - 1) / kDepthGroups;
-  const int d0 = blockIdx.y * per_group, d1 = min(D, d0 + per_group);
-  float acc[kMaxKS];
-#pragma unroll
-  for (int s = 0; s < kMaxKS; ++s) acc[s] = 0.f;
-  for (int d = d0; d < d1; ++d) {
-    const float* p = partial + (size_t)d * n_tiles * 2 * ng + e;
-    float f0 = 0.f, f1 = 0.f;
-#pragma unroll 4
-    for (int t = 0; t < n_tiles; ++t) {
-      f0 += p[(size_t)t * 2 * ng];
-      f1 += p[(size_t)t * 2 * ng + ng];
-    }
-    const float* md = mf + (size_t)d * 2 * KS;
-#pragma unroll
-    for (int s = 0; s < kMaxKS; ++s)
-      if (s < KS)
-        acc[s] = fmaf(__ldg(md + s), f0, fmaf(__ldg(md + KS + s), f1, acc[s]));
-  }
-  float* out = groups + (size_t)blockIdx.y * KS * ng + e;
-#pragma unroll
-  for (int s = 0; s < kMaxKS; ++s)
-    if (s < KS) out[(size_t)s * ng] = acc[s];
+  depth_group_element<false>(partial, mf, groups, D, n_tiles, ng, KS, e,
+                             blockIdx.y);
 }
 
 // s_f = the sum of the groups, in group order.

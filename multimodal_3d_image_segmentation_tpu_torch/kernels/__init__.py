@@ -7,3 +7,5 @@ from .tail_resize import (fused_tail_softmax, tail_plain,  # noqa: F401
 from .tower_block import fused_tower_block, tower_block_plain  # noqa: F401
 from .tower_block_s import (fused_tower_block_s,  # noqa: F401
                             tower_block_s_plain)
+from .tower_resident import (resident_tower,  # noqa: F401
+                             resident_tower_plain)

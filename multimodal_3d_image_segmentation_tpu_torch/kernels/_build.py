@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "library", "launch", "reset_launch_counts",
-           "check_cuda_input", "check_forward_only", "occupancy"]
+           "check_cuda_input", "check_forward_only", "call", "occupancy"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -47,12 +47,15 @@ _SIGNATURES = {
                          ctypes.POINTER(_I)],
     "m3seg_tower_block": [_P] * 11 + [_I] * 7 + [_P],
     "m3seg_tower_block_s": [_P] * 11 + [_I] * 8 + [_P],
+    "m3seg_tower_resident": [_P] * 10 + [_I] * 9 + [_P],
     "m3seg_tower_block_occupancy": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
     "m3seg_tower_block_s_occupancy": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
+    "m3seg_tower_resident_occupancy": [_I] * 3 + [ctypes.POINTER(_I)] * 2,
+    "m3seg_tower_resident_phase_ns": [_P, _I],
 }
 
 LAUNCHES = {"conv_in": 0, "freq_chain": 0, "tail_resize": 0, "conv3": 0,
-            "tower_block": 0, "tower_block_s": 0}
+            "tower_block": 0, "tower_block_s": 0, "tower_resident": 0}
 
 _lock = threading.Lock()
 _library = None
@@ -186,15 +189,20 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     LAUNCHES[kernel] += 1
 
 
+def call(entry: str, *args) -> None:
+    """Call C entry ``entry``, which launches nothing, and raise on an
+    error."""
+    lib = library()
+    rc = getattr(lib.cdll, entry)(*args)
+    if rc != 0:
+        msg = lib.cdll.m3seg_error_string(rc).decode()
+        raise RuntimeError(f"{entry} failed: {msg} ({rc})")
+
+
 def occupancy(entry: str, *args: int):
     """(blocks per SM, registers per thread) that C entry ``entry`` reports
     for a kernel instance (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
     with the instance's dynamic shared memory); launches nothing."""
-    lib = library()
     blocks, regs = _I(0), _I(0)
-    rc = getattr(lib.cdll, entry)(*args, ctypes.byref(blocks),
-                                  ctypes.byref(regs))
-    if rc != 0:
-        msg = lib.cdll.m3seg_error_string(rc).decode()
-        raise RuntimeError(f"{entry} failed: {msg} ({rc})")
+    call(entry, *args, ctypes.byref(blocks), ctypes.byref(regs))
     return blocks.value, regs.value

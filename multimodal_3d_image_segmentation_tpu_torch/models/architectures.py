@@ -39,7 +39,8 @@ shared-weight mix) between kernels, the exit through ``tail_resize``. The
 tower kernel is chosen by ``tower_kernel``: ``"block_s"`` carries the
 resident packed spectrum between blocks and runs the depth stages inside
 the kernel (``tower_block_s``); ``"block"`` exchanges per-plane spectra
-with torch einsums between kernels (``tower_block``).
+with torch einsums between kernels (``tower_block``); NeuralOperatorSeg's
+``"resident"`` runs the whole tower in one launch (``tower_resident``).
 """
 from __future__ import annotations
 
@@ -59,6 +60,7 @@ from ..kernels.tower_block import (d_stage_forward, d_stage_inverse,
                                    make_tower_spec)
 from ..kernels.tower_block_s import (entry_spectrum_s, fused_tower_block_s,
                                      spectrum_mix_s)
+from ..kernels.tower_resident import resident_tower
 from ..ops.activations import get_activation, is_selu
 from ..ops.attention import HartleyMultiHeadAttention
 from ..ops.convs import (ConcatConvNormAct, Conv, ConvNormAct,
@@ -72,7 +74,7 @@ from ..ops.spectral import clip_modes, normalize_modes
 __all__ = ["VNetDS", "HartleyMHASeg", "HartleyMHABlock", "NeuralOperatorSeg",
            "NeuralOperatorBlock"]
 
-TOWER_KERNELS = ("block_s", "block")
+TOWER_KERNELS = ("block_s", "block", "resident")
 
 
 def _apply_output_activation(x, output_activation, dim=-1):
@@ -684,6 +686,10 @@ class HartleyMHASeg(_TransSegBase):
                                 and use_block_concat and channel_first_io):
             raise ValueError("HartleyMHASeg use_kernels takes SELU, the "
                              "concat block skip and channel-first IO only")
+        if tower_kernel == "resident":
+            raise ValueError("tower_kernel='resident' serves NeuralOperatorSeg "
+                             "only: HartleyMHASeg's operator is attention, "
+                             "not a channel mix")
         if tower_kernel not in TOWER_KERNELS:
             raise ValueError(f"tower_kernel must be one of {TOWER_KERNELS}, "
                              f"got {tower_kernel!r}")
@@ -738,7 +744,9 @@ class NeuralOperatorSeg(_TransSegBase):
     ``use_kernels=True`` runs the counterpart of the reference's
     ``_fused_tower_forward`` with the modes clipped to half the tower grid,
     on ``tower_kernel`` ``"block_s"`` (default: the resident spectrum, the
-    depth stages inside the kernel) or ``"block"``. It keeps the
+    depth stages inside the kernel), ``"block"`` or ``"resident"`` (the
+    whole tower in one launch, the reference's unrouted
+    ``resident_tower``; no deep supervision). It keeps the
     reference's gate (shared weights, SELU, the concat block skip, no
     conv-branch bias, batch 1, channel-first IO) and raises outside it,
     where the reference falls back to its module path. Deep supervision
@@ -779,6 +787,9 @@ class NeuralOperatorSeg(_TransSegBase):
         if tower_kernel not in TOWER_KERNELS:
             raise ValueError(f"tower_kernel must be one of {TOWER_KERNELS}, "
                              f"got {tower_kernel!r}")
+        if tower_kernel == "resident" and use_deep_supervision:
+            raise ValueError("tower_kernel='resident' has no deep "
+                             "supervision")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.num_modes = num_modes
@@ -812,7 +823,18 @@ class NeuralOperatorSeg(_TransSegBase):
             self.transform_type, sizes,
             clip_modes(normalize_modes(self.num_modes, 3), sizes),
             self.filters, n_ds=n_ds)
-        x, ds = self._kernel_tower(
-            x, spec, lambda block, s: spectrum_mix_s(s, block.op_weights(),
-                                                     spec))
+        if self.tower_kernel == "resident":
+            x, ds = resident_tower(x, *self.resident_operands(), spec), None
+        else:
+            x, ds = self._kernel_tower(
+                x, spec, lambda block, s: spectrum_mix_s(
+                    s, block.op_weights(), spec))
         return self._kernel_exit(x, ds, image_size, in_dtype)
+
+    def resident_operands(self):
+        """(op_stack, wcat_stack, wcc_stack, b_stack) of ``resident_tower``:
+        every block's ``op_weights()`` and ``tower_weights()``, stacked."""
+        ops = torch.stack([torch.stack(block.op_weights())
+                           for block in self.layers])
+        return (ops, *(torch.stack(t) for t in zip(
+            *(block.tower_weights() for block in self.layers))))

@@ -2,7 +2,7 @@
 
     python -m multimodal_3d_image_segmentation_tpu_torch.utils.profiling \
         [--model hnosegxs|vnetds|hartleymha|hnoseg|fnoseg]
-        [--trace trace.json]
+        [--tower-kernel block_s|block|resident] [--trace trace.json]
 
 At the width of the serving config (HNOSeg-XS: filters 24, blocks [3]*8;
 V-Net-DS: base 24, blocks [1,2,3,3,3], right leg [0..4]; HartleyMHASeg:
@@ -13,7 +13,9 @@ already on the card) it prints:
 
   * forward + argmax in ms (CUDA events; median, min, max of 20 runs
     after 3 warm-ups) of the plain path and the kernel path, in the order
-    plain, kernels, kernels, plain, so drift between the two shows;
+    plain, kernels, kernels, plain, so drift between the two shows (the
+    kernel path on ``--tower-kernel`` where given: HartleyMHASeg takes
+    block or block_s, HNOSeg and FNOSeg all three);
   * ``torch.profiler``'s table of 5 kernel-path steps, by self device time;
   * per step: the device busy time, each hand-written kernel's time, and
     the device's idle share over the span of the 5 back-to-back steps.
@@ -60,7 +62,7 @@ N_TIMED = 20
 OWN_KERNELS = ("conv_in_kernel", "freq_chain_kernel", "tail_kernel",
                "conv3_kernel", "conv3_split_sum", "tower_block_kernel",
                "tower_spectrum_sum", "tower_block_s_kernel",
-               "tower_spectrum_depth")
+               "tower_spectrum_depth", "tower_resident_kernel")
 N_PROFILED = 5
 
 
@@ -124,6 +126,10 @@ def profile_steps(step, x, trace=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(MODELS), default="hnosegxs")
+    ap.add_argument("--tower-kernel", choices=("block_s", "block",
+                                               "resident"),
+                    help="the spectral towers' kernel (default: the "
+                         "model's)")
     ap.add_argument("--trace", help="write a Chrome trace here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -136,12 +142,16 @@ def main(argv=None):
         (1, 4) + SIZE, dtype=np.float32)).to(dev)
     cls, kw = MODELS[args.model]
     steps = {}
+    if args.tower_kernel:
+        kw = dict(kw, tower_kernel=args.tower_kernel)
     for use_kernels in (False, True):
         model = cls(**kw, use_kernels=use_kernels, device=dev,
                     generator=torch.Generator().manual_seed(SEED))
         steps[use_kernels] = make_predict_step(model.eval())
-    for name, use_kernels in (("plain", False), ("kernels", True),
-                              ("kernels", True), ("plain", False)):
+    fast = "kernels" + (f" (tower_kernel={args.tower_kernel})"
+                        if args.tower_kernel else "")
+    for name, use_kernels in (("plain", False), (fast, True), (fast, True),
+                              ("plain", False)):
         t = step_ms(steps[use_kernels], x, N_TIMED)
         print(f"{args.model} {name} forward+argmax ms median "
               f"{statistics.median(t):.4f} "

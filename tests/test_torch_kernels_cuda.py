@@ -14,7 +14,8 @@ miss by about 5e-4 of it. Its moment sums are held to float64 sums of its
 own output, to 1e-5 of the sum of magnitudes. tower_block and
 tower_block_s sum up to 56 fp32 products per output in another order than
 cuBLAS: 1e-5 times each output's largest magnitude (at least 1); a TF32
-operand would miss by about 5e-4 of it.
+operand would miss by about 5e-4 of it. tower_resident chains those blocks
+and is held to the same bar against its plain version.
 """
 import numpy as np
 import pytest
@@ -25,6 +26,8 @@ from multimodal_3d_image_segmentation_tpu_torch.kernels import \
     tower_block as tb
 from multimodal_3d_image_segmentation_tpu_torch.kernels import \
     tower_block_s as tbs
+from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+    tower_resident as tr
 
 pytestmark = pytest.mark.cuda
 
@@ -364,8 +367,9 @@ def test_hartleymha_kernel_path_matches_plain_path(dev, patch):
 
 
 @pytest.mark.parametrize("transform", ["Hartley", "Fourier"])
-@pytest.mark.parametrize("tower_kernel", ["block_s", "block"])
-@pytest.mark.parametrize("ds", [False, True])
+@pytest.mark.parametrize("tower_kernel,ds", [
+    ("block_s", False), ("block_s", True), ("block", False), ("block", True),
+    ("resident", False)])
 def test_neuraloperatorseg_kernel_path_matches_plain_path(dev, transform,
                                                           tower_kernel, ds):
     from multimodal_3d_image_segmentation_tpu_torch.models import \
@@ -382,8 +386,9 @@ def test_neuraloperatorseg_kernel_path_matches_plain_path(dev, transform,
     with torch.no_grad():
         got, want = fast(x), plain(x)
     torch.cuda.synchronize()
-    name = "tower_block_s" if tower_kernel == "block_s" else "tower_block"
-    assert kernels.LAUNCHES[name] == before[name] + 3
+    name, n = {"block_s": ("tower_block_s", 3), "block": ("tower_block", 3),
+               "resident": ("tower_resident", 1)}[tower_kernel]
+    assert kernels.LAUNCHES[name] == before[name] + n
     assert kernels.LAUNCHES["conv_in"] == before["conv_in"] + 1
     assert kernels.LAUNCHES["tail_resize"] == before["tail_resize"] + 1
     torch.testing.assert_close(got, want, rtol=0, atol=3e-5)
@@ -407,3 +412,102 @@ def test_hartleymha_block_s_kernel_path_matches_plain_path(dev, patch):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["tower_block_s"] == before + 2
     torch.testing.assert_close(got, want, rtol=0, atol=3e-5)
+
+
+def _resident_inputs(dev, transform, sizes, modes, c, nb, seed=60):
+    """x and the stacked weights of nb blocks (op weights scaled as the
+    SNN init, 1 / sqrt(C))."""
+    spec = tb.make_tower_spec(transform, sizes, modes, c)
+    pr = 1 if transform == "Hartley" else 2
+    return (_t(sizes + (c,), seed, dev),
+            _t((nb, pr, c, c), seed + 1, dev, 1 / np.sqrt(c)),
+            _t((nb, 2 * c, c), seed + 2, dev, 1 / np.sqrt(c)),
+            _t((nb, c, c), seed + 3, dev, 1 / np.sqrt(c)),
+            _t((nb, 2 * c), seed + 4, dev, 0.1), spec)
+
+
+@pytest.mark.parametrize("transform,sizes,modes", [
+    ("Hartley", (7, 9, 6), (2, 3, 2)),     # one ragged W tile and H chunk
+    ("Hartley", (9, 37, 21), (3, 5, 4)),   # ragged tiles and chunks
+    ("Hartley", (21, 33, 30), (10, 14, 14)),  # the configs' modes, KS 20
+    ("Fourier", (7, 9, 7), (2, 3, 3)),     # odd KW = 3
+    ("Fourier", (9, 37, 21), (3, 5, 5)),   # odd sizes, odd KW = 5
+    ("Fourier", (21, 33, 30), (10, 14, 14)),  # KS 40, KW 14
+])
+@pytest.mark.parametrize("c", [8, 24])
+@pytest.mark.parametrize("nb", [1, 3])
+def test_tower_resident_kernel_matches_plain(dev, transform, sizes, modes, c,
+                                             nb):
+    args = _resident_inputs(dev, transform, sizes, modes, c, nb)
+    x0 = args[0].clone()
+    with torch.no_grad():
+        got = _launched("tower_resident", lambda: kernels.resident_tower(*args))
+        want = kernels.resident_tower_plain(*args)
+        again = kernels.resident_tower(*args)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, again)  # no atomics: the same from run to run
+    assert torch.equal(args[0], x0)  # the caller's x is not written
+
+
+def test_tower_resident_matches_the_block_s_chain(dev):
+    """The one launch equals tower_block_s launched block by block with the
+    operator between them, to the fp32 rounding of the mix."""
+    x, ops, wcat, wcc, b, spec = _resident_inputs(
+        dev, "Fourier", (9, 37, 21), (3, 5, 5), 8, 3)
+    with torch.no_grad():
+        got = kernels.resident_tower(x, ops, wcat, wcc, b, spec)
+        s = tbs.spectrum_mix_s(tbs.entry_spectrum_s(x, spec), ops[0], spec)
+        for i in range(3):
+            x, s_f = kernels.fused_tower_block_s(x, s.contiguous(), wcat[i],
+                                                 wcc[i], b[i], spec)
+            if i < 2:
+                s = tbs.spectrum_mix_s(s_f, ops[i + 1], spec)
+    assert float((got - x).abs().max()) <= 1e-5 * max(1.0,
+                                                      float(x.abs().max()))
+
+
+def test_tower_resident_refuses_what_it_does_not_take(dev):
+    x, ops, wcat, wcc, b, spec = _resident_inputs(dev, "Fourier", (7, 9, 7),
+                                                  (2, 3, 3), 24, 2)
+    with pytest.raises(ValueError, match="op_stack has shape"):
+        kernels.resident_tower(x, ops[:, :1].contiguous(), wcat, wcc, b, spec)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.resident_tower(x.transpose(1, 2).contiguous().transpose(1, 2),
+                               ops, wcat, wcc, b, spec)
+    with pytest.raises(ValueError, match="cpu"):
+        kernels.resident_tower(x, ops, wcat.cpu(), wcc, b, spec)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.resident_tower(*(t.double() for t in (x, ops, wcat, wcc, b)),
+                               spec)
+    with pytest.raises(ValueError, match="deep supervision"):
+        kernels.resident_tower(x, ops, wcat, wcc, b, spec._replace(n_ds=4))
+    wg = wcat.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.resident_tower(x, ops, wg, wcc, b, spec)
+    args12 = _resident_inputs(dev, "Hartley", (7, 9, 6), (2, 3, 2), 12, 1)
+    with pytest.raises(ValueError, match="no instance for C=12"):
+        kernels.resident_tower(*args12)
+    # 2 * KD = 66 spectrum rows hold more than a depth-pass thread keeps
+    argsb = _resident_inputs(dev, "Fourier", (66, 9, 6), (33, 3, 2), 8, 1)
+    with pytest.raises(ValueError, match="spectrum rows"):
+        kernels.resident_tower(*argsb)
+
+
+def test_tower_resident_grid_is_reported(dev):
+    spec = tb.make_tower_spec("Hartley", (21, 33, 30), (10, 14, 14), 24)
+    blocks, regs = tr.occupancy(spec)
+    assert blocks >= 1 and 0 < regs <= 255
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert tr.resident_grid(spec) == blocks * n_sm
+
+
+def test_tower_resident_phases_are_timed(dev):
+    args = _resident_inputs(dev, "Hartley", (9, 37, 21), (3, 5, 4), 8, 3)
+    tr.phase_ms(reset=True)
+    with torch.no_grad():
+        kernels.resident_tower(*args)
+    got = tr.phase_ms(reset=True)
+    assert set(got) == set(tr.PHASES) and all(v > 0 for v in got.values())
+    assert all(v == 0 for v in tr.phase_ms().values())

@@ -9,7 +9,7 @@ test). Tolerances: 1e-5 for the transforms, the operators and the block
 (fp32 on both sides, other summation orders); 3e-5 on the whole model's
 probabilities (the bar of the HartleyMHASeg and V-Net-DS parity tests),
 for the module path and for the kernel path (its plain versions on the
-CPU, both tower kernels) against the JAX module path.
+CPU, all three tower kernels) against the JAX module path.
 """
 from pathlib import Path
 
@@ -188,6 +188,47 @@ def test_kernel_path_matches_jax_module_path(transform, tower_kernel, kw):
 
 
 @pytest.mark.parametrize("transform", TRANSFORMS)
+@pytest.mark.parametrize("kw", [dict(), dict(use_resize=False)],
+                         ids=["default", "no-resize"])
+def test_resident_kernel_path_matches_jax_and_module_path(transform, kw):
+    """tower_kernel='resident' (the whole tower in one resident_tower call,
+    its plain version on the CPU) against the JAX module path with the
+    exported weights and against the port's own module path."""
+    x = _x()
+    jm, params = _jax_model(transform, kw, jnp.asarray(x))
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    fast = _load(NeuralOperatorSeg(**SMALL, transform_type=transform, **kw,
+                                   use_kernels=True, tower_kernel="resident",
+                                   generator=_gen()), params)
+    plain = _load(NeuralOperatorSeg(**SMALL, transform_type=transform, **kw,
+                                    generator=_gen()), params)
+    before = dict(kernels.LAUNCHES)
+    got = _run(fast, x)
+    assert kernels.LAUNCHES == before
+    np.testing.assert_allclose(got, want, atol=PROB_ATOL, rtol=0)
+    np.testing.assert_allclose(got, _run(plain, x), atol=PROB_ATOL, rtol=0)
+
+
+def test_resident_operands_stack_every_block():
+    m = NeuralOperatorSeg(**SMALL, transform_type="Fourier", use_kernels=True,
+                          tower_kernel="resident")
+    ops, wcat, wcc, b = m.resident_operands()
+    n, c = SMALL["num_transform_blocks"], SMALL["filters"]
+    assert (ops.shape, wcat.shape, wcc.shape, b.shape) == (
+        (n, 2, c, c), (n, 2 * c, c), (n, c, c), (n, 2 * c))
+    for i, block in enumerate(m.layers):
+        torch.testing.assert_close(ops[i, 1], block.op.weight_imag)
+        for got, want in zip((wcat[i], wcc[i], b[i]), block.tower_weights()):
+            torch.testing.assert_close(got, want)
+
+
+def test_hartleymha_refuses_the_resident_tower():
+    with pytest.raises(ValueError, match="NeuralOperatorSeg only"):
+        HartleyMHASeg(2, 3, 4, 2, 2, (2, 2, 2), use_kernels=True,
+                      tower_kernel="resident")
+
+
+@pytest.mark.parametrize("transform", TRANSFORMS)
 def test_kernel_path_clips_the_modes_like_the_module_path(transform):
     """A grid below 2 * num_modes: both paths clip the modes to half the
     grid (odd sizes, the Fourier KW then odd)."""
@@ -255,6 +296,17 @@ def test_build_model_from_the_config(name, transform, n_params):
     assert sum(p.numel() for p in model.parameters()) == n_params
 
 
+@pytest.mark.parametrize("name", ["config_hnoseg.ini", "config_fnoseg.ini"])
+def test_build_model_passes_the_tower_kernel_through(name):
+    cfg = config.get_config(str(REPO / "configs" / name))
+    cfg["model"]["tower_kernel"] = "resident"
+    model = _build_model(cfg, _Sizes(), lambda: (240, 240, 155))
+    assert model.tower_kernel == "resident" and model.use_kernels
+    cfg["model"]["tower_kernel"] = "whole"
+    with pytest.raises(ValueError, match="tower_kernel must be one of"):
+        _build_model(cfg, _Sizes(), lambda: (240, 240, 155))
+
+
 def test_kernel_path_refuses_batch_2():
     m = NeuralOperatorSeg(**SMALL, use_kernels=True)
     with pytest.raises(ValueError, match="batch 1"):
@@ -272,8 +324,9 @@ def test_kernel_path_refuses_batch_2():
     (dict(use_kernels=True, channel_first_io=False), ValueError),
     (dict(tower_kernel="block_v3"), ValueError),
     (dict(transform_type="Cosine"), ValueError),
+    (dict(tower_kernel="resident", use_deep_supervision=True), ValueError),
 ], ids=["individual", "2d", "bf16", "elu", "add-skip", "branch-bias",
-        "channels-last", "tower-kernel", "transform"])
+        "channels-last", "tower-kernel", "transform", "resident-ds"])
 def test_unported_options_raise(opts, exc):
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
                        else None):

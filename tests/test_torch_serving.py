@@ -178,10 +178,11 @@ def test_port_never_imports_jax(tmp_path):
         "with torch.no_grad():\n"
         "    assert a(torch.randn(1, 2, 12, 10, 8)).shape == (1, 3, 12, 10, 8)\n"
         "for t in ('Hartley', 'Fourier'):\n"
-        "    n = NeuralOperatorSeg(2, 3, 4, 2, (2, 2, 2), t, "
-        "use_kernels=True)\n"
-        "    with torch.no_grad():\n"
-        "        assert n(torch.randn(1, 2, 12, 10, 8)).shape == "
+        "    for k in ('block_s', 'resident'):\n"
+        "        n = NeuralOperatorSeg(2, 3, 4, 2, (2, 2, 2), t, "
+        "use_kernels=True, tower_kernel=k)\n"
+        "        with torch.no_grad():\n"
+        "            assert n(torch.randn(1, 2, 12, 10, 8)).shape == "
         "(1, 3, 12, 10, 8)\n"
         f"config.get_config({str(REPO / 'configs' / 'config_inference_hnoseg_xs.ini')!r})\n"
         "print('jax' in sys.modules, 'flax' in sys.modules, any(\n"
@@ -335,6 +336,78 @@ def test_serving_hartleymha_matches_jax_testing(tmp_path, monkeypatch):
     (tmp_path / "out" / "model").mkdir(parents=True)
     torch.save(state_dict_from_jax(jax.device_get(params)),
                tmp_path / "out" / "model" / "model.pt")
+    assert run_inference(cfg)["n_volumes"] == 2
+    for i in range(2):
+        want = read_img(str(tmp_path / "jax" / "images" /
+                            f"case{i}_pred.nii.gz"))
+        got = read_img(str(tmp_path / "out" / "inference" / "images" /
+                           f"case{i}_pred.nii.gz"))
+        assert got.shape == SHAPE
+        assert np.mean(got != want) <= 1e-4
+
+
+NOSEG_CONFIG = """
+[main]
+output_dir = '{out}'
+visible_devices = 'cpu'
+
+[input_lists]
+data_dir = '{data}'
+data_lists_test_paths = [{lists}]
+
+[input_args]
+idx_x_modalities = [0, 1]
+idx_y_modalities = [2]
+batch_size = 1
+num_workers = 0
+use_data_normalization = True
+
+[model]
+model_name = 'NeuralOperatorSeg'
+out_channels = 3
+filters = 4
+num_transform_blocks = 2
+num_modes = (2, 2, 2)
+transform_type = '{transform}'
+use_pallas = True
+tower_kernel = 'resident'
+transform_precision = 'high'
+
+[test]
+output_folder = 'inference'
+"""
+
+
+@pytest.mark.parametrize("transform", ["Hartley", "Fourier"])
+def test_serving_noseg_resident_matches_jax_testing(tmp_path, monkeypatch,
+                                                    transform):
+    """run_inference serves a tiny HNOSeg / FNOSeg with tower_kernel =
+    'resident' (the whole tower in one resident_tower call, its plain
+    version on the CPU); its label maps match the JAX engine's testing()
+    (the JAX module path) with the same weights."""
+    from multimodal_3d_image_segmentation_tpu.ops import spectral
+    monkeypatch.setattr(spectral, "PRECISION", jax.lax.Precision.HIGHEST)
+    lists = _write_cases(tmp_path / "data")
+    cfg = config.get_config(StringIO(NOSEG_CONFIG.format(
+        out=tmp_path / "out", data=tmp_path / "data", transform=transform,
+        lists=", ".join(f"'{p}'" for p in lists))), "serve.ini")
+    data_lists = [[str(tmp_path / "data" / n)
+                   for n in Path(p).read_text().splitlines()] for p in lists]
+    jm = jmodels.NeuralOperatorSeg(2, 3, 4, 2, (2, 2, 2), transform,
+                                   use_pallas=True)
+    params = jm.init(jax.random.PRNGKey(0),
+                     jnp.zeros((1, 2) + SHAPE))["params"]
+    input_data = InputData(reader=read_img, data_lists_test=data_lists,
+                           idx_x_modalities=[0, 1], idx_y_modalities=[2],
+                           x_processing=normalize_modalities, batch_size=1,
+                           num_workers=0)
+    jtesting(jm, params, input_data, str(tmp_path / "jax"), is_print=False)
+
+    (tmp_path / "out" / "model").mkdir(parents=True)
+    torch.save(state_dict_from_jax(jax.device_get(params)),
+               tmp_path / "out" / "model" / "model.pt")
+    assert _build_model(cfg, _Sizes2(), lambda: SHAPE).tower_kernel == \
+        "resident"
     assert run_inference(cfg)["n_volumes"] == 2
     for i in range(2):
         want = read_img(str(tmp_path / "jax" / "images" /
