@@ -10,9 +10,9 @@ Drives the port's seven serving paths once at full width on 4-modality
 (filters 24, 16 blocks, 4 heads, modes (8,12,12), patch 2, deep
 supervision, 178,532 parameters), and HNOSeg and FNOSeg (NeuralOperatorSeg:
 filters 24, 24 blocks, modes (10,14,14), shared weights, Hartley or
-Fourier, 57,360 and 71,184 parameters), the last two on two tower kernels
-(``tower_kernel`` 'block_s', the configs' default, and 'resident'). It
-checks them:
+Fourier, 57,360 and 71,184 parameters), the last two on their default
+tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
+'block_s'. It checks them:
 
   1. device   the card's name and power limit, torch and CUDA versions;
   2. build    compile the CUDA kernels from ``csrc/`` (one nvcc per source,
@@ -35,8 +35,11 @@ checks them:
               fed TF32-rounded operands (as a kernel on TF32 tensor cores
               would compute), must fail the same bars;
   6. conv3    every conv3 call of one V-Net-DS forward (recorded with its
-              real inputs) against the plain version, with the kernel's,
-              the plain version's and ``F.conv3d``'s times and the bound;
+              real inputs) against the plain version, with each call's
+              launch plan (brick, channel tile, chunk, split) beside the
+              kernel's, the plain version's and ``F.conv3d``'s times and
+              the bound, and the kernel's registers and spills from the
+              build log; the kernel's total must be below ``F.conv3d``'s;
   7. serve    run_inference serves the same cases through
               ``configs/config_vnet-ds.ini``; launches (reset just before)
               must be conv_in 3, conv3 87, tail_resize 3;
@@ -53,22 +56,24 @@ checks them:
  11. serve    run_inference serves the same cases through
               ``configs/config_hnoseg.ini`` and ``configs/config_fnoseg.ini``;
               launches (reset just before each) must be conv_in 3,
-              tower_block_s 72, tail_resize 3; then again with
+              tower_block 72, tail_resize 3; then again with
               ``tower_kernel = 'resident'`` set on the loaded config:
-              conv_in 3, tower_resident 3, tail_resize 3;
- 12. model    for each of the two, the kernel paths on tower_block_s and
-              on tower_resident against the plain path and float64 on a
-              served volume, and the first on a small volume against the
-              CPU; a control with each tower kernel's operands in TF32 must
-              fail the bars; forward + argmax times of the three tower
-              kernels.
+              conv_in 3, tower_resident 3, tail_resize 3; HNOSeg also with
+              ``tower_kernel = 'block_s'``: conv_in 3, tower_block_s 72,
+              tail_resize 3;
+ 12. model    for each of the two, the kernel paths on tower_block (the
+              default), tower_block_s and tower_resident against the plain
+              path and float64 on a served volume, and the first on a
+              small volume against the CPU; a control with each tower
+              kernel's operands in TF32 must fail the bars; forward +
+              argmax times of the three tower kernels.
 
 Every failed check raises, so the exit code is not 0. The script refuses
 to run without CUDA. The line before the last is a JSON object with the
-kernels' numbers (``launches`` summed over the seven serving runs; times are
-medians of CUDA-event runs, ``bound_ms`` the larger of the bytes over
-3.35 TB/s and the operations over 67 TFLOP/s fp32, the H100 SXM's data
-sheet rates); the last line is
+kernels' numbers (``launches`` summed over the serving runs; times are
+medians of CUDA-event runs, conv3's of back-to-back calls; ``bound_ms`` is
+the larger of the bytes over 3.35 TB/s and the operations over 67 TFLOP/s
+fp32, the H100 SXM's data sheet rates); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import json
@@ -131,8 +136,11 @@ PER_VOLUME_MHA = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
                   "conv3": 0, "tower_block": 16, "tower_block_s": 0,
                   "tower_resident": 0}
 PER_VOLUME_NOSEG = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
-                    "conv3": 0, "tower_block": 0, "tower_block_s": 24,
+                    "conv3": 0, "tower_block": 24, "tower_block_s": 0,
                     "tower_resident": 0}
+PER_VOLUME_NOSEG_BLOCK_S = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
+                            "conv3": 0, "tower_block": 0,
+                            "tower_block_s": 24, "tower_resident": 0}
 PER_VOLUME_NOSEG_RESIDENT = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
                              "conv3": 0, "tower_block": 0,
                              "tower_block_s": 0, "tower_resident": 1}
@@ -165,6 +173,27 @@ def median_ms(torch, fn, n=N_TIMED, warmup=3):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def stream_ms(torch, fn, runs=5, inner=20, warmup=3):
+    """Median over ``runs`` of the mean time of ``inner`` back-to-back
+    calls of ``fn`` (CUDA events around the run): the device time of calls
+    issued as a forward pass issues them, without each call's host-side
+    start in it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
 
 
@@ -841,12 +870,27 @@ def _describe(args, kw):
 
 def phase_conv3(torch, kernels, calls):
     """conv3 against its plain version at every call of one V-Net-DS
-    forward. Tolerance: 1e-4 of the output's largest magnitude (at least
-    1): the kernel sums up to 27 x 384 products in another order than
-    cuDNN; TF32 products would miss by about 5e-4 of it. The moment sums
-    are held to float64 sums of the kernel's own output."""
+    forward, each call's launch plan beside its times. Tolerance: 1e-4 of
+    the output's largest magnitude (at least 1): the kernel sums up to 27 x
+    384 products in another order than cuDNN; TF32 products would miss by
+    about 5e-4 of it. The moment sums are held to float64 sums of the
+    kernel's own output; a second call must give the same bits and leave
+    the inputs untouched. Times are of back-to-back calls (``stream_ms``),
+    as a forward pass issues them. The kernel's total over the calls must
+    be below ``F.conv3d``'s (checked at the end of the run)."""
     header(f"== conv3 ({len(calls)} calls of one V-Net-DS forward)")
     import torch.nn.functional as F
+    import importlib
+    conv3_mod = importlib.import_module(
+        "multimodal_3d_image_segmentation_tpu_torch.kernels.conv3")
+    # registers, shared memory and spills of each conv3 kernel instance
+    log = kernels.library().build_log.splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and "conv3" in line:
+            name = line.split("'")[1] if "'" in line else line
+            props = [ln.strip() for ln in log[i + 1:i + 4]
+                     if "spill" in ln or "Used" in ln]
+            print(f"conv3 build: {name}: {'; '.join(props)}")
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
            "bytes": 0, "max_abs_err": 0.0}
     with torch.inference_mode():
@@ -880,6 +924,20 @@ def phase_conv3(torch, kernels, calls):
                 check(bool(((st.double() - exact).abs()
                             <= 1e-5 * scale).all()),
                       f"conv3 call {i}: moment sums off")
+            ins = [t for t in (args[0], kw.get("x2")) if t is not None]
+            inputs = [t.clone() for t in ins]
+            again = kern()
+            again = again if isinstance(again, tuple) else (again,)
+            check(all(bool(torch.equal(a, g)) for a, g in zip(again, got)),
+                  f"conv3 call {i}: a second run differs")
+            check(all(bool(torch.equal(a, b)) for a, b in zip(inputs, ins)),
+                  f"conv3 call {i}: an input was written")
+            del again, inputs
+            mode = (1 if kw.get("stride", 1) == 2 else
+                    2 if kw.get("dilation", 1) == 2 else 0)
+            plan = dict(zip(conv3_mod.PLAN_FIELDS, conv3_mod.conv3_plan(
+                tuple(args[0].shape[1:4]), args[1].shape[1],
+                args[1].shape[0], mode)))
             # the library yardstick: the conv + bias alone in one call
             xin = args[0] if kw.get("x2") is None else torch.cat(
                 [args[0], kw["x2"]], -1)
@@ -895,8 +953,8 @@ def phase_conv3(torch, kernels, calls):
                 def lib():
                     return F.conv3d(xcf, w, b, stride=kw.get("stride", 1),
                                     padding=1)
-            ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
-            lib_ms = median_ms(torch, lib)
+            ms, plain_ms = stream_ms(torch, kern), stream_ms(torch, plain)
+            lib_ms = stream_ms(torch, lib)
             flops, moved = conv3_work(args, kw, got[0])
             b_ms, b_by = bound(flops, moved)
             for k, v in (("ms", ms), ("plain_ms", plain_ms),
@@ -904,17 +962,21 @@ def phase_conv3(torch, kernels, calls):
                          ("bytes", moved)):
                 tot[k] += v
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
-            print(f"conv3[{i}] {_describe(args, kw)}: err {err:.2e} kernel "
-                  f"{ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} "
-                  f"bound {b_ms:.4f} ms ({b_by}), {flops / ms / 1e9:.2f} "
-                  "TFLOP/s")
+            print(f"conv3[{i}] {_describe(args, kw)}: plan W run "
+                  f"{plan['rw']} brick {plan['bd']}x{plan['bh']}x"
+                  f"{plan['nrw'] * plan['rw']} co tile {plan['cot']} chunk "
+                  f"{plan['ck']} split {plan['split']} ({plan['blocks']} "
+                  f"blocks of {plan['threads']} threads, {plan['smem']} B "
+                  f"shared); err {err:.2e} kernel {ms:.4f} plain "
+                  f"{plain_ms:.4f} library {lib_ms:.4f} bound {b_ms:.4f} ms "
+                  f"({b_by}), {flops / ms / 1e9:.2f} TFLOP/s")
     b_ms, b_by = bound(tot["flops"], tot["bytes"])
     print(f"conv3, the {len(calls)} calls of one forward: kernel "
           f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, F.conv3d "
           f"{tot['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
           f"{tot['flops'] / 1e12:.4f} TFLOP, {tot['bytes'] / 1e9:.4f} GB); "
           f"{tot['flops'] / tot['ms'] / 1e9:.2f} TFLOP/s (sums of medians "
-          f"of {N_TIMED} CUDA-event runs)")
+          "of 5 CUDA-event runs of 20 back-to-back calls)")
     return {"max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": tot["library_ms"]}
@@ -984,13 +1046,13 @@ def phase_model_mha(torch, state, case_dir: Path, dev):
 
 
 def phase_model_noseg(torch, state, transform, case_dir: Path, dev):
-    """HNOSeg / FNOSeg: the kernel path on tower_block_s and on
-    tower_resident against the plain path and float64 on a served volume
-    (one float64 evaluation for both), the first also on a small one
-    against the CPU; a control with each tower kernel's operands (the
-    volume, the spectrum and the weights) rounded to TF32 must fail the
-    bars; forward + argmax times of the three tower kernels with the input
-    on the card."""
+    """HNOSeg / FNOSeg: the kernel path on tower_block (the default), on
+    tower_block_s and on tower_resident against the plain path and float64
+    on a served volume (one float64 evaluation for all), the first also on
+    a small one against the CPU; a control with each tower kernel's
+    operands (the volume, the spectrum or z, and the weights) rounded to
+    TF32 must fail the bars; forward + argmax times of the three tower
+    kernels with the input on the card."""
     label = "HNOSeg" if transform == "Hartley" else "FNOSeg"
     header(f"== model {label}")
     from multimodal_3d_image_segmentation_tpu_torch import kernels
@@ -1017,21 +1079,32 @@ def phase_model_noseg(torch, state, transform, case_dir: Path, dev):
         torch.cuda.synchronize()
         compare(torch, f"{label} full volume {SHAPE}", fast, plain, ref, bars)
         del fast
-        real = architectures.fused_tower_block_s
+        for kernel, name in (("block", "fused_tower_block"),
+                             ("block_s", "fused_tower_block_s")):
+            if kernel != "block":
+                before = kernels.LAUNCHES["tower_block_s"]
+                fast = build(True, dev, tower_kernel=kernel)(x)
+                check(kernels.LAUNCHES["tower_block_s"] == before + NOSEG[
+                    "num_transform_blocks"], f"{label} {kernel}: launches")
+                compare(torch, f"{label} tower_kernel={kernel!r} full volume "
+                        f"{SHAPE}", fast, plain, ref, bars)
+                del fast
+            real = getattr(architectures, name)
 
-        def tf32_tower(x1, sy, w_cat, w_cc_t, b_cat, spec, ds_prev=None):
-            return real(_tf32(torch, x1), _tf32(torch, sy),
-                        _tf32(torch, w_cat), _tf32(torch, w_cc_t), b_cat,
-                        spec, ds_prev)
+            def tf32_tower(x1, s, w_cat, w_cc_t, b_cat, spec, ds_prev=None,
+                           real=real):
+                return real(_tf32(torch, x1), _tf32(torch, s),
+                            _tf32(torch, w_cat), _tf32(torch, w_cc_t), b_cat,
+                            spec, ds_prev)
 
-        architectures.fused_tower_block_s = tf32_tower
-        try:
-            fast = build(True, dev)(x)
-        finally:
-            architectures.fused_tower_block_s = real
-        compare(torch, f"{label} control: tower_block_s operands in TF32",
-                fast, plain, ref, bars, control=True)
-        del fast
+            setattr(architectures, name, tf32_tower)
+            try:
+                fast = build(True, dev, tower_kernel=kernel)(x)
+            finally:
+                setattr(architectures, name, real)
+            compare(torch, f"{label} control: tower_{kernel} operands in "
+                    "TF32", fast, plain, ref, bars, control=True)
+            del fast
         before = kernels.LAUNCHES["tower_resident"]
         fast = build(True, dev, tower_kernel="resident")(x)
         check(kernels.LAUNCHES["tower_resident"] == before + 1,
@@ -1186,10 +1259,13 @@ def main():
                 **NOSEG, transform_type=transform,
                 generator=torch.Generator().manual_seed(SEED))
             label = "HNOSeg" if transform == "Hartley" else "FNOSeg"
-            for suffix, per_volume, keys in (
-                    ("", PER_VOLUME_NOSEG, None),
-                    ("-resident", PER_VOLUME_NOSEG_RESIDENT,
-                     {"tower_kernel": "resident"})):
+            variants = [("", PER_VOLUME_NOSEG, None),
+                        ("-resident", PER_VOLUME_NOSEG_RESIDENT,
+                         {"tower_kernel": "resident"})]
+            if transform == "Hartley":
+                variants.append(("-block_s", PER_VOLUME_NOSEG_BLOCK_S,
+                                 {"tower_kernel": "block_s"}))
+            for suffix, per_volume, keys in variants:
                 launches_n = phase_serve(
                     torch, kernels, work, list_paths, label + suffix, config,
                     noseg, n_params, per_volume, keys)
@@ -1202,6 +1278,10 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
+    # the redesigned conv3 must beat cuDNN over one V-Net-DS forward
+    check(results["conv3"]["ms"] < results["conv3"]["library_ms"],
+          f"conv3 {results['conv3']['ms']:.4f} ms is not below F.conv3d's "
+          f"{results['conv3']['library_ms']:.4f} ms")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -41,10 +41,9 @@ _SIGNATURES = {
     "m3seg_conv_in": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "m3seg_tail_resize_softmax": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _P],
-    "m3seg_conv3": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _I, _P],
-    "m3seg_conv3_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I),
-                         ctypes.POINTER(_I)],
+    "m3seg_conv3": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                    _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _P],
+    "m3seg_conv3_plan": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "m3seg_tower_block": [_P] * 11 + [_I] * 7 + [_P],
     "m3seg_tower_block_s": [_P] * 11 + [_I] * 8 + [_P],
     "m3seg_tower_resident": [_P] * 10 + [_I] * 9 + [_P],

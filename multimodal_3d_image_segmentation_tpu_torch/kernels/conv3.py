@@ -39,7 +39,8 @@ from .. import device as _device  # noqa: F401  (fp32 policy)
 from .. import not_ported
 from . import _build
 
-__all__ = ["conv3", "conv3_plain", "conv3_out_size", "KERNEL_ACTS"]
+__all__ = ["conv3", "conv3_plain", "conv3_out_size", "conv3_plan",
+           "packed_weight", "KERNEL_ACTS", "PLAN_FIELDS"]
 
 # prologue activation -> the kernel's code
 KERNEL_ACTS = {None: 0, "none": 0, "elu": 1, "selu": 2, "relu": 3}
@@ -134,6 +135,58 @@ def _check_args(x, weight, bias, x2, prologue, prologue_act, residual,
     return c1, c2, ci, co
 
 
+# fields of the kernel's launch plan (``csrc/conv3.cu``, ``PlanField``)
+PLAN_FIELDS = ("rw", "bd", "bh", "nrw", "cot", "ck", "split", "n_part",
+               "threads", "smem", "pw", "pl", "blocks", "conflict")
+P_SPLIT, P_NPART = PLAN_FIELDS.index("split"), PLAN_FIELDS.index("n_part")
+_PLANS = {}
+
+
+def conv3_plan(sizes: Sequence[int], ci: int, co: int, mode: int,
+               choice: Optional[Sequence[int]] = None):
+    """The kernel's launch plan for a ``sizes`` = (D, H, W) input with
+    ``ci`` channels, ``co`` outputs and ``mode`` (0 stride 1, 1 stride 2,
+    2 dilation 2): a ctypes int array of ``PLAN_FIELDS``. The planner
+    chooses it once per shape (cached); ``choice`` gives the first seven
+    fields instead (W run, brick depth and height, runs along W, channel
+    tile, chunk, split), as a sweep does. Raises where no plan fits."""
+    key = (tuple(int(n) for n in sizes), int(ci), int(co), int(mode),
+           None if choice is None else tuple(int(c) for c in choice))
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = (ctypes.c_int * len(PLAN_FIELDS))()
+        if choice is not None:
+            plan[:len(choice)] = list(key[4])
+        rc = _build.library().cdll.m3seg_conv3_plan(*key[0], ci, co, mode,
+                                                    plan)
+        if rc != 0:
+            raise ValueError(f"conv3: no launch plan for {key[0]}, ci={ci}, "
+                             f"co={co}, mode={mode}, choice={choice}")
+        _PLANS[key] = plan
+    return plan
+
+
+def packed_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(co, ci, 3, 3, 3) -> the kernel's (27 * ci, co) layout, row
+    ((kz*3+ky)*3+kx)*ci + c. The packed copy is kept on the weight tensor
+    and made again only when the weight's storage or version changes, so a
+    model's parameters are packed once per weight version, not per call.
+    Inference tensors carry no version counter: they are packed on every
+    call."""
+    co, ci = weight.shape[:2]
+    if weight.is_inference():
+        return weight.permute(2, 3, 4, 1, 0).reshape(27 * ci, co).contiguous()
+    key = (weight.data_ptr(), weight._version, weight.device)
+    cached = getattr(weight, "_m3seg_conv3_packed", None)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            packed = weight.detach().permute(2, 3, 4, 1, 0).reshape(
+                27 * ci, co).contiguous()
+        cached = (key, packed)
+        weight._m3seg_conv3_packed = cached
+    return cached[1]
+
+
 def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
           x2: Optional[torch.Tensor] = None,
           prologue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -191,36 +244,31 @@ def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
     out_sz = conv3_out_size((d, h, w), stride, dilation)
     y = torch.empty((1,) + out_sz + (co,), dtype=torch.float32, device=dev)
     r = torch.empty_like(y) if residual is not None else None
-    # (co, ci, kz, ky, kx) -> rows ((kz*3+ky)*3+kx)*ci + c, columns co
-    w_packed = weight.permute(2, 3, 4, 1, 0).reshape(27 * ci, co).contiguous()
-    wr = residual[0].t().contiguous() if residual is not None else None
-    pro = torch.stack(prologue).contiguous() if prologue is not None else None
+    w_packed = packed_weight(weight)
     mode = {(1, 1): 0, (2, 1): 1, (1, 2): 2}[(stride, dilation)]
-    split, n_part = ctypes.c_int(), ctypes.c_int()
-    rc = _build.library().cdll.m3seg_conv3_plan(
-        d, h, w, co, mode, ctypes.byref(split), ctypes.byref(n_part))
-    if rc != 0:
-        raise ValueError(f"conv3: no launch plan for {(d, h, w)}, co={co}")
+    plan = conv3_plan((d, h, w), ci, co, mode)
     part = rpart = ws = None
     if emit_stats:
-        part = torch.empty((n_part.value, 2, co), dtype=torch.float32,
+        part = torch.empty((plan[P_NPART], 2, co), dtype=torch.float32,
                            device=dev)
         if residual is not None:
             rpart = torch.empty_like(part)
-    if split.value > 1:  # the taps split over blocks: partial sums
-        n_ws = split.value + (residual is not None)
+    if plan[P_SPLIT] > 1:  # the chunks split over blocks: partial sums
+        n_ws = plan[P_SPLIT] * (2 if residual is not None else 1)
         ws = torch.empty((n_ws,) + y.shape[1:], dtype=torch.float32,
                          device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    pro = prologue if prologue is not None else (None, None)
+    res = residual if residual is not None else (None, None)
     _build.launch("conv3", "m3seg_conv3", dev, x.data_ptr(), ptr(x2),
-                  w_packed.data_ptr(), bias.data_ptr(), ptr(pro),
-                  KERNEL_ACTS[prologue_act], ptr(wr),
-                  ptr(residual[1]) if residual is not None else None,
+                  w_packed.data_ptr(), bias.data_ptr(), ptr(pro[0]),
+                  ptr(pro[1]), KERNEL_ACTS[prologue_act], ptr(res[0]),
+                  ptr(res[1]),
                   y.data_ptr(), ptr(r), ptr(part), ptr(rpart), ptr(ws), d, h,
-                  w, c1, c2, co, mode)
+                  w, c1, c2, co, mode, plan)
     outs = [y] + ([r] if r is not None else [])
     if emit_stats:
         # the per-block partials, summed in float64 in a fixed order

@@ -164,6 +164,7 @@ class VNetDS(nn.Module):
         self.use_residual = use_residual
         self.channel_first_io = channel_first_io
         self.use_kernels = use_kernels
+        self._up_weights = {}  # id(parameter) -> (version key, conv3 layout)
         g = dict(generator=generator)
         na = dict(activation=activation, use_snn=use_snn)
         k = kernel_size
@@ -348,6 +349,27 @@ class VNetDS(nn.Module):
                 xc, pend = self._finish(conv, y, st), None
         return xc, r_out
 
+    def _up_weight(self, p):
+        """The transposed conv's weight ``p`` as conv3 takes it: torch's
+        transposed conv is a conv over the 2x-dilated input with the
+        flipped kernel in conv layout. Kept between forwards and made again
+        when ``p``'s storage or version changes, so the kernel path flips
+        (and conv3 packs) each weight once per version, not per forward.
+        Where autograd would track ``p``, the flip is made anew and the
+        kernel refuses it; parameters made under inference mode carry no
+        version counter and are flipped on every forward."""
+        if (torch.is_grad_enabled() and p.requires_grad) or p.is_inference():
+            return p.flip(2, 3, 4).transpose(0, 1).contiguous()
+        key = (p.data_ptr(), p._version, p.device, p.dtype)
+        cached = self._up_weights.get(id(p))
+        if cached is None or cached[0] != key:
+            # a normal tensor, also under inference mode, so that conv3
+            # can keep its packed copy
+            with torch.inference_mode(False), torch.no_grad():
+                w = p.detach().flip(2, 3, 4).transpose(0, 1).contiguous()
+            cached = self._up_weights[id(p)] = (key, w)
+        return cached[1]
+
     def _kernel_forward(self, x):
         if x.shape[0] != 1:
             raise ValueError(f"VNetDS's kernel path serves batch 1, got "
@@ -380,9 +402,7 @@ class VNetDS(nn.Module):
                 legs[i] = x
         for i in reversed(range(ns - 1)):
             convs, res, up = self._section("decode", i)
-            # torch's transposed conv == a conv over the 2x-dilated input
-            # with the flipped kernel in conv layout
-            w = up.op.weight.flip(2, 3, 4).transpose(0, 1).contiguous()
+            w = self._up_weight(up.op.weight)
             stats_up = up.normalization is not None
             out = conv3(x, w, up.op.bias, dilation=2, emit_stats=stats_up)
             y, st = out if stats_up else (out, None)
@@ -743,10 +763,12 @@ class NeuralOperatorSeg(_TransSegBase):
 
     ``use_kernels=True`` runs the counterpart of the reference's
     ``_fused_tower_forward`` with the modes clipped to half the tower grid,
-    on ``tower_kernel`` ``"block_s"`` (default: the resident spectrum, the
-    depth stages inside the kernel), ``"block"`` or ``"resident"`` (the
-    whole tower in one launch, the reference's unrouted
-    ``resident_tower``; no deep supervision). It keeps the
+    on ``tower_kernel`` ``"block"`` (default: per-plane spectra
+    exchanged with einsums between kernels, the fastest of the three on an
+    H100), ``"block_s"`` (the resident spectrum, the depth stages inside
+    the kernel) or ``"resident"`` (the whole tower in one launch, the
+    reference's unrouted ``resident_tower``; no deep supervision). It
+    keeps the
     reference's gate (shared weights, SELU, the concat block skip, no
     conv-branch bias, batch 1, channel-first IO) and raises outside it,
     where the reference falls back to its module path. Deep supervision
@@ -767,7 +789,7 @@ class NeuralOperatorSeg(_TransSegBase):
                  activation="selu", output_activation="softmax",
                  ndim: int = 5, channel_first_io: bool = True,
                  compute_dtype: str = "float32", use_kernels: bool = False,
-                 tower_kernel: str = "block_s", *,
+                 tower_kernel: str = "block", *,
                  generator: Optional[torch.Generator] = None,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__()

@@ -3,11 +3,13 @@
 
 Usage: ``python -m multimodal_3d_image_segmentation_tpu_torch.runtime.inference
 config.ini`` with the same config dialect. Weights are read from
-``<output_dir>/model/model.pt``: a torch state dict in the upstream
-reference's key names (the upstream project's own weights-only format;
-``utils/jax_compat.py`` converts JAX parameters to it). The model is
-shape-polymorphic, so a model trained at one size serves at another
-(zero-shot super-resolution).
+``<output_dir>/model/``, by what the run directory holds: ``model.pt``, a
+torch state dict in the upstream reference's key names (the upstream
+project's own weights-only format), or else ``model.msgpack``, the JAX
+package's export (``utils/msgpack_params.py`` reads it and
+``utils/jax_compat.py`` converts it), so a run directory that the JAX
+package wrote serves here too. The model is shape-polymorphic, so a model
+trained at one size serves at another (zero-shot super-resolution).
 """
 from __future__ import annotations
 
@@ -23,11 +25,35 @@ from ..data.dataset import InputData
 from ..data.nifti import read_img
 from ..data.normalization import normalize_modalities
 from ..device import resolve_device
+from ..utils.jax_compat import state_dict_from_jax
+from ..utils.msgpack_params import read_msgpack_params
 from .config import get_config
 from .run import _build_model, get_data_lists
 from .train_test import testing
 
-__all__ = ["run_inference", "main"]
+__all__ = ["run_inference", "load_weights", "main"]
+
+
+def load_weights(model_dir: str, model: torch.nn.Module):
+    """The state dict in ``model_dir``: ``model.pt`` where it exists, else
+    the JAX package's ``model.msgpack`` converted for ``model`` (V-Net-DS
+    needs its ``num_blocks`` and ``use_residual``). The JAX package's
+    sharded Orbax export (a ``model.msgpack.orbax`` directory) raises
+    ``NotImplementedError``; a directory with neither file raises
+    ``FileNotFoundError``."""
+    pt = os.path.join(model_dir, "model.pt")
+    mp = os.path.join(model_dir, "model.msgpack")
+    if os.path.exists(pt):
+        return torch.load(pt, map_location="cpu", weights_only=True)
+    if os.path.exists(mp):
+        return state_dict_from_jax(
+            read_msgpack_params(mp), getattr(model, "num_blocks", None),
+            getattr(model, "use_residual", True))
+    if os.path.isdir(os.path.abspath(mp) + ".orbax"):
+        not_ported("the sharded Orbax weights export (model.msgpack.orbax)",
+                   7)
+    raise FileNotFoundError(f"{model_dir} holds neither model.pt nor "
+                            "model.msgpack")
 
 
 def run_inference(config_args):
@@ -57,9 +83,8 @@ def run_inference(config_args):
 
     model = _build_model(config_args, input_data,
                          input_data.get_test_image_size, device)
-    state = torch.load(os.path.join(output_dir, "model", "model.pt"),
-                       map_location="cpu", weights_only=True)
-    model.load_state_dict(state, strict=True)
+    model.load_state_dict(load_weights(os.path.join(output_dir, "model"),
+                                       model), strict=True)
 
     test_args = copy.deepcopy(config_args.get("test", {}))
     test_dir = os.path.join(output_dir,

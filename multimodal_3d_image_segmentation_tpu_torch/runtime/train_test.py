@@ -50,12 +50,16 @@ def _memory_mib(device: torch.device) -> Dict[str, float]:
 
 def testing(model: torch.nn.Module, input_data, output_dir: str,
             label_mapping: Optional[Dict[int, int]] = None,
-            output_origin=None, is_print: bool = True) -> Dict[str, float]:
+            output_origin=None, is_print: bool = True,
+            save_npz: bool = False) -> Dict[str, float]:
     """Predict every test volume, write the label maps and the timing and
-    memory file. Returns the same numbers as a dict: ``avg_time_s`` (wall
-    clock with readback, first volume excluded), ``avg_device_ms`` (CUDA
-    events, first volume excluded; nan off CUDA), ``peak_mib``,
-    ``peak_reserved_mib``, ``in_use_mib`` and ``n_volumes``."""
+    memory file; with ``save_npz`` also ``y_true_pred.npz``, the
+    reference's bulk output: ``y_pred`` (the label maps stacked) and, where
+    every volume has one, ``y_true``. Returns the numbers as a dict:
+    ``avg_time_s`` (wall clock with readback, first volume excluded),
+    ``avg_device_ms`` (CUDA events, first volume excluded; nan off CUDA),
+    ``peak_mib``, ``peak_reserved_mib``, ``in_use_mib`` and
+    ``n_volumes``."""
     if input_data.batch_size != 1:
         raise ValueError("testing() follows the per-volume protocol: set "
                          "[input_args] batch_size = 1")
@@ -77,6 +81,7 @@ def testing(model: torch.nn.Module, input_data, output_dir: str,
     test_flow = input_data.get_test_flow()
     start_time = time.time()
     predict_times, device_ms = [], []
+    npz_true, npz_pred = [], []
     n = 0
     try:
         for i, xy in enumerate(test_flow):
@@ -108,6 +113,9 @@ def testing(model: torch.nn.Module, input_data, output_dir: str,
             save_output(y_pred, data_lists_test, i,
                         os.path.join(output_dir, "images"), output_origin,
                         "_pred")
+            if save_npz:
+                npz_true.append(y_true)
+                npz_pred.append(y_pred)
             if i != 0:  # the first volume includes one-time set-up
                 predict_times.append(e_time - s_time)
                 if cuda:
@@ -118,6 +126,12 @@ def testing(model: torch.nn.Module, input_data, output_dir: str,
             test_flow.close()
     end_time = time.time()
 
+    if save_npz:
+        arrays = {"y_pred": np.stack(npz_pred)}
+        if all(t is not None for t in npz_true):
+            arrays["y_true"] = np.stack(npz_true)
+        np.savez_compressed(os.path.join(output_dir, "y_true_pred.npz"),
+                            **arrays)
     mem = _memory_mib(device)
     avg_time = float(np.mean(predict_times)) if predict_times else math.nan
     avg_dev = float(np.mean(device_ms)) if device_ms else math.nan

@@ -221,3 +221,52 @@ def test_wrapper_refuses_mismatched_shapes_and_bf16():
     with pytest.raises(ValueError, match="prologue"):
         kernels.conv3(_t(x), _t(w), _t(b),
                       prologue=(torch.ones(4), torch.zeros(4)))
+
+
+def test_packed_weight_is_kept_per_weight_version():
+    """conv3's packed weights (27 * ci, co) are made once per weight
+    version: the same tensor while the weight is unchanged, made again
+    after an in-place update or a new storage; inference tensors (no
+    version counter) are packed on every call."""
+    from multimodal_3d_image_segmentation_tpu_torch.kernels.conv3 import \
+        packed_weight
+    w = torch.nn.Parameter(torch.from_numpy(np.random.default_rng(3)
+                           .standard_normal((8, 4, 3, 3, 3))
+                           .astype(np.float32)))
+    want = w.detach().permute(2, 3, 4, 1, 0).reshape(27 * 4, 8)
+    first = packed_weight(w)
+    assert torch.equal(first, want) and packed_weight(w) is first
+    with torch.no_grad():
+        w.mul_(2.0)
+    second = packed_weight(w)
+    assert second is not first and torch.equal(second, 2.0 * want)
+    w.data = w.data.clone()
+    assert packed_weight(w) is not second
+    with torch.inference_mode():
+        wi = w.detach().clone()
+        assert wi.is_inference()
+        a, b = packed_weight(wi), packed_weight(wi)
+    assert a is not b and torch.equal(a, b)
+
+
+def test_vnetds_keeps_its_flipped_up_weights():
+    """The kernel path flips each up conv's weight once per weight version
+    and gives the same output as a fresh model after an update."""
+    from multimodal_3d_image_segmentation_tpu_torch.models import VNetDS
+    m = VNetDS(2, 3, 4, [1, 1], right_leg_indexes=[0, 1], use_kernels=True)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 2, 12, 10, 8)).astype(np.float32))
+    with torch.inference_mode():
+        a = m(x)
+        kept = {k: v[1] for k, v in m._up_weights.items()}
+        assert len(kept) == 1 and torch.equal(m(x), a)
+        assert all(m._up_weights[k][1] is v for k, v in kept.items())
+    with torch.no_grad():
+        for p in m.parameters():
+            p.mul_(1.1)
+    fresh = VNetDS(2, 3, 4, [1, 1], right_leg_indexes=[0, 1],
+                   use_kernels=True)
+    fresh.load_state_dict(m.state_dict())
+    with torch.inference_mode():
+        assert torch.equal(m(x), fresh(x))
+    assert all(m._up_weights[k][1] is not v for k, v in kept.items())

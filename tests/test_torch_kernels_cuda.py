@@ -145,17 +145,28 @@ CONV3_OPTIONS = ["bare", "x2", "prologue_elu", "prologue_selu",
       for ci, co in ((24, 24), (48, 96), (384, 384), (8, 12))],
     ((48, 40, 30), 24, 24),   # enough blocks: one pass, no split
     ((31, 31, 20), 96, 96),
+    # no axis a multiple of any brick
+    ((13, 11, 9), 24, 24),
+    ((7, 17, 21), 48, 24),
 ])
 @pytest.mark.parametrize("option", CONV3_OPTIONS)
 def test_conv3_kernel_matches_plain(dev, sizes, ci, co, option):
-    c2 = ci if option.startswith("x2") else 0
+    x, w, b, kw = _conv3_case(dev, sizes, ci, co, option)
+    _conv3_held(lambda: kernels.conv3(x, w, b, **kw),
+                kernels.conv3_plain(x, w, b, **kw), kw)
+
+
+def _conv3_case(dev, sizes, ci, co, option, c2=None):
+    if c2 is None:
+        c2 = ci if option.startswith("x2") else 0
     x = _t((1,) + sizes + (ci,), 20, dev)
     x2 = _t((1,) + sizes + (c2,), 21, dev) if c2 else None
     w = _t((co, ci + c2, 3, 3, 3), 22, dev, 1 / np.sqrt(27 * (ci + c2)))
     b = _t((co,), 23, dev, 0.1)
     kw = dict(x2=x2)
     if option.startswith("prologue"):
-        kw.update(prologue=(_t((ci,), 24, dev, 0.3) + 1, _t((ci,), 25, dev)),
+        kw.update(prologue=(_t((ci + c2,), 24, dev, 0.3) + 1,
+                            _t((ci + c2,), 25, dev)),
                   prologue_act=option.split("_")[1], emit_stats=True)
     if option.endswith("residual_stats"):
         kw.update(residual=(_t((co, ci + c2), 26, dev,
@@ -165,18 +176,87 @@ def test_conv3_kernel_matches_plain(dev, sizes, ci, co, option):
         kw.update(stride=2, emit_stats=True)
     if option == "dilation2":
         kw.update(dilation=2, emit_stats=True)
+    return x, w, b, kw
+
+
+def _conv3_held(kern, want, kw):
+    """One launch of ``kern`` against the plain outputs ``want``; returns
+    the kernel's outputs."""
     with torch.no_grad():
-        got = _launched("conv3", lambda: kernels.conv3(x, w, b, **kw))
-        want = kernels.conv3_plain(x, w, b, **kw)
+        got = _launched("conv3", kern)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     assert len(got) == len(want)
-    n_out = 2 if "residual" in kw and kw["residual"] is not None else 1
+    n_out = 2 if kw.get("residual") is not None else 1
     for g, wt in zip(got[:n_out], want[:n_out]):
         _close(g, wt)
     for y, st in zip(got[:n_out], got[n_out:]):
         exact, scale = _moments64(y)
         assert float(((st.double() - exact).abs() - 1e-5 * scale).max()) <= 0
+    return got
+
+
+# forced plans (W run, brick depth, height, runs along W, channel tile,
+# chunk, split): each W run, bricks that divide no axis, a 16-channel chunk
+# that spans the x1/x2 boundary at channel 24, splits of the chunks
+CONV3_PLANS = [(8, 2, 2, 1, 24, 16, 1), (5, 1, 4, 2, 24, 8, 2),
+               (8, 4, 2, 2, 24, 4, 3), (5, 2, 1, 1, 8, 16, 1),
+               (8, 1, 1, 1, 16, 4, 5)]
+
+
+@pytest.mark.parametrize("choice", CONV3_PLANS)
+@pytest.mark.parametrize("option", CONV3_OPTIONS)
+def test_conv3_kernel_plans_match_plain(dev, choice, option):
+    import importlib
+    conv3_mod = importlib.import_module(
+        "multimodal_3d_image_segmentation_tpu_torch.kernels.conv3")
+    x, w, b, kw = _conv3_case(dev, (7, 9, 13), 24, 24, option)
+    real = conv3_mod.conv3_plan
+
+    def forced(sizes, ci, co, mode, _=None):
+        return real(sizes, ci, co, mode, choice)
+
+    conv3_mod.conv3_plan = forced
+    try:
+        _conv3_held(lambda: kernels.conv3(x, w, b, **kw),
+                    kernels.conv3_plain(x, w, b, **kw), kw)
+    finally:
+        conv3_mod.conv3_plan = real
+
+
+def test_conv3_vnetds_calls_match_plain(dev):
+    """Every conv3 call of a V-Net-DS forward (base 24, blocks
+    [1,2,3,3,3]: each (grid level, ci, co, mode, options) of the 29 calls
+    at the serving width, on a 40x36x30 volume) against the plain version;
+    a second call gives the same bits and leaves the inputs untouched."""
+    from multimodal_3d_image_segmentation_tpu_torch.models import (
+        VNetDS, architectures)
+    model = VNetDS(4, 4, 24, [1, 2, 3, 3, 3],
+                   right_leg_indexes=[0, 1, 2, 3, 4], use_kernels=True,
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+    calls, real = [], architectures.conv3
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    architectures.conv3 = recording
+    try:
+        with torch.no_grad():
+            model(_t((1, 4, 40, 36, 30), 70, dev))
+    finally:
+        architectures.conv3 = real
+    assert len(calls) == 29
+    with torch.no_grad():
+        for args, kw in calls:
+            ins = [t for t in (args[0], kw.get("x2")) if t is not None]
+            inputs = [t.clone() for t in ins]
+            got = _conv3_held(lambda: kernels.conv3(*args, **kw),
+                              kernels.conv3_plain(*args, **kw), kw)
+            again = kernels.conv3(*args, **kw)
+            again = again if isinstance(again, tuple) else (again,)
+            assert all(torch.equal(a, g) for a, g in zip(again, got))
+            assert all(torch.equal(a, b) for a, b in zip(inputs, ins))
 
 
 def test_conv3_refuses_what_it_does_not_take(dev):

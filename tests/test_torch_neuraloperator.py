@@ -292,7 +292,7 @@ def test_build_model_from_the_config(name, transform, n_params):
     model = _build_model(cfg, _Sizes(), lambda: (240, 240, 155))
     assert isinstance(model, NeuralOperatorSeg) and model.use_kernels
     assert model.transform_type == transform
-    assert model.tower_kernel == "block_s"
+    assert model.tower_kernel == "block"
     assert sum(p.numel() for p in model.parameters()) == n_params
 
 

@@ -178,7 +178,7 @@ def test_port_never_imports_jax(tmp_path):
         "with torch.no_grad():\n"
         "    assert a(torch.randn(1, 2, 12, 10, 8)).shape == (1, 3, 12, 10, 8)\n"
         "for t in ('Hartley', 'Fourier'):\n"
-        "    for k in ('block_s', 'resident'):\n"
+        "    for k in ('block', 'block_s', 'resident'):\n"
         "        n = NeuralOperatorSeg(2, 3, 4, 2, (2, 2, 2), t, "
         "use_kernels=True, tower_kernel=k)\n"
         "        with torch.no_grad():\n"
@@ -416,3 +416,130 @@ def test_serving_noseg_resident_matches_jax_testing(tmp_path, monkeypatch,
                            f"case{i}_pred.nii.gz"))
         assert got.shape == SHAPE
         assert np.mean(got != want) <= 1e-4
+
+
+VNET_CONFIG = """
+[main]
+output_dir = '{out}'
+is_train = False
+is_test = True
+is_statistics = False
+visible_devices = 'cpu'
+
+[input_lists]
+data_dir = '{data}'
+data_lists_test_paths = [{lists}]
+
+[input_args]
+idx_x_modalities = [0, 1]
+idx_y_modalities = [2]
+batch_size = 1
+num_workers = 0
+use_data_normalization = True
+
+[model]
+model_name = 'VNetDS'
+out_channels = 3
+base_num_filters = 4
+num_blocks = [1, 2]
+right_leg_indexes = [0, 1]
+use_pallas = True
+transform_precision = 'high'
+
+[test]
+output_folder = 'inference'
+save_npz = True
+"""
+MSGPACK_FAMILIES = {
+    "HNOSeg-XS": (CONFIG.replace("{use_pallas}", "True").replace(
+        "[test]\n", "[test]\nsave_npz = True\n"),
+        lambda: jmodels.HNOSegXS(in_channels=2, **MODEL)),
+    "V-Net-DS": (VNET_CONFIG, lambda: jmodels.VNetDS(
+        in_channels=2, out_channels=3, base_num_filters=4, num_blocks=[1, 2],
+        right_leg_indexes=[0, 1])),
+}
+
+
+@pytest.mark.parametrize("family", sorted(MSGPACK_FAMILIES))
+def test_serving_a_jax_run_directory_matches_jax_testing(tmp_path, family):
+    """A run directory that holds only the JAX package's
+    ``model/model.msgpack`` (written by its ``save_params``) serves through
+    the port's run_inference; the label maps and ``[test] save_npz``'s
+    ``y_true_pred.npz`` match the JAX engine's testing() (its module path)
+    on the same weights."""
+    from multimodal_3d_image_segmentation_tpu.runtime.checkpoint import \
+        save_params
+    text, make = MSGPACK_FAMILIES[family]
+    lists = _write_cases(tmp_path / "data")
+    cfg = config.get_config(StringIO(text.format(
+        out=tmp_path / "out", data=tmp_path / "data",
+        lists=", ".join(f"'{p}'" for p in lists))), "serve.ini")
+    data_lists = [[str(tmp_path / "data" / n)
+                   for n in Path(p).read_text().splitlines()] for p in lists]
+    jm = make()
+    params = jm.init(jax.random.PRNGKey(0),
+                     jnp.zeros((1, 2) + SHAPE))["params"]
+    input_data = InputData(reader=read_img, data_lists_test=data_lists,
+                           idx_x_modalities=[0, 1], idx_y_modalities=[2],
+                           x_processing=normalize_modalities, batch_size=1,
+                           num_workers=0)
+    jtesting(jm, params, input_data, str(tmp_path / "jax"), is_print=False,
+             save_npz=True)
+    save_params(str(tmp_path / "out" / "model" / "model.msgpack"), params)
+    assert sorted(os.listdir(tmp_path / "out" / "model")) == [
+        "model.msgpack"]
+    assert run_inference(cfg)["n_volumes"] == 2
+    for i in range(2):
+        want = read_img(str(tmp_path / "jax" / "images" /
+                            f"case{i}_pred.nii.gz"))
+        got = read_img(str(tmp_path / "out" / "inference" / "images" /
+                           f"case{i}_pred.nii.gz"))
+        assert got.shape == SHAPE
+        assert np.mean(got != want) <= 1e-4
+    want = np.load(tmp_path / "jax" / "y_true_pred.npz")
+    got = np.load(tmp_path / "out" / "inference" / "y_true_pred.npz")
+    assert sorted(got.files) == sorted(want.files) == ["y_pred", "y_true"]
+    for k in want.files:
+        assert got[k].shape == want[k].shape == (2,) + SHAPE
+        assert got[k].dtype == want[k].dtype
+    np.testing.assert_array_equal(got["y_true"], want["y_true"])
+    assert np.mean(got["y_pred"] != want["y_pred"]) <= 1e-4
+
+
+def test_save_npz_without_labels(tmp_path):
+    """Test lists without a label modality: ``y_true_pred.npz`` holds
+    ``y_pred`` alone, as the reference's does."""
+    from multimodal_3d_image_segmentation_tpu_torch.data.dataset import \
+        InputData as TInputData
+    from multimodal_3d_image_segmentation_tpu_torch.data.nifti import \
+        read_img as tread_img
+    from multimodal_3d_image_segmentation_tpu_torch.models import HNOSegXS
+    from multimodal_3d_image_segmentation_tpu_torch.runtime.train_test \
+        import testing
+    lists = _write_cases(tmp_path / "data")
+    data_lists = [[str(tmp_path / "data" / n)
+                   for n in Path(p).read_text().splitlines()]
+                  for p in lists[:2]]
+    input_data = TInputData(reader=tread_img, data_lists_test=data_lists,
+                            idx_x_modalities=[0, 1], batch_size=1,
+                            num_workers=0)
+    stats = testing(HNOSegXS(in_channels=2, **MODEL), input_data,
+                    str(tmp_path / "test"), is_print=False, save_npz=True)
+    assert stats["n_volumes"] == 2
+    got = np.load(tmp_path / "test" / "y_true_pred.npz")
+    assert got.files == ["y_pred"] and got["y_pred"].shape == (2,) + SHAPE
+    assert got["y_pred"].dtype == np.uint8
+
+
+def test_load_weights_without_a_weights_file(tmp_path):
+    """A run directory with neither weights file raises; the JAX package's
+    sharded Orbax export raises naming its ROADMAP item."""
+    from multimodal_3d_image_segmentation_tpu_torch.models import HNOSegXS
+    from multimodal_3d_image_segmentation_tpu_torch.runtime.inference import \
+        load_weights
+    model = HNOSegXS(in_channels=2, **MODEL)
+    with pytest.raises(FileNotFoundError, match="model.msgpack"):
+        load_weights(str(tmp_path), model)
+    (tmp_path / "model.msgpack.orbax").mkdir()
+    with pytest.raises(NotImplementedError, match="item 7"):
+        load_weights(str(tmp_path), model)
