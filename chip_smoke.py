@@ -18,13 +18,15 @@ tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
   2. build    compile the CUDA kernels from ``csrc/`` (one nvcc per source,
               all at once, sm_90a);
   3. kernels  conv_in (also at the odd-D/H shape 239x239x155),
-              freq_chain, tail_resize, tower_block (also with FNOSeg's
-              Fourier matrices), tower_block_s (at HNOSeg's, FNOSeg's
-              and HartleyMHASeg's shapes) and tower_resident (the whole
-              24-block tower at HNOSeg's and FNOSeg's shapes) against their
-              plain PyTorch versions at the serving shapes, with their
-              times, the plain versions' and the bound, and the tower
-              kernels' occupancy and tower_resident's persistent grid;
+              freq_chain, tail_resize, tower_block (at the three shapes
+              it serves: HartleyMHASeg's, HNOSeg's and FNOSeg's),
+              tower_block_s (at the same three) and tower_resident (the
+              whole 24-block tower at HNOSeg's and FNOSeg's shapes, with
+              its phase clock, the z phase included) against their plain
+              PyTorch versions at the serving shapes, with their times,
+              the plain versions' and the bound, the tower kernels'
+              registers and spills from the build log, their occupancy
+              and tower_resident's persistent grid;
   4. serve    ``runtime/inference.py::run_inference`` on 3 synthetic NIfTI
               cases through ``configs/config_inference_hnoseg_xs.ini``; the
               launch counts (reset just before) must be 3 / 24 / 3;
@@ -392,47 +394,85 @@ def _held_to_plain(torch, kernels, name, label, kern, plain, outs):
     return err
 
 
+# the shapes tower_block serves: (label, transform, modes, ds rows)
+TOWER_BLOCK_SHAPES = [("HartleyMHASeg", "Hartley", (8, 12, 12), 4),
+                      ("HNOSeg", "Hartley", (10, 14, 14), 0),
+                      ("FNOSeg", "Fourier", (10, 14, 14), 0)]
+
+
+def tower_build_report(kernels):
+    """Registers, spills and stack of each tower kernel instance
+    (tower_block, tower_block_s, tower_resident) from the build's
+    ``-Xptxas -v`` log."""
+    log = kernels.library().build_log.splitlines()
+    if not log:
+        print("tower build: the library was reused, no ptxas log")
+    for i, line in enumerate(log):
+        if "Compiling entry function" not in line:
+            continue
+        name = line.split("'")[1] if "'" in line else line
+        kind = next((k for k in ("tower_resident_kernel",
+                                 "tower_block_s_kernel",
+                                 "tower_block_kernel") if k in name), None)
+        if kind is None:
+            continue
+        c = "24" if "ILi24E" in name else "8" if "ILi8E" in name else "?"
+        props = [ln.split(":", 1)[-1].strip() for ln in log[i + 1:i + 4]
+                 if "spill" in ln or "Used" in ln]
+        print(f"tower build: {kind.removesuffix('_kernel')} C {c}: "
+              f"{'; '.join(props)}")
+
+
 def phase_tower_block(torch, kernels, dev):
-    """tower_block against its plain version at HartleyMHASeg's serving
-    shape (grid 121x121x78, C 24, modes (8,12,12), 4 deep-supervision
-    rows), and once with FNOSeg's Fourier matrices (modes (10,14,14),
-    KW 14). Tolerance: 1e-5 of each output's largest magnitude (at least
-    1): the kernel sums up to 56 fp32 products in another order than
-    cuBLAS; a TF32 operand would miss by about 5e-4 of it."""
+    """tower_block against its plain version at the three shapes it serves
+    (grid 121x121x78, C 24): HartleyMHASeg's (Hartley, modes (8,12,12), 4
+    deep-supervision rows), HNOSeg's (Hartley, modes (10,14,14), no ds
+    rows) and FNOSeg's (Fourier, modes (10,14,14), KW 14). Tolerance: 1e-5
+    of each output's largest magnitude (at least 1): the kernel sums up to
+    56 fp32 products in another order than cuBLAS; a TF32 operand would miss
+    by about 5e-4 of it. Each shape's time beside its bound, the blocks per
+    SM and registers the CUDA runtime reports, and the tower kernels'
+    registers and spills from the build log. The kernels line reports
+    HartleyMHASeg's shape."""
     header("== tower_block")
     from multimodal_3d_image_segmentation_tpu_torch.kernels import \
         tower_block as tb
-    with torch.inference_mode():
-        spec = tb.make_tower_spec("Fourier", GRID, (10, 14, 14), 24)
-        x, s, w_cat, w_cc_t, b_cat, _ = _tower_operands(torch, tb, dev, spec,
-                                                        SEED + 5)
-        z = tb.d_stage_inverse(s, spec).contiguous()
-        args = (x, z, w_cat, w_cc_t, b_cat, spec)
-        _held_to_plain(torch, kernels, "tower_block", "tower_block Fourier",
-                       lambda: kernels.fused_tower_block(*args),
-                       lambda: kernels.tower_block_plain(*args), ("out", "f"))
-        spec = tb.make_tower_spec("Hartley", GRID, (8, 12, 12), 24, n_ds=4)
-        x, s, w_cat, w_cc_t, b_cat, ds_prev = _tower_operands(
-            torch, tb, dev, spec, SEED + 3)
-        z = tb.d_stage_inverse(s, spec).contiguous()
-        args = (x, z, w_cat, w_cc_t, b_cat, spec, ds_prev)
+    tower_build_report(kernels)
+    results = {}
+    for i, (label, transform, modes, nds) in enumerate(TOWER_BLOCK_SHAPES):
+        spec = tb.make_tower_spec(transform, GRID, modes, 24, n_ds=nds)
+        with torch.inference_mode():
+            x, s, w_cat, w_cc_t, b_cat, ds_prev = _tower_operands(
+                torch, tb, dev, spec, SEED + 3 + 2 * i)
+            z = tb.d_stage_inverse(s, spec).contiguous()
+            args = (x, z, w_cat, w_cc_t, b_cat, spec, ds_prev)
 
-        def kern():
-            return kernels.fused_tower_block(*args)
+            def kern():
+                return kernels.fused_tower_block(*args)
 
-        def plain():
-            return kernels.tower_block_plain(*args)
-        err = _held_to_plain(torch, kernels, "tower_block", "tower_block",
-                             kern, plain, ("out", "f", "ds"))
-        ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
-    flops, moved = tower_block_work(spec)
-    b_ms, b_by = bound(flops, moved)
-    print(f"tower_block: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"library None  bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.3f} "
-          f"GFLOP, {moved / 1e6:.1f} MB), {flops / ms / 1e9:.2f} TFLOP/s "
-          f"(medians of {N_TIMED}, CUDA events)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            def plain():
+                return kernels.tower_block_plain(*args)
+            err = _held_to_plain(torch, kernels, "tower_block",
+                                 f"tower_block {label}", kern, plain,
+                                 ("out", "f", "ds")[:3 if nds else 2])
+            ms, plain_ms = median_ms(torch, kern), median_ms(torch, plain)
+        flops, moved = tower_block_work(spec)
+        b_ms, b_by = bound(flops, moved)
+        print(f"tower_block {label} ({transform}, KH {spec.kh}, KW "
+              f"{spec.kw}, ds {nds}): kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  library None  bound {b_ms:.4f} ms "
+              f"({b_by}; {flops / 1e9:.3f} GFLOP, {moved / 1e6:.1f} MB), "
+              f"{flops / ms / 1e9:.2f} TFLOP/s (medians of {N_TIMED}, CUDA "
+              f"events); shared memory {tb.kernel_smem_bytes(spec)} B per "
+              f"block; occupancy (blocks per SM, registers per thread) "
+              f"{tb.occupancy(spec)}")
+        results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": None}
+        del x, s, z, args
+    out = dict(results["HartleyMHASeg"])
+    out["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
+    return out
 
 
 def phase_tower_block_s(torch, kernels, dev):
@@ -585,9 +625,10 @@ def phase_tower_resident(torch, kernels, dev):
               f"{tb.kernel_smem_bytes(spec)} B per block")
         print(f"tower_resident {label} phases per call (ms, mean of {calls} "
               f"calls, block 0's globaltimer after each grid barrier): "
-              f"bodies of the first {nb - 1} blocks {phases['body']:.4f}, depth "
-              f"passes {phases['depth']:.4f}, operator mixes "
-              f"{phases['mix']:.4f}, last block's body "
+              f"z phases (each plane's z, once per block) "
+              f"{phases['z']:.4f}, bodies of the first {nb - 1} blocks "
+              f"{phases['body']:.4f}, depth passes {phases['depth']:.4f}, "
+              f"operator mixes {phases['mix']:.4f}, last block's body "
               f"{phases['last_body']:.4f}")
         results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by,

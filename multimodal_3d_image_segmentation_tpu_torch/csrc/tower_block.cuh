@@ -1,7 +1,7 @@
 // The body of one fused tower block, shared by csrc/tower_block.cu (z read
 // from a tensor), csrc/tower_block_s.cu (z formed from the resident
-// spectrum inside the block) and csrc/tower_resident.cu (the same, for
-// every block of the tower in one persistent launch).
+// spectrum inside the block) and csrc/tower_resident.cu (z formed once per
+// tower block by a phase of its own, then read like a tensor).
 //
 // Computes, for one depth plane d of the tower grid (D, H, W), C channels,
 // and one tile of kTW columns of W, x and out channels-last (D, H, W, C):
@@ -18,20 +18,34 @@
 // in the stage matrices (A, B: Hartley's fold C - S, -(C + S), Fourier's
 // real part C, -S; Cwi, Swi carry Fourier's Hermitian weights).
 //
-// Design. One plane is 906 KB at the serving sizes and does not fit a
-// block's 227 KB of shared memory (the TPU kernel keeps 8 whole planes in
-// VMEM), and the forward stage is a reduction over the whole plane. So each
-// block takes one plane and one tile of kTW columns of W: it computes the
-// inverse W stage of z for its columns into shared memory (the z source is
-// the caller's: read from a tensor, or formed from the resident spectrum),
-// then walks the rows of H in chunks of kTH, one thread per voxel and one
-// warp per column, so that the column's y and the weights are read from
-// shared memory as 16-byte broadcasts; the voxel's C channels stay in
-// registers. Each chunk's output folds into the forward H stage of the
-// tile's columns, held in shared memory, a 4 x 4 register tile per thread.
-// At the end the block applies the forward W stage over its columns and
-// writes its partial spectrum. No atomics: the result is the same from run
-// to run. SELU keeps expm1f, as torch.selu does.
+// What bounds it on an H100: the fp32 operations (about 5,600 FMAs and 48
+// SELUs a voxel at the serving shapes, against 200 bytes of volume
+// traffic). One plane is 906 KB at the serving sizes and does not fit a
+// block's shared memory, and the forward stage is a reduction over the
+// whole plane, so each block takes one plane and one tile of kTW columns
+// of W. What the design does so that two blocks of 256 threads (16 warps)
+// stay resident on an SM at every serving shape, with fewer shared-memory
+// loads per FMA than one voxel per thread gives:
+//   - first pass, over the rows of H in chunks of kTH: the inverse H stage
+//     of a chunk as a register-tiled product (4 rows x 4 channels of one
+//     column per thread: each 16-byte load of y or of the (A, B) rows feeds
+//     8 FMAs, one value per voxel fed 4), then the block tail at one voxel
+//     per thread (x and t in registers, weights as 16-byte broadcasts),
+//     writing out. The chunk's (A, B) rows are staged in shared memory with
+//     cp.async while the previous chunk computes;
+//   - second pass: the tile's out read back through L2 chunk by chunk (it
+//     was just written) into the forward H accumulators F, kept in
+//     registers: each thread owns a fixed, even share of (4 of 2KH, 4 of C)
+//     tiles of its column, so F needs no read-modify-write in shared
+//     memory and its 43 KB there (at C 24, KH 28) are free. F lives only in
+//     the second pass, so the tail's 48 values a voxel have the registers
+//     to themselves.
+// At the end F is written over the y tile (dead by then) and the block
+// applies the forward W stage over its columns. Each value keeps the
+// summation order of the one-voxel-per-thread design before it (y1 over k,
+// the mixes over input channels, F over h, the W stages over j and w, all
+// ascending), so the bits are the same. No atomics: the result is the same
+// from run to run. SELU keeps expm1f, as torch.selu does.
 #pragma once
 
 #include "common.cuh"
@@ -42,6 +56,7 @@ constexpr int kTW = 8;               // columns of W per block
 constexpr int kTH = 32;              // rows of H per chunk
 constexpr int kThreads = kTW * kTH;  // one thread per voxel of a chunk
 constexpr int kMaxDs = 8;
+constexpr int kMaxKH = 32;           // F's registers: KH / 2 x C / 4 tiles
 
 struct Mats {  // fp32 stage matrices, row-major
   const float* cwi;  // (KW, W)
@@ -75,11 +90,82 @@ __host__ inline size_t mats_floats(int H, int W, int KH, int KW) {
 
 // Shared memory of a block, in floats (each part a multiple of 4, so every
 // part is 16-byte aligned for float4 access).
-__host__ __device__ inline int smem_floats(int C, int KH, int KW, int nds) {
-  return 4 * KH * kTW * C          // y tile and F tile
-         + kTH * kTW * C           // one chunk of out
-         + (2 * C + nds) * C + C * C + 2 * C  // weights, bias
-         + 4 * KW * kTW;           // the tile's columns of Cwi, Swi, Cw, Sw
+__host__ __device__ inline int smem_floats(int C, int KH, int KW) {
+  return 2 * KH * kTW * C            // y tile, then the F tile
+         + kTH * kTW * C             // one chunk: y1, then out
+         + 2 * KH * kTH              // (A, B) rows of the chunk
+         + kTH * 2 * KH              // Mh rows of the chunk
+         + (2 * C + kMaxDs) * C + C * C + 2 * C  // weights, bias
+         + 4 * KW * kTW;             // the tile's columns of Cwi, Swi, Cw, Sw
+}
+
+// 4- and 16-byte asynchronous copies to shared memory; with `valid` false
+// the destination is zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stages the rows h0 .. h0 + kTH - 1 of the inverse H matrices as (A, B)
+// pairs [KH][kTH][2]; rows past H are zero.
+__device__ __forceinline__ void stage_ab(const Mats& m, int h0, int H, int KH,
+                                         float* ab_s) {
+  for (int i = threadIdx.x; i < KH * kTH; i += kThreads) {
+    const int k = i / kTH, hl = i % kTH;
+    const bool ok = h0 + hl < H;
+    const size_t g = ok ? (size_t)k * H + h0 + hl : 0;
+    cp_async4(ab_s + 2 * i, m.ha + g, ok);
+    cp_async4(ab_s + 2 * i + 1, m.hb + g, ok);
+  }
+}
+
+// Stages the rows h0 .. h0 + kTH - 1 of Mh, [kTH][2KH]; rows past H are
+// zero (2KH is a multiple of 4).
+__device__ __forceinline__ void stage_mh(const Mats& m, int h0, int H, int KH,
+                                         float* mh_s) {
+  const int n4 = kTH * 2 * KH / 4;
+  for (int i = threadIdx.x; i < n4; i += kThreads) {
+    const bool ok = h0 + (4 * i) / (2 * KH) < H;
+    cp_async16(mh_s + 4 * i, m.mhf + (ok ? (size_t)h0 * 2 * KH + 4 * i : 0),
+               ok);
+  }
+}
+
+// Stages rows h0 .. h0 + kTH - 1 of the tile's columns of out (plane d),
+// [kTW][kTH][C], through L2 (cp.async.cg: the same block wrote them);
+// voxels outside the volume are zero.
+template <int C>
+__device__ __forceinline__ void stage_out(const float* out, int d, int h0,
+                                          int H, int W, int w0, int nw,
+                                          float* o_s) {
+  constexpr int C4 = C / 4;
+  for (int i = threadIdx.x; i < kTH * kTW * C4; i += kThreads) {
+    const int q = i % C4, v = i / C4;
+    const int wl = v % kTW, hl = v / kTW;  // W fastest: coalesced reads
+    const bool ok = h0 + hl < H && wl < nw;
+    const size_t g =
+        ok ? (((size_t)d * H + h0 + hl) * W + w0 + wl) * C + 4 * q : 0;
+    cp_async16(o_s + (wl * kTH + hl) * C + 4 * q, out + g, ok);
+  }
 }
 
 // One block of the kernel on plane d, W tile `tile` of n_tiles. ZSrc
@@ -87,34 +173,44 @@ __host__ __device__ inline int smem_floats(int C, int KH, int KW, int nds) {
 // writes the inverse W stage of z over the tile's columns into the y tile,
 // [2][KH][kTW][C]; every thread of the block calls it; scratch holds
 // kTH kTW C floats. Without `forward` the block writes out (and ds) only,
-// no partial spectrum. kL2: x was written by the same launch (see
-// ld_or_cg); x and out never alias.
-template <int C, bool kL2, class ZSrc>
+// no partial spectrum. x is read through L2 (ld.global.cg), so it may be
+// written by the same launch; x and out never alias. wcat (2C + nds, C),
+// wcc (C, C), bias (2C): the weights, rows = outputs. KH <= kMaxKH (the
+// wrappers check).
+template <int C, class ZSrc>
 __device__ __forceinline__ void tower_block_body(
     const ZSrc& zsrc, int d, int tile, int n_tiles, bool forward,
     const float* __restrict__ x, const float* __restrict__ wcat,
     const float* __restrict__ wcc, const float* __restrict__ bias,
-    const Mats& m, const float* __restrict__ ds_prev,
-    float* __restrict__ out, float* __restrict__ partial,
-    float* __restrict__ ds_out, int H, int W, int KH, int KW, int nds) {
+    const Mats& m, const float* __restrict__ ds_prev, float* __restrict__ out,
+    float* __restrict__ partial, float* __restrict__ ds_out, int H, int W,
+    int KH, int KW, int nds) {
   constexpr int C4 = C / 4;
+  // F tiles of 4 (of 2KH) x 4 (of C) per thread: a column has KH / 2 x
+  // C4, over its kTH threads
+  constexpr int kFJ = (kMaxKH / 2 * C4 + kTH - 1) / kTH;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int w0 = tile * kTW;
   const int nw = min(kTW, W - w0);
   const int tid = threadIdx.x;
   const int ny = KH * kTW * C;       // one component of the y tile
-  float* y_s = smem;                 // [2][KH][kTW][C]
-  float* f_s = y_s + 2 * ny;         // [kTW][2KH][C]: F = out Mh
-  float* o_s = f_s + 2 * ny;         // [kTW][kTH][C]
-  float* wcat_s = o_s + kTH * kTW * C;        // [2C + nds][C] (out, in)
-  float* wcc_s = wcat_s + (2 * C + nds) * C;  // [C][C]        (out, in)
-  float* b_s = wcc_s + C * C;                 // [2C]
-  float* cwi_s = b_s + 2 * C;                 // [KW][kTW]
-  float* swi_s = cwi_s + KW * kTW;            // [KW][kTW]
-  float* cw_s = swi_s + KW * kTW;             // [kTW][KW]
-  float* sw_s = cw_s + kTW * KW;              // [kTW][KW]
+  const int k2n = 2 * KH;
+  float* y_s = smem;                 // [2][KH][kTW][C]; F [kTW][2KH][C]
+  float* o_s = y_s + 2 * ny;         // [kTW][kTH][C]: y1, then out
+  float* ab_s = o_s + kTH * kTW * C;           // [KH][kTH][2]
+  float* mh_s = ab_s + 2 * KH * kTH;           // [kTH][2KH]
+  float* wcat_s = mh_s + kTH * k2n;            // [2C + nds][C] (out, in)
+  float* wcc_s = wcat_s + (2 * C + kMaxDs) * C;  // [C][C]     (out, in)
+  float* b_s = wcc_s + C * C;                  // [2C]
+  float* cwi_s = b_s + 2 * C;                  // [KW][kTW]
+  float* swi_s = cwi_s + KW * kTW;             // [KW][kTW]
+  float* cw_s = swi_s + KW * kTW;              // [kTW][KW]
+  float* sw_s = cw_s + kTW * KW;               // [kTW][KW]
 
+  // the first chunk's (A, B) rows load while z is formed
+  stage_ab(m, 0, H, KH, ab_s);
+  cp_async_commit();
   for (int i = tid; i < (2 * C + nds) * C; i += kThreads) wcat_s[i] = wcat[i];
   for (int i = tid; i < C * C; i += kThreads) wcc_s[i] = wcc[i];
   for (int i = tid; i < 2 * C; i += kThreads) b_s[i] = bias[i];
@@ -126,167 +222,216 @@ __device__ __forceinline__ void tower_block_body(
     cw_s[i] = wl2 < nw ? m.cw[(w0 + wl2) * KW + j2] : 0.f;
     sw_s[i] = wl2 < nw ? m.sw[(w0 + wl2) * KW + j2] : 0.f;
   }
-  for (int i = tid; i < 2 * ny / 4; i += kThreads)
-    reinterpret_cast<float4*>(f_s)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
-  // ---- inverse W stage of z[d] for this tile's columns (the chunk of out,
-  // not yet in use, is the scratch)
+  // ---- inverse W stage of z[d] for this tile's columns (the chunk's y1
+  // buffer, not yet in use, is the scratch)
   zsrc.template fill_y<C>(y_s, ny, cwi_s, swi_s, o_s);
-  __syncthreads();
 
+  const float4* y4 = reinterpret_cast<const float4*>(y_s);
+  float4* o4 = reinterpret_cast<float4*>(o_s);
   const float4* wcat4 = reinterpret_cast<const float4*>(wcat_s);
   const float4* wcc4 = reinterpret_cast<const float4*>(wcc_s);
-  // a warp takes 32 rows of one column: its shared-memory reads of the
-  // column's y and of the weights are broadcasts
+  // the block tail: voxel (hl, wl) of the chunk; forward H: column wl
   const int hl = tid % kTH, wl = tid / kTH;
-  const int k2n = 2 * KH;
+
   for (int h0 = 0; h0 < H; h0 += kTH) {
-    const int h = h0 + hl;
-    float4* o_dst = reinterpret_cast<float4*>(o_s + (wl * kTH + hl) * C);
-    if (h < H && wl < nw) {
-      // the voxel's channels first: their loads overlap the y1 loop
-      const size_t vox = ((size_t)d * H + h) * W + (w0 + wl);
-      float xv[C];
-      const float4* src = reinterpret_cast<const float4*>(x + vox * C);
+    const bool more = h0 + kTH < H;
+    cp_async_wait_all();
+    __syncthreads();  // the chunk's (A, B) rows have landed
+
+    // ---- y1, the inverse H stage of the chunk: 4 rows x 4 channels of one
+    // column per task, t = fmaf(r, a, fmaf(i, b, t)) over k ascending
+    const float4* ab4 = reinterpret_cast<const float4*>(ab_s);
+    for (int e = tid; e < kTW * (kTH / 4) * C4; e += kThreads) {
+      const int q = e % C4, r = e / C4;
+      const int h4 = r % (kTH / 4), wa = r / (kTH / 4);
+      float4 t4[4];
 #pragma unroll
-      for (int q = 0; q < C4; ++q) {
-        const float4 v = m3seg::ld_or_cg<kL2>(src + q);
-        xv[4 * q] = v.x;
-        xv[4 * q + 1] = v.y;
-        xv[4 * q + 2] = v.z;
-        xv[4 * q + 3] = v.w;
-      }
-      // y1: the inverse H stage at this voxel, all channels
-      float t[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) t[c] = 0.f;
+      for (int u = 0; u < 4; ++u) t4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 2
       for (int k = 0; k < KH; ++k) {
-        const float a = __ldg(m.ha + k * H + h), b = __ldg(m.hb + k * H + h);
-        const float4* yr = reinterpret_cast<const float4*>(
-            y_s + (k * kTW + wl) * C);
-        const float4* yi = yr + ny / 4;
-#pragma unroll
-        for (int q = 0; q < C4; ++q) {
-          const float4 r = yr[q], i = yi[q];
-          t[4 * q] = fmaf(r.x, a, fmaf(i.x, b, t[4 * q]));
-          t[4 * q + 1] = fmaf(r.y, a, fmaf(i.y, b, t[4 * q + 1]));
-          t[4 * q + 2] = fmaf(r.z, a, fmaf(i.z, b, t[4 * q + 2]));
-          t[4 * q + 3] = fmaf(r.w, a, fmaf(i.w, b, t[4 * q + 3]));
-        }
-      }
-      // t = selu(y1 + W_conv x + b_conv)
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float p = 0.f;
-#pragma unroll
-        for (int q = 0; q < C4; ++q) {
-          const float4 wv = wcat4[c * C4 + q];
-          p = fmaf(xv[4 * q], wv.x, p);
-          p = fmaf(xv[4 * q + 1], wv.y, p);
-          p = fmaf(xv[4 * q + 2], wv.z, p);
-          p = fmaf(xv[4 * q + 3], wv.w, p);
-        }
-        t[c] = m3seg::selu(t[c] + (p + b_s[c]));
-      }
-      // out = selu(W_cc_t t + W_cc_x x + b_cc), four channels at a time
-      float4* dst = reinterpret_cast<float4*>(out + vox * C);
-#pragma unroll
-      for (int q4 = 0; q4 < C4; ++q4) {
-        float o4[4];
+        const float4 yr = y4[(k * kTW + wa) * C4 + q];
+        const float4 yi = y4[ny / 4 + (k * kTW + wa) * C4 + q];
+        // (a, b) of rows 4 h4 .. 4 h4 + 3
+        const float4 p01 = ab4[(k * kTH + 4 * h4) / 2];
+        const float4 p23 = ab4[(k * kTH + 4 * h4) / 2 + 1];
+        const float av[4] = {p01.x, p01.z, p23.x, p23.z};
+        const float bv[4] = {p01.y, p01.w, p23.y, p23.w};
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          const int c = 4 * q4 + u;
-          float q = 0.f, s = 0.f;
-#pragma unroll
-          for (int q2 = 0; q2 < C4; ++q2) {
-            const float4 wv = wcat4[(C + c) * C4 + q2];
-            q = fmaf(xv[4 * q2], wv.x, q);
-            q = fmaf(xv[4 * q2 + 1], wv.y, q);
-            q = fmaf(xv[4 * q2 + 2], wv.z, q);
-            q = fmaf(xv[4 * q2 + 3], wv.w, q);
-            const float4 cv = wcc4[c * C4 + q2];
-            s = fmaf(t[4 * q2], cv.x, s);
-            s = fmaf(t[4 * q2 + 1], cv.y, s);
-            s = fmaf(t[4 * q2 + 2], cv.z, s);
-            s = fmaf(t[4 * q2 + 3], cv.w, s);
-          }
-          o4[u] = m3seg::selu(s + (q + b_s[C + c]));
+          t4[u].x = fmaf(yr.x, av[u], fmaf(yi.x, bv[u], t4[u].x));
+          t4[u].y = fmaf(yr.y, av[u], fmaf(yi.y, bv[u], t4[u].y));
+          t4[u].z = fmaf(yr.z, av[u], fmaf(yi.z, bv[u], t4[u].z));
+          t4[u].w = fmaf(yr.w, av[u], fmaf(yi.w, bv[u], t4[u].w));
         }
-        const float4 ov = make_float4(o4[0], o4[1], o4[2], o4[3]);
-        dst[q4] = ov;
-        o_dst[q4] = ov;
       }
-      // deep supervision: ds = ds_prev + W_ds x (no bias); four rows (the
-      // configs' out_channels) move as one 16-byte load and store
-      float dsv[kMaxDs];
+      float4* dst = o4 + (wa * kTH + 4 * h4) * C4 + q;
 #pragma unroll
-      for (int r = 0; r < kMaxDs; ++r) {
-        dsv[r] = 0.f;
-        if (r < nds) {
+      for (int u = 0; u < 4; ++u) dst[u * C4] = t4[u];
+    }
+    __syncthreads();
+    if (more) {  // the next chunk's (A, B) rows
+      stage_ab(m, h0 + kTH, H, KH, ab_s);
+      cp_async_commit();
+    }
+
+    // ---- the block tail at one voxel per thread, all channels in
+    // registers, the weights the same for every thread
+    {
+      const int h = h0 + hl;
+      const float4* vs4 = o4 + (wl * kTH + hl) * C4;  // y1
+      if (h < H && wl < nw) {
+        const size_t vox = ((size_t)d * H + h) * W + (w0 + wl);
+        const float4* src = reinterpret_cast<const float4*>(x + vox * C);
+        float xv[C], t[C];
+#pragma unroll
+        for (int q = 0; q < C4; ++q) {
+          const float4 v = __ldcg(src + q), u = vs4[q];
+          xv[4 * q] = v.x;
+          xv[4 * q + 1] = v.y;
+          xv[4 * q + 2] = v.z;
+          xv[4 * q + 3] = v.w;
+          t[4 * q] = u.x;
+          t[4 * q + 1] = u.y;
+          t[4 * q + 2] = u.z;
+          t[4 * q + 3] = u.w;
+        }
+        // t = selu(y1 + W_conv x + b_conv)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float p = 0.f;
 #pragma unroll
           for (int q = 0; q < C4; ++q) {
-            const float4 wv = wcat4[(2 * C + r) * C4 + q];
-            dsv[r] = fmaf(xv[4 * q], wv.x, dsv[r]);
-            dsv[r] = fmaf(xv[4 * q + 1], wv.y, dsv[r]);
-            dsv[r] = fmaf(xv[4 * q + 2], wv.z, dsv[r]);
-            dsv[r] = fmaf(xv[4 * q + 3], wv.w, dsv[r]);
+            const float4 wv = wcat4[c * C4 + q];
+            p = fmaf(xv[4 * q], wv.x, p);
+            p = fmaf(xv[4 * q + 1], wv.y, p);
+            p = fmaf(xv[4 * q + 2], wv.z, p);
+            p = fmaf(xv[4 * q + 3], wv.w, p);
+          }
+          t[c] = m3seg::selu(t[c] + (p + b_s[c]));
+        }
+        // out = selu(W_cc_t t + W_cc_x x + b_cc), four channels at a time
+        float4* dst = reinterpret_cast<float4*>(out + vox * C);
+#pragma unroll
+        for (int q4 = 0; q4 < C4; ++q4) {
+          float ov[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int c = 4 * q4 + u;
+            float q = 0.f, s = 0.f;
+#pragma unroll
+            for (int q2 = 0; q2 < C4; ++q2) {
+              const float4 wv = wcat4[(C + c) * C4 + q2];
+              q = fmaf(xv[4 * q2], wv.x, q);
+              q = fmaf(xv[4 * q2 + 1], wv.y, q);
+              q = fmaf(xv[4 * q2 + 2], wv.z, q);
+              q = fmaf(xv[4 * q2 + 3], wv.w, q);
+              const float4 cv = wcc4[c * C4 + q2];
+              s = fmaf(t[4 * q2], cv.x, s);
+              s = fmaf(t[4 * q2 + 1], cv.y, s);
+              s = fmaf(t[4 * q2 + 2], cv.z, s);
+              s = fmaf(t[4 * q2 + 3], cv.w, s);
+            }
+            ov[u] = m3seg::selu(s + (q + b_s[C + c]));
+          }
+          dst[q4] = make_float4(ov[0], ov[1], ov[2], ov[3]);
+        }
+        // deep supervision: ds = ds_prev + W_ds x (no bias); four rows (the
+        // configs' out_channels) move as one 16-byte load and store
+        float dsv[kMaxDs];
+#pragma unroll
+        for (int r = 0; r < kMaxDs; ++r) {
+          dsv[r] = 0.f;
+          if (r < nds) {
+#pragma unroll
+            for (int q = 0; q < C4; ++q) {
+              const float4 wv = wcat4[(2 * C + r) * C4 + q];
+              dsv[r] = fmaf(xv[4 * q], wv.x, dsv[r]);
+              dsv[r] = fmaf(xv[4 * q + 1], wv.y, dsv[r]);
+              dsv[r] = fmaf(xv[4 * q + 2], wv.z, dsv[r]);
+              dsv[r] = fmaf(xv[4 * q + 3], wv.w, dsv[r]);
+            }
+          }
+        }
+        if (nds == 4) {
+          const float4 pv =
+              *reinterpret_cast<const float4*>(ds_prev + vox * 4);
+          *reinterpret_cast<float4*>(ds_out + vox * 4) = make_float4(
+              pv.x + dsv[0], pv.y + dsv[1], pv.z + dsv[2], pv.w + dsv[3]);
+        } else {
+#pragma unroll
+          for (int r = 0; r < kMaxDs; ++r)
+            if (r < nds)
+              ds_out[vox * nds + r] = ds_prev[vox * nds + r] + dsv[r];
+        }
+      }
+    }
+    __syncthreads();  // the chunk's y1 no longer read
+  }
+  if (!forward) return;
+
+  // ---- second pass, the forward H stage: the tile's out, written above,
+  // read back through L2 chunk by chunk into F, held in registers only
+  // now, so that the first pass's tail has the registers to itself.
+  // Thread hl of column wl holds tiles e = hl + kTH j: (4 rows k4 of 2KH,
+  // channels 4q .. 4q + 3)
+  const int n_ft = (KH / 2) * C4;  // F tiles of a column
+  float4 acc_f[kFJ][4];
+#pragma unroll
+  for (int j = 0; j < kFJ; ++j)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc_f[j][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int h0 = 0; h0 < H; h0 += kTH) {
+    stage_out<C>(out, d, h0, H, W, w0, nw, o_s);
+    stage_mh(m, h0, H, KH, mh_s);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+
+    const int nh = min(kTH, H - h0);
+    const float4* mh4 = reinterpret_cast<const float4*>(mh_s);
+#pragma unroll
+    for (int j = 0; j < kFJ; ++j) {
+      const int e = hl + kTH * j;
+      if (e < n_ft) {
+        const int q = e % C4, k4 = e / C4;
+#pragma unroll 4
+        for (int hh = 0; hh < nh; ++hh) {
+          const float4 ov4 = o4[(wl * kTH + hh) * C4 + q];
+          const float4 mv = mh4[hh * (k2n / 4) + k4];
+          const float mu[4] = {mv.x, mv.y, mv.z, mv.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc_f[j][u].x = fmaf(ov4.x, mu[u], acc_f[j][u].x);
+            acc_f[j][u].y = fmaf(ov4.y, mu[u], acc_f[j][u].y);
+            acc_f[j][u].z = fmaf(ov4.z, mu[u], acc_f[j][u].z);
+            acc_f[j][u].w = fmaf(ov4.w, mu[u], acc_f[j][u].w);
           }
         }
       }
-      if (nds == 4) {
-        const float4 pv = *reinterpret_cast<const float4*>(ds_prev + vox * 4);
-        *reinterpret_cast<float4*>(ds_out + vox * 4) = make_float4(
-            pv.x + dsv[0], pv.y + dsv[1], pv.z + dsv[2], pv.w + dsv[3]);
-      } else {
-#pragma unroll
-        for (int r = 0; r < kMaxDs; ++r)
-          if (r < nds) ds_out[vox * nds + r] = ds_prev[vox * nds + r] + dsv[r];
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < C4; ++q) o_dst[q] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    __syncthreads();
-
-    // ---- forward H stage of this chunk into F, a 4 (k2) x 4 (c) tile of
-    // one column per thread
-    const int nh = min(kTH, H - h0);
-    const int nk4 = k2n / 4;
-    const float4* o4s = reinterpret_cast<const float4*>(o_s);
-    float4* f4s = reinterpret_cast<float4*>(f_s);
-    for (int e = tid; forward && e < kTW * nk4 * C4; e += kThreads) {
-      const int q = e % C4, r = e / C4;
-      const int k4 = r % nk4, wl2 = r / nk4;
-      float4 acc[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] = f4s[(wl2 * k2n + 4 * k4 + u) * C4 + q];
-      const float* mh = m.mhf + (size_t)h0 * k2n + 4 * k4;
-#pragma unroll 4
-      for (int hh = 0; hh < nh; ++hh) {
-        const float4 ov = o4s[(wl2 * kTH + hh) * C4 + q];
-        const float4 mv = __ldg(reinterpret_cast<const float4*>(mh + hh * k2n));
-        const float mu[4] = {mv.x, mv.y, mv.z, mv.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          acc[u].x = fmaf(ov.x, mu[u], acc[u].x);
-          acc[u].y = fmaf(ov.y, mu[u], acc[u].y);
-          acc[u].z = fmaf(ov.z, mu[u], acc[u].z);
-          acc[u].w = fmaf(ov.w, mu[u], acc[u].w);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) f4s[(wl2 * k2n + 4 * k4 + u) * C4 + q] = acc[u];
-    }
-    __syncthreads();
+    __syncthreads();  // the next chunk rewrites the chunk and Mh rows
   }
 
-  if (!forward) return;
+  // F over the y tile, which no thread reads any more
+  float4* f4w = reinterpret_cast<float4*>(y_s);
+#pragma unroll
+  for (int j = 0; j < kFJ; ++j) {
+    const int e = hl + kTH * j;
+    if (e < n_ft) {
+      const int q = e % C4, k4 = e / C4;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        f4w[(wl * k2n + 4 * k4 + u) * C4 + q] = acc_f[j][u];
+    }
+  }
+  __syncthreads();
+
   // ---- forward W stage over this tile's columns: the partial spectrum,
   // four channels of one (k, j) per thread
   const int ng = C * KH * KW;
-  const float4* f4s = reinterpret_cast<const float4*>(f_s);
+  const float4* f4s = reinterpret_cast<const float4*>(y_s);
   float* pd = partial + ((size_t)d * n_tiles + tile) * 2 * ng;
   for (int e = tid; e < KH * KW * C4; e += kThreads) {
     const int j = e % KW, r = e / KW;
@@ -312,6 +457,80 @@ __device__ __forceinline__ void tower_block_body(
     }
   }
 }
+
+// Adds one z value pair (a = re, b = im of column j) to the inverse W stage
+// of the tile's kTW columns; cwi_j, swi_j: row j of the tile's Cwi, Swi.
+__device__ __forceinline__ void w_inverse_add(float a, float b,
+                                              const float* cwi_j,
+                                              const float* swi_j,
+                                              float (&re)[kTW],
+                                              float (&im)[kTW]) {
+  const float4* cs4 = reinterpret_cast<const float4*>(cwi_j);
+  const float4* sn4 = reinterpret_cast<const float4*>(swi_j);
+#pragma unroll
+  for (int q = 0; q < kTW / 4; ++q) {
+    const float4 cs = cs4[q], sn = sn4[q];
+    const float cv[4] = {cs.x, cs.y, cs.z, cs.w};
+    const float sv[4] = {sn.x, sn.y, sn.z, sn.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      re[4 * q + u] = fmaf(a, cv[u], fmaf(-b, sv[u], re[4 * q + u]));
+      im[4 * q + u] = fmaf(a, sv[u], fmaf(b, cv[u], im[4 * q + u]));
+    }
+  }
+}
+
+// Plane d's z, read from a z tensor (D, 2, C, KH, KW): one z row (c, k)
+// per thread, all kTW columns at once. kL2: z was written by the same
+// launch (tower_resident's z phase), so it is read through L2.
+template <bool kL2>
+struct ZFromTensor {
+  const float* zd;  // z[d]: (2, C, KH, KW)
+  int C, KH, KW;
+
+  __device__ __forceinline__ void row(int c, int k, const float* cwi_s,
+                                      const float* swi_s, float (&re)[kTW],
+                                      float (&im)[kTW]) const {
+    const float* zr = zd + (size_t)(c * KH + k) * KW;
+    const float* zi = zr + (size_t)C * KH * KW;
+    if ((KW & 1) == 0) {
+#pragma unroll 2
+      for (int j2 = 0; j2 < KW; j2 += 2) {
+        const float2 a2 =
+            m3seg::ldg_or_cg<kL2>(reinterpret_cast<const float2*>(zr + j2));
+        const float2 b2 =
+            m3seg::ldg_or_cg<kL2>(reinterpret_cast<const float2*>(zi + j2));
+        w_inverse_add(a2.x, b2.x, cwi_s + j2 * kTW, swi_s + j2 * kTW, re,
+                      im);
+        w_inverse_add(a2.y, b2.y, cwi_s + (j2 + 1) * kTW,
+                      swi_s + (j2 + 1) * kTW, re, im);
+      }
+    } else {  // odd KW: rows start at odd offsets
+      for (int j = 0; j < KW; ++j)
+        w_inverse_add(m3seg::ldg_or_cg<kL2>(zr + j),
+                      m3seg::ldg_or_cg<kL2>(zi + j), cwi_s + j * kTW,
+                      swi_s + j * kTW, re, im);
+    }
+  }
+
+  template <int>
+  __device__ __forceinline__ void fill_y(float* y_s, int ny,
+                                         const float* cwi_s,
+                                         const float* swi_s, float*) const {
+    for (int e = threadIdx.x; e < C * KH; e += kThreads) {
+      const int c = e % C, k = e / C;
+      float re[kTW], im[kTW];
+#pragma unroll
+      for (int w = 0; w < kTW; ++w) re[w] = im[w] = 0.f;
+      row(c, k, cwi_s, swi_s, re, im);
+#pragma unroll
+      for (int w = 0; w < kTW; ++w) {
+        y_s[(k * kTW + w) * C + c] = re[w];
+        y_s[ny + (k * kTW + w) * C + c] = im[w];
+      }
+    }
+  }
+};
 
 // Sets the kernel's dynamic shared memory and reports its occupancy:
 // resident blocks per SM at that shared memory, and registers per thread.

@@ -32,7 +32,9 @@
 // (0.36 GFLOP per call). Every W tile of a plane forms the plane's z again
 // (about 14% more MACs per block at that shape, and the whole spectrum read
 // from L2 by every block, 1.8 GB per call); sharing z over a plane's tiles
-// through a thread-block cluster is later work.
+// (a thread-block cluster, or a z phase as csrc/tower_resident.cu has) is
+// later work. The rest of the block is tower_block's body
+// (tower_block.cuh): its design against the operations bound is there.
 #include "tower_spectrum.cuh"
 
 namespace {
@@ -51,9 +53,9 @@ tower_block_s_kernel(const float* __restrict__ x,
                      int KW, int nds, int KS) {
   const ZFromSpectrum<false> zsrc{sy, mi + (size_t)blockIdx.y * 2 * KS, KS,
                                   C, KH, KW};
-  tower_block_body<C, false>(zsrc, blockIdx.y, blockIdx.x, gridDim.x, true,
-                             x, wcat, wcc, bias, m, ds_prev, out, partial,
-                             ds_out, H, W, KH, KW, nds);
+  tower_block_body<C>(zsrc, blockIdx.y, blockIdx.x, gridDim.x, true, x,
+                      wcat, wcc, bias, m, ds_prev, out, partial, ds_out, H,
+                      W, KH, KW, nds);
 }
 
 // The depth pass: one thread per element e of a spectrum row (C KH KW)
@@ -87,14 +89,14 @@ cudaError_t launch(const float* x, const float* sy, const float* mi,
                    int H, int W, int KH, int KW, int nds, int KS,
                    cudaStream_t stream) {
   const int n_tiles = (W + kTW - 1) / kTW;
-  const size_t smem = sizeof(float) * smem_floats(C, KH, KW, nds);
+  const size_t smem = sizeof(float) * smem_floats(C, KH, KW);
   cudaError_t err = cudaFuncSetAttribute(
       tower_block_s_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   tower_block_s_kernel<C><<<dim3(n_tiles, D), kThreads, smem, stream>>>(
-      x, sy, mi, wcat, wcc, bias, m, ds_prev, out, partial, ds, H, W, KH, KW,
-      nds, KS);
+      x, sy, mi, wcat, wcc, bias, m, ds_prev, out, partial, ds, H, W, KH,
+      KW, nds, KS);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int ng = C * KH * KW, threads = 128;
@@ -124,8 +126,9 @@ M3SEG_API int m3seg_tower_block_s(const float* x, const float* sy,
                                   float* s_f, float* ds, float* partial,
                                   int D, int H, int W, int c, int kh, int kw,
                                   int nds, int ks, void* stream) {
-  if (D <= 0 || H <= 0 || W <= 0 || kh <= 0 || kw <= 0 || nds < 0 ||
-      nds > kMaxDs || ks <= 0 || ks > kMaxKS || kw > 4 * kThreads ||
+  if (D <= 0 || H <= 0 || W <= 0 || kh <= 0 || kh > kMaxKH || (kh & 1) ||
+      kw <= 0 || kw > 4 * kThreads || nds < 0 || nds > kMaxDs || ks <= 0 ||
+      ks > kMaxKS ||
       (nds > 0 && (ds_prev == nullptr || ds == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Mats m = unpack_mats(mats, H, W, kh, kw);
@@ -148,7 +151,7 @@ M3SEG_API int m3seg_tower_block_s(const float* x, const float* sy,
 // at (kh, kw, nds); launches nothing.
 M3SEG_API int m3seg_tower_block_s_occupancy(int c, int kh, int kw, int nds,
                                             int* blocks, int* regs) {
-  const size_t smem = sizeof(float) * smem_floats(c, kh, kw, nds);
+  const size_t smem = sizeof(float) * smem_floats(c, kh, kw);
   switch (c) {
     case 8:
       return (int)kernel_occupancy(tower_block_s_kernel<8>, smem, blocks,

@@ -8,17 +8,23 @@
 // Computes, from the volume x (D, H, W, C) and s_cur = block 0's operator
 // on the entry spectrum of x (built by the wrapper, as the TPU kernel's
 // caller builds it in XLA), for each block b = 0 .. nb - 1:
+//   phase z  every plane's z = sum_s mi[d, :, s] s_cur[s] (the inverse
+//            depth stage), once, into the scratch z (D, 2, C, KH, KW);
 //   phase 1  every (plane, W tile) item, strided over the grid: the block
-//            body of tower_block_s (z formed from s_cur, the inverse W/H
-//            stages, the block tail, out written, the forward H/W stages
-//            into the item's partial spectrum; the last block stops at out);
+//            body of tower_block with z read from the scratch (the inverse
+//            W/H stages, the block tail, out written, the forward H/W
+//            stages into the item's partial spectrum; the last block stops
+//            at out);
 //   phase 2  the forward depth stage of the partials, tiles then the planes
 //            of 8 groups, in a fixed order (tower_spectrum.cuh);
 //   phase 3  the sum of the groups, in group order, then block b + 1's
 //            operator on the packed spectrum: Hartley a C x C channel mix
 //            and SELU, Fourier the complex mix on [re; im]; into s_cur;
 // with cooperative_groups::this_grid().sync() between the phases. No
-// atomics: a second run gives the same bits.
+// atomics: a second run gives the same bits. Each z value is summed over s
+// ascending, as tower_block_s forms it inside its body, so phase z gives
+// the same bits as forming it per W tile did; what changes is that it is
+// formed once per plane instead of once per W tile (10 times at W 78).
 //
 // What the card cannot keep: the TPU kernel holds the whole volume in VMEM
 // (124 MB). Here 121 x 121 x 78 x 24 x 4 B = 109.6 MB fits neither the
@@ -40,13 +46,19 @@
 // blocks) the body does 13.28 GFLOP a block with its depth stages, 0.32
 // TFLOP a tower, 4.7 ms at 67 TFLOP/s fp32, against 219 MB of volume in and
 // out, 0.065 ms at 3.35 TB/s (the ping-pong adds 23 volumes of traffic each
-// way, 1.6 ms at that rate, and the partial spectra 182 MB a block).
-// Buffers that the launch rewrites (the volumes, s_cur, the partials and
-// groups) are read through L2 (ld.global.cg, m3seg::ld_or_cg); only the
-// weights and stage matrices take the read-only path. The grid is the
+// way, 1.6 ms at that rate, and the partial spectra 182 MB a block). The
+// body's own design is in tower_block.cuh; here the design answers what
+// the persistent launch adds: z formed once per plane (phase z, 18.2 MB
+// at HNOSeg's shape, kept in L2) instead of each W tile reading the whole
+// 1.5 MB spectrum to form it again, and a body of at most 128 registers,
+// so that two blocks of 256 threads reside on an SM.
+// Buffers that the launch rewrites (the volumes, s_cur, z, the partials
+// and groups) are read through L2 (ld.global.cg, cp.async.cg,
+// m3seg::ld_or_cg); only the weights and stage matrices, which it never
+// writes, may come through L1. The grid is the
 // number of blocks the CUDA runtime lets reside on an SM at this shared
-// memory (one at modes (10, 14, 14)) times the SM count; a refused
-// cooperative launch returns its error and the wrapper raises.
+// memory times the SM count; a refused cooperative launch returns its
+// error and the wrapper raises.
 #include <cooperative_groups.h>
 
 #include "tower_spectrum.cuh"
@@ -57,10 +69,11 @@ namespace cg = cooperative_groups;
 
 // Device time of the kernel's phases in ns, summed over its launches: the
 // blocks' bodies (all but the last block's), the depth pass, the operator
-// mix, and the last block's body. Block 0's thread 0 reads %globaltimer
-// after each grid barrier; m3seg_tower_resident_phase_ns reads (and
-// resets) the sums. Concurrent launches would mix their sums.
-__device__ unsigned long long g_phase_ns[4];
+// mix, the last block's body, and the z phases. Block 0's thread 0 reads
+// %globaltimer after each grid barrier; m3seg_tower_resident_phase_ns
+// reads (and resets) the sums. Concurrent launches would mix their sums.
+constexpr int kPhases = 5;
+__device__ unsigned long long g_phase_ns[kPhases];
 
 struct PhaseClock {
   unsigned long long last = 0;
@@ -73,6 +86,43 @@ struct PhaseClock {
     last = t;
   }
 };
+
+constexpr int kZGroups = 16;  // plane groups of the z phase
+
+// Phase z at element e of a spectrum row (C KH KW) and the planes of group
+// g: z[d][q][e] = sum_s mi[d][q][s] s_cur[s][e], s ascending. Four planes
+// at a time share each spectrum value read from L2, and four reads are in
+// flight at once. (A version that held all KS values in a kMaxKS register
+// array gave wrong sums for C 8 on the card, under the kernel's
+// 128-register budget.)
+__device__ __forceinline__ void z_group_element(const float* s_cur,
+                                                const float* __restrict__ mi,
+                                                float* z, int D, int ng,
+                                                int KS, int e, int g) {
+  const int per_group = (D + kZGroups - 1) / kZGroups;
+  const int d1 = min(D, (g + 1) * per_group);
+  for (int d0 = g * per_group; d0 < d1; d0 += 4) {
+    const int n = min(4, d1 - d0);
+    float za[4] = {0.f, 0.f, 0.f, 0.f}, zb[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int s = 0; s < KS; ++s) {
+      const float v = __ldcg(s_cur + (size_t)s * ng + e);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < n) {
+          const float* md = mi + (size_t)(d0 + i) * 2 * KS;
+          za[i] = fmaf(__ldg(md + s), v, za[i]);
+          zb[i] = fmaf(__ldg(md + KS + s), v, zb[i]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i < n) {
+        z[(size_t)(d0 + i) * 2 * ng + e] = za[i];
+        z[(size_t)(d0 + i) * 2 * ng + ng + e] = zb[i];
+      }
+  }
+}
 
 // v[c] = sum over the depth pass's groups, in group order, of spectrum row
 // `row`, channel c, at (x, y) = xy: the folded spectrum s_f.
@@ -133,7 +183,7 @@ __device__ __forceinline__ void mix_point(const float* groups,
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
 tower_resident_kernel(const float* __restrict__ x0, float* s_cur,
                       const float* __restrict__ ops,
                       const float* __restrict__ wcat,
@@ -141,36 +191,40 @@ tower_resident_kernel(const float* __restrict__ x0, float* s_cur,
                       const float* __restrict__ bias, Mats m,
                       const float* __restrict__ mi,
                       const float* __restrict__ mf, float* out, float* tmp,
-                      float* partial, int D, int H, int W, int KH, int KW,
-                      int KS, int nb, int fourier) {
+                      float* partial, float* z, int D, int H, int W, int KH,
+                      int KW, int KS, int nb, int fourier) {
   cg::grid_group grid = cg::this_grid();
   const int n_tiles = (W + kTW - 1) / kTW, n_items = D * n_tiles;
   const int khw = KH * KW, ng = C * khw;
   const int pr = fourier ? 2 : 1;
+  const int n_e = (ng + kThreads - 1) / kThreads;
   float* groups = partial + (size_t)D * n_tiles * 2 * ng;
   const float* x = x0;
   PhaseClock clock;
   clock.mark(-1);
   for (int b = 0; b < nb; ++b) {
+    for (int item = blockIdx.x; item < n_e * kZGroups; item += gridDim.x) {
+      const int e = (item % n_e) * kThreads + threadIdx.x;
+      if (e < ng) z_group_element(s_cur, mi, z, D, ng, KS, e, item / n_e);
+    }
+    grid.sync();
+    clock.mark(4);
     // the volumes ping-pong so that the last block writes out
     float* y = ((nb - 1 - b) & 1) ? tmp : out;
     const bool forward = b + 1 < nb;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const int d = item / n_tiles, tile = item % n_tiles;
-      const ZFromSpectrum<true> zsrc{s_cur, mi + (size_t)d * 2 * KS, KS, C,
-                                     KH, KW};
-      tower_block_body<C, true>(zsrc, d, tile, n_tiles, forward, x,
-                                wcat + (size_t)b * 2 * C * C,
-                                wcc + (size_t)b * C * C,
-                                bias + (size_t)b * 2 * C, m, nullptr, y,
-                                partial, nullptr, H, W, KH, KW, 0);
+      const ZFromTensor<true> zsrc{z + (size_t)d * 2 * ng, C, KH, KW};
+      tower_block_body<C>(zsrc, d, tile, n_tiles, forward, x,
+                          wcat + (size_t)b * 2 * C * C,
+                          wcc + (size_t)b * C * C, bias + (size_t)b * 2 * C,
+                          m, nullptr, y, partial, nullptr, H, W, KH, KW, 0);
       __syncthreads();  // the next item rewrites the shared memory
     }
     x = y;
     grid.sync();
     clock.mark(forward ? 0 : 3);
     if (!forward) break;
-    const int n_e = (ng + kThreads - 1) / kThreads;
     for (int item = blockIdx.x; item < n_e * kDepthGroups;
          item += gridDim.x) {
       const int e = (item % n_e) * kThreads + threadIdx.x;
@@ -195,7 +249,7 @@ tower_resident_kernel(const float* __restrict__ x0, float* s_cur,
 template <int C>
 cudaError_t resident_occupancy(int KH, int KW, size_t* smem, int* blocks,
                                int* regs) {
-  *smem = sizeof(float) * smem_floats(C, KH, KW, 0);
+  *smem = sizeof(float) * smem_floats(C, KH, KW);
   return kernel_occupancy(tower_resident_kernel<C>, *smem, blocks, regs);
 }
 
@@ -203,8 +257,9 @@ template <int C>
 cudaError_t launch(const float* x, float* s_cur, const float* ops,
                    const float* wcat, const float* wcc, const float* bias,
                    Mats m, const float* mi, const float* mf, float* out,
-                   float* tmp, float* partial, int D, int H, int W, int KH,
-                   int KW, int KS, int nb, int fourier, cudaStream_t stream) {
+                   float* tmp, float* partial, float* z, int D, int H, int W,
+                   int KH, int KW, int KS, int nb, int fourier,
+                   cudaStream_t stream) {
   int dev = 0, sms = 0, coop = 0, blocks = 0, regs = 0;
   size_t smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -217,9 +272,9 @@ cudaError_t launch(const float* x, float* s_cur, const float* ops,
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&x,  &s_cur,   &ops, &wcat, &wcc, &bias, &m,  &mi,
-                  &mf, &out,     &tmp, &partial, &D, &H,   &W,  &KH,
-                  &KW, &KS,      &nb,  &fourier};
+  void* args[] = {&x,  &s_cur, &ops, &wcat,    &wcc, &bias, &m,
+                  &mi, &mf,    &out, &tmp,     &partial, &z, &D,
+                  &H,  &W,     &KH,  &KW,      &KS,  &nb,   &fourier};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(tower_resident_kernel<C>),
       dim3(blocks * sms), dim3(kThreads), args, smem, stream);
@@ -234,17 +289,18 @@ cudaError_t launch(const float* x, float* s_cur, const float* ops,
 // (nb, 1 or 2, c, c) operator weights, rows = outputs (Fourier: real,
 // imaginary); wcat: (nb, 2c, c), wcc: (nb, c, c), bias: (nb, 2c); mats:
 // the stage matrices in the order of unpack_mats, then mi and mf (D, 2,
-// ks); partial: scratch of D ceil(W / 8) 2 c kh kw + 8 ks c kh kw floats.
-// fp32, contiguous. fourier: ks = 2 kd, [re; im].
+// ks); partial: scratch of D ceil(W / 8) 2 c kh kw + 8 ks c kh kw floats;
+// z: scratch (D, 2, c, kh, kw). fp32, contiguous. fourier: ks = 2 kd,
+// [re; im].
 M3SEG_API int m3seg_tower_resident(const float* x, float* s_cur,
                                    const float* ops, const float* wcat,
                                    const float* wcc, const float* bias,
                                    const float* mats, float* out, float* tmp,
-                                   float* partial, int D, int H, int W,
-                                   int c, int kh, int kw, int ks, int nb,
-                                   int fourier, void* stream) {
-  if (D <= 0 || H <= 0 || W <= 0 || kh <= 0 || kw <= 0 || ks <= 0 ||
-      ks > kMaxKS || kw > kThreads || nb <= 0 ||
+                                   float* partial, float* z, int D, int H,
+                                   int W, int c, int kh, int kw, int ks,
+                                   int nb, int fourier, void* stream) {
+  if (D <= 0 || H <= 0 || W <= 0 || kh <= 0 || kh > kMaxKH || (kh & 1) ||
+      kw <= 0 || ks <= 0 || ks > kMaxKS || nb <= 0 || z == nullptr ||
       (fourier && (ks & 1)) || (nb > 1 && tmp == nullptr))
     return (int)cudaErrorInvalidValue;
   const Mats m = unpack_mats(mats, H, W, kh, kw);
@@ -254,12 +310,12 @@ M3SEG_API int m3seg_tower_resident(const float* x, float* s_cur,
   switch (c) {
     case 8:
       return (int)launch<8>(x, s_cur, ops, wcat, wcc, bias, m, mi, mf, out,
-                            tmp, partial, D, H, W, kh, kw, ks, nb, fourier,
+                            tmp, partial, z, D, H, W, kh, kw, ks, nb, fourier,
                             s);
     case 24:
       return (int)launch<24>(x, s_cur, ops, wcat, wcc, bias, m, mi, mf, out,
-                             tmp, partial, D, H, W, kh, kw, ks, nb, fourier,
-                             s);
+                             tmp, partial, z, D, H, W, kh, kw, ks, nb,
+                             fourier, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -281,13 +337,13 @@ M3SEG_API int m3seg_tower_resident_occupancy(int c, int kh, int kw,
   }
 }
 
-// out[0..3] = the phase sums of g_phase_ns (ns); reset: set them to 0.
+// out[0..4] = the phase sums of g_phase_ns (ns); reset: set them to 0.
 // Synchronous with the device.
 M3SEG_API int m3seg_tower_resident_phase_ns(unsigned long long* out,
                                             int reset) {
   cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_ns, sizeof(g_phase_ns));
   if (err == cudaSuccess && reset) {
-    const unsigned long long zero[4] = {0, 0, 0, 0};
+    const unsigned long long zero[kPhases] = {};
     err = cudaMemcpyToSymbol(g_phase_ns, zero, sizeof(zero));
   }
   return (int)err;

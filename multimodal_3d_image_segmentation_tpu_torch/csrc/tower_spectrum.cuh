@@ -1,10 +1,12 @@
-// The resident packed spectrum's two ends of a tower block, shared by
-// csrc/tower_block_s.cu (one block per launch) and csrc/tower_resident.cu
-// (the whole tower in one persistent launch):
+// The resident packed spectrum's two ends of a tower block:
 //   ZFromSpectrum        a plane's z = sum_s mi[d, :, s] sy[s], formed inside
-//                        the block body (the inverse depth stage);
+//                        the block body (the inverse depth stage), by each
+//                        W tile of the plane (csrc/tower_block_s.cu;
+//                        csrc/tower_resident.cu forms z once per plane in a
+//                        phase of its own, in the same order);
 //   depth_group_element  the forward depth stage of the blocks' partial
-//                        spectra, one element of one plane group.
+//                        spectra, one element of one plane group, shared by
+//                        csrc/tower_block_s.cu and csrc/tower_resident.cu.
 // The spectrum (KS, C, KH, KW) fp32: Hartley KS = KD, real; Fourier
 // KS = 2 KD, [re; im]. mi, mf: the depth matrices (D, 2, KS), one row per
 // plane. kL2: the spectrum and the partials were written by the same launch

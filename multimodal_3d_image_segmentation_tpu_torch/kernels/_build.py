@@ -46,7 +46,7 @@ _SIGNATURES = {
     "m3seg_conv3_plan": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "m3seg_tower_block": [_P] * 11 + [_I] * 7 + [_P],
     "m3seg_tower_block_s": [_P] * 11 + [_I] * 8 + [_P],
-    "m3seg_tower_resident": [_P] * 10 + [_I] * 9 + [_P],
+    "m3seg_tower_resident": [_P] * 11 + [_I] * 9 + [_P],
     "m3seg_tower_block_occupancy": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
     "m3seg_tower_block_s_occupancy": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
     "m3seg_tower_resident_occupancy": [_I] * 3 + [ctypes.POINTER(_I)] * 2,

@@ -47,11 +47,12 @@ __all__ = ["TowerSpec", "make_tower_spec", "fused_tower_block",
            "tower_block_plain", "entry_forward_hw", "d_stage_forward",
            "d_stage_inverse", "spectrum_mix", "block_spectrum_update",
            "spectrum_rows", "kernel_smem_bytes", "occupancy",
-           "SUPPORTED_CHANNELS", "MAX_DS_ROWS"]
+           "SUPPORTED_CHANNELS", "MAX_DS_ROWS", "MAX_KH"]
 
 # template instances in the .cu: the configs' width 24, and 8 for tests
 SUPPORTED_CHANNELS = (8, 24)
 MAX_DS_ROWS = 8           # per-thread register bound of the ds rows
+MAX_KH = 32               # csrc/tower_block.cuh kMaxKH: F's registers
 _TILE_W, _TILE_H = 8, 32  # csrc/tower_block.cuh kTW, kTH
 _MAX_SMEM_BYTES = 227 * 1024
 
@@ -271,14 +272,33 @@ def _check_operands(spec: TowerSpec, x, w_cat, w_cc_t, b_cat, ds_prev,
 
 def kernel_smem_bytes(spec: TowerSpec) -> int:
     """Shared memory of one block of the kernels (``csrc/tower_block.cuh``
-    smem_floats); raises where it exceeds a block's 227 KB."""
+    smem_floats: the y tile, one chunk of voxels, the chunk's (A, B) and Mh
+    rows, the weights with room for MAX_DS_ROWS deep-supervision rows, and
+    the tile's W-stage columns); raises where it exceeds a block's
+    227 KB."""
     c, kh, kw = spec.channels, spec.kh, spec.kw
-    smem = 4 * (4 * kh * _TILE_W * c + _TILE_H * _TILE_W * c
-                + (2 * c + spec.n_ds) * c + c * c + 2 * c + 4 * kw * _TILE_W)
+    smem = 4 * (2 * kh * _TILE_W * c + _TILE_H * _TILE_W * c
+                + 2 * kh * _TILE_H + _TILE_H * 2 * kh
+                + (2 * c + MAX_DS_ROWS) * c + c * c + 2 * c
+                + 4 * kw * _TILE_W)
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(f"C={c}, KH={kh}, KW={kw} need {smem} bytes of "
                          "shared memory per block")
     return smem
+
+
+def check_kernel_spec(spec: TowerSpec, kernel: str) -> None:
+    """Raise where the tower kernels' body has no instance for ``spec``:
+    C outside ``SUPPORTED_CHANNELS``, KH above ``MAX_KH`` (the forward H
+    accumulators live in registers) or a block's shared memory above
+    227 KB."""
+    if spec.channels not in SUPPORTED_CHANNELS:
+        raise ValueError(f"{kernel} kernel has no instance for "
+                         f"C={spec.channels} (supported: "
+                         f"{SUPPORTED_CHANNELS})")
+    if spec.kh > MAX_KH:
+        raise ValueError(f"{kernel}: KH={spec.kh} > {MAX_KH}")
+    kernel_smem_bytes(spec)
 
 
 def occupancy(spec: TowerSpec):
@@ -319,12 +339,9 @@ def fused_tower_block(x, z, w_cat, w_cc_t, b_cat, spec: TowerSpec,
     for name, (t, shape) in ops.items():
         _build.check_cuda_input(name, t, x.device, len(shape))
     _build.check_forward_only(*(t for t, _ in ops.values()))
-    if c not in SUPPORTED_CHANNELS:
-        raise ValueError(f"tower_block kernel has no instance for C={c} "
-                         f"(supported: {SUPPORTED_CHANNELS})")
+    check_kernel_spec(spec, "tower_block")
     if n_ds > MAX_DS_ROWS:
         raise ValueError(f"n_ds={n_ds} > {MAX_DS_ROWS}")
-    kernel_smem_bytes(spec)
     n_tiles = -(-w // _TILE_W)
     out = torch.empty_like(x)
     f = torch.empty((d, 2, c, kh, kw), dtype=torch.float32, device=x.device)

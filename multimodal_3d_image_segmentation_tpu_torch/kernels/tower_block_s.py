@@ -32,12 +32,11 @@ import numpy as np
 import torch
 
 from . import _build
-from .tower_block import (MAX_DS_ROWS, SUPPORTED_CHANNELS, _TILE_W,
-                          TowerSpec, _check_operands, _kernel_mats,
-                          _spec_mats, _stage, d_stage_forward,
-                          entry_forward_hw, kernel_smem_bytes,
-                          make_tower_spec, spectrum_mix, spectrum_rows,
-                          tower_block_plain)
+from .tower_block import (MAX_DS_ROWS, _TILE_W, TowerSpec,
+                          _check_operands, _kernel_mats, _spec_mats, _stage,
+                          check_kernel_spec, d_stage_forward,
+                          entry_forward_hw, make_tower_spec, spectrum_mix,
+                          spectrum_rows, tower_block_plain)
 
 __all__ = ["make_tower_spec_s", "fused_tower_block_s", "tower_block_s_plain",
            "spectrum_mix_s", "entry_spectrum_s", "occupancy",
@@ -114,14 +113,11 @@ def fused_tower_block_s(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
     for name, (t, shape) in ops.items():
         _build.check_cuda_input(name, t, x.device, len(shape))
     _build.check_forward_only(*(t for t, _ in ops.values()))
-    if c not in SUPPORTED_CHANNELS:
-        raise ValueError(f"tower_block_s kernel has no instance for C={c} "
-                         f"(supported: {SUPPORTED_CHANNELS})")
+    check_kernel_spec(spec, "tower_block_s")
     if n_ds > MAX_DS_ROWS:
         raise ValueError(f"n_ds={n_ds} > {MAX_DS_ROWS}")
     if ks > MAX_SPECTRUM_ROWS:
         raise ValueError(f"KS={ks} spectrum rows > {MAX_SPECTRUM_ROWS}")
-    kernel_smem_bytes(spec)  # raises where a block would not fit
     out = torch.empty_like(x)
     s_f = torch.empty((ks, c, kh, kw), dtype=torch.float32, device=x.device)
     ds = (torch.empty((d, h, w, n_ds), dtype=torch.float32, device=x.device)

@@ -9,8 +9,9 @@ operator mixes the block's folded spectrum into the next s.
 
 ``resident_tower`` launches the CUDA kernel (``csrc/tower_resident.cu``)
 on CUDA tensors: one cooperative persistent launch for all B blocks, with
-grid-wide barriers between a block's body, its depth pass and the next
-operator. ``resident_tower_plain`` is the same tower in torch ops (the
+grid-wide barriers between a block's z phase (each plane's depth-inverse
+pre-image formed once, into a scratch tensor), its body, its depth pass
+and the next operator. ``resident_tower_plain`` is the same tower in torch ops (the
 reference's ``_reference_chain``, on the resident spectrum). Block 0's
 spectrum is built in torch ops before the launch, as the TPU kernel's
 caller builds it in XLA (``_prep_s0``). The TPU kernel's lane-padded
@@ -26,18 +27,17 @@ import ctypes
 import torch
 
 from . import _build
-from .tower_block import (SUPPORTED_CHANNELS, _TILE_W, TowerSpec,
-                          kernel_smem_bytes, spectrum_rows)
+from .tower_block import (_TILE_W, TowerSpec, check_kernel_spec,
+                          spectrum_rows)
 from .tower_block_s import (_DEPTH_GROUPS, MAX_SPECTRUM_ROWS,
                             _kernel_mats_s, entry_spectrum_s, spectrum_mix_s,
                             tower_block_s_plain)
 
 __all__ = ["resident_tower", "resident_tower_plain", "occupancy",
-           "resident_grid", "phase_ms", "PHASES", "MAX_KW"]
+           "resident_grid", "phase_ms", "PHASES", "z_scratch_shape"]
 
-MAX_KW = 256  # csrc/tower_resident.cu: a spectrum chunk holds 4 rows or more
 # the kernel's phases, as phase_ms reports them
-PHASES = ("body", "depth", "mix", "last_body")
+PHASES = ("body", "depth", "mix", "last_body", "z")
 
 
 def resident_tower_plain(x, op_stack, wcat_stack, wcc_stack, b_stack,
@@ -66,11 +66,19 @@ def resident_grid(spec: TowerSpec) -> int:
     return occupancy(spec)[0] * props.multi_processor_count
 
 
+def z_scratch_shape(spec: TowerSpec):
+    """(D, 2, C, KH, KW): the scratch that the kernel's z phase writes each
+    plane's depth-inverse pre-image into, once per tower block."""
+    d = spec.sizes[0]
+    return (d, 2, spec.channels, spec.kh, spec.kw)
+
+
 def phase_ms(reset: bool = False) -> dict:
     """Device time in ms of the kernel's phases, summed over its launches
     since the last reset: the block bodies with their forward stages (all
-    but the last block's), the depth pass, the operator mix, and the last
-    block's body. Block 0 reads the card's globaltimer after each grid
+    but the last block's), the depth pass, the operator mix, the last
+    block's body, and the z phases (every block's z formed from its
+    spectrum). Block 0 reads the card's globaltimer after each grid
     barrier. Waits for the device; ``reset`` sets the sums to 0."""
     buf = (ctypes.c_ulonglong * len(PHASES))()
     _build.call("m3seg_tower_resident_phase_ns",
@@ -121,9 +129,8 @@ def resident_tower(x, op_stack, wcat_stack, wcc_stack, b_stack,
     Returns:
         The tower's output (D, H, W, C). A CPU tensor runs
         ``resident_tower_plain``; a CUDA tensor launches the kernel (fp32,
-        contiguous, C in ``SUPPORTED_CHANNELS``, KS at most
-        ``MAX_SPECTRUM_ROWS``, KW at most ``MAX_KW``) or raises. Forward
-        only.
+        contiguous, C in ``SUPPORTED_CHANNELS``, KH at most ``MAX_KH``,
+        KS at most ``MAX_SPECTRUM_ROWS``) or raises. Forward only.
     """
     ops = _check_operands(spec, x, op_stack, wcat_stack, wcc_stack, b_stack)
     if x.device.type == "cpu":
@@ -135,14 +142,9 @@ def resident_tower(x, op_stack, wcat_stack, wcc_stack, b_stack,
     d, h, w = spec.sizes
     c, kh, kw = spec.channels, spec.kh, spec.kw
     ks, nb = spectrum_rows(spec), op_stack.shape[0]
-    if c not in SUPPORTED_CHANNELS:
-        raise ValueError(f"tower_resident kernel has no instance for C={c} "
-                         f"(supported: {SUPPORTED_CHANNELS})")
+    check_kernel_spec(spec, "tower_resident")
     if ks > MAX_SPECTRUM_ROWS:
         raise ValueError(f"KS={ks} spectrum rows > {MAX_SPECTRUM_ROWS}")
-    if kw > MAX_KW:
-        raise ValueError(f"KW={kw} > {MAX_KW}")
-    kernel_smem_bytes(spec)  # raises where a block would not fit
     # block 0's spectrum; the kernel overwrites it with each next block's
     s_cur = spectrum_mix_s(entry_spectrum_s(x, spec), op_stack[0],
                            spec).contiguous()
@@ -152,12 +154,14 @@ def resident_tower(x, op_stack, wcat_stack, wcc_stack, b_stack,
     partial = torch.empty(d * -(-w // _TILE_W) * 2 * ng
                           + _DEPTH_GROUPS * ks * ng, dtype=torch.float32,
                           device=x.device)
+    z = torch.empty(z_scratch_shape(spec), dtype=torch.float32,
+                    device=x.device)
     mats = _kernel_mats_s(spec, x.device)
     _build.launch("tower_resident", "m3seg_tower_resident", x.device,
                   x.data_ptr(), s_cur.data_ptr(), op_stack.data_ptr(),
                   wcat_stack.data_ptr(), wcc_stack.data_ptr(),
                   b_stack.data_ptr(), mats.data_ptr(), out.data_ptr(),
                   tmp.data_ptr() if tmp is not None else None,
-                  partial.data_ptr(), d, h, w, c, kh, kw, ks, nb,
-                  int(spec.transform == "Fourier"))
+                  partial.data_ptr(), z.data_ptr(), d, h, w, c, kh, kw, ks,
+                  nb, int(spec.transform == "Fourier"))
     return out

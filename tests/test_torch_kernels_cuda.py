@@ -314,6 +314,9 @@ def _held_to_plain(name, kern, plain, args):
     ((9, 37, 21), (3, 5, 4)),     # ragged tiles and chunks, odd sizes
     ((6, 64, 16), (2, 4, 3)),     # whole tiles and chunks
     ((16, 33, 30), (8, 12, 12)),  # the config's modes
+    # H 37 leaves the last 32-row chunk of both passes 5 rows, W 19 the
+    # last 8-column tile 3 columns
+    ((5, 37, 19), (2, 5, 4)),
 ])
 @pytest.mark.parametrize("c", [8, 24])
 @pytest.mark.parametrize("n_ds", [0, 3, 4])
@@ -335,9 +338,10 @@ def test_tower_block_kernel_matches_plain(dev, sizes, modes, c, n_ds):
     ((7, 9, 7), (2, 3, 3)),       # odd KW = 3: rows at odd offsets
     ((9, 37, 21), (3, 5, 4)),     # ragged tiles and chunks, odd sizes
     ((21, 33, 30), (10, 14, 14)),  # the config's modes, KW 14
+    ((5, 37, 19), (2, 5, 5)),     # ragged last chunk and tile, odd KW 5
 ])
 @pytest.mark.parametrize("c", [8, 24])
-@pytest.mark.parametrize("n_ds", [0, 4])
+@pytest.mark.parametrize("n_ds", [0, 3, 4])
 def test_tower_block_kernel_matches_plain_fourier(dev, sizes, modes, c,
                                                   n_ds):
     _held_to_plain("tower_block", kernels.fused_tower_block,
@@ -394,6 +398,16 @@ def test_tower_block_s_refuses_what_it_does_not_take(dev):
         resident=True)
     with pytest.raises(ValueError, match="spectrum rows"):
         kernels.fused_tower_block_s(xb, sb, wb, wcb, bb, specb)
+
+
+@pytest.mark.parametrize("modes", [(8, 12, 12), (10, 14, 14)])
+def test_tower_kernels_keep_two_blocks_per_sm(dev, modes):
+    """At the serving shapes' modes and C 24, each tower kernel leaves room
+    for two blocks of 256 threads on an SM (128 registers a thread and
+    under half the SM's shared memory)."""
+    spec = tb.make_tower_spec("Hartley", (121, 121, 78), modes, 24)
+    for occ in (tb.occupancy(spec), tbs.occupancy(spec), tr.occupancy(spec)):
+        assert occ[0] >= 2 and occ[1] <= 128
 
 
 def test_tower_block_occupancy_is_reported(dev):
@@ -513,6 +527,10 @@ def _resident_inputs(dev, transform, sizes, modes, c, nb, seed=60):
     ("Fourier", (7, 9, 7), (2, 3, 3)),     # odd KW = 3
     ("Fourier", (9, 37, 21), (3, 5, 5)),   # odd sizes, odd KW = 5
     ("Fourier", (21, 33, 30), (10, 14, 14)),  # KS 40, KW 14
+    # D 11: neither the depth pass's 8 plane groups nor the z phase's 16
+    # divide it; ragged chunks and tiles
+    ("Hartley", (11, 37, 19), (3, 5, 4)),
+    ("Fourier", (11, 37, 19), (3, 5, 5)),
 ])
 @pytest.mark.parametrize("c", [8, 24])
 @pytest.mark.parametrize("nb", [1, 3])
@@ -589,5 +607,6 @@ def test_tower_resident_phases_are_timed(dev):
     with torch.no_grad():
         kernels.resident_tower(*args)
     got = tr.phase_ms(reset=True)
+    assert len(got) == 5 and "z" in got  # the z phase, once per block
     assert set(got) == set(tr.PHASES) and all(v > 0 for v in got.values())
     assert all(v == 0 for v in tr.phase_ms().values())

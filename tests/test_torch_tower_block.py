@@ -183,3 +183,32 @@ def test_wrapper_refuses_what_it_does_not_take():
         tb.make_tower_spec("Hartley", (8, 5, 5), MODES, C)
     with pytest.raises(ValueError, match="'Hartley' or 'Fourier'"):
         tb.make_tower_spec("Cosine", (8, 6, 5), MODES, C)
+
+
+# The kernels' block layout (csrc/tower_block.cuh smem_floats) at the three
+# shapes that serve tower_block, grid 121x121x78, C 24: the y tile, one
+# chunk of 32 x 8 voxels, the chunk's (A, B) and Mh rows, the weights with
+# room for 8 deep-supervision rows, the tile's W-stage columns.
+@pytest.mark.parametrize("transform,modes,n_ds,want", [
+    ("Hartley", (8, 12, 12), 4, 84672),    # HartleyMHASeg, KH = KW = 24
+    ("Hartley", (10, 14, 14), 0, 93376),   # HNOSeg, KH = KW = 28
+    ("Fourier", (10, 14, 14), 0, 91584),   # FNOSeg, KW 14
+], ids=["hartleymha", "hnoseg", "fnoseg"])
+def test_kernel_smem_bytes_at_the_serving_shapes(transform, modes, n_ds,
+                                                 want):
+    spec = tb.make_tower_spec(transform, (121, 121, 78), modes, 24,
+                              n_ds=n_ds)
+    got = tb.kernel_smem_bytes(spec)
+    assert got == want
+    # two blocks fit an SM's 228 KB of shared memory (1 KB reserved each)
+    assert 2 * (got + 1024) <= 228 * 1024
+
+
+def test_kernel_spec_check_refuses_what_the_body_does_not_take():
+    spec = tb.make_tower_spec("Hartley", (121, 121, 78), (10, 14, 14), 24)
+    tb.check_kernel_spec(spec, "tower_block")  # the serving shape passes
+    # F's registers hold KH <= 32 (modes (10, 17, 14): KH 34)
+    with pytest.raises(ValueError, match="KH=34 > 32"):
+        tb.check_kernel_spec(spec._replace(kh=34), "tower_block")
+    with pytest.raises(ValueError, match="no instance for C=12"):
+        tb.check_kernel_spec(spec._replace(channels=12), "tower_block")

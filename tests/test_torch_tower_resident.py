@@ -168,3 +168,20 @@ def test_a_tensor_off_the_cpu_never_runs_the_plain_version():
                                         "launched for meta"):
         tr.resident_tower(x, ops, wg, wcc, b, spec)
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("transform,kw,nbytes", [
+    ("Hartley", 28, 18_213_888),   # HNOSeg: (121, 2, 24, 28, 28) fp32
+    ("Fourier", 14, 9_106_944),    # FNOSeg: KW 14
+])
+def test_z_scratch_holds_every_plane_once(transform, kw, nbytes):
+    """The kernel's z phase writes each plane's depth-inverse pre-image
+    once per tower block into one (D, 2, C, KH, KW) scratch."""
+    spec = tb.make_tower_spec(transform, (121, 121, 78), (10, 14, 14), 24)
+    shape = tr.z_scratch_shape(spec)
+    assert shape == (121, 2, 24, 28, kw)
+    assert 4 * int(np.prod(shape)) == nbytes
+
+
+def test_phase_clock_names_the_z_phase():
+    assert tr.PHASES == ("body", "depth", "mix", "last_body", "z")
