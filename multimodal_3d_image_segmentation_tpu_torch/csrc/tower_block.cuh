@@ -493,7 +493,21 @@ struct ZFromTensor {
                                       float (&im)[kTW]) const {
     const float* zr = zd + (size_t)(c * KH + k) * KW;
     const float* zi = zr + (size_t)C * KH * KW;
-    if ((KW & 1) == 0) {
+    if ((KW & 3) == 0) {  // 16-byte loads, four in flight for each part
+#pragma unroll 4
+      for (int j4 = 0; j4 < KW; j4 += 4) {
+        const float4 a4 =
+            m3seg::ldg_or_cg<kL2>(reinterpret_cast<const float4*>(zr + j4));
+        const float4 b4 =
+            m3seg::ldg_or_cg<kL2>(reinterpret_cast<const float4*>(zi + j4));
+        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          w_inverse_add(av[u], bv[u], cwi_s + (j4 + u) * kTW,
+                        swi_s + (j4 + u) * kTW, re, im);
+      }
+    } else if ((KW & 1) == 0) {
 #pragma unroll 2
       for (int j2 = 0; j2 < KW; j2 += 2) {
         const float2 a2 =
