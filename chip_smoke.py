@@ -394,35 +394,6 @@ def _held_to_plain(torch, kernels, name, label, kern, plain, outs):
     return err
 
 
-# the shapes tower_block serves: (label, transform, modes, ds rows)
-TOWER_BLOCK_SHAPES = [("HartleyMHASeg", "Hartley", (8, 12, 12), 4),
-                      ("HNOSeg", "Hartley", (10, 14, 14), 0),
-                      ("FNOSeg", "Fourier", (10, 14, 14), 0)]
-
-
-def tower_build_report(kernels):
-    """Registers, spills and stack of each tower kernel instance
-    (tower_block, tower_block_s, tower_resident) from the build's
-    ``-Xptxas -v`` log."""
-    log = kernels.library().build_log.splitlines()
-    if not log:
-        print("tower build: the library was reused, no ptxas log")
-    for i, line in enumerate(log):
-        if "Compiling entry function" not in line:
-            continue
-        name = line.split("'")[1] if "'" in line else line
-        kind = next((k for k in ("tower_resident_kernel",
-                                 "tower_block_s_kernel",
-                                 "tower_block_kernel") if k in name), None)
-        if kind is None:
-            continue
-        c = "24" if "ILi24E" in name else "8" if "ILi8E" in name else "?"
-        props = [ln.split(":", 1)[-1].strip() for ln in log[i + 1:i + 4]
-                 if "spill" in ln or "Used" in ln]
-        print(f"tower build: {kind.removesuffix('_kernel')} C {c}: "
-              f"{'; '.join(props)}")
-
-
 def phase_tower_block(torch, kernels, dev):
     """tower_block against its plain version at the three shapes it serves
     (grid 121x121x78, C 24): HartleyMHASeg's (Hartley, modes (8,12,12), 4
@@ -437,9 +408,11 @@ def phase_tower_block(torch, kernels, dev):
     header("== tower_block")
     from multimodal_3d_image_segmentation_tpu_torch.kernels import \
         tower_block as tb
-    tower_build_report(kernels)
+    from multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep import \
+        BLOCK_SHAPES, build_report
+    build_report()
     results = {}
-    for i, (label, transform, modes, nds) in enumerate(TOWER_BLOCK_SHAPES):
+    for i, (label, transform, modes, nds) in enumerate(BLOCK_SHAPES):
         spec = tb.make_tower_spec(transform, GRID, modes, 24, n_ds=nds)
         with torch.inference_mode():
             x, s, w_cat, w_cc_t, b_cat, ds_prev = _tower_operands(

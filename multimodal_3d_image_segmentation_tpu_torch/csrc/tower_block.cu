@@ -127,3 +127,11 @@ M3SEG_API int m3seg_tower_block_occupancy(int c, int kh, int kw, int nds,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// Dynamic shared memory of one block of the tower kernels (tower_block,
+// tower_block_s and tower_resident share smem_floats) at (c, kh, kw), in
+// bytes; launches nothing.
+M3SEG_API int m3seg_tower_smem_bytes(int c, int kh, int kw, int* bytes) {
+  *bytes = (int)(sizeof(float) * smem_floats(c, kh, kw));
+  return 0;
+}

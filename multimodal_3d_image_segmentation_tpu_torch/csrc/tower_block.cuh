@@ -46,6 +46,13 @@
 // the mixes over input channels, F over h, the W stages over j and w, all
 // ascending), so the bits are the same. No atomics: the result is the same
 // from run to run. SELU keeps expm1f, as torch.selu does.
+//
+// Registers: two blocks an SM cap a thread at 128. At C 24 ptxas then
+// spills a dozen long-lived scalars (shared-memory offsets, loop bounds):
+// stored once at the start and reloaded mostly at the heads of the chunk
+// loops and stages, not in the FMA loops. A build capped at 255 registers
+// spills nothing at C 24 but holds one block an SM, and is slower on an
+// H100 (PERF.md, section 6), so the cap and its spills are kept.
 #pragma once
 
 #include "common.cuh"

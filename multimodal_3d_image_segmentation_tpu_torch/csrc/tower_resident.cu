@@ -51,7 +51,10 @@
 // the persistent launch adds: z formed once per plane (phase z, 18.2 MB
 // at HNOSeg's shape, kept in L2) instead of each W tile reading the whole
 // 1.5 MB spectrum to form it again, and a body of at most 128 registers,
-// so that two blocks of 256 threads reside on an SM.
+// so that two blocks of 256 threads reside on an SM. Values that live
+// across the grid barriers (the phase clock, the loop state, the derived
+// sizes) spill at either cap, 128 or 255 registers; their reloads sit at
+// the heads of the phases, outside the inner loops.
 // Buffers that the launch rewrites (the volumes, s_cur, z, the partials
 // and groups) are read through L2 (ld.global.cg, cp.async.cg,
 // m3seg::ld_or_cg); only the weights and stage matrices, which it never
@@ -92,9 +95,11 @@ constexpr int kZGroups = 16;  // plane groups of the z phase
 // Phase z at element e of a spectrum row (C KH KW) and the planes of group
 // g: z[d][q][e] = sum_s mi[d][q][s] s_cur[s][e], s ascending. Four planes
 // at a time share each spectrum value read from L2, and four reads are in
-// flight at once. (A version that held all KS values in a kMaxKS register
-// array gave wrong sums for C 8 on the card, under the kernel's
-// 128-register budget.)
+// flight at once. (An earlier version that held all KS spectrum values of
+// an element in a register array gave wrong sums for C 8 on the card and
+// right ones in a host run of the same source; its cause was not found.
+// The CUDA tests hold this phase at C 8 over several blocks, with short
+// last plane groups.)
 __device__ __forceinline__ void z_group_element(const float* s_cur,
                                                 const float* __restrict__ mi,
                                                 float* z, int D, int ng,

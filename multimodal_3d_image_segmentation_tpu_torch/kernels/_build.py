@@ -50,6 +50,7 @@ _SIGNATURES = {
     "m3seg_tower_block_occupancy": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
     "m3seg_tower_block_s_occupancy": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
     "m3seg_tower_resident_occupancy": [_I] * 3 + [ctypes.POINTER(_I)] * 2,
+    "m3seg_tower_smem_bytes": [_I] * 3 + [ctypes.POINTER(_I)],
     "m3seg_tower_resident_phase_ns": [_P, _I],
 }
 

@@ -4,7 +4,7 @@ checkouts' outputs bit for bit.
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
     python -m multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep \\
-        [--save DIR] [--compare DIR] [--json FILE] [--skip-resident]
+        [--save DIR] [--compare DIR]
 
 On seeded random inputs at the 121x121x78 tower grid with C 24, it times
 (CUDA events around one call, after 3 warm-up calls, the median of 25):
@@ -22,13 +22,13 @@ are bit-identical and their largest difference. The same file copied into
 another checkout of the port (for example the parent commit's, unpacked
 with ``git archive``) times that checkout's kernels on the same inputs, so
 that two kernel versions are compared in one call on one card. Prints the
-card's name and power limit first. ``chip_smoke.py`` holds each kernel to
-its plain version; this script does not.
+card's name and power limit first, then each tower kernel instance's
+registers and spills from the build log. ``chip_smoke.py`` holds each
+kernel to its plain version; this script does not.
 """
 from __future__ import annotations
 
 import argparse
-import json
 import subprocess
 from pathlib import Path
 
@@ -38,32 +38,46 @@ import torch
 from .. import kernels
 from ..kernels import tower_block as tb
 from ..kernels import tower_resident as tr
+from .profiling import step_ms
 
 GRID = (121, 121, 78)
 N_TIMED, N_WARMUP = 25, 3
 N_BLOCKS = 24
+# the shapes that serve tower_block (chip_smoke.py times the same):
 # (label, transform, modes, deep-supervision rows)
 BLOCK_SHAPES = [("HartleyMHASeg", "Hartley", (8, 12, 12), 4),
                 ("HNOSeg", "Hartley", (10, 14, 14), 0),
                 ("FNOSeg", "Fourier", (10, 14, 14), 0)]
 
 
-def median_ms(fn, n=N_TIMED, warmup=N_WARMUP):
-    """Median of ``n`` CUDA-event timings of ``fn`` after ``warmup``
+def median_ms(fn):
+    """Median of N_TIMED CUDA-event timings of ``fn`` after N_WARMUP
     calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    return float(np.median(step_ms(lambda _: fn(), None, N_TIMED,
+                                   N_WARMUP)))
+
+
+def build_report():
+    """Print the registers, spills and stack of each tower kernel instance
+    (tower_block, tower_block_s, tower_resident) from the ``-Xptxas -v``
+    log of the kernel library, where this process built it."""
+    log = kernels.library().build_log.splitlines()
+    if not log:
+        print("tower build: the library was reused, no ptxas log")
+    for i, line in enumerate(log):
+        if "Compiling entry function" not in line:
+            continue
+        name = line.split("'")[1] if "'" in line else line
+        kind = next((k for k in ("tower_resident_kernel",
+                                 "tower_block_s_kernel",
+                                 "tower_block_kernel") if k in name), None)
+        if kind is None:
+            continue
+        c = "24" if "ILi24E" in name else "8" if "ILi8E" in name else "?"
+        props = [ln.split(":", 1)[-1].strip() for ln in log[i + 1:i + 4]
+                 if "spill" in ln or "Used" in ln]
+        print(f"tower build: {kind.removesuffix('_kernel')} C {c}: "
+              f"{'; '.join(props)}")
 
 
 def _t(rng, shape, dev, scale=1.0):
@@ -108,8 +122,6 @@ def main(argv=None):
     ap.add_argument("--save", type=Path, help="write the outputs here")
     ap.add_argument("--compare", type=Path,
                     help="compare with the outputs saved there")
-    ap.add_argument("--json", type=Path, help="write the times here")
-    ap.add_argument("--skip-resident", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tower_sweep needs a CUDA device")
@@ -118,8 +130,8 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()
     print(smi[0] if smi else torch.cuda.get_device_name(0))
-    kernels.library()  # build (or reuse) before any timing
-    outputs, times = {}, {}
+    build_report()  # builds (or reuses) the library before any timing
+    outputs = {}
     with torch.inference_mode():
         for i, (label, transform, modes, n_ds) in enumerate(BLOCK_SHAPES):
             spec, x, s, z, w_cat, w_cc_t, b_cat, ds_prev = block_operands(
@@ -129,7 +141,6 @@ def main(argv=None):
             for name, t in zip(("out", "f", "ds"), got):
                 outputs[f"tower_block {label} {name}"] = t
             ms = median_ms(lambda: kernels.fused_tower_block(*call))
-            times[f"tower_block {label}"] = ms
             print(f"tower_block {label}: {ms:.4f} ms", flush=True)
             if label == "HNOSeg":
                 call_s = (x, s, w_cat, w_cc_t, b_cat, spec, ds_prev)
@@ -137,12 +148,10 @@ def main(argv=None):
                 for name, t in zip(("out", "s_f"), got):
                     outputs[f"tower_block_s {label} {name}"] = t
                 ms = median_ms(lambda: kernels.fused_tower_block_s(*call_s))
-                times[f"tower_block_s {label}"] = ms
                 print(f"tower_block_s {label}: {ms:.4f} ms", flush=True)
             del x, s, z, call, got
-        for i, (label, transform) in enumerate(
-                () if args.skip_resident else (("HNOSeg", "Hartley"),
-                                               ("FNOSeg", "Fourier"))):
+        for i, (label, transform) in enumerate((("HNOSeg", "Hartley"),
+                                                ("FNOSeg", "Fourier"))):
             spec, ops = resident_operands(transform, 200 + i, dev)
             outputs[f"tower_resident {label} out"] = kernels.resident_tower(
                 *ops, spec)
@@ -150,7 +159,6 @@ def main(argv=None):
             ms = median_ms(lambda: kernels.resident_tower(*ops, spec))
             phases = {k: v / (N_TIMED + N_WARMUP)
                       for k, v in tr.phase_ms(reset=True).items()}
-            times[f"tower_resident {label}"] = ms
             print(f"tower_resident {label}: {ms:.4f} ms; phases per call "
                   f"(ms): " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in phases.items()),
@@ -170,8 +178,6 @@ def main(argv=None):
             same = bool(torch.equal(v.view(torch.int32), w.view(torch.int32)))
             print(f"{k}: bit-identical {same}, max abs diff "
                   f"{float((v - w).abs().max()):.3e}")
-    if args.json:
-        args.json.write_text(json.dumps(times, indent=1))
 
 
 if __name__ == "__main__":

@@ -17,17 +17,22 @@ cuBLAS: 1e-5 times each output's largest magnitude (at least 1); a TF32
 operand would miss by about 5e-4 of it. tower_resident chains those blocks
 and is held to the same bar against its plain version.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from multimodal_3d_image_segmentation_tpu_torch import kernels
+from multimodal_3d_image_segmentation_tpu_torch.kernels import _build
 from multimodal_3d_image_segmentation_tpu_torch.kernels import \
     tower_block as tb
 from multimodal_3d_image_segmentation_tpu_torch.kernels import \
     tower_block_s as tbs
 from multimodal_3d_image_segmentation_tpu_torch.kernels import \
     tower_resident as tr
+from multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep import \
+    BLOCK_SHAPES
 
 pytestmark = pytest.mark.cuda
 
@@ -410,6 +415,20 @@ def test_tower_kernels_keep_two_blocks_per_sm(dev, modes):
         assert occ[0] >= 2 and occ[1] <= 128
 
 
+@pytest.mark.parametrize("label,transform,modes,n_ds", BLOCK_SHAPES)
+@pytest.mark.parametrize("c", [8, 24])
+def test_kernel_smem_bytes_follow_the_c_layout(dev, label, transform, modes,
+                                               n_ds, c):
+    """kernel_smem_bytes, which the wrappers check before a launch, equals
+    the shared memory that the C side gives each block of the tower
+    kernels, at the shapes that serve tower_block."""
+    spec = tb.make_tower_spec(transform, (121, 121, 78), modes, c, n_ds=n_ds)
+    got = ctypes.c_int(0)
+    _build.call("m3seg_tower_smem_bytes", spec.channels, spec.kh, spec.kw,
+                ctypes.byref(got))
+    assert tb.kernel_smem_bytes(spec) == got.value
+
+
 def test_tower_block_occupancy_is_reported(dev):
     spec = tb.make_tower_spec("Hartley", (21, 33, 30), (10, 14, 14), 24)
     for blocks, regs in (tb.occupancy(spec), tbs.occupancy(spec)):
@@ -547,6 +566,25 @@ def test_tower_resident_kernel_matches_plain(dev, transform, sizes, modes, c,
     assert float((got - want).abs().max()) <= tol
     assert torch.equal(got, again)  # no atomics: the same from run to run
     assert torch.equal(args[0], x0)  # the caller's x is not written
+
+
+@pytest.mark.parametrize("transform,modes", [("Hartley", (2, 3, 2)),
+                                             ("Fourier", (2, 3, 3))])
+@pytest.mark.parametrize("d", [8, 21, 37, 78])
+@pytest.mark.parametrize("nb", [2, 3])
+def test_tower_resident_c8_over_blocks_matches_plain(dev, transform, modes,
+                                                     d, nb):
+    """C 8 over several blocks, so that every block after the first reads a
+    z that the z phase formed from the kernel's own mix. D 8 has one plane
+    per z group; at D 21, 37 and 78 the last of the 16 z groups is short
+    (1, 1 and 3 planes) and the groups step over their planes four at a
+    time with a ragged last step (78: groups of 5)."""
+    args = _resident_inputs(dev, transform, (d, 9, 7), modes, 8, nb)
+    with torch.no_grad():
+        got = _launched("tower_resident", lambda: kernels.resident_tower(*args))
+        want = kernels.resident_tower_plain(*args)
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
 
 
 def test_tower_resident_matches_the_block_s_chain(dev):
