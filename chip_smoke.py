@@ -24,7 +24,9 @@ tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
               whole 24-block tower at HNOSeg's and FNOSeg's shapes, with
               its phase clock, the z phase included) against their plain
               PyTorch versions at the serving shapes, with their times,
-              the plain versions' and the bound, the tower kernels'
+              the plain versions' and the bound (tail_resize's rate
+              against 3.35 TB/s; tower_block_s's time beside tower_block
+              with the depth stages around it), the tower kernels'
               registers and spills from the build log, their occupancy
               and tower_resident's persistent grid;
   4. serve    ``runtime/inference.py::run_inference`` on 3 synthetic NIfTI
@@ -303,6 +305,12 @@ def phase_kernels(torch, kernels, dev):
                   f"ms  library {lib_ms if lib_ms is None else round(lib_ms, 4)}"
                   f" ms  bound {b_ms:.4f} ms ({b_by}) (medians of "
                   f"{N_TIMED}, CUDA events)")
+            if name == "tail_resize":
+                moved = nbytes(logits, got)
+                rate = moved / (ms * 1e-3)
+                print(f"tail_resize: {rate / 1e9:.1f} GB/s of "
+                      f"{moved / 1e6:.1f} MB (logits in, probabilities "
+                      f"out), {rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s")
     return results
 
 
@@ -502,6 +510,9 @@ def phase_tower_block_s(torch, kernels, dev):
               f"events); shared memory {tb.kernel_smem_bytes(spec)} B per "
               f"block; occupancy (blocks per SM, registers per thread): "
               f"tower_block_s {occ_s}, tower_block {occ_v2}")
+        print(f"tower_block_s {label}: {ms:.4f} ms against tower_block with "
+              f"the depth stages around it {v2_ms:.4f} ms: "
+              f"{ms / v2_ms:.3f} of its time")
         results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by,
                           "library_ms": None}

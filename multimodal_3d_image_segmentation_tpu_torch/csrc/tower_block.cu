@@ -7,7 +7,8 @@
 //
 // The block body, its design and its arithmetic are in tower_block.cuh;
 // here each block reads its plane's z rows (D, 2, C, KH, KW) from device
-// memory, and a second kernel sums the tiles' partial spectra in tile
+// memory, and a second kernel (tower_spectrum.cuh's tile sum, which
+// tower_block_s launches too) sums the tiles' partial spectra in tile
 // order into f (D, 2, C, KH, KW). Hartley and Fourier differ only in the
 // stage matrices; Fourier's KW = mw may be odd, and then the z rows are not
 // 8-byte aligned and are read one value at a time.
@@ -23,7 +24,7 @@
 // tower_block.cuh. The tiles' partial spectra cross device memory once
 // each way, 182 MB at HNOSeg's shape, about 0.11 ms at 3.35 TB/s, summed
 // by the second kernel.
-#include "tower_block.cuh"
+#include "tower_spectrum.cuh"
 
 namespace {
 
@@ -44,19 +45,6 @@ tower_block_kernel(const float* __restrict__ x, const float* __restrict__ z,
                       W, KH, KW, nds);
 }
 
-// f[d] = sum over the tiles of partial[d][tile], in tile order.
-__global__ void tower_spectrum_sum(const float* __restrict__ partial,
-                                   float* __restrict__ f, int n_tiles,
-                                   long long per_plane, long long total) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long d = i / per_plane, e = i % per_plane;
-  const float* p = partial + d * n_tiles * per_plane + e;
-  float s = 0.f;
-  for (int t = 0; t < n_tiles; ++t) s += p[t * per_plane];
-  f[i] = s;
-}
-
 template <int C>
 cudaError_t launch(const float* x, const float* z, const float* wcat,
                    const float* wcc, const float* bias, Mats m,
@@ -74,12 +62,7 @@ cudaError_t launch(const float* x, const float* z, const float* wcat,
       nds);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long per_plane = 2LL * C * KH * KW;
-  const long long total = per_plane * D;
-  const int threads = 256;
-  tower_spectrum_sum<<<(unsigned)((total + threads - 1) / threads), threads,
-                       0, stream>>>(partial, f, n_tiles, per_plane, total);
-  return cudaGetLastError();
+  return launch_tile_sum(partial, f, D, n_tiles, C * KH * KW, stream);
 }
 
 }  // namespace

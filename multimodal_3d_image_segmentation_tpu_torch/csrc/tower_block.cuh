@@ -1,7 +1,8 @@
 // The body of one fused tower block, shared by csrc/tower_block.cu (z read
 // from a tensor), csrc/tower_block_s.cu (z formed from the resident
-// spectrum inside the block) and csrc/tower_resident.cu (z formed once per
-// tower block by a phase of its own, then read like a tensor).
+// spectrum once per plane by a pass of its own, then read like a tensor)
+// and csrc/tower_resident.cu (the same, in a phase of its own per tower
+// block).
 //
 // Computes, for one depth plane d of the tower grid (D, H, W), C channels,
 // and one tile of kTW columns of W, x and out channels-last (D, H, W, C):
@@ -175,11 +176,10 @@ __device__ __forceinline__ void stage_out(const float* out, int d, int h0,
   }
 }
 
-// One block of the kernel on plane d, W tile `tile` of n_tiles. ZSrc
-// supplies the plane's z: zsrc.fill_y<C>(y_s, ny, cwi_s, swi_s, scratch)
-// writes the inverse W stage of z over the tile's columns into the y tile,
-// [2][KH][kTW][C]; every thread of the block calls it; scratch holds
-// kTH kTW C floats. Without `forward` the block writes out (and ds) only,
+// One block of the kernel on plane d, W tile `tile` of n_tiles. zsrc
+// supplies the plane's z: zsrc.fill_y(y_s, ny, cwi_s, swi_s) writes the
+// inverse W stage of z over the tile's columns into the y tile,
+// [2][KH][kTW][C]; every thread of the block calls it. Without `forward` the block writes out (and ds) only,
 // no partial spectrum. x is read through L2 (ld.global.cg), so it may be
 // written by the same launch; x and out never alias. wcat (2C + nds, C),
 // wcc (C, C), bias (2C): the weights, rows = outputs. KH <= kMaxKH (the
@@ -231,9 +231,8 @@ __device__ __forceinline__ void tower_block_body(
   }
   __syncthreads();
 
-  // ---- inverse W stage of z[d] for this tile's columns (the chunk's y1
-  // buffer, not yet in use, is the scratch)
-  zsrc.template fill_y<C>(y_s, ny, cwi_s, swi_s, o_s);
+  // ---- inverse W stage of z[d] for this tile's columns
+  zsrc.fill_y(y_s, ny, cwi_s, swi_s);
 
   const float4* y4 = reinterpret_cast<const float4*>(y_s);
   float4* o4 = reinterpret_cast<float4*>(o_s);
@@ -534,10 +533,9 @@ struct ZFromTensor {
     }
   }
 
-  template <int>
   __device__ __forceinline__ void fill_y(float* y_s, int ny,
                                          const float* cwi_s,
-                                         const float* swi_s, float*) const {
+                                         const float* swi_s) const {
     for (int e = threadIdx.x; e < C * KH; e += kThreads) {
       const int c = e % C, k = e / C;
       float re[kTW], im[kTW];

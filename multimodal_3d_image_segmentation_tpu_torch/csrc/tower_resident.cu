@@ -15,16 +15,17 @@
 //            W/H stages, the block tail, out written, the forward H/W
 //            stages into the item's partial spectrum; the last block stops
 //            at out);
-//   phase 2  the forward depth stage of the partials, tiles then the planes
-//            of 8 groups, in a fixed order (tower_spectrum.cuh);
-//   phase 3  the sum of the groups, in group order, then block b + 1's
-//            operator on the packed spectrum: Hartley a C x C channel mix
+//   phase 2  the forward depth stage of the partials: each plane's tiles
+//            summed in tile order into f (over z), then the planes of 8
+//            groups in plane order and the groups in group order, into
+//            s_f (tower_spectrum.cuh);
+//   phase 3  block b + 1's operator on s_f: Hartley a C x C channel mix
 //            and SELU, Fourier the complex mix on [re; im]; into s_cur;
 // with cooperative_groups::this_grid().sync() between the phases. No
-// atomics: a second run gives the same bits. Each z value is summed over s
-// ascending, as tower_block_s forms it inside its body, so phase z gives
-// the same bits as forming it per W tile did; what changes is that it is
-// formed once per plane instead of once per W tile (10 times at W 78).
+// atomics: a second run gives the same bits. The z phase and the depth
+// pass are tower_block_s's own passes (tower_spectrum.cuh), so each value
+// is summed in the same order as there, and the tower gives the bits of
+// its blocks launched one by one.
 //
 // What the card cannot keep: the TPU kernel holds the whole volume in VMEM
 // (124 MB). Here 121 x 121 x 78 x 24 x 4 B = 109.6 MB fits neither the
@@ -55,8 +56,8 @@
 // across the grid barriers (the phase clock, the loop state, the derived
 // sizes) spill at either cap, 128 or 255 registers; their reloads sit at
 // the heads of the phases, outside the inner loops.
-// Buffers that the launch rewrites (the volumes, s_cur, z, the partials
-// and groups) are read through L2 (ld.global.cg, cp.async.cg,
+// Buffers that the launch rewrites (the volumes, s_cur, z and f, the
+// partials and s_f) are read through L2 (ld.global.cg, cp.async.cg,
 // m3seg::ld_or_cg); only the weights and stage matrices, which it never
 // writes, may come through L1. The grid is the
 // number of blocks the CUDA runtime lets reside on an SM at this shared
@@ -90,75 +91,28 @@ struct PhaseClock {
   }
 };
 
-constexpr int kZGroups = 16;  // plane groups of the z phase
-
-// Phase z at element e of a spectrum row (C KH KW) and the planes of group
-// g: z[d][q][e] = sum_s mi[d][q][s] s_cur[s][e], s ascending. Four planes
-// at a time share each spectrum value read from L2, and four reads are in
-// flight at once. (An earlier version that held all KS spectrum values of
-// an element in a register array gave wrong sums for C 8 on the card and
-// right ones in a host run of the same source; its cause was not found.
-// The CUDA tests hold this phase at C 8 over several blocks, with short
-// last plane groups.)
-__device__ __forceinline__ void z_group_element(const float* s_cur,
-                                                const float* __restrict__ mi,
-                                                float* z, int D, int ng,
-                                                int KS, int e, int g) {
-  const int per_group = (D + kZGroups - 1) / kZGroups;
-  const int d1 = min(D, (g + 1) * per_group);
-  for (int d0 = g * per_group; d0 < d1; d0 += 4) {
-    const int n = min(4, d1 - d0);
-    float za[4] = {0.f, 0.f, 0.f, 0.f}, zb[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int s = 0; s < KS; ++s) {
-      const float v = __ldcg(s_cur + (size_t)s * ng + e);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (i < n) {
-          const float* md = mi + (size_t)(d0 + i) * 2 * KS;
-          za[i] = fmaf(__ldg(md + s), v, za[i]);
-          zb[i] = fmaf(__ldg(md + KS + s), v, zb[i]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (i < n) {
-        z[(size_t)(d0 + i) * 2 * ng + e] = za[i];
-        z[(size_t)(d0 + i) * 2 * ng + ng + e] = zb[i];
-      }
-  }
-}
-
-// v[c] = sum over the depth pass's groups, in group order, of spectrum row
-// `row`, channel c, at (x, y) = xy: the folded spectrum s_f.
+// v[c] = the folded spectrum s_f's row `row`, channel c, at (x, y) = xy.
 template <int C>
-__device__ __forceinline__ void group_sums(const float* groups, int row,
-                                           int KS, int khw, int xy,
-                                           float (&v)[C]) {
-  const size_t ng = (size_t)C * khw;
-  const float* p = groups + row * ng + xy;
+__device__ __forceinline__ void spectrum_point(const float* s_f, int row,
+                                               int khw, int xy,
+                                               float (&v)[C]) {
+  const float* p = s_f + (size_t)row * C * khw + xy;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float s = 0.f;
-#pragma unroll
-    for (int g = 0; g < kDepthGroups; ++g)
-      s += __ldcg(p + (size_t)g * KS * ng + (size_t)c * khw);
-    v[c] = s;
-  }
+  for (int c = 0; c < C; ++c) v[c] = __ldcg(p + (size_t)c * khw);
 }
 
 // Phase 3 at one spectrum point (k, xy): s_cur = the operator op ((PR, C, C),
 // rows = outputs) on s_f. Hartley: selu(W s_f[k]); Fourier (k < KD):
 // [re; im] = [Wr re - Wi im; Wi re + Wr im] of rows k and KD + k.
 template <int C>
-__device__ __forceinline__ void mix_point(const float* groups,
+__device__ __forceinline__ void mix_point(const float* s_f,
                                           const float* __restrict__ op,
                                           float* s_cur, int KS, int khw,
                                           int k, int xy, bool fourier) {
   const size_t ng = (size_t)C * khw;
   if (!fourier) {
     float v[C];
-    group_sums<C>(groups, k, KS, khw, xy, v);
+    spectrum_point<C>(s_f, k, khw, xy, v);
     for (int o = 0; o < C; ++o) {
       float acc = 0.f;
 #pragma unroll
@@ -169,8 +123,8 @@ __device__ __forceinline__ void mix_point(const float* groups,
   }
   const int kd = KS / 2;
   float re[C], im[C];
-  group_sums<C>(groups, k, KS, khw, xy, re);
-  group_sums<C>(groups, kd + k, KS, khw, xy, im);
+  spectrum_point<C>(s_f, k, khw, xy, re);
+  spectrum_point<C>(s_f, kd + k, khw, xy, im);
   const float* wi = op + C * C;
   for (int o = 0; o < C; ++o) {
     float a = 0.f, b = 0.f, e = 0.f, f = 0.f;
@@ -195,7 +149,7 @@ tower_resident_kernel(const float* __restrict__ x0, float* s_cur,
                       const float* __restrict__ wcc,
                       const float* __restrict__ bias, Mats m,
                       const float* __restrict__ mi,
-                      const float* __restrict__ mf, float* out, float* tmp,
+                      const float4* __restrict__ mf4, float* out, float* tmp,
                       float* partial, float* z, int D, int H, int W, int KH,
                       int KW, int KS, int nb, int fourier) {
   cg::grid_group grid = cg::this_grid();
@@ -203,14 +157,18 @@ tower_resident_kernel(const float* __restrict__ x0, float* s_cur,
   const int khw = KH * KW, ng = C * khw;
   const int pr = fourier ? 2 : 1;
   const int n_e = (ng + kThreads - 1) / kThreads;
-  float* groups = partial + (size_t)D * n_tiles * 2 * ng;
+  const int n_e4 = (ng / 4 + kThreads - 1) / kThreads;
+  const int n_rows = (KS + kDepthRows - 1) / kDepthRows;
+  const int per4 = 2 * ng / 4;
+  float* s_f = partial + (size_t)D * n_tiles * 2 * ng;
   const float* x = x0;
   PhaseClock clock;
   clock.mark(-1);
   for (int b = 0; b < nb; ++b) {
-    for (int item = blockIdx.x; item < n_e * kZGroups; item += gridDim.x) {
-      const int e = (item % n_e) * kThreads + threadIdx.x;
-      if (e < ng) z_group_element(s_cur, mi, z, D, ng, KS, e, item / n_e);
+    for (int item = blockIdx.x; item < n_e4 * kZGroups; item += gridDim.x) {
+      const int e4 = 4 * ((item % n_e4) * kThreads + threadIdx.x);
+      if (e4 < ng)
+        z_group_element<true>(s_cur, mi, z, D, ng, KS, e4, item / n_e4);
     }
     grid.sync();
     clock.mark(4);
@@ -230,12 +188,16 @@ tower_resident_kernel(const float* __restrict__ x0, float* s_cur,
     grid.sync();
     clock.mark(forward ? 0 : 3);
     if (!forward) break;
-    for (int item = blockIdx.x; item < n_e * kDepthGroups;
-         item += gridDim.x) {
-      const int e = (item % n_e) * kThreads + threadIdx.x;
+    // f over z, which no thread reads any more
+    for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
+         i < (long long)D * per4; i += (long long)gridDim.x * kThreads)
+      tile_sum4<true>(partial, z, n_tiles, per4, i);
+    grid.sync();
+    for (int item = blockIdx.x; item < n_e * n_rows; item += gridDim.x) {
+      const int e = (item % n_e) * kThreads + threadIdx.x, r = item / n_e;
       if (e < ng)
-        depth_group_element<true>(partial, mf, groups, D, n_tiles, ng, KS, e,
-                                  item / n_e);
+        depth_rows<true>(z, mf4 + (size_t)r * D * 2, s_f, D, ng, KS, e,
+                         r * kDepthRows);
     }
     grid.sync();
     clock.mark(1);
@@ -243,7 +205,7 @@ tower_resident_kernel(const float* __restrict__ x0, float* s_cur,
     const float* op = ops + (size_t)(b + 1) * pr * C * C;
     for (int i = blockIdx.x * kThreads + threadIdx.x; i < points;
          i += gridDim.x * kThreads)
-      mix_point<C>(groups, op, s_cur, KS, khw, i / khw, i % khw, fourier);
+      mix_point<C>(s_f, op, s_cur, KS, khw, i / khw, i % khw, fourier);
     grid.sync();
     clock.mark(2);
   }
@@ -261,7 +223,7 @@ cudaError_t resident_occupancy(int KH, int KW, size_t* smem, int* blocks,
 template <int C>
 cudaError_t launch(const float* x, float* s_cur, const float* ops,
                    const float* wcat, const float* wcc, const float* bias,
-                   Mats m, const float* mi, const float* mf, float* out,
+                   Mats m, const float* mi, const float4* mf4, float* out,
                    float* tmp, float* partial, float* z, int D, int H, int W,
                    int KH, int KW, int KS, int nb, int fourier,
                    cudaStream_t stream) {
@@ -278,7 +240,7 @@ cudaError_t launch(const float* x, float* s_cur, const float* ops,
   if (!coop) return cudaErrorNotSupported;
   if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&x,  &s_cur, &ops, &wcat,    &wcc, &bias, &m,
-                  &mi, &mf,    &out, &tmp,     &partial, &z, &D,
+                  &mi, &mf4,   &out, &tmp,     &partial, &z, &D,
                   &H,  &W,     &KH,  &KW,      &KS,  &nb,   &fourier};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(tower_resident_kernel<C>),
@@ -293,9 +255,10 @@ cudaError_t launch(const float* x, float* s_cur, const float* ops,
 // kw), block 0's operator on the entry spectrum of x, overwritten; ops:
 // (nb, 1 or 2, c, c) operator weights, rows = outputs (Fourier: real,
 // imaginary); wcat: (nb, 2c, c), wcc: (nb, c, c), bias: (nb, 2c); mats:
-// the stage matrices in the order of unpack_mats, then mi and mf (D, 2,
-// ks); partial: scratch of D ceil(W / 8) 2 c kh kw + 8 ks c kh kw floats;
-// z: scratch (D, 2, c, kh, kw). fp32, contiguous. fourier: ks = 2 kd,
+// the stage matrices in the order of unpack_mats, then mi (D, 2, ks) and
+// mf packed (ceil(ks / 4), D, 2, 4); partial: scratch of D ceil(W / 8) 2 c
+// kh kw + ks c kh kw floats (the partial spectra, then s_f); z: scratch
+// (D, 2, c, kh, kw) (z, then f). fp32, contiguous. fourier: ks = 2 kd,
 // [re; im].
 M3SEG_API int m3seg_tower_resident(const float* x, float* s_cur,
                                    const float* ops, const float* wcat,
@@ -310,15 +273,16 @@ M3SEG_API int m3seg_tower_resident(const float* x, float* s_cur,
     return (int)cudaErrorInvalidValue;
   const Mats m = unpack_mats(mats, H, W, kh, kw);
   const float* mi = mats + mats_floats(H, W, kh, kw);
-  const float* mf = mi + (size_t)D * 2 * ks;
+  const float4* mf4 =
+      reinterpret_cast<const float4*>(mi + (size_t)D * 2 * ks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
     case 8:
-      return (int)launch<8>(x, s_cur, ops, wcat, wcc, bias, m, mi, mf, out,
+      return (int)launch<8>(x, s_cur, ops, wcat, wcc, bias, m, mi, mf4, out,
                             tmp, partial, z, D, H, W, kh, kw, ks, nb, fourier,
                             s);
     case 24:
-      return (int)launch<24>(x, s_cur, ops, wcat, wcc, bias, m, mi, mf, out,
+      return (int)launch<24>(x, s_cur, ops, wcat, wcc, bias, m, mi, mf4, out,
                              tmp, partial, z, D, H, W, kh, kw, ks, nb,
                              fourier, s);
     default:

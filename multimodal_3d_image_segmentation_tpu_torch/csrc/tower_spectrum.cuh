@@ -1,187 +1,162 @@
-// The resident packed spectrum's two ends of a tower block:
-//   ZFromSpectrum        a plane's z = sum_s mi[d, :, s] sy[s], formed inside
-//                        the block body (the inverse depth stage), by each
-//                        W tile of the plane (csrc/tower_block_s.cu;
-//                        csrc/tower_resident.cu forms z once per plane in a
-//                        phase of its own, in the same order);
-//   depth_group_element  the forward depth stage of the blocks' partial
-//                        spectra, one element of one plane group, shared by
-//                        csrc/tower_block_s.cu and csrc/tower_resident.cu.
+// The resident packed spectrum's two ends of a tower block, shared by
+// csrc/tower_block_s.cu (each in a launch of its own) and
+// csrc/tower_resident.cu (each in a phase between grid barriers); the tile
+// sum is also csrc/tower_block.cu's second launch:
+//   z_group_element  the inverse depth stage: each plane's z
+//                    = sum_s mi[d, :, s] sy[s], once per plane, into a
+//                    scratch z (D, 2, C, KH, KW) that the block body reads
+//                    (ZFromTensor);
+//   tile_sum4        the blocks' partial spectra summed over the W tiles of
+//                    each plane, in tile order, into f (D, 2, C KH KW);
+//   depth_rows       the forward depth stage of f into the folded spectrum
+//                    s_f: the planes of each of kDepthGroups groups in
+//                    plane order, then the groups in group order.
 // The spectrum (KS, C, KH, KW) fp32: Hartley KS = KD, real; Fourier
-// KS = 2 KD, [re; im]. mi, mf: the depth matrices (D, 2, KS), one row per
-// plane. kL2: the spectrum and the partials were written by the same launch
-// (see m3seg::ldg_or_cg).
+// KS = 2 KD, [re; im]. mi: the inverse depth matrix (D, 2, KS), one row
+// per plane; mf: the forward one, packed (ceil(KS / 4), D, 2, 4). kL2: the
+// buffer read was written by the same launch (see m3seg::ldg_or_cg). No
+// atomics: every sum has one fixed order, so a second run gives the same
+// bits.
 #pragma once
 
 #include "tower_block.cuh"
 
 namespace {
 
-constexpr int kMaxKS = 64;       // spectrum rows a depth-pass thread holds
-constexpr int kDepthGroups = 8;  // plane groups of the depth pass
+// The spectrum rows the C entries and wrappers take. No pass here needs a
+// bound (z_group_element loops over KS, depth_rows takes 4 rows a thread);
+// it stays until ROADMAP R2 lifts it with tests at KS > 64.
+constexpr int kMaxKS = 64;
+constexpr int kDepthGroups = 8;  // plane groups of the forward depth stage
+constexpr int kDepthRows = 4;    // spectrum rows of a depth_rows thread
+constexpr int kZGroups = 64;     // plane groups of the z pass
+constexpr int kPassThreads = 256;  // threads of a pass launched on its own
 
-// Inverse W stage of the z rows r0 .. r0 + nr - 1 (row r = c KH + k),
-// held in shared memory as zre = zs[(r - r0) KW + j], zim = zs[chunk + ...],
-// into the y tile: one thread per (row, column) output.
-__device__ __forceinline__ void w_inverse_rows(
-    const float* zs, int chunk, int r0, int nr, const float* cwi_s,
-    const float* swi_s, float* y_s, int ny, int C, int KH, int KW) {
-  for (int o = threadIdx.x; o < nr * kTW; o += kThreads) {
-    const int rl = o / kTW, w = o % kTW;
-    const int c = (r0 + rl) / KH, k = (r0 + rl) % KH;
-    const float* za = zs + rl * KW;
-    const float* zb = za + chunk;
-    float re = 0.f, im = 0.f;
-    for (int j = 0; j < KW; ++j) {
-      const float a = za[j], b = zb[j];
-      const float cv = cwi_s[j * kTW + w], sv = swi_s[j * kTW + w];
-      re = fmaf(a, cv, fmaf(-b, sv, re));
-      im = fmaf(a, sv, fmaf(b, cv, im));
-    }
-    y_s[(k * kTW + w) * C + c] = re;
-    y_s[ny + (k * kTW + w) * C + c] = im;
-  }
-}
-
-// Adds sum_s mi[d, :, s] sy[s] at the N4 x 4 consecutive values src[0..]
-// of a chunk to za, zb: one 16-byte load per spectrum row and slot, all
-// slots' loads in flight together.
-template <int N4, bool kL2>
-__device__ __forceinline__ void z_values_vec(const float* src,
-                                             const float* mi, int KS, int ng,
-                                             float (&za)[N4][4],
-                                             float (&zb)[N4][4]) {
-#pragma unroll 4
-  for (int s = 0; s < KS; ++s) {
-    const float* p = src + (size_t)s * ng;
-    float4 q[N4];
-#pragma unroll
-    for (int n = 0; n < N4; ++n)
-      q[n] = m3seg::ldg_or_cg<kL2>(
-          reinterpret_cast<const float4*>(p + n * 4 * kThreads));
-    const float m0 = __ldg(mi + s), m1 = __ldg(mi + KS + s);
-#pragma unroll
-    for (int n = 0; n < N4; ++n) {
-      const float v[4] = {q[n].x, q[n].y, q[n].z, q[n].w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        za[n][u] = fmaf(m0, v[u], za[n][u]);
-        zb[n][u] = fmaf(m1, v[u], zb[n][u]);
-      }
-    }
-  }
-}
-
-// The same with scalar loads, for a KW that is not a multiple of 4 (the
-// values past ne stay zero).
-template <int N4, bool kL2>
-__device__ __forceinline__ void z_values_scalar(const float* src,
-                                                const float* mi, int KS,
-                                                int ng, int left,
-                                                float (&za)[N4][4],
-                                                float (&zb)[N4][4]) {
+// z at the four elements e4 .. e4 + 3 of a spectrum row (C KH KW) for the
+// planes of group g: z[d][q][e] = sum_s mi[d][q][s] s[s][e], s ascending.
+// Four planes at a time share each 16-byte load of the spectrum, so every
+// load feeds 32 FMAs (ng is a multiple of 4: C is 8 or 24). (An earlier
+// version of the resident kernel's z phase that held all KS spectrum
+// values of an element in a register array gave wrong sums for C 8 on the
+// card and right ones in a host run of the same source; its cause was not
+// found. The CUDA tests hold this function at C 8 with short last plane
+// groups, in both kernels.)
+template <bool kL2>
+__device__ __forceinline__ void z_group_element(const float* s,
+                                                const float* __restrict__ mi,
+                                                float* z, int D, int ng,
+                                                int KS, int e4, int g) {
+  const int per_group = (D + kZGroups - 1) / kZGroups;
+  const int d1 = min(D, (g + 1) * per_group);
+  for (int d0 = g * per_group; d0 < d1; d0 += 4) {
+    const int n = min(4, d1 - d0);
+    float za[4][4] = {}, zb[4][4] = {};  // [plane][element]
 #pragma unroll 2
-  for (int s = 0; s < KS; ++s) {
-    const float* p = src + (size_t)s * ng;
-    float v[N4][4];
+    for (int k = 0; k < KS; ++k) {
+      const float4 q = m3seg::ldg_or_cg<kL2>(
+          reinterpret_cast<const float4*>(s + (size_t)k * ng + e4));
+      const float v[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-    for (int n = 0; n < N4; ++n)
+      for (int i = 0; i < 4; ++i)
+        if (i < n) {
+          const float* md = mi + (size_t)(d0 + i) * 2 * KS;
+          const float m0 = __ldg(md + k), m1 = __ldg(md + KS + k);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = n * 4 * kThreads + u;
-        v[n][u] = i < left ? m3seg::ldg_or_cg<kL2>(p + i) : 0.f;
-      }
-    const float m0 = __ldg(mi + s), m1 = __ldg(mi + KS + s);
+          for (int u = 0; u < 4; ++u) {
+            za[i][u] = fmaf(m0, v[u], za[i][u]);
+            zb[i][u] = fmaf(m1, v[u], zb[i][u]);
+          }
+        }
+    }
 #pragma unroll
-    for (int n = 0; n < N4; ++n)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        za[n][u] = fmaf(m0, v[n][u], za[n][u]);
-        zb[n][u] = fmaf(m1, v[n][u], zb[n][u]);
+    for (int i = 0; i < 4; ++i)
+      if (i < n) {
+        float* zd = z + (size_t)(d0 + i) * 2 * ng + e4;
+        *reinterpret_cast<float4*>(zd) =
+            make_float4(za[i][0], za[i][1], za[i][2], za[i][3]);
+        *reinterpret_cast<float4*>(zd + ng) =
+            make_float4(zb[i][0], zb[i][1], zb[i][2], zb[i][3]);
       }
   }
 }
 
-// Plane d's z, formed from the resident spectrum chunk by chunk: a chunk
-// is the whole rows (row r = c KH + k) of at most kTH kTW C / 2 values (the
-// scratch holds its two components); each thread forms N4 = C / 8 slots of
-// four consecutive values, z = sum_s mi[d, :, s] sy[s].
+// Float4 i of f (D, 2 ng): the sum over the n_tiles tiles of plane
+// d = i / per4 of partial (D, n_tiles, 2 ng), in tile order; per4 = 2 ng / 4
+// (ng is a multiple of 4: C is 8 or 24). Each thread keeps four 16-byte
+// loads in flight.
 template <bool kL2>
-struct ZFromSpectrum {
-  const float* sy;  // (KS, C, KH, KW)
-  const float* mi;  // mi[d]: (2, KS)
-  int KS, C, KH, KW;
-
-  template <int CC>
-  __device__ __forceinline__ void fill_y(float* y_s, int ny,
-                                         const float* cwi_s,
-                                         const float* swi_s,
-                                         float* zs) const {
-    constexpr int N4 = CC / 8, chunk = 4 * N4 * kThreads;
-    const int ng = CC * KH * KW;  // the stride of a spectrum row
-    // Through L2 (kL2) a chunk holds a multiple of 4 rows, so that every
-    // chunk starts 16-byte aligned (ng is a multiple of 4: CC is 8 or 24)
-    // and takes 16-byte loads: scalar loads would fetch each L2 sector four
-    // times, where the read-only path serves the repeats from L1. The
-    // caller keeps KW <= kThreads, so a chunk holds at least 4 rows.
-    const int rows = kL2 ? (chunk / KW) & ~3 : chunk / KW;
-    const bool vec = kL2 || (KW & 3) == 0;
-    const int i0 = 4 * threadIdx.x;
-    for (int r0 = 0; r0 < CC * KH; r0 += rows) {
-      const int nr = min(rows, CC * KH - r0), ne = nr * KW;
-      const float* src = sy + (size_t)r0 * KW + i0;
-      float za[N4][4] = {}, zb[N4][4] = {};
-      if (vec && i0 + 4 * kThreads * (N4 - 1) + 3 < ne)
-        z_values_vec<N4, kL2>(src, mi, KS, ng, za, zb);
-      else if (i0 < ne)
-        z_values_scalar<N4, kL2>(src, mi, KS, ng, ne - i0, za, zb);
-#pragma unroll
-      for (int n = 0; n < N4; ++n)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + n * 4 * kThreads + u;
-          zs[i] = za[n][u];
-          zs[chunk + i] = zb[n][u];
-        }
-      __syncthreads();
-      w_inverse_rows(zs, chunk, r0, nr, cwi_s, swi_s, y_s, ny, CC, KH, KW);
-      __syncthreads();
-    }
-  }
-};
-
-// groups[g][s][e] = sum over the planes d of group g, in plane order, of
-// mf[d][0][s] f0 + mf[d][1][s] f1, f_q = sum over the tiles of
-// partial[d][tile][q][e] in tile order: element e of a spectrum row
-// (C KH KW) and group g, all KS rows in registers.
-template <bool kL2>
-__device__ __forceinline__ void depth_group_element(
-    const float* __restrict__ partial, const float* __restrict__ mf,
-    float* __restrict__ groups, int D, int n_tiles, int ng, int KS, int e,
-    int g) {
-  const int per_group = (D + kDepthGroups - 1) / kDepthGroups;
-  const int d0 = g * per_group, d1 = min(D, d0 + per_group);
-  float acc[kMaxKS];
-#pragma unroll
-  for (int s = 0; s < kMaxKS; ++s) acc[s] = 0.f;
-  for (int d = d0; d < d1; ++d) {
-    const float* p = partial + (size_t)d * n_tiles * 2 * ng + e;
-    float f0 = 0.f, f1 = 0.f;
+__device__ __forceinline__ void tile_sum4(const float* partial, float* f,
+                                          int n_tiles, int per4,
+                                          long long i) {
+  const long long d = i / per4, e4 = i % per4;
+  const float4* p =
+      reinterpret_cast<const float4*>(partial) + d * n_tiles * per4 + e4;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
-    for (int t = 0; t < n_tiles; ++t) {
-      f0 += m3seg::ld_or_cg<kL2>(p + (size_t)t * 2 * ng);
-      f1 += m3seg::ld_or_cg<kL2>(p + (size_t)t * 2 * ng + ng);
-    }
-    const float* md = mf + (size_t)d * 2 * KS;
-#pragma unroll
-    for (int s = 0; s < kMaxKS; ++s)
-      if (s < KS)
-        acc[s] = fmaf(__ldg(md + s), f0, fmaf(__ldg(md + KS + s), f1, acc[s]));
+  for (int t = 0; t < n_tiles; ++t) {
+    const float4 v = m3seg::ld_or_cg<kL2>(p + (size_t)t * per4);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
   }
-  float* out = groups + (size_t)g * KS * ng + e;
+  reinterpret_cast<float4*>(f)[i] = s;
+}
+
+// The tile sum as a launch of its own: one thread per float4 of f.
+__global__ void tower_spectrum_tiles(const float* __restrict__ partial,
+                                     float* __restrict__ f, int n_tiles,
+                                     int per4, long long total4) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < total4) tile_sum4<false>(partial, f, n_tiles, per4, i);
+}
+
+// f (D, 2 ng) = partial (D, n_tiles, 2 ng) summed over its tiles.
+inline cudaError_t launch_tile_sum(const float* partial, float* f, int D,
+                                   int n_tiles, int ng,
+                                   cudaStream_t stream) {
+  const int per4 = 2 * ng / 4;
+  const long long total4 = (long long)D * per4;
+  tower_spectrum_tiles<<<(unsigned)((total4 + kPassThreads - 1) /
+                                    kPassThreads),
+                         kPassThreads, 0, stream>>>(partial, f, n_tiles,
+                                                    per4, total4);
+  return cudaGetLastError();
+}
+
+// s_f[s0 + u][e], u < kDepthRows: for each of the kDepthGroups plane
+// groups in group order, the sum over its planes d, in plane order, of
+// mf[d][0][s] f[d][0][e] + mf[d][1][s] f[d][1][e]. mf4: mf's rows s0 ..
+// s0 + kDepthRows - 1 as (D, 2) float4s (the wrappers pack mf so, rows past
+// KS zero), read as warp-wide broadcasts. The loads of four planes are in
+// flight at once; each value of f feeds kDepthRows rows.
+template <bool kL2>
+__device__ __forceinline__ void depth_rows(const float* f,
+                                           const float4* __restrict__ mf4,
+                                           float* s_f, int D, int ng, int KS,
+                                           int e, int s0) {
+  const int per_group = (D + kDepthGroups - 1) / kDepthGroups;
+  float tot[kDepthRows] = {};
+  for (int g = 0; g < kDepthGroups; ++g) {
+    const int d1 = min(D, (g + 1) * per_group);
+    float acc[kDepthRows] = {};
+#pragma unroll 4
+    for (int d = g * per_group; d < d1; ++d) {
+      const float f0 = m3seg::ld_or_cg<kL2>(f + (size_t)d * 2 * ng + e);
+      const float f1 = m3seg::ld_or_cg<kL2>(f + (size_t)d * 2 * ng + ng + e);
+      const float4 a = __ldg(mf4 + 2 * d), b = __ldg(mf4 + 2 * d + 1);
+      const float av[kDepthRows] = {a.x, a.y, a.z, a.w};
+      const float bv[kDepthRows] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-  for (int s = 0; s < kMaxKS; ++s)
-    if (s < KS) out[(size_t)s * ng] = acc[s];
+      for (int u = 0; u < kDepthRows; ++u)
+        acc[u] = fmaf(av[u], f0, fmaf(bv[u], f1, acc[u]));
+    }
+#pragma unroll
+    for (int u = 0; u < kDepthRows; ++u) tot[u] += acc[u];
+  }
+#pragma unroll
+  for (int u = 0; u < kDepthRows; ++u)
+    if (s0 + u < KS) s_f[(size_t)(s0 + u) * ng + e] = tot[u];
 }
 
 }  // namespace

@@ -42,8 +42,8 @@ __all__ = ["make_tower_spec_s", "fused_tower_block_s", "tower_block_s_plain",
            "spectrum_mix_s", "entry_spectrum_s", "occupancy",
            "MAX_SPECTRUM_ROWS"]
 
-MAX_SPECTRUM_ROWS = 64  # csrc/tower_block_s.cu kMaxKS: per-thread registers
-_DEPTH_GROUPS = 8       # csrc/tower_block_s.cu kDepthGroups
+MAX_SPECTRUM_ROWS = 64  # csrc/tower_spectrum.cuh kMaxKS
+_DEPTH_ROWS = 4         # csrc/tower_spectrum.cuh kDepthRows
 
 make_tower_spec_s = make_tower_spec
 # the resident spectrum has d_stage_forward's (KS, C, KH, KW) layout
@@ -65,13 +65,25 @@ def tower_block_s_plain(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
     return (res[0], d_stage_forward(res[1], spec)) + tuple(res[2:])
 
 
+def _pack_depth_rows(mf: np.ndarray) -> np.ndarray:
+    """mf (D, 2, KS) as the depth pass reads it: (ceil(KS / 4), D, 2, 4),
+    four spectrum rows of a plane and component as one float4, the rows
+    past KS zero."""
+    d, _, ks = mf.shape
+    n = -(-ks // _DEPTH_ROWS)
+    padded = np.zeros((d, 2, n * _DEPTH_ROWS), np.float32)
+    padded[:, :, :ks] = mf
+    return padded.reshape(d, 2, n, _DEPTH_ROWS).transpose(2, 0, 1, 3)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_mats_s(spec: TowerSpec, device: torch.device) -> torch.Tensor:
-    """tower_block's stage-matrix buffer followed by mi and mf (D, 2, KS),
-    fp32."""
+    """tower_block's stage-matrix buffer followed by mi (D, 2, KS) and mf
+    packed by ``_pack_depth_rows``, fp32."""
     m = _spec_mats(spec)
-    depth = np.concatenate([np.asarray(m[k], np.float32).ravel()
-                            for k in ("d_inv", "d_fwd")])
+    depth = np.concatenate([
+        np.asarray(m["d_inv"], np.float32).ravel(),
+        _pack_depth_rows(np.asarray(m["d_fwd"], np.float32)).ravel()])
     return torch.cat([_kernel_mats(spec, device),
                       torch.from_numpy(depth).to(device)])
 
@@ -122,13 +134,11 @@ def fused_tower_block_s(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
     s_f = torch.empty((ks, c, kh, kw), dtype=torch.float32, device=x.device)
     ds = (torch.empty((d, h, w, n_ds), dtype=torch.float32, device=x.device)
           if n_ds else None)
-    # per (plane, W-tile) partial spectra, then per plane group spectra:
-    # the kernel's later passes fold them into s_f through the depth
-    # forward stage in a fixed order
-    ng = c * kh * kw
-    partial = torch.empty(d * -(-w // _TILE_W) * 2 * ng
-                          + _DEPTH_GROUPS * ks * ng, dtype=torch.float32,
-                          device=x.device)
+    # per (plane, W-tile) partial spectra, then each plane's z, which the
+    # tile sum overwrites with f: the passes after the body fold them into
+    # s_f through the depth forward stage in a fixed order
+    partial = torch.empty(d * (-(-w // _TILE_W) + 1) * 2 * c * kh * kw,
+                          dtype=torch.float32, device=x.device)
     mats = _kernel_mats_s(spec, x.device)
     _build.launch("tower_block_s", "m3seg_tower_block_s", x.device,
                   x.data_ptr(), sy.data_ptr(), w_cat.data_ptr(),

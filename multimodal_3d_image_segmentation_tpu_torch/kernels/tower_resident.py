@@ -29,8 +29,8 @@ import torch
 from . import _build
 from .tower_block import (_TILE_W, TowerSpec, check_kernel_spec,
                           spectrum_rows)
-from .tower_block_s import (_DEPTH_GROUPS, MAX_SPECTRUM_ROWS,
-                            _kernel_mats_s, entry_spectrum_s, spectrum_mix_s,
+from .tower_block_s import (MAX_SPECTRUM_ROWS, _kernel_mats_s,
+                            entry_spectrum_s, spectrum_mix_s,
                             tower_block_s_plain)
 
 __all__ = ["resident_tower", "resident_tower_plain", "occupancy",
@@ -68,7 +68,8 @@ def resident_grid(spec: TowerSpec) -> int:
 
 def z_scratch_shape(spec: TowerSpec):
     """(D, 2, C, KH, KW): the scratch that the kernel's z phase writes each
-    plane's depth-inverse pre-image into, once per tower block."""
+    plane's depth-inverse pre-image into, once per tower block, and its
+    depth pass each plane's tile-summed spectrum."""
     d = spec.sizes[0]
     return (d, 2, spec.channels, spec.kh, spec.kw)
 
@@ -151,9 +152,8 @@ def resident_tower(x, op_stack, wcat_stack, wcc_stack, b_stack,
     out = torch.empty_like(x)
     tmp = torch.empty_like(x) if nb > 1 else None
     ng = c * kh * kw
-    partial = torch.empty(d * -(-w // _TILE_W) * 2 * ng
-                          + _DEPTH_GROUPS * ks * ng, dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty(d * -(-w // _TILE_W) * 2 * ng + ks * ng,
+                          dtype=torch.float32, device=x.device)
     z = torch.empty(z_scratch_shape(spec), dtype=torch.float32,
                     device=x.device)
     mats = _kernel_mats_s(spec, x.device)

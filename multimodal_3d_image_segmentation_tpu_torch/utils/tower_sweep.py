@@ -1,5 +1,5 @@
-"""Time the tower kernels at the serving shapes on a GPU, and compare two
-checkouts' outputs bit for bit.
+"""Time the tower kernels and the output tail at the serving shapes on a
+GPU, and compare two checkouts' outputs bit for bit.
 
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
@@ -12,9 +12,11 @@ On seeded random inputs at the 121x121x78 tower grid with C 24, it times
 - ``fused_tower_block`` at the three shapes that serve it: HartleyMHASeg's
   (Hartley, modes (8,12,12), 4 deep-supervision rows), HNOSeg's (Hartley,
   modes (10,14,14)) and FNOSeg's (Fourier, modes (10,14,14), KW 14);
-- ``fused_tower_block_s`` at HNOSeg's shape;
+- ``fused_tower_block_s`` at the same three shapes;
 - ``resident_tower`` (24 blocks) at HNOSeg's and FNOSeg's shapes, with the
-  phase clock's mean per call where the checkout has one.
+  phase clock's mean per call where the checkout has one;
+- ``fused_tail_softmax`` at the serving shape, (1, 4, 121, 121, 78) logits
+  to 240 x 240 x 155 probabilities, with its rate against 3.35 TB/s.
 
 ``--save DIR`` writes every output there (``torch.save``); ``--compare
 DIR`` loads another run's outputs and prints, for each, whether the two
@@ -43,6 +45,8 @@ from .profiling import step_ms
 GRID = (121, 121, 78)
 N_TIMED, N_WARMUP = 25, 3
 N_BLOCKS = 24
+TAIL_IN, TAIL_OUT = (1, 4) + GRID, (240, 240, 155)
+HBM_BYTES_PER_S = 3.35e12
 # the shapes that serve tower_block (chip_smoke.py times the same):
 # (label, transform, modes, deep-supervision rows)
 BLOCK_SHAPES = [("HartleyMHASeg", "Hartley", (8, 12, 12), 4),
@@ -142,14 +146,13 @@ def main(argv=None):
                 outputs[f"tower_block {label} {name}"] = t
             ms = median_ms(lambda: kernels.fused_tower_block(*call))
             print(f"tower_block {label}: {ms:.4f} ms", flush=True)
-            if label == "HNOSeg":
-                call_s = (x, s, w_cat, w_cc_t, b_cat, spec, ds_prev)
-                got = kernels.fused_tower_block_s(*call_s)
-                for name, t in zip(("out", "s_f"), got):
-                    outputs[f"tower_block_s {label} {name}"] = t
-                ms = median_ms(lambda: kernels.fused_tower_block_s(*call_s))
-                print(f"tower_block_s {label}: {ms:.4f} ms", flush=True)
-            del x, s, z, call, got
+            call_s = (x, s, w_cat, w_cc_t, b_cat, spec, ds_prev)
+            got = kernels.fused_tower_block_s(*call_s)
+            for name, t in zip(("out", "s_f", "ds"), got):
+                outputs[f"tower_block_s {label} {name}"] = t
+            ms = median_ms(lambda: kernels.fused_tower_block_s(*call_s))
+            print(f"tower_block_s {label}: {ms:.4f} ms", flush=True)
+            del x, s, z, call, call_s, got
         for i, (label, transform) in enumerate((("HNOSeg", "Hartley"),
                                                 ("FNOSeg", "Fourier"))):
             spec, ops = resident_operands(transform, 200 + i, dev)
@@ -163,6 +166,15 @@ def main(argv=None):
                   f"(ms): " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in phases.items()),
                   flush=True)
+        logits = _t(np.random.default_rng(300), TAIL_IN, dev, 3.0)
+        outputs["tail_resize out"] = kernels.fused_tail_softmax(logits,
+                                                                TAIL_OUT)
+        ms = median_ms(lambda: kernels.fused_tail_softmax(logits, TAIL_OUT))
+        moved = 4 * (logits.numel() + TAIL_IN[1] * int(np.prod(TAIL_OUT)))
+        rate = moved / (ms * 1e-3)
+        print(f"tail_resize {TAIL_IN} -> {TAIL_OUT}: {ms:.4f} ms, "
+              f"{rate / 1e9:.1f} GB/s of {moved / 1e6:.1f} MB, "
+              f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s", flush=True)
     if args.save:
         args.save.mkdir(parents=True, exist_ok=True)
         torch.save({k: v.cpu() for k, v in outputs.items()},

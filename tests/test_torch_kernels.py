@@ -145,6 +145,20 @@ def test_tail_supported_predicate():
         kernels.fused_tail_softmax(torch.zeros(2, 4, 3, 3, 3), (6, 6, 6))
 
 
+def test_tail_supported_bounds_the_kernels_shared_memory():
+    """A block holds the W taps and, at its fewest rows, C x 4 rows of the
+    input width twice (along D, then H) or C x 1,024 staged probabilities:
+    the serving shape fits by far, an input row of 2,000 at C 8 does not."""
+    ok = kernels.tail_supported
+    assert ok((1, 4, 121, 121, 78), (240, 240, 155))
+    assert ok((1, 8, 4, 4, 800), (4, 4, 800))
+    assert not ok((1, 8, 4, 4, 2000), (4, 4, 2000))
+    assert ok((1, 1, 4, 4, 2000), (4, 4, 2000))
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.fused_tail_softmax(torch.zeros(1, 8, 4, 4, 2000),
+                                   (4, 4, 2000))
+
+
 def test_tail_tap_tables_layout():
     """The tables the kernel reads are _linear_taps_np's, concatenated."""
     taps, wts = _tap_tables((5, 7, 3), (9, 14, 3), torch.device("cpu"))

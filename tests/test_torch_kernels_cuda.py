@@ -25,6 +25,7 @@ import torch
 
 from multimodal_3d_image_segmentation_tpu_torch import kernels
 from multimodal_3d_image_segmentation_tpu_torch.kernels import _build
+from multimodal_3d_image_segmentation_tpu_torch.kernels import tail_resize
 from multimodal_3d_image_segmentation_tpu_torch.kernels import \
     tower_block as tb
 from multimodal_3d_image_segmentation_tpu_torch.kernels import \
@@ -102,6 +103,79 @@ def test_tail_kernel_matches_plain(dev, shape, sizes):
                         lambda: kernels.fused_tail_softmax(x, sizes))
         torch.testing.assert_close(got, kernels.tail_plain(x, sizes),
                                    rtol=0, atol=1e-6)
+
+
+# Planes whose size H x W is and is not a multiple of 4 (16-byte stores or
+# one value at a time), several bands of 16 output rows, downsampling and
+# identity sizes
+TAIL_BAND_CASES = [
+    ((6, 20, 9), (11, 40, 18)),   # H W = 720: 16-byte stores, 3 bands
+    ((5, 9, 7), (9, 37, 15)),     # H W = 555: one value at a time
+    ((10, 36, 30), (6, 20, 12)),  # downsampling, H W = 240
+    ((12, 40, 22), (7, 19, 11)),  # downsampling, H W = 209
+    ((6, 8, 8), (6, 8, 8)),       # identity, H W = 64
+    ((5, 7, 9), (5, 7, 9)),       # identity, H W = 63
+]
+
+
+@pytest.mark.parametrize("sizes_in,sizes", TAIL_BAND_CASES)
+@pytest.mark.parametrize("c", [1, 4, 8])
+def test_tail_kernel_bands_match_plain(dev, sizes_in, sizes, c):
+    x = _t((1, c) + sizes_in, 9, dev, 3.0)
+    with torch.no_grad():
+        got = _launched("tail_resize",
+                        lambda: kernels.fused_tail_softmax(x, sizes))
+        torch.testing.assert_close(got, kernels.tail_plain(x, sizes),
+                                   rtol=0, atol=1e-6)
+        assert torch.equal(kernels.fused_tail_softmax(x, sizes), got)
+
+
+@pytest.mark.parametrize("shape,sizes", [
+    ((1, 8, 3, 6, 200), (4, 9, 300)),  # 4-row bands, within 48 KB
+    ((1, 8, 3, 6, 600), (4, 9, 700)),  # 4-row bands past 48 KB (opt-in)
+])
+def test_tail_kernel_wide_rows_match_plain(dev, shape, sizes):
+    x = _t(shape, 10, dev, 3.0)
+    with torch.no_grad():
+        got = _launched("tail_resize",
+                        lambda: kernels.fused_tail_softmax(x, sizes))
+        torch.testing.assert_close(got, kernels.tail_plain(x, sizes),
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("c", [1, 4, 8])
+@pytest.mark.parametrize("rows", [4, 8, 16])
+@pytest.mark.parametrize("sizes_in,sizes", [
+    ((121, 121, 78), (240, 240, 155)),  # the serving shape
+    ((3, 6, 600), (4, 9, 700)),
+    ((12, 40, 22), (7, 19, 11)),       # downsampling
+])
+def test_tail_smem_bytes_follow_the_c_layout(dev, c, rows, sizes_in, sizes):
+    """tail_smem_bytes, which tail_supported bounds, equals the shared
+    memory that the C side gives a block of the tail kernel."""
+    got = ctypes.c_int(0)
+    _build.call("m3seg_tail_smem_bytes", c, rows, sizes_in[1], sizes_in[2],
+                sizes[1], sizes[2], ctypes.byref(got))
+    assert tail_resize.tail_smem_bytes(c, rows, sizes_in[1], sizes_in[2],
+                                       sizes[1], sizes[2]) == got.value
+
+
+@pytest.mark.parametrize("c", [4, 8])
+def test_tail_kernel_takes_the_widest_rows_it_routes(dev, c):
+    """The widest input row that tail_supported accepts launches and
+    matches the plain version; one column more is refused for its shared
+    memory."""
+    w = next(w for w in range(1, 4096)
+             if not kernels.tail_supported((1, c, 3, 6, w + 1), (4, 9, w + 1)))
+    x = _t((1, c, 3, 6, w), 12, dev, 3.0)
+    with torch.no_grad():
+        got = _launched("tail_resize",
+                        lambda: kernels.fused_tail_softmax(x, (4, 9, w)))
+        torch.testing.assert_close(got, kernels.tail_plain(x, (4, 9, w)),
+                                   rtol=0, atol=1e-6)
+    wide = _t((1, c, 3, 6, w + 1), 12, dev, 3.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.fused_tail_softmax(wide, (4, 9, w + 1))
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -373,6 +447,52 @@ def test_tower_block_s_kernel_matches_plain(dev, transform, sizes, modes, c,
                                  resident=True))
 
 
+# The depth pass's 8 plane groups left short or empty, W tiles of 8 left
+# ragged, spectrum rows not a multiple of the depth pass's 4 per thread. At
+# these D each of the z pass's 64 plane groups holds one plane or none;
+# test_tower_block_s_z_groups_match_plain takes groups of several planes.
+@pytest.mark.parametrize("transform,sizes,modes", [
+    ("Hartley", (21, 9, 19), (3, 3, 2)),  # D 21; KS 6
+    ("Fourier", (37, 6, 13), (3, 2, 3)),  # D 37, odd KW 3, KS 12
+    ("Hartley", (5, 11, 10), (2, 4, 3)),  # D 5: empty depth groups
+    ("Fourier", (18, 9, 9), (4, 3, 4)),   # D 18: two empty depth groups
+])
+@pytest.mark.parametrize("c", [8, 24])
+@pytest.mark.parametrize("n_ds", [0, 4])
+def test_tower_block_s_passes_match_plain(dev, transform, sizes, modes, c,
+                                          n_ds):
+    _held_to_plain("tower_block_s", kernels.fused_tower_block_s,
+                   kernels.tower_block_s_plain,
+                   _tower_inputs(dev, sizes, modes, c, n_ds, 43, transform,
+                                 resident=True))
+
+
+def _z_group_planes(case):
+    """A depth D for the z pass's plane groups, worked out from the C
+    side's group count G, so that a change of G keeps the case:
+    ``short`` 4 G - 1 (groups of 4, the last of 3), ``ragged`` 5 G - 3
+    (groups of 5, a step of 4 then 1, the last group of 2), ``empty``
+    2 G + 1 (groups of 3, the last third of the groups empty)."""
+    g, dg = ctypes.c_int(0), ctypes.c_int(0)
+    _build.call("m3seg_tower_spectrum_groups", ctypes.byref(g),
+                ctypes.byref(dg))
+    g = g.value
+    return {"short": 4 * g - 1, "ragged": 5 * g - 3, "empty": 2 * g + 1}[case]
+
+
+@pytest.mark.parametrize("transform,n_ds", [("Hartley", 0), ("Fourier", 4)])
+@pytest.mark.parametrize("c", [8, 24])
+@pytest.mark.parametrize("case", ["short", "ragged", "empty"])
+def test_tower_block_s_z_groups_match_plain(dev, transform, n_ds, c, case):
+    """z groups of several planes, stepped four at a time (z_group_element),
+    on a small plane so that D can pass the group count several times."""
+    d = _z_group_planes(case)
+    _held_to_plain("tower_block_s", kernels.fused_tower_block_s,
+                   kernels.tower_block_s_plain,
+                   _tower_inputs(dev, (d, 9, 7), (3, 3, 2), c, n_ds, 44,
+                                 transform, resident=True))
+
+
 def test_tower_block_s_refuses_what_it_does_not_take(dev):
     x, sy, w_cat, w_cc_t, b_cat, spec, ds_prev = _tower_inputs(
         dev, (7, 9, 6), (2, 3, 2), 24, 4, resident=True)
@@ -397,7 +517,7 @@ def test_tower_block_s_refuses_what_it_does_not_take(dev):
     wg = w_cat.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kernels.fused_tower_block_s(x, sy, wg, w_cc_t, b_cat, spec, ds_prev)
-    # 2 * KD = 66 spectrum rows hold more than a second-pass thread keeps
+    # 2 * KD = 66 spectrum rows: more than MAX_SPECTRUM_ROWS (64)
     xb, sb, wb, wcb, bb, specb, _ = _tower_inputs(
         dev, (66, 9, 6), (33, 3, 2), 8, 0, transform="Fourier",
         resident=True)
@@ -546,8 +666,8 @@ def _resident_inputs(dev, transform, sizes, modes, c, nb, seed=60):
     ("Fourier", (7, 9, 7), (2, 3, 3)),     # odd KW = 3
     ("Fourier", (9, 37, 21), (3, 5, 5)),   # odd sizes, odd KW = 5
     ("Fourier", (21, 33, 30), (10, 14, 14)),  # KS 40, KW 14
-    # D 11: neither the depth pass's 8 plane groups nor the z phase's 16
-    # divide it; ragged chunks and tiles
+    # D 11: the depth pass's 8 plane groups do not divide it; ragged
+    # chunks and tiles
     ("Hartley", (11, 37, 19), (3, 5, 4)),
     ("Fourier", (11, 37, 19), (3, 5, 5)),
 ])
@@ -575,16 +695,35 @@ def test_tower_resident_kernel_matches_plain(dev, transform, sizes, modes, c,
 def test_tower_resident_c8_over_blocks_matches_plain(dev, transform, modes,
                                                      d, nb):
     """C 8 over several blocks, so that every block after the first reads a
-    z that the z phase formed from the kernel's own mix. D 8 has one plane
-    per z group; at D 21, 37 and 78 the last of the 16 z groups is short
-    (1, 1 and 3 planes) and the groups step over their planes four at a
-    time with a ragged last step (78: groups of 5)."""
+    z that the z phase formed from the kernel's own mix. Of the z phase's
+    64 plane groups, D 8, 21 and 37 fill the first D with one plane each,
+    and D 78 the first 39 with two; test_tower_resident_z_groups_match_plain
+    takes groups of three to five planes."""
     args = _resident_inputs(dev, transform, (d, 9, 7), modes, 8, nb)
     with torch.no_grad():
         got = _launched("tower_resident", lambda: kernels.resident_tower(*args))
         want = kernels.resident_tower_plain(*args)
     tol = 1e-5 * max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("transform,modes", [("Hartley", (3, 3, 2)),
+                                             ("Fourier", (3, 3, 3))])
+@pytest.mark.parametrize("c", [8, 24])
+@pytest.mark.parametrize("case", ["short", "ragged", "empty"])
+def test_tower_resident_z_groups_match_plain(dev, transform, modes, c, case):
+    """The z phase over groups of several planes (see _z_group_planes),
+    over two blocks so that the second reads a z formed from the kernel's
+    own mix."""
+    args = _resident_inputs(dev, transform, (_z_group_planes(case), 9, 7),
+                            modes, c, 2)
+    with torch.no_grad():
+        got = _launched("tower_resident", lambda: kernels.resident_tower(*args))
+        want = kernels.resident_tower_plain(*args)
+        again = kernels.resident_tower(*args)
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, again)
 
 
 def test_tower_resident_matches_the_block_s_chain(dev):
@@ -625,7 +764,7 @@ def test_tower_resident_refuses_what_it_does_not_take(dev):
     args12 = _resident_inputs(dev, "Hartley", (7, 9, 6), (2, 3, 2), 12, 1)
     with pytest.raises(ValueError, match="no instance for C=12"):
         kernels.resident_tower(*args12)
-    # 2 * KD = 66 spectrum rows hold more than a depth-pass thread keeps
+    # 2 * KD = 66 spectrum rows: more than MAX_SPECTRUM_ROWS (64)
     argsb = _resident_inputs(dev, "Fourier", (66, 9, 6), (33, 3, 2), 8, 1)
     with pytest.raises(ValueError, match="spectrum rows"):
         kernels.resident_tower(*argsb)

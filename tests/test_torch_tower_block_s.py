@@ -236,6 +236,29 @@ def test_plain_version_chains_like_tower_block():
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("transform,modes", [("Hartley", (3, 3, 2)),
+                                             ("Hartley", (10, 14, 14)),
+                                             ("Fourier", (3, 2, 3))])
+def test_kernel_mats_pack_the_depth_rows(transform, modes):
+    """The kernels' matrix buffer ends with mi (D, 2, KS) and then mf in
+    four-row blocks (ceil(KS / 4), D, 2, 4), zero past KS."""
+    sizes = (21, 33, 30)
+    spec = tb.make_tower_spec(transform, sizes, modes, C)
+    ks, d = tb.spectrum_rows(spec), sizes[0]
+    n4 = -(-ks // 4)
+    buf = tbs._kernel_mats_s(spec, torch.device("cpu")).numpy()
+    head = tb._kernel_mats(spec, torch.device("cpu")).numel()
+    assert buf.size == head + d * 2 * ks + n4 * d * 2 * 4
+    m = tb._spec_mats(spec)
+    mi = buf[head:head + d * 2 * ks].reshape(d, 2, ks)
+    np.testing.assert_array_equal(mi, np.asarray(m["d_inv"], np.float32))
+    packed = buf[head + d * 2 * ks:].reshape(n4, d, 2, 4)
+    mf = np.asarray(m["d_fwd"], np.float32)
+    for s in range(n4 * 4):
+        want = mf[:, :, s] if s < ks else np.zeros((d, 2), np.float32)
+        np.testing.assert_array_equal(packed[s // 4, :, :, s % 4], want)
+
+
 def test_wrapper_refuses_what_it_does_not_take():
     x, sy, w_cat, w_cc_t, b_cat, ds_prev = (
         torch.from_numpy(a) for a in _inputs("Fourier", (8, 6, 5), (2, 3, 2),
