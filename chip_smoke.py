@@ -18,7 +18,9 @@ tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
   2. build    compile the CUDA kernels from ``csrc/`` (one nvcc per source,
               all at once, sm_90a);
   3. kernels  conv_in (also at the odd-D/H shape 239x239x155),
-              freq_chain, tail_resize, tower_block (at the three shapes
+              freq_chain (both also timed back to back, with their
+              registers and spills from the build log), tail_resize,
+              tower_block (at the three shapes
               it serves: HartleyMHASeg's, HNOSeg's and FNOSeg's),
               tower_block_s (at the same three) and tower_resident (the
               whole 24-block tower at HNOSeg's and FNOSeg's shapes, with
@@ -75,7 +77,8 @@ tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
 Every failed check raises, so the exit code is not 0. The script refuses
 to run without CUDA. The line before the last is a JSON object with the
 kernels' numbers (``launches`` summed over the serving runs; times are
-medians of CUDA-event runs, conv3's of back-to-back calls; ``bound_ms`` is
+medians of CUDA-event runs, conv3's of back-to-back calls, and conv_in and
+freq_chain also give ``stream_ms``, back to back; ``bound_ms`` is
 the larger of the bytes over 3.35 TB/s and the operations over 67 TFLOP/s
 fp32, the H100 SXM's data sheet rates); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -180,27 +183,6 @@ def median_ms(torch, fn, n=N_TIMED, warmup=3):
     return float(np.median(times))
 
 
-def stream_ms(torch, fn, runs=5, inner=20, warmup=3):
-    """Median over ``runs`` of the mean time of ``inner`` back-to-back
-    calls of ``fn`` (CUDA events around the run): the device time of calls
-    issued as a forward pass issues them, without each call's host-side
-    start in it."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return float(np.median(times))
-
-
 def bound(flops, nbytes):
     """(ms, 'bytes' or 'operations'): the least time on the card."""
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
@@ -238,9 +220,13 @@ def phase_build(kernels):
 
 def phase_kernels(torch, kernels, dev):
     """Each HNOSeg-XS kernel against its plain version at the serving
-    shapes."""
+    shapes; conv_in and freq_chain also back to back (``stream_ms``), with
+    their registers and spills from the build log."""
     header("== kernels")
     import torch.nn.functional as F
+    from multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep import \
+        EDGE_KINDS, build_report, stream_ms
+    build_report(EDGE_KINDS)
     rng = np.random.default_rng(SEED)
 
     def t(a):
@@ -305,6 +291,11 @@ def phase_kernels(torch, kernels, dev):
                   f"ms  library {lib_ms if lib_ms is None else round(lib_ms, 4)}"
                   f" ms  bound {b_ms:.4f} ms ({b_by}) (medians of "
                   f"{N_TIMED}, CUDA events)")
+            if launched in ("conv_in", "freq_chain"):
+                results[name]["stream_ms"] = stream_ms(kern)
+                print(f"{name}: kernel {results[name]['stream_ms']:.4f} ms "
+                      f"back to back (median of 5 runs of 20 calls) against "
+                      f"{ms:.4f} ms a call")
             if name == "tail_resize":
                 moved = nbytes(logits, got)
                 rate = moved / (ms * 1e-3)
@@ -417,8 +408,8 @@ def phase_tower_block(torch, kernels, dev):
     from multimodal_3d_image_segmentation_tpu_torch.kernels import \
         tower_block as tb
     from multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep import \
-        BLOCK_SHAPES, build_report
-    build_report()
+        BLOCK_SHAPES, TOWER_KINDS, build_report
+    build_report(TOWER_KINDS)
     results = {}
     for i, (label, transform, modes, nds) in enumerate(BLOCK_SHAPES):
         spec = tb.make_tower_spec(transform, GRID, modes, 24, n_ds=nds)
@@ -906,6 +897,8 @@ def phase_conv3(torch, kernels, calls):
     header(f"== conv3 ({len(calls)} calls of one V-Net-DS forward)")
     import torch.nn.functional as F
     import importlib
+    from multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep import \
+        stream_ms
     conv3_mod = importlib.import_module(
         "multimodal_3d_image_segmentation_tpu_torch.kernels.conv3")
     # registers, shared memory and spills of each conv3 kernel instance
@@ -978,8 +971,8 @@ def phase_conv3(torch, kernels, calls):
                 def lib():
                     return F.conv3d(xcf, w, b, stride=kw.get("stride", 1),
                                     padding=1)
-            ms, plain_ms = stream_ms(torch, kern), stream_ms(torch, plain)
-            lib_ms = stream_ms(torch, lib)
+            ms, plain_ms = stream_ms(kern), stream_ms(plain)
+            lib_ms = stream_ms(lib)
             flops, moved = conv3_work(args, kw, got[0])
             b_ms, b_by = bound(flops, moved)
             for k, v in (("ms", ms), ("plain_ms", plain_ms),

@@ -182,9 +182,18 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     if device.type != "cuda":
         raise ValueError(f"{kernel}: CUDA kernel launched for {device}")
     lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    # raw handles: current_stream(...).cuda_stream builds a Stream object,
+    # torch.cuda.current_device() and entering torch.cuda.device cost a few
+    # us each even when the device is current (utils/tower_sweep.py times
+    # each step)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if current == index:
         rc = getattr(lib.cdll, entry)(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = getattr(lib.cdll, entry)(*args, stream)
     if rc != 0:
         msg = lib.cdll.m3seg_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: {entry} failed: {msg} ({rc})")

@@ -3,7 +3,9 @@ the port of ``multimodal_3d_image_segmentation_tpu/kernels/conv_in.py``.
 
 The learnable 2x input resize reads the channel-first input and emits the
 channels-last half-resolution grid in one pass. One CUDA kernel
-(``csrc/conv_in.cu``) covers both Pallas variants (even and odd D/H);
+(``csrc/conv_in.cu``, a block per band of output rows staged in shared
+memory) covers both Pallas variants (even and odd D/H) and reads the
+weight in its torch layout;
 ``conv_in_plain`` is ``F.conv3d`` (cuDNN on the GPU, TF32 off) + SELU,
 the reference's ``_reference_xla``.
 """
@@ -46,7 +48,10 @@ def conv_in_s2d(x_cf: torch.Tensor, weight: torch.Tensor,
     Returns:
         Channels-last (B, D//2+1, H//2+1, W//2+1, F). A CPU tensor runs
         ``conv_in_plain``; a CUDA tensor launches the kernel (fp32,
-        contiguous, F in ``SUPPORTED_FEATURES``) or raises. Forward only.
+        contiguous, F in ``SUPPORTED_FEATURES``; one output row, its input
+        rows and the weights must fit a block's 227 KB of shared memory,
+        about (16 C + 2 F) W bytes, W <= 2,000 at C = 4, F = 24) or raises.
+        Forward only.
     """
     if x_cf.dim() != 5:
         raise ValueError(f"x_cf must be (B, C, D, H, W), got "
@@ -72,9 +77,8 @@ def conv_in_s2d(x_cf: torch.Tensor, weight: torch.Tensor,
         raise ValueError("empty input")
     out = torch.empty((b, d // 2 + 1, h // 2 + 1, w // 2 + 1, f),
                       dtype=torch.float32, device=x_cf.device)
-    # (F, C, kz, ky, kx) -> rows ((kz*2+ky)*2+kx)*C + c, columns f
-    w_packed = weight.permute(2, 3, 4, 1, 0).reshape(8 * c, f).contiguous()
+    # the kernel reads the weight in its torch layout (F, C, kz, ky, kx)
     _build.launch("conv_in", "m3seg_conv_in", x_cf.device,
-                  x_cf.data_ptr(), w_packed.data_ptr(), bias.data_ptr(),
+                  x_cf.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                   out.data_ptr(), b, c, d, h, w, f, int(bool(apply_selu)))
     return out

@@ -8,11 +8,13 @@ and SELU on the packed corner spectrum (upstream ``nets/hnosegxs.py``)::
 
 Every frequency point is independent (the weights are shared across
 modes), so the spectrum is a set of rows of C channels. The CUDA kernel
-(``csrc/freq_chain.cu``) keeps each row in registers through the whole
-chain; ``freq_chain_plain`` is the same chain in PyTorch.
+(``csrc/freq_chain.cu``) spreads each row over two lanes of a warp and
+keeps it in shared memory through the whole chain, reading the weights in
+their torch layout; ``freq_chain_plain`` is the same chain in PyTorch.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
@@ -21,10 +23,12 @@ import torch.nn.functional as F
 from .. import device as _device  # noqa: F401  (fp32 policy)
 from . import _build
 
-__all__ = ["fused_freq_chain", "freq_chain_plain", "SUPPORTED_CHANNELS"]
+__all__ = ["fused_freq_chain", "freq_chain_plain", "SUPPORTED_CHANNELS",
+           "MAX_CHAIN"]
 
 # template instances in the .cu: the configs' width 24, and 8 for tests
 SUPPORTED_CHANNELS = (8, 24)
+MAX_CHAIN = 8  # weight pointers the kernel takes (kMaxChain in the .cu)
 _MAX_WEIGHT_BYTES = 48 * 1024  # dynamic shared memory without opt-in
 
 
@@ -42,7 +46,8 @@ def fused_freq_chain(x: torch.Tensor, weights: Sequence[torch.Tensor]
 
     ``weights`` are (out, in) matrices with out == in == C. A CPU tensor
     runs ``freq_chain_plain``; a CUDA tensor launches the kernel (fp32,
-    contiguous, C in ``SUPPORTED_CHANNELS``) or raises. Forward only.
+    contiguous, C in ``SUPPORTED_CHANNELS``, at most ``MAX_CHAIN``
+    weights) or raises. Forward only.
     """
     c = x.shape[-1]
     for w in weights:
@@ -63,13 +68,16 @@ def fused_freq_chain(x: torch.Tensor, weights: Sequence[torch.Tensor]
     if 4 * len(weights) * c * c > _MAX_WEIGHT_BYTES:
         raise ValueError(f"{len(weights)} weights of {c}x{c} exceed the "
                          "kernel's shared memory")
+    if len(weights) > MAX_CHAIN:
+        raise ValueError(f"freq_chain kernel takes at most {MAX_CHAIN} "
+                         f"weights, got {len(weights)}")
     n_rows = x.numel() // c
     out = torch.empty_like(x)
     if n_rows == 0:
         return out
-    # '...i,oi->...o' == x @ W^T: the kernel reads wt[k][i][o] = W_k[o][i]
-    wt = torch.stack([w.t() for w in weights]).contiguous()
+    # the kernel reads each W_k (out, in) in place: one pointer per weight
+    ptrs = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))
     _build.launch("freq_chain", "m3seg_freq_chain", x.device,
-                  x.data_ptr(), wt.data_ptr(), out.data_ptr(), n_rows, c,
+                  x.data_ptr(), ptrs, out.data_ptr(), n_rows, c,
                   len(weights))
     return out

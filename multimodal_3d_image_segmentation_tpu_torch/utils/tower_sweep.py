@@ -1,5 +1,5 @@
-"""Time the tower kernels and the output tail at the serving shapes on a
-GPU, and compare two checkouts' outputs bit for bit.
+"""Time the tower kernels, the output tail, conv_in and freq_chain at the
+serving shapes on a GPU, and compare two checkouts' outputs bit for bit.
 
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
@@ -16,22 +16,31 @@ On seeded random inputs at the 121x121x78 tower grid with C 24, it times
 - ``resident_tower`` (24 blocks) at HNOSeg's and FNOSeg's shapes, with the
   phase clock's mean per call where the checkout has one;
 - ``fused_tail_softmax`` at the serving shape, (1, 4, 121, 121, 78) logits
-  to 240 x 240 x 155 probabilities, with its rate against 3.35 TB/s.
+  to 240 x 240 x 155 probabilities, with its rate against 3.35 TB/s;
+- ``conv_in_s2d`` on a (1, 4, 240, 240, 155) volume with and without the
+  SELU and on the odd (1, 4, 239, 239, 155), and ``fused_freq_chain`` on
+  HNOSeg-XS's (1, 20, 28, 28, 24) spectrum with 3 weights: each also back
+  to back (the mean of 20 calls between two events, the median of 5 such
+  runs), as ``torch.profiler``'s device time per call (the kernel's own
+  and all of the call's device work) and as host time per call (the
+  host clock around 50 calls that are not waited for).
 
-``--save DIR`` writes every output there (``torch.save``); ``--compare
-DIR`` loads another run's outputs and prints, for each, whether the two
-are bit-identical and their largest difference. The same file copied into
-another checkout of the port (for example the parent commit's, unpacked
-with ``git archive``) times that checkout's kernels on the same inputs, so
-that two kernel versions are compared in one call on one card. Prints the
-card's name and power limit first, then each tower kernel instance's
-registers and spills from the build log. ``chip_smoke.py`` holds each
-kernel to its plain version; this script does not.
+``--save DIR`` writes
+every output there (``torch.save``); ``--compare DIR`` loads another run's
+outputs and prints, for each, whether the two are bit-identical and their
+largest difference. The same file copied into another checkout of the port
+(for example the parent commit's, unpacked with ``git archive``) times
+that checkout's kernels on the same inputs, so that two kernel versions
+are compared in one call on one card. Prints the card's name and power
+limit first, then each kernel instance's registers and spills from the
+build log (tower kernels, conv_in and freq_chain). ``chip_smoke.py`` holds
+each kernel to its plain version; this script does not.
 """
 from __future__ import annotations
 
 import argparse
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -47,6 +56,9 @@ N_TIMED, N_WARMUP = 25, 3
 N_BLOCKS = 24
 TAIL_IN, TAIL_OUT = (1, 4) + GRID, (240, 240, 155)
 HBM_BYTES_PER_S = 3.35e12
+VOLUME, VOLUME_ODD = (1, 4, 240, 240, 155), (1, 4, 239, 239, 155)
+SPECTRUM = (1, 20, 28, 28, 24)  # HNOSeg-XS: modes (10,14,14) packed
+N_HOST = 50
 # the shapes that serve tower_block (chip_smoke.py times the same):
 # (label, transform, modes, deep-supervision rows)
 BLOCK_SHAPES = [("HartleyMHASeg", "Hartley", (8, 12, 12), 4),
@@ -61,27 +73,105 @@ def median_ms(fn):
                                    N_WARMUP)))
 
 
-def build_report():
-    """Print the registers, spills and stack of each tower kernel instance
-    (tower_block, tower_block_s, tower_resident) from the ``-Xptxas -v``
-    log of the kernel library, where this process built it."""
+TOWER_KINDS = ("tower_resident_kernel", "tower_block_s_kernel",
+               "tower_block_kernel")
+EDGE_KINDS = ("conv_in_kernel", "freq_chain_kernel")
+
+
+def build_report(kinds=TOWER_KINDS + EDGE_KINDS):
+    """Print the registers, spills and stack of each instance of the
+    kernels ``kinds`` (by default the tower kernels, conv_in and
+    freq_chain; the width is C, conv_in's F) from the ``-Xptxas -v`` log of
+    the kernel library, where this process built it."""
     log = kernels.library().build_log.splitlines()
     if not log:
-        print("tower build: the library was reused, no ptxas log")
+        print("build: the library was reused, no ptxas log")
     for i, line in enumerate(log):
         if "Compiling entry function" not in line:
             continue
         name = line.split("'")[1] if "'" in line else line
-        kind = next((k for k in ("tower_resident_kernel",
-                                 "tower_block_s_kernel",
-                                 "tower_block_kernel") if k in name), None)
+        kind = next((k for k in kinds if k in name), None)
         if kind is None:
             continue
         c = "24" if "ILi24E" in name else "8" if "ILi8E" in name else "?"
         props = [ln.split(":", 1)[-1].strip() for ln in log[i + 1:i + 4]
                  if "spill" in ln or "Used" in ln]
-        print(f"tower build: {kind.removesuffix('_kernel')} C {c}: "
+        print(f"build: {kind.removesuffix('_kernel')} width {c}: "
               f"{'; '.join(props)}")
+
+
+def stream_ms(fn, runs=5, inner=20):
+    """Median over ``runs`` of the mean time of ``inner`` back-to-back
+    calls of ``fn`` (CUDA events around each run), after N_WARMUP calls:
+    the device time of calls issued as a forward pass issues them, without
+    each call's host-side start in it."""
+    for _ in range(N_WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return float(np.median(times))
+
+
+def device_ms(fn, kernel, calls=20):
+    """``torch.profiler``'s device time per call of ``fn``, in ms, over
+    ``calls`` back-to-back calls: (the kernels whose name holds ``kernel``,
+    every device event of the calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.time_range.end - e.time_range.start for e in dev)
+    own = sum(e.time_range.end - e.time_range.start for e in dev
+              if kernel in e.name)
+    return own / 1e3 / calls, total / 1e3 / calls
+
+
+def host_us(fn, calls=N_HOST):
+    """Host time per call of ``fn`` in us: the host clock around ``calls``
+    calls that are not waited for (the launch queue does not fill)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def edge_calls(dev):
+    """(label, kernel name, call) of conv_in and freq_chain on seeded
+    inputs at the serving shapes."""
+    rng = np.random.default_rng(400)
+    x = _t(rng, VOLUME, dev)
+    x_odd = _t(rng, VOLUME_ODD, dev)
+    w = _t(rng, (24, 4, 2, 2, 2), dev, 1 / np.sqrt(32))
+    b = _t(rng, (24,), dev, 0.1)
+    spec = _t(rng, SPECTRUM, dev)
+    ws = [_t(rng, (24, 24), dev, 1 / np.sqrt(24)) for _ in range(3)]
+    return [
+        ("conv_in", "conv_in_kernel", lambda: kernels.conv_in_s2d(x, w, b)),
+        ("conv_in odd", "conv_in_kernel",
+         lambda: kernels.conv_in_s2d(x_odd, w, b)),
+        ("conv_in no SELU", "conv_in_kernel",
+         lambda: kernels.conv_in_s2d(x, w, b, apply_selu=False)),
+        ("freq_chain", "freq_chain_kernel",
+         lambda: kernels.fused_freq_chain(spec, ws)),
+    ]
 
 
 def _t(rng, shape, dev, scale=1.0):
@@ -175,6 +265,14 @@ def main(argv=None):
         print(f"tail_resize {TAIL_IN} -> {TAIL_OUT}: {ms:.4f} ms, "
               f"{rate / 1e9:.1f} GB/s of {moved / 1e6:.1f} MB, "
               f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s", flush=True)
+        for label, kernel, call in edge_calls(dev):
+            outputs[f"{label} out"] = call()
+            ms, s_ms = median_ms(call), stream_ms(call)
+            own, total = device_ms(call, kernel)
+            print(f"{label}: {ms:.4f} ms a call, {s_ms:.4f} ms back to "
+                  f"back, profiler device time {own:.4f} ms ({kernel}) of "
+                  f"{total:.4f} ms (every device event of a call), host "
+                  f"{host_us(call):.1f} us a call", flush=True)
     if args.save:
         args.save.mkdir(parents=True, exist_ok=True)
         torch.save({k: v.cpu() for k, v in outputs.items()},

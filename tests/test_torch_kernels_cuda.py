@@ -79,6 +79,76 @@ def test_conv_in_kernel_matches_plain(dev, shape, f):
             rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [
+    (1, 4, 6, 8, 11),     # W odd
+    (1, 4, 6, 8, 16),     # W a multiple of 4
+    (1, 4, 4, 12, 155),   # the serving W: bands of 2 rows, H2 = 7
+    (1, 4, 5, 13, 155),   # spans at every offset modulo 4 (below)
+    (2, 4, 5, 9, 13),     # batch 2
+    (1, 4, 7, 9, 13),     # odd D and H
+    (1, 4, 3, 5, 300),    # a band of one row of 151 threads
+    (1, 4, 2, 3, 600),    # rows wider than a block: two voxels a thread
+    (1, 1, 3, 30, 3),     # one channel, 8-row bands of 2 voxels a row
+])
+@pytest.mark.parametrize("f", [8, 24])
+@pytest.mark.parametrize("selu", [True, False])
+def test_conv_in_kernel_bands_match_plain(dev, shape, f, selu):
+    b_, c, d, h, w_ = shape
+    if shape == (1, 4, 5, 13, 155):
+        # the first band's spans start at every offset modulo 4 floats:
+        # plane c * D of a volume of odd H * W
+        assert {(ci * d * h * w_) % 4 for ci in range(c)} == {0, 1, 2, 3}
+    x = _t(shape, 20, dev)
+    w = _t((f, c, 2, 2, 2), 21, dev, 1 / np.sqrt(8 * c))
+    b = _t((f,), 22, dev, 0.1)
+    with torch.no_grad():
+        got = _launched("conv_in",
+                        lambda: kernels.conv_in_s2d(x, w, b, apply_selu=selu))
+        torch.testing.assert_close(
+            got, kernels.conv_in_plain(x, w, b, apply_selu=selu),
+            rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", [(1, 4, 5, 13, 155), (1, 1, 5, 7, 13)])
+def test_conv_in_kernel_takes_an_unaligned_view(dev, shape, offset):
+    # a contiguous view that starts `offset` floats into its storage, as
+    # batch element 1 of a one-channel odd volume does: each span's 16-byte
+    # alignment comes from its address
+    x = _t((int(np.prod(shape)) + offset,), 42, dev)[offset:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset
+    c = shape[1]
+    w = _t((24, c, 2, 2, 2), 43, dev, 1 / np.sqrt(8 * c))
+    b = _t((24,), 44, dev, 0.1)
+    with torch.no_grad():
+        got = _launched("conv_in", lambda: kernels.conv_in_s2d(x, w, b))
+        torch.testing.assert_close(got, kernels.conv_in_plain(x, w, b),
+                                   rtol=0, atol=1e-5)
+
+
+def test_conv_in_refuses_rows_too_wide_for_a_block(dev):
+    # one output row's input spans and outputs exceed 227 KB of shared
+    # memory: the launch is refused and the wrapper raises
+    x = _t((1, 4, 1, 1, 4001), 19, dev)
+    w = _t((24, 4, 2, 2, 2), 24, dev)
+    with pytest.raises(RuntimeError, match="m3seg_conv_in failed"):
+        kernels.conv_in_s2d(x, w, _t((24,), 25, dev))
+
+
+def test_conv_in_refuses_a_weight_view(dev):
+    x = _t((1, 4, 6, 8, 11), 23, dev)
+    w = _t((24, 4, 2, 2, 2), 24, dev)
+    b = _t((24,), 25, dev)
+    view = w.transpose(3, 4)  # (F, C, 2, 2, 2), not contiguous
+    with pytest.raises(ValueError, match="weight must be contiguous"):
+        kernels.conv_in_s2d(x, view, b)
+    with torch.no_grad():  # the same values, contiguous, are taken
+        got = _launched("conv_in", lambda: kernels.conv_in_s2d(
+            x, view.contiguous(), b))
+        torch.testing.assert_close(
+            got, kernels.conv_in_plain(x, view, b), rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("c", [8, 24])
 def test_freq_chain_kernel_matches_plain(dev, c):
     x = _t((1, 10, 14, 14, c), 3, dev)
@@ -88,6 +158,59 @@ def test_freq_chain_kernel_matches_plain(dev, c):
                         lambda: kernels.fused_freq_chain(x, ws))
         torch.testing.assert_close(got, kernels.freq_chain_plain(x, ws),
                                    rtol=0, atol=1e-5)
+
+
+# a block holds 128 rows at both widths
+@pytest.mark.parametrize("rows", [1, 31, 33, 127, 129, 15685])
+@pytest.mark.parametrize("c", [8, 24])
+def test_freq_chain_kernel_ragged_rows_match_plain(dev, rows, c):
+    x = _t((rows, c), 26, dev)
+    ws = [_t((c, c), 27 + k, dev, 1 / np.sqrt(c)) for k in range(3)]
+    with torch.no_grad():
+        got = _launched("freq_chain",
+                        lambda: kernels.fused_freq_chain(x, ws))
+        torch.testing.assert_close(got, kernels.freq_chain_plain(x, ws),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", list(range(1, kernels.freq_chain.MAX_CHAIN
+                                         + 1)))
+@pytest.mark.parametrize("c", [8, 24])
+def test_freq_chain_kernel_chain_lengths_match_plain(dev, n, c):
+    """1e-5 of the output's largest magnitude (at least 1): the values grow
+    by about 1.4 a step (to about 50 after 8), and the plain fp32 chain is
+    itself 2e-5 from a float64 one after 8 steps."""
+    x = _t((300, c), 30, dev)
+    ws = [_t((c, c), 31 + k, dev, 1 / np.sqrt(c)) for k in range(n)]
+    with torch.no_grad():
+        got = _launched("freq_chain",
+                        lambda: kernels.fused_freq_chain(x, ws))
+        want = kernels.freq_chain_plain(x, ws)
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=1e-5 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("c", [8, 24])
+def test_freq_chain_kernel_takes_an_unaligned_view(dev, c, offset):
+    # rows that start `offset` floats into their storage: read in 4-byte
+    # loads where they are not 16-byte aligned
+    rows = 131
+    x = _t((rows * c + offset,), 45, dev)[offset:].view(rows, c)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset
+    ws = [_t((c, c), 46 + k, dev, 1 / np.sqrt(c)) for k in range(3)]
+    with torch.no_grad():
+        got = _launched("freq_chain",
+                        lambda: kernels.fused_freq_chain(x, ws))
+        torch.testing.assert_close(got, kernels.freq_chain_plain(x, ws),
+                                   rtol=0, atol=1e-5)
+
+
+def test_freq_chain_refuses_a_longer_chain(dev):
+    n = kernels.freq_chain.MAX_CHAIN + 1
+    ws = [_t((24, 24), 40 + k, dev, 1 / np.sqrt(24)) for k in range(n)]
+    with pytest.raises(ValueError, match="at most"):
+        kernels.fused_freq_chain(_t((10, 24), 39, dev), ws)
 
 
 @pytest.mark.parametrize("shape,sizes", [
