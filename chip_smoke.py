@@ -72,11 +72,30 @@ tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
               path and float64 on a served volume, and the first on a
               small volume against the CPU; a control with each tower
               kernel's operands in TF32 must fail the bars; forward +
-              argmax times of the three tower kernels.
+              argmax times of the three tower kernels;
+ 13. backward the backward passes of conv_in (with and without SELU),
+              freq_chain and tail_resize at HNOSeg-XS's training shapes
+              (the kernel forward, the ``torch.autograd.Function``'s
+              backward) against autograd through their plain twins, with
+              their times; run after serving in the same process, so the
+              matrices serving cached under inference mode are saved for
+              backward here;
+ 14. train    one full-width HNOSeg-XS train step at 1x4x120x120x78 on the
+              kernel path and the plain path from the same weights: the
+              loss and every gradient held to a float64 evaluation (2x the
+              plain path's distance), a TF32 control that must fail, and
+              the step's time (forward, backward, Adamax) and peak memory;
+ 15. run      ``runtime/run.py::run`` on ``configs/config_hnoseg_xs.ini``
+              (2 epochs on 4 train and 2 valid synthetic cases at
+              120x120x78, then test and statistics on 2), launches (reset
+              just before) conv_in 14, freq_chain 112, tail_resize 14; its
+              artifacts and finite losses; run_inference on the run
+              directory gives the run's own test labels.
 
 Every failed check raises, so the exit code is not 0. The script refuses
 to run without CUDA. The line before the last is a JSON object with the
-kernels' numbers (``launches`` summed over the serving runs; times are
+kernels' numbers (``launches`` summed over the serving runs and the
+run; times are
 medians of CUDA-event runs, conv3's of back-to-back calls, and conv_in and
 freq_chain also give ``stream_ms``, back to back; ``bound_ms`` is
 the larger of the bytes over 3.35 TB/s and the operations over 67 TFLOP/s
@@ -1208,6 +1227,319 @@ def phase_model_vnet(torch, state, case_dir: Path, dev):
                 "vs CPU", fast, plain, ref, bars)
 
 
+# ---------------------------------------------------------------- train
+TRAIN_SHAPE = (120, 120, 78)   # configs/config_hnoseg_xs.ini's training size
+TRAIN_GRID = (61, 61, 40)      # its grid after conv_in
+TRAIN_CASES = {"train": 4, "valid": 2, "test": 2}
+TRAIN_EPOCHS = 2
+# a Function's gradients against autograd through its plain twin on the
+# card: fp32 sums over up to 148,840 voxels in another order (conv_in's
+# weight, the tail's transposed interpolation), so 1e-5 of each gradient's
+# largest magnitude, at least 1; a TF32 product would miss by about 5e-4
+GRAD_RTOL = 1e-5
+# the whole-model rule for one train step: each parameter's gradient (and
+# the loss) on the kernel path at most "ratio" times as far from a float64
+# evaluation as the plain path's, plus "slack" times the tensor's largest
+# float64 magnitude (the 1e-6 of the serving bars, on probabilities of at
+# most 1, made relative)
+BARS_TRAIN = {"ratio": 2.0, "slack": 1e-6}
+N_TRAIN_TIMED = 20
+
+
+def phase_backward(torch, kernels, dev):
+    """Each kernel Function's backward on the card (the kernel forward, the
+    Function's backward) against autograd through its plain twin, at the
+    training shapes, with the backward's time beside the plain graph's."""
+    header("== backward")
+    rng = np.random.default_rng(SEED + 3)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    x = t((1, 4) + TRAIN_SHAPE)
+    w, b = t((24, 4, 2, 2, 2), 1 / np.sqrt(32)), t((24,), 0.1)
+    g_in = t((1,) + TRAIN_GRID + (24,))
+    spec, ws = t((1, 20, 28, 28, 24)), [t((24, 24), 1 / np.sqrt(24))
+                                        for _ in range(3)]
+    logits, g_tail = t((1, 4) + TRAIN_GRID, 3.0), t((1, 4) + TRAIN_SHAPE)
+    cases = {  # fused, plain, inputs, output gradient
+        "conv_in": (kernels.conv_in_s2d, kernels.conv_in_plain,
+                    (x, w, b), g_in),
+        "conv_in_noselu": (
+            lambda *a: kernels.conv_in_s2d(*a, apply_selu=False),
+            lambda *a: kernels.conv_in_plain(*a, apply_selu=False),
+            (x, w, b), g_in),
+        "freq_chain": (lambda s, *w_: kernels.fused_freq_chain(s, list(w_)),
+                       lambda s, *w_: kernels.freq_chain_plain(s, list(w_)),
+                       (spec, *ws), t(tuple(spec.shape))),
+        "tail_resize": (
+            lambda a: kernels.fused_tail_softmax(a, TRAIN_SHAPE),
+            lambda a: kernels.tail_plain(a, TRAIN_SHAPE), (logits,), g_tail),
+    }
+    results = {}
+    for name, (fused, plain, args, g) in cases.items():
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        y_fused, y_plain = fused(*leaves), plain(*leaves)
+        got = torch.autograd.grad(y_fused, leaves, g, retain_graph=True)
+        want = torch.autograd.grad(y_plain, leaves, g, retain_graph=True)
+        errs = []
+        for a, ref in zip(got, want):
+            err = float((a - ref).abs().max())
+            bar = GRAD_RTOL * max(1.0, float(ref.abs().max()))
+            check(np.isfinite(err) and err <= bar,
+                  f"{name} backward: max abs err {err} > {bar}")
+            errs.append((err, bar))
+        ms = median_ms(torch, lambda: torch.autograd.grad(
+            y_fused, leaves, g, retain_graph=True))
+        plain_ms = median_ms(torch, lambda: torch.autograd.grad(
+            y_plain, leaves, g, retain_graph=True))
+        results[name] = {"ms": ms, "plain_ms": plain_ms,
+                         "max_abs_err": [e for e, _ in errs]}
+        print(f"{name} backward at {tuple(args[0].shape)}: max abs err per "
+              "gradient " + ", ".join(f"{e:.3e} (bar {bb:.3e})"
+                                      for e, bb in errs)
+              + f"; backward {ms:.4f} ms, autograd through the plain twin "
+              f"{plain_ms:.4f} ms (medians of {N_TIMED}, CUDA events)")
+        del leaves, y_fused, y_plain, got, want
+    torch.cuda.empty_cache()
+    return results
+
+
+def _loss_and_grads(torch, model, x, y1h):
+    from multimodal_3d_image_segmentation_tpu_torch.losses import PCCLoss
+    model.zero_grad(set_to_none=True)
+    loss = PCCLoss()(model(x), y1h)
+    loss.backward()
+    return loss.detach(), {k: p.grad.detach().clone()
+                           for k, p in model.named_parameters()}
+
+
+def _train_readings(torch, fast, plain, ref):
+    """Per tensor (the loss, then each parameter's gradient): distances
+    of the kernel and plain paths from float64, kernel from plain."""
+    out = {}
+    for k in ref:
+        r = ref[k]
+        out[k] = {"kernel_vs_fp64": float((fast[k].double() - r).abs().max()),
+                  "plain_vs_fp64": float((plain[k].double() - r).abs().max()),
+                  "kernel_vs_plain": float((fast[k] - plain[k]).abs().max()),
+                  "scale": float(r.abs().max()),
+                  "finite": bool(torch.isfinite(fast[k]).all())}
+    return out
+
+
+def _train_failed(r, bars):
+    return [k for k, v in r.items()
+            if not (v["finite"] and v["kernel_vs_fp64"] <= bars["ratio"]
+                    * v["plain_vs_fp64"] + bars["slack"] * v["scale"])]
+
+
+def phase_train_step(torch, kernels, state, dev):
+    """One full-width HNOSeg-XS train step from the same weights and the
+    same seeded batch on the kernel path and the plain path, the loss and
+    every gradient held to a float64 evaluation; a control with conv_in's
+    operands in TF32 must fail; the step's time (forward, backward,
+    Adamax) and peak memory on both paths."""
+    header("== train step HNOSeg-XS")
+    from multimodal_3d_image_segmentation_tpu_torch.losses import PCCLoss
+    from multimodal_3d_image_segmentation_tpu_torch.models import HNOSegXS
+    from multimodal_3d_image_segmentation_tpu_torch.runtime.steps import \
+        make_train_step
+    from multimodal_3d_image_segmentation_tpu_torch.utils.labels import \
+        to_categorical
+
+    def build(use_kernels, dtype=torch.float32, weights=state):
+        m = HNOSegXS(**FLAGSHIP, use_kernels=use_kernels).to(dev, dtype)
+        m.load_state_dict(weights)
+        return m
+
+    rng = np.random.default_rng(SEED + 4)
+    x = torch.from_numpy(rng.standard_normal((1, 4) + TRAIN_SHAPE)
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(_labels(rng, TRAIN_SHAPE)[None, None]
+                         .astype(np.float32)).to(dev)
+    y1h = to_categorical(y, 4)
+
+    def step_of(use_kernels, inp=x, weights=state, dtype=torch.float32):
+        loss, grads = _loss_and_grads(torch, build(use_kernels, dtype,
+                                                   weights),
+                                      inp.to(dtype), y1h.to(dtype))
+        return {"loss": loss, **grads}
+
+    kernels.reset_launch_counts()
+    fast = step_of(True)
+    launches = {k: kernels.LAUNCHES[k] for k in
+                ("conv_in", "freq_chain", "tail_resize")}
+    check(launches == {"conv_in": 1, "freq_chain": 8, "tail_resize": 1},
+          f"train step launches {launches}")
+    plain = step_of(False)
+    ref = step_of(False, dtype=torch.float64)
+    r = _train_readings(torch, fast, plain, ref)
+    failed = _train_failed(r, BARS_TRAIN)
+    worst = max(r, key=lambda k: r[k]["kernel_vs_fp64"]
+                / max(r[k]["plain_vs_fp64"], 1e-30))
+    ratios = [v["kernel_vs_fp64"] / max(v["plain_vs_fp64"], 1e-30)
+              for v in r.values()]
+    print(f"train step at 1x4x{'x'.join(map(str, TRAIN_SHAPE))}: loss "
+          f"{float(fast['loss']):.7f} (plain {float(plain['loss']):.7f}, "
+          f"float64 {float(ref['loss']):.7f}); over the loss and "
+          f"{len(r) - 1} gradients, kernel-vs-fp64 / plain-vs-fp64 median "
+          f"{np.median(ratios):.3f}, largest {max(ratios):.3f} ({worst}: "
+          f"{r[worst]['kernel_vs_fp64']:.3e} / "
+          f"{r[worst]['plain_vs_fp64']:.3e}, scale "
+          f"{r[worst]['scale']:.3e}); largest kernel-vs-plain relative "
+          f"{max(v['kernel_vs_plain'] / max(v['scale'], 1e-30) for v in r.values()):.3e}; "
+          f"tensors failing the bars: {failed or 'none'}")
+    check(not failed, f"train step failed the bars for {failed}")
+
+    rounded = {k: _tf32(torch, v) if k == "conv_in.op.weight" else v
+               for k, v in state.items()}
+    ctrl = step_of(True, inp=_tf32(torch, x), weights=rounded)
+    failed_ctrl = _train_failed(_train_readings(torch, ctrl, plain, ref),
+                                BARS_TRAIN)
+    print(f"control, conv_in operands in TF32: {len(failed_ctrl)} of "
+          f"{len(r)} tensors fail the bars")
+    check(failed_ctrl, "the TF32 control passed the train-step bars")
+    del fast, plain, ref, ctrl
+
+    timing = {}
+    for label, use_kernels in (("kernels", True), ("plain", False)):
+        model = build(use_kernels)
+        opt = torch.optim.Adamax(model.parameters(), lr=5e-3)
+        step = make_train_step(model, opt, None, PCCLoss(), 4)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the float64 step's blocks, cached
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = median_ms(torch, lambda: step(x, y), n=N_TRAIN_TIMED)
+        mib = 1024 ** 2
+        timing[label] = {
+            "ms": ms, "peak_mib": torch.cuda.max_memory_allocated(dev) / mib,
+            "peak_reserved_mib": torch.cuda.max_memory_reserved(dev) / mib}
+        print(f"train step ({label}): {ms:.3f} ms (forward + backward + "
+              f"Adamax, median of {N_TRAIN_TIMED} CUDA-event steps after 3 "
+              f"warm-ups); peak allocated {timing[label]['peak_mib']:.1f} "
+              f"MiB, reserved {timing[label]['peak_reserved_mib']:.1f} MiB")
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return timing
+
+
+def _labels(rng, shape):
+    """Nested ellipsoids at a seeded centre and size, labels 0-3."""
+    grid = np.ogrid[tuple(map(slice, shape))]
+    c = [rng.uniform(0.35, 0.65) * n for n in shape]
+    r = np.sqrt(sum(((g - cc) / (rng.uniform(0.2, 0.35) * n)) ** 2
+                    for g, cc, n in zip(grid, c, shape)))
+    return np.select([r < 0.35, r < 0.7, r < 1.0], [3, 1, 2], 0).astype(
+        np.uint8)
+
+
+def _write_training_cases(root: Path):
+    """A BraTS-layout dataset at the training size: 4 modalities and seeded
+    labels per case, and list files per split and modality."""
+    from multimodal_3d_image_segmentation_tpu_torch.data import write_image
+    rng = np.random.default_rng(SEED + 5)
+    mods = ["t1c", "t1n", "t2f", "t2w", "seg"]
+    paths = {}
+    for split, n in TRAIN_CASES.items():
+        lists = {m: [] for m in mods}
+        for i in range(n):
+            case = f"{split}_{i}"
+            seg = _labels(rng, TRAIN_SHAPE)
+            for m in mods[:4]:
+                vol = (rng.standard_normal(TRAIN_SHAPE, dtype=np.float32)
+                       + 2.0 + seg)
+                write_image(vol, root / case / f"{m}.nii")
+                lists[m].append(f"{case}/{m}.nii")
+            write_image(seg, root / case / "seg.nii")
+            lists["seg"].append(f"{case}/seg.nii")
+        paths[split] = []
+        for m in mods:
+            p = root / f"{m}_{split}.txt"
+            p.write_text("\n".join(lists[m]) + "\n")
+            paths[split].append(str(p))
+    return paths
+
+
+def phase_run(torch, kernels, work: Path):
+    """The main path of training: ``runtime/run.py::run`` on
+    ``configs/config_hnoseg_xs.ini`` (train, test, statistics), its launch
+    counts set to 0 just before and read just after; then run_inference
+    on the run directory must give the run's own test labels."""
+    header("== run HNOSeg-XS (train, test, statistics)")
+    from multimodal_3d_image_segmentation_tpu_torch.data import read_img
+    from multimodal_3d_image_segmentation_tpu_torch.runtime.config import \
+        get_config
+    from multimodal_3d_image_segmentation_tpu_torch.runtime.inference import \
+        run_inference
+    from multimodal_3d_image_segmentation_tpu_torch.runtime.run import run
+    from multimodal_3d_image_segmentation_tpu_torch.runtime.train_test \
+        import get_losses_from_file
+
+    t0 = time.perf_counter()
+    lists = _write_training_cases(work / "train_data")
+    print(f"set-up (synthetic training cases, {TRAIN_CASES}): "
+          f"{time.perf_counter() - t0:.2f} s")
+    out_dir = work / "hnoseg_xs_run"
+    cfg = get_config(str(REPO / "configs" / "config_hnoseg_xs.ini"))
+    cfg["main"]["output_dir"] = str(out_dir)
+    cfg["input_lists"]["data_dir"] = str(work / "train_data")
+    for split, paths in lists.items():
+        cfg["input_lists"][f"data_lists_{split}_paths"] = paths
+    cfg["train"]["num_epochs"] = TRAIN_EPOCHS
+    print("configs/config_hnoseg_xs.ini with output_dir, data_dir, the "
+          f"list paths and num_epochs = {TRAIN_EPOCHS} overridden; "
+          "everything else as the file sets it")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run(cfg)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    forwards = (TRAIN_EPOCHS * (TRAIN_CASES["train"] + TRAIN_CASES["valid"])
+                + TRAIN_CASES["test"])
+    want = {k: v * forwards for k, v in PER_VOLUME_HNOSEG.items()}
+    check(launches == want, f"run launches {launches} != {want} "
+          f"({forwards} forwards)")
+    print(f"run: {seconds:.2f} s; launches ({forwards} forwards: "
+          f"{TRAIN_EPOCHS} epochs of {TRAIN_CASES['train']} train and "
+          f"{TRAIN_CASES['valid']} valid cases, {TRAIN_CASES['test']} test "
+          f"cases): {launches}")
+
+    test_dir = out_dir / cfg["test"]["output_folder"]
+    ids = [f"test_{i}" for i in range(TRAIN_CASES["test"])]
+    for f in ["model/model.pt", "model/checkpoint.pt", "stdout.txt",
+              "model_summary.txt", f"{cfg['test']['output_folder']}/"
+              "results_regional.csv"] + [
+            f"{cfg['test']['output_folder']}/images/{i}_pred.nii.gz"
+            for i in ids]:
+        check((out_dir / f).is_file(), f"the run did not write {f}")
+    train_loss, valid_loss = get_losses_from_file(str(out_dir / "stdout.txt"))
+    check(len(train_loss) == len(valid_loss) == TRAIN_EPOCHS
+          and np.isfinite(train_loss + valid_loss).all(),
+          f"losses {train_loss} / {valid_loss}")
+    print(f"train_loss {train_loss}, valid_loss {valid_loss}")
+    print((test_dir / "average_results_regional.txt").read_text().strip())
+
+    cfg["test"]["output_folder"] = "served"
+    kernels.reset_launch_counts()
+    run_inference(cfg)
+    served = dict(kernels.LAUNCHES)
+    want = {k: v * TRAIN_CASES["test"] for k, v in PER_VOLUME_HNOSEG.items()}
+    check(served == want, f"run_inference launches {served} != {want}")
+    for i in ids:
+        a = read_img(str(out_dir / "served" / "images" / f"{i}_pred.nii.gz"))
+        b = read_img(str(test_dir / "images" / f"{i}_pred.nii.gz"))
+        check(a.shape == TRAIN_SHAPE and np.array_equal(a, b),
+              f"{i}: run_inference's labels differ from the run's test")
+    print(f"run_inference on the run directory: the same labels for the "
+          f"{len(ids)} test cases; launches {served}")
+    for k, v in served.items():
+        launches[k] += v
+    return launches, seconds
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1293,6 +1625,16 @@ def main():
                               dev)
             del noseg
             torch.cuda.empty_cache()
+
+        # training after serving in the same process: the matrices that
+        # serving cached under inference mode are saved for backward here
+        t_train = time.perf_counter()
+        phase_backward(torch, kernels, dev)
+        phase_train_step(torch, kernels, hnoseg.state_dict(), dev)
+        launches_t, _ = phase_run(torch, kernels, work)
+        for k, v in launches_t.items():
+            launches[k] += v
+        print(f"train phase: {time.perf_counter() - t_train:.2f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")

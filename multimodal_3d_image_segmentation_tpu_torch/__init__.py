@@ -1,5 +1,6 @@
 """PyTorch + CUDA port of the serving paths of HNOSeg-XS, V-Net-DS,
-HartleyMHASeg and NeuralOperatorSeg (HNOSeg / FNOSeg).
+HartleyMHASeg and NeuralOperatorSeg (HNOSeg / FNOSeg), and of HNOSeg-XS's
+experiment run: training, testing and statistics (``runtime/run.py``).
 
 Mirrors the module layout of :mod:`multimodal_3d_image_segmentation_tpu`
 (the JAX/Pallas reference) so each counterpart is found under the same
@@ -13,7 +14,9 @@ the frequency-resident chain (``kernels/freq_chain.py``), the fused
 resize + softmax output tail (``kernels/tail_resize.py``), the k=3 conv
 (``kernels/conv3.py``) and the fused tower blocks (``kernels/tower_block.py``,
 ``kernels/tower_block_s.py``). Each wrapper runs its plain PyTorch version
-for CPU tensors and launches its CUDA kernel for CUDA tensors.
+for CPU tensors and launches its CUDA kernel for CUDA tensors. conv_in, the
+chain and the tail are differentiable: their backward passes are the
+reference's, in PyTorch ops.
 """
 
 __version__ = "0.1.0"

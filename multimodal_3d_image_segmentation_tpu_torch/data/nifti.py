@@ -16,7 +16,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["read_img", "read_shape", "write_image"]
+__all__ = ["read_img", "read_shape", "read_spacing", "write_image"]
 
 _DTYPES = {
     2: np.uint8,
@@ -87,6 +87,18 @@ def read_shape(filename) -> Tuple[int, ...]:
     with _open(filename) as f:
         raw = f.read(352)
     return _shape_xyz(raw, _byte_order(raw, filename), filename)[::-1]
+
+
+def read_spacing(filename) -> Tuple[float, ...]:
+    """Voxel spacing in (x, y, z) from the header alone, as
+    ``sitk.ReadImage(fn).GetSpacing()`` gives it (a zero pixdim reads
+    1.0)."""
+    with _open(filename) as f:
+        raw = f.read(352)
+    bo = _byte_order(raw, filename)
+    n = min(len(_shape_xyz(raw, bo, filename)), 3)
+    pixdim = struct.unpack_from(bo + "8f", raw, 76)
+    return tuple(float(abs(p)) if p != 0 else 1.0 for p in pixdim[1:1 + n])
 
 
 def write_image(array: np.ndarray, filename,

@@ -27,7 +27,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "library", "launch", "reset_launch_counts",
-           "check_cuda_input", "check_forward_only", "call", "occupancy"]
+           "check_cuda_input", "check_forward_only", "needs_grad", "call",
+           "occupancy"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -166,14 +167,23 @@ def check_cuda_input(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record a call on ``tensors``: the kernel
+    Functions are applied only then, so that a serving call pays no
+    ``autograd.Function`` overhead (about 20 us of host time a call)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def check_forward_only(*tensors: torch.Tensor) -> None:
-    """The CUDA kernels have no backward yet: refuse to run where autograd
-    would need one."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    """conv3 and the tower kernels have no backward yet: refuse to run
+    where autograd would need one. (conv_in, freq_chain and tail_resize
+    are ``torch.autograd.Function``s with their backward passes.)"""
+    if needs_grad(*tensors):
         raise NotImplementedError(
-            "the CUDA kernels are forward-only: their backward passes come "
-            "with training (ROADMAP.md, Open items 1, item 7); run under "
-            "torch.no_grad() / torch.inference_mode()")
+            "conv3 and the tower kernels are forward-only: their backward "
+            "passes come with the training of V-Net-DS, HartleyMHASeg and "
+            "NeuralOperatorSeg (ROADMAP.md, Open items 1, item 19); run "
+            "under torch.no_grad() / torch.inference_mode()")
 
 
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:

@@ -8,6 +8,10 @@ memory) covers both Pallas variants (even and odd D/H) and reads the
 weight in its torch layout;
 ``conv_in_plain`` is ``F.conv3d`` (cuDNN on the GPU, TF32 off) + SELU,
 the reference's ``_reference_xla``.
+
+The backward pass is the reference's (``_conv_in_bwd``): a replay of
+``conv_in_plain`` under autograd, which gives the gradients of x, weight
+and bias (cuDNN's backward on the GPU, TF32 off).
 """
 from __future__ import annotations
 
@@ -34,6 +38,51 @@ def conv_in_plain(x_cf: torch.Tensor, weight: torch.Tensor,
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
+def _conv_in_forward(x_cf, weight, bias, apply_selu):
+    """The kernel on a CUDA tensor, ``conv_in_plain`` on a CPU one."""
+    if x_cf.device.type == "cpu":
+        return conv_in_plain(x_cf, weight, bias, apply_selu)
+    _build.check_cuda_input("x_cf", x_cf, x_cf.device, 5)
+    _build.check_cuda_input("weight", weight, x_cf.device, 5)
+    _build.check_cuda_input("bias", bias, x_cf.device, 1)
+    b, c, d, h, w = x_cf.shape
+    f = weight.shape[0]
+    if f not in SUPPORTED_FEATURES:
+        raise ValueError(f"conv_in kernel has no instance for F={f} "
+                         f"(supported: {SUPPORTED_FEATURES})")
+    if 4 * (8 * c * f + f) > _MAX_SMEM_BYTES:
+        raise ValueError(f"C={c}, F={f} weights exceed the kernel's shared "
+                         "memory")
+    if x_cf.numel() == 0:
+        raise ValueError("empty input")
+    out = torch.empty((b, d // 2 + 1, h // 2 + 1, w // 2 + 1, f),
+                      dtype=torch.float32, device=x_cf.device)
+    # the kernel reads the weight in its torch layout (F, C, kz, ky, kx)
+    _build.launch("conv_in", "m3seg_conv_in", x_cf.device,
+                  x_cf.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), b, c, d, h, w, f, int(bool(apply_selu)))
+    return out
+
+
+class _ConvIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_cf, weight, bias, apply_selu):
+        ctx.apply_selu = apply_selu
+        ctx.save_for_backward(x_cf, weight, bias)
+        return _conv_in_forward(x_cf, weight, bias, apply_selu)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            y = conv_in_plain(*leaves, ctx.apply_selu)
+            wrt = [t for t, n in zip(leaves, need) if n]
+            grads = iter(torch.autograd.grad(y, wrt, g))
+        return (*(next(grads) if n else None for n in need), None)
+
+
 def conv_in_s2d(x_cf: torch.Tensor, weight: torch.Tensor,
                 bias: torch.Tensor, apply_selu: bool = True
                 ) -> torch.Tensor:
@@ -51,7 +100,7 @@ def conv_in_s2d(x_cf: torch.Tensor, weight: torch.Tensor,
         contiguous, F in ``SUPPORTED_FEATURES``; one output row, its input
         rows and the weights must fit a block's 227 KB of shared memory,
         about (16 C + 2 F) W bytes, W <= 2,000 at C = 4, F = 24) or raises.
-        Forward only.
+        Differentiable: the backward replays ``conv_in_plain``.
     """
     if x_cf.dim() != 5:
         raise ValueError(f"x_cf must be (B, C, D, H, W), got "
@@ -61,24 +110,6 @@ def conv_in_s2d(x_cf: torch.Tensor, weight: torch.Tensor,
     if tuple(weight.shape) != (f, c, 2, 2, 2) or tuple(bias.shape) != (f,):
         raise ValueError(f"weight {tuple(weight.shape)} / bias "
                          f"{tuple(bias.shape)} do not fit C={c}")
-    if x_cf.device.type == "cpu":
-        return conv_in_plain(x_cf, weight, bias, apply_selu)
-    _build.check_cuda_input("x_cf", x_cf, x_cf.device, 5)
-    _build.check_cuda_input("weight", weight, x_cf.device, 5)
-    _build.check_cuda_input("bias", bias, x_cf.device, 1)
-    _build.check_forward_only(x_cf, weight, bias)
-    if f not in SUPPORTED_FEATURES:
-        raise ValueError(f"conv_in kernel has no instance for F={f} "
-                         f"(supported: {SUPPORTED_FEATURES})")
-    if 4 * (8 * c * f + f) > _MAX_SMEM_BYTES:
-        raise ValueError(f"C={c}, F={f} weights exceed the kernel's shared "
-                         "memory")
-    if x_cf.numel() == 0:
-        raise ValueError("empty input")
-    out = torch.empty((b, d // 2 + 1, h // 2 + 1, w // 2 + 1, f),
-                      dtype=torch.float32, device=x_cf.device)
-    # the kernel reads the weight in its torch layout (F, C, kz, ky, kx)
-    _build.launch("conv_in", "m3seg_conv_in", x_cf.device,
-                  x_cf.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                  out.data_ptr(), b, c, d, h, w, f, int(bool(apply_selu)))
-    return out
+    if _build.needs_grad(x_cf, weight, bias):
+        return _ConvIn.apply(x_cf, weight, bias, bool(apply_selu))
+    return _conv_in_forward(x_cf, weight, bias, bool(apply_selu))

@@ -8,6 +8,11 @@ CUDA kernel (``csrc/tail_resize.cu``) does the resize and the softmax in
 one pass, reading the float64-derived tap tables of
 ``ops/resize.py::_linear_taps_np``; ``tail_plain`` is ``resize_linear``
 (interpolation matrices) + ``torch.softmax``.
+
+The backward pass is the reference's closed form (``_tail_bwd``) from the
+saved fp32 probabilities y: ``gz = y * (g - sum_c y g)``, then the
+transposed interpolation matrices take gz back to the input grid, axis by
+axis (``ops/resize.py::resize_linear_transpose``).
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ import numpy as np
 import torch
 
 from .. import device as _device  # noqa: F401  (fp32 policy)
-from ..ops.resize import _linear_taps_np, resize_linear
+from ..ops.resize import (_linear_taps_np, resize_linear,
+                          resize_linear_transpose)
 from . import _build
 
 __all__ = ["fused_tail_softmax", "tail_plain", "tail_smem_bytes",
@@ -76,29 +82,18 @@ def _tap_tables(in_sizes: Tuple[int, ...], out_sizes: Tuple[int, ...],
         lo, hi, w_hi = _linear_taps_np(n_in, n_out)
         idx += [lo, hi]
         wts.append(w_hi)
-    taps = torch.from_numpy(np.concatenate(idx).astype(np.int32))
-    w = torch.from_numpy(np.concatenate(wts).astype(np.float32))
-    return taps.to(device), w.to(device)
+    with torch.inference_mode(False):  # see ops/spectral.py::_stage_tensor
+        taps = torch.from_numpy(np.concatenate(idx).astype(np.int32))
+        w = torch.from_numpy(np.concatenate(wts).astype(np.float32))
+        return taps.to(device), w.to(device)
 
 
-def fused_tail_softmax(x_cf: torch.Tensor, sizes: Sequence[int]
-                       ) -> torch.Tensor:
-    """(1, C, d, h, w) channel-first logits -> trilinear resize to
-    ``sizes`` + softmax over C, (1, C, *sizes) fp32.
-
-    A CPU tensor runs ``tail_plain``; a CUDA tensor launches the kernel
-    (fp32, contiguous, ``tail_supported``) or raises. Forward only.
-    """
-    sizes = tuple(int(s) for s in sizes)
-    if not tail_supported(tuple(x_cf.shape), sizes):
-        raise ValueError(f"fused tail does not take {tuple(x_cf.shape)} -> "
-                         f"{sizes} (batch 1, 1 <= C <= {_MAX_CHANNELS}, 3D, "
-                         f"and a block of {_MIN_BAND_ROWS} output rows within "
-                         f"{_SMEM_BYTES} bytes of shared memory)")
+def _tail_forward(x_cf: torch.Tensor, sizes: Tuple[int, ...]
+                  ) -> torch.Tensor:
+    """The kernel on a CUDA tensor, ``tail_plain`` on a CPU one."""
     if x_cf.device.type == "cpu":
         return tail_plain(x_cf, sizes)
     _build.check_cuda_input("x_cf", x_cf, x_cf.device, 5)
-    _build.check_forward_only(x_cf)
     _, c, d, h, w = x_cf.shape
     taps, wts = _tap_tables((d, h, w), sizes, x_cf.device)
     out = torch.empty((1, c) + sizes, dtype=torch.float32,
@@ -107,3 +102,41 @@ def fused_tail_softmax(x_cf: torch.Tensor, sizes: Sequence[int]
                   x_cf.data_ptr(), out.data_ptr(), taps.data_ptr(),
                   wts.data_ptr(), c, d, h, w, *sizes)
     return out
+
+
+class _TailSoftmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_cf, sizes):
+        y = _tail_forward(x_cf, sizes)
+        ctx.in_sizes = tuple(x_cf.shape[2:])
+        ctx.in_dtype = x_cf.dtype
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors  # fp32 (or float64) probabilities
+        # y (g - sum_c y g) in one launch, as autograd's softmax backward
+        gz = torch._softmax_backward_data(g.to(y.dtype), y, 1, y.dtype)
+        gz = resize_linear_transpose(gz, ctx.in_sizes, channel_first=True)
+        return gz.to(ctx.in_dtype), None
+
+
+def fused_tail_softmax(x_cf: torch.Tensor, sizes: Sequence[int]
+                       ) -> torch.Tensor:
+    """(1, C, d, h, w) channel-first logits -> trilinear resize to
+    ``sizes`` + softmax over C, (1, C, *sizes) fp32.
+
+    A CPU tensor runs ``tail_plain``; a CUDA tensor launches the kernel
+    (fp32, contiguous, ``tail_supported``) or raises. Differentiable: the
+    backward is the closed form of the module docstring.
+    """
+    sizes = tuple(int(s) for s in sizes)
+    if not tail_supported(tuple(x_cf.shape), sizes):
+        raise ValueError(f"fused tail does not take {tuple(x_cf.shape)} -> "
+                         f"{sizes} (batch 1, 1 <= C <= {_MAX_CHANNELS}, 3D, "
+                         f"and a block of {_MIN_BAND_ROWS} output rows within "
+                         f"{_SMEM_BYTES} bytes of shared memory)")
+    if _build.needs_grad(x_cf):
+        return _TailSoftmax.apply(x_cf, sizes)
+    return _tail_forward(x_cf, sizes)

@@ -145,7 +145,8 @@ def _stage(spec: TowerSpec, key: str, device: torch.device,
 
     def put(a):
         return torch.from_numpy(np.asarray(a, np_dt)).to(device)
-    return tuple(put(a) for a in m) if isinstance(m, tuple) else put(m)
+    with torch.inference_mode(False):  # see ops/spectral.py::_stage_tensor
+        return tuple(put(a) for a in m) if isinstance(m, tuple) else put(m)
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,7 +158,8 @@ def _kernel_mats(spec: TowerSpec, device: torch.device) -> torch.Tensor:
     parts = [np.concatenate(m["h_fwd"], axis=1), *m["w_inv"], *m["h_inv"],
              *m["w_fwd"]]
     flat = np.concatenate([np.asarray(p, np.float32).ravel() for p in parts])
-    return torch.from_numpy(flat).to(device)
+    with torch.inference_mode(False):  # see ops/spectral.py::_stage_tensor
+        return torch.from_numpy(flat).to(device)
 
 
 def entry_forward_hw(x: torch.Tensor, spec: TowerSpec) -> torch.Tensor:

@@ -84,8 +84,9 @@ def _kernel_mats_s(spec: TowerSpec, device: torch.device) -> torch.Tensor:
     depth = np.concatenate([
         np.asarray(m["d_inv"], np.float32).ravel(),
         _pack_depth_rows(np.asarray(m["d_fwd"], np.float32)).ravel()])
-    return torch.cat([_kernel_mats(spec, device),
-                      torch.from_numpy(depth).to(device)])
+    with torch.inference_mode(False):  # see ops/spectral.py::_stage_tensor
+        return torch.cat([_kernel_mats(spec, device),
+                          torch.from_numpy(depth).to(device)])
 
 
 def occupancy(spec: TowerSpec):

@@ -18,7 +18,7 @@ import torch
 
 from .. import device as _device  # noqa: F401  (fp32 policy)
 
-__all__ = ["resize_linear", "resize_nearest"]
+__all__ = ["resize_linear", "resize_linear_transpose", "resize_nearest"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,15 +48,27 @@ def _linear_matrix_np(n_in: int, n_out: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _linear_matrix(n_in: int, n_out: int, device: torch.device,
                    dtype: torch.dtype) -> torch.Tensor:
-    return torch.from_numpy(_linear_matrix_np(n_in, n_out)).to(device, dtype)
+    """Device copy of ``_linear_matrix_np``, made outside inference mode
+    so that an autograd graph may save it after serving built it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_linear_matrix_np(n_in, n_out)).to(device,
+                                                                  dtype)
 
 
-def _axis_matmul(x: torch.Tensor, n_out: int, ax: int) -> torch.Tensor:
+def _axis_matmul(x: torch.Tensor, n_out: int, ax: int,
+                 transpose: bool = False) -> torch.Tensor:
     """Contract axis ``ax`` of ``x`` with the (n_in, n_out) interpolation
-    matrix, output axis in place, accumulating in at least fp32."""
+    matrix (with ``transpose``, axis ``ax`` of size n_out with its
+    transpose, back to n_in = ``n_out``), output axis in place,
+    accumulating in at least fp32."""
     dt = torch.promote_types(x.dtype, torch.float32)
-    mat = _linear_matrix(x.shape[ax], n_out, x.device, dt)
-    y = torch.tensordot(x.to(dt), mat, dims=([ax], [0]))  # ax moved last
+    if transpose:
+        mat = _linear_matrix(n_out, x.shape[ax], x.device, dt)
+        dims = ([ax], [1])
+    else:
+        mat = _linear_matrix(x.shape[ax], n_out, x.device, dt)
+        dims = ([ax], [0])
+    y = torch.tensordot(x.to(dt), mat, dims=dims)  # ax moved last
     return torch.movedim(y, -1, ax).to(x.dtype)
 
 
@@ -72,6 +84,21 @@ def resize_linear(x: torch.Tensor, sizes: Sequence[int],
             continue
         x = _axis_matmul(x, n_out, ax)
     return x
+
+
+def resize_linear_transpose(g: torch.Tensor, in_sizes: Sequence[int],
+                            channel_first: bool = False) -> torch.Tensor:
+    """The adjoint of ``resize_linear``: take ``g``, a gradient on the
+    resized grid, back to the grid of ``in_sizes`` through the transposed
+    interpolation matrices, axis by axis in the same order, skipping axes
+    whose size does not change."""
+    axes = range(2, g.ndim) if channel_first else range(1, g.ndim - 1)
+    for ax, n_in in zip(axes, in_sizes):
+        n_in = int(n_in)
+        if g.shape[ax] == n_in:
+            continue
+        g = _axis_matmul(g, n_in, ax, transpose=True)
+    return g
 
 
 def resize_nearest(x: torch.Tensor, sizes: Sequence[int],

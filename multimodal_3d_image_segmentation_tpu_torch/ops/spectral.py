@@ -116,8 +116,8 @@ def _stage_tensor(n: int, m: int, forward: bool, kind: str,
                   device: torch.device, dtype: torch.dtype, sign: int = -1,
                   half: bool = False) -> torch.Tensor:
     """Device copy of one stage matrix, uploaded once per (n, m, direction,
-    kind, device, dtype, sign, half). fp32 matrices are the float64 ones
-    rounded once; a float64 model (a reference for checks) gets the float64
+    kind, device, dtype, sign, half), outside inference mode. fp32 matrices
+    are the float64 ones rounded once; a float64 model (a reference for checks) gets the float64
     matrices. ``half`` is the rfft half-spectrum axis, whose inverse is the
     'fold' with the Hermitian weights."""
     np_dt = np.float64 if dtype == torch.float64 else np.float32
@@ -128,7 +128,10 @@ def _stage_tensor(n: int, m: int, forward: bool, kind: str,
     else:
         c, s = _dft_mats_np(n, m, forward, sign)
         mat = _stage_matrix(c, s, kind, np_dt)
-    return torch.from_numpy(mat).to(device)
+    # a normal tensor even when serving builds it first: a later autograd
+    # graph saves it for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(mat).to(device)
 
 
 def _axis_order(pairs):

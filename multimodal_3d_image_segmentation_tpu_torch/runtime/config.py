@@ -15,7 +15,7 @@ from collections import OrderedDict
 from configparser import ConfigParser, ExtendedInterpolation
 from io import StringIO
 
-__all__ = ["get_config"]
+__all__ = ["get_config", "save_config"]
 
 
 def get_config(config_file, source=None):
@@ -44,3 +44,8 @@ def get_config(config_file, source=None):
     config.write(output["config"])
     return output
 
+
+def save_config(config_args, output_dir):
+    """Copy the raw config text into the run directory."""
+    with open(os.path.join(output_dir, config_args["config_file"]), "w") as f:
+        f.write(config_args["config"].getvalue())

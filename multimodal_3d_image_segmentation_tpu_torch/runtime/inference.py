@@ -18,42 +18,17 @@ import os
 import sys
 from functools import partial
 
-import torch
-
 from .. import not_ported
 from ..data.dataset import InputData
 from ..data.nifti import read_img
 from ..data.normalization import normalize_modalities
 from ..device import resolve_device
-from ..utils.jax_compat import state_dict_from_jax
-from ..utils.msgpack_params import read_msgpack_params
+from .checkpoint import load_weights
 from .config import get_config
 from .run import _build_model, get_data_lists
 from .train_test import testing
 
 __all__ = ["run_inference", "load_weights", "main"]
-
-
-def load_weights(model_dir: str, model: torch.nn.Module):
-    """The state dict in ``model_dir``: ``model.pt`` where it exists, else
-    the JAX package's ``model.msgpack`` converted for ``model`` (V-Net-DS
-    needs its ``num_blocks`` and ``use_residual``). The JAX package's
-    sharded Orbax export (a ``model.msgpack.orbax`` directory) raises
-    ``NotImplementedError``; a directory with neither file raises
-    ``FileNotFoundError``."""
-    pt = os.path.join(model_dir, "model.pt")
-    mp = os.path.join(model_dir, "model.msgpack")
-    if os.path.exists(pt):
-        return torch.load(pt, map_location="cpu", weights_only=True)
-    if os.path.exists(mp):
-        return state_dict_from_jax(
-            read_msgpack_params(mp), getattr(model, "num_blocks", None),
-            getattr(model, "use_residual", True))
-    if os.path.isdir(os.path.abspath(mp) + ".orbax"):
-        not_ported("the sharded Orbax weights export (model.msgpack.orbax)",
-                   7)
-    raise FileNotFoundError(f"{model_dir} holds neither model.pt nor "
-                            "model.msgpack")
 
 
 def run_inference(config_args):

@@ -1,5 +1,5 @@
-"""Label remapping for numpy arrays and torch tensors, the port of
-``multimodal_3d_image_segmentation_tpu/utils/labels.py::remap_labels``."""
+"""One-hot labels and label remapping, the port of
+``multimodal_3d_image_segmentation_tpu/utils/labels.py``."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -7,7 +7,20 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["remap_labels"]
+__all__ = ["to_categorical", "remap_labels"]
+
+
+def to_categorical(y: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(B, 1, *spatial) integer labels -> (B, num_classes, *spatial)
+    one-hot float32, channel-first (upstream ``experiments/utils.py:74-97``).
+    A label outside [0, num_classes) gets an all-zero column, as in the
+    reference."""
+    if y.shape[1] != 1:
+        raise ValueError(f"one label per voxel expected, got {y.shape[1]}")
+    y = y[:, 0].long()
+    classes = torch.arange(num_classes, device=y.device)
+    onehot = (y.unsqueeze(1) == classes.view(1, -1, *([1] * (y.dim() - 1))))
+    return onehot.to(torch.float32)
 
 
 def remap_labels(label, mapping: Optional[Dict[int, int]]):

@@ -1,8 +1,10 @@
-"""Device-time profile of a serving step on one CUDA card.
+"""Device-time profile of a serving step, or of HNOSeg-XS's train step,
+on one CUDA card.
 
     python -m multimodal_3d_image_segmentation_tpu_torch.utils.profiling \
         [--model hnosegxs|vnetds|hartleymha|hnoseg|fnoseg]
-        [--tower-kernel block_s|block|resident] [--trace trace.json]
+        [--tower-kernel block_s|block|resident] [--train]
+        [--trace trace.json]
 
 At the width of the serving config (HNOSeg-XS: filters 24, blocks [3]*8;
 V-Net-DS: base 24, blocks [1,2,3,3,3], right leg [0..4]; HartleyMHASeg:
@@ -22,7 +24,10 @@ already on the card) it prints:
 
 It excludes the host side of serving (NIfTI reads, the host-to-device
 copy, the label readback), which ``runtime/train_test.py::testing``
-measures.
+measures. ``--train`` times and profiles HNOSeg-XS's train step instead
+(``runtime/steps.py::make_train_step``: forward, PCC loss, backward,
+Adamax) at ``configs/config_hnoseg_xs.ini``'s training size 120x120x78,
+batch 1, on a seeded batch with seeded labels 0-3.
 """
 from __future__ import annotations
 
@@ -33,8 +38,9 @@ import subprocess
 import numpy as np
 import torch
 
+from ..losses import PCCLoss
 from ..models import HartleyMHASeg, HNOSegXS, NeuralOperatorSeg, VNetDS
-from ..runtime.steps import make_predict_step
+from ..runtime.steps import make_predict_step, make_train_step
 
 __all__ = ["step_ms", "profile_steps"]
 
@@ -57,6 +63,7 @@ MODELS = {
                                ("fnoseg", "Fourier"))},
 }
 SIZE = (240, 240, 155)
+TRAIN_SIZE = (120, 120, 78)
 SEED = 0
 N_TIMED = 20
 OWN_KERNELS = ("conv_in_kernel", "freq_chain_kernel", "tail_kernel",
@@ -131,16 +138,24 @@ def main(argv=None):
                                                "resident"),
                     help="the spectral towers' kernel (default: the "
                          "model's)")
+    ap.add_argument("--train", action="store_true",
+                    help="the train step of HNOSeg-XS at 120x120x78")
     ap.add_argument("--trace", help="write a Chrome trace here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
+    if args.train and args.model != "hnosegxs":
+        raise SystemExit("--train: only hnosegxs trains in the port")
     dev = torch.device("cuda:0")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
-        (1, 4) + SIZE, dtype=np.float32)).to(dev)
+    size = TRAIN_SIZE if args.train else SIZE
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal((1, 4) + size,
+                                             dtype=np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 4, (1, 1) + size).astype(
+        np.float32)).to(dev)
     cls, kw = MODELS[args.model]
     steps = {}
     if args.tower_kernel:
@@ -148,16 +163,22 @@ def main(argv=None):
     for use_kernels in (False, True):
         model = cls(**kw, use_kernels=use_kernels, device=dev,
                     generator=torch.Generator().manual_seed(SEED))
-        steps[use_kernels] = make_predict_step(model.eval())
+        if args.train:
+            opt = torch.optim.Adamax(model.parameters(), lr=5e-3)
+            steps[use_kernels] = (lambda a, s=make_train_step(
+                model, opt, None, PCCLoss(), 4): s(a, y))
+        else:
+            steps[use_kernels] = make_predict_step(model.eval())
     fast = "kernels" + (f" (tower_kernel={args.tower_kernel})"
                         if args.tower_kernel else "")
+    what = "train step" if args.train else "forward+argmax"
     for name, use_kernels in (("plain", False), (fast, True), (fast, True),
                               ("plain", False)):
         t = step_ms(steps[use_kernels], x, N_TIMED)
-        print(f"{args.model} {name} forward+argmax ms median "
+        print(f"{args.model} {name} {what} ms median "
               f"{statistics.median(t):.4f} "
               f"min {min(t):.4f} max {max(t):.4f} ({N_TIMED} runs, "
-              f"size {SIZE})")
+              f"size {size})")
     prof, summary = profile_steps(steps[True], x, args.trace)
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=20))

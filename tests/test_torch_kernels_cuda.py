@@ -15,7 +15,11 @@ own output, to 1e-5 of the sum of magnitudes. tower_block and
 tower_block_s sum up to 56 fp32 products per output in another order than
 cuBLAS: 1e-5 times each output's largest magnitude (at least 1); a TF32
 operand would miss by about 5e-4 of it. tower_resident chains those blocks
-and is held to the same bar against its plain version.
+and is held to the same bar against its plain version. The backward
+passes of conv_in, freq_chain and tail_resize (their
+``torch.autograd.Function``s) are held to autograd through the plain
+twins: 1e-5 times each gradient's largest magnitude (at least 1), fp32
+sums over up to 148,840 voxels in another order.
 """
 import ctypes
 
@@ -318,8 +322,11 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         kernels.conv_in_s2d(x, _t((16, 4, 2, 2, 2), 11, dev),
                             _t((16,), 12, dev))        # no F=16 instance
     wg = w.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.conv_in_s2d(x, wg, b)                  # forward only
+    # differentiable: the kernel forward, the replayed backward
+    y = _launched("conv_in", lambda: kernels.conv_in_s2d(x, wg, b))
+    assert y.requires_grad
+    y.sum().backward()
+    assert wg.grad is not None and wg.grad.shape == w.shape
     with torch.no_grad():
         kernels.conv_in_s2d(x, wg, b)
 
@@ -910,3 +917,106 @@ def test_tower_resident_phases_are_timed(dev):
     assert len(got) == 5 and "z" in got  # the z phase, once per block
     assert set(got) == set(tr.PHASES) and all(v > 0 for v in got.values())
     assert all(v == 0 for v in tr.phase_ms().values())
+
+
+# ------------------------------------------------------- backward passes
+
+GRAD_RTOL = 1e-5
+
+
+def _grads_close(fused, plain, args, g):
+    """Gradients of ``fused`` (the kernel forward, the Function's
+    backward) against autograd through ``plain``, for the same inputs and
+    output gradient."""
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    got = torch.autograd.grad(fused(*leaves), leaves, g)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(plain(*leaves), leaves, g)
+    for a, b in zip(got, want):
+        tol = GRAD_RTOL * max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("selu", [True, False])
+@pytest.mark.parametrize("shape", [
+    (1, 4, 120, 120, 78),    # the training shape
+    (1, 4, 240, 240, 155),   # the serving shape
+    (1, 4, 239, 239, 155),   # odd D and H
+    (2, 2, 9, 7, 5),
+])
+def test_conv_in_backward_matches_plain(dev, shape, selu):
+    c = shape[1]
+    x = _t(shape, 1, dev)
+    w = _t((24, c, 2, 2, 2), 2, dev, 1 / np.sqrt(8 * c))
+    b = _t((24,), 3, dev, 0.1)
+    d, h, wd = shape[2:]
+    g = _t((shape[0], d // 2 + 1, h // 2 + 1, wd // 2 + 1, 24), 4, dev)
+    before = kernels.LAUNCHES["conv_in"]
+    _grads_close(lambda *a: kernels.conv_in_s2d(*a, apply_selu=selu),
+                 lambda *a: kernels.conv_in_plain(*a, apply_selu=selu),
+                 (x, w, b), g)
+    assert kernels.LAUNCHES["conv_in"] == before + 1
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("shape", [
+    (1, 20, 28, 28, 24),     # HNOSeg-XS's spectrum (training and serving)
+    (1, 5, 7, 3, 8),
+])
+def test_freq_chain_backward_matches_plain(dev, shape, n):
+    c = shape[-1]
+    args = [_t(shape, 5, dev)] + [_t((c, c), 6 + k, dev, 1 / np.sqrt(c))
+                                  for k in range(n)]
+    before = kernels.LAUNCHES["freq_chain"]
+    _grads_close(lambda x, *w: kernels.fused_freq_chain(x, list(w)),
+                 lambda x, *w: kernels.freq_chain_plain(x, list(w)),
+                 args, _t(shape, 9, dev))
+    assert kernels.LAUNCHES["freq_chain"] == before + 1
+
+
+@pytest.mark.parametrize("shape,sizes", [
+    ((1, 4, 61, 61, 40), (120, 120, 78)),     # the training shape
+    ((1, 4, 121, 121, 78), (240, 240, 155)),  # the serving shape
+    ((1, 3, 6, 8, 8), (6, 8, 8)),             # identity resize
+    ((1, 2, 16, 6, 6), (9, 11, 13)),          # D down, H and W up
+])
+def test_tail_backward_matches_plain(dev, shape, sizes):
+    x = _t(shape, 10, dev, 3.0)
+    before = kernels.LAUNCHES["tail_resize"]
+    _grads_close(lambda a: kernels.fused_tail_softmax(a, sizes),
+                 lambda a: kernels.tail_plain(a, sizes), (x,),
+                 _t((1, shape[1]) + sizes, 11, dev))
+    assert kernels.LAUNCHES["tail_resize"] == before + 1
+
+
+def test_serving_then_training_on_the_card(dev):
+    """Serving builds the cached matrices (the tail's tap tables among
+    them) under inference mode; a train step on the kernels afterwards
+    saves what it needs for backward and updates every parameter."""
+    from multimodal_3d_image_segmentation_tpu_torch.losses import PCCLoss
+    from multimodal_3d_image_segmentation_tpu_torch.models import HNOSegXS
+    from multimodal_3d_image_segmentation_tpu_torch.runtime.steps import (
+        make_predict_step, make_train_step)
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        tail_resize
+    from multimodal_3d_image_segmentation_tpu_torch.ops import (resize,
+                                                                spectral)
+    for fn in (spectral._stage_tensor, resize._linear_matrix,
+               tail_resize._tap_tables):
+        fn.cache_clear()
+    model = HNOSegXS(4, 4, 24, [3] * 8, (10, 14, 14), use_kernels=True,
+                     device=dev)
+    x = _t((1, 4, 40, 36, 30), 12, dev)
+    y = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 4, (1, 1, 40, 36, 30)).astype(np.float32)).to(dev)
+    make_predict_step(model)(x)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    opt = torch.optim.SGD(model.parameters(), lr=1.0)
+    kernels.reset_launch_counts()
+    loss = make_train_step(model, opt, None, PCCLoss(), 4)(x, y)
+    assert torch.isfinite(loss)
+    assert {k: kernels.LAUNCHES[k] for k in
+            ("conv_in", "freq_chain", "tail_resize")} == \
+        {"conv_in": 1, "freq_chain": 8, "tail_resize": 1}
+    for k, p in model.named_parameters():
+        assert not torch.equal(before[k], p), k

@@ -148,11 +148,18 @@ def test_serving_matches_jax_testing(tmp_path, use_pallas):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """A fresh interpreter that imports the port, parses a config and runs
-    CPU forwards of every model never loads jax, flax or any module of the
-    JAX package."""
+    """A fresh interpreter that imports the port (its training, metrics and
+    run modules too), parses a config, runs CPU forwards of every model and
+    a train step never loads jax, flax or any module of the JAX package,
+    nor pandas or matplotlib (the card's host has neither)."""
     code = (
         "import sys, torch\n"
+        "from multimodal_3d_image_segmentation_tpu_torch import losses, "
+        "metrics, surfels\n"
+        "from multimodal_3d_image_segmentation_tpu_torch.runtime import "
+        "checkpoint, optim, run, steps, train_test\n"
+        "from multimodal_3d_image_segmentation_tpu_torch.data import "
+        "augmentation, dataset\n"
         "from multimodal_3d_image_segmentation_tpu_torch.models import "
         "HartleyMHASeg, HNOSegXS, NeuralOperatorSeg, VNetDS\n"
         "import multimodal_3d_image_segmentation_tpu_torch.kernels."
@@ -169,6 +176,10 @@ def test_port_never_imports_jax(tmp_path):
         "with torch.no_grad():\n"
         "    y = m(torch.randn(1, 2, 12, 10, 8))\n"
         "assert y.shape == (1, 3, 12, 10, 8)\n"
+        "opt = optim.build_optimizer({'optimizer_name': 'Adamax'}, "
+        "m.parameters())\n"
+        "steps.make_train_step(m, opt, None, losses.PCCLoss(), 3)(\n"
+        "    torch.randn(1, 2, 12, 10, 8), torch.zeros(1, 1, 12, 10, 8))\n"
         "v = VNetDS(2, 3, 4, [1, 1], right_leg_indexes=[0, 1], "
         "use_kernels=True)\n"
         "with torch.no_grad():\n"
@@ -187,12 +198,13 @@ def test_port_never_imports_jax(tmp_path):
         f"config.get_config({str(REPO / 'configs' / 'config_inference_hnoseg_xs.ini')!r})\n"
         "print('jax' in sys.modules, 'flax' in sys.modules, any(\n"
         "    n.split('.')[0] == 'multimodal_3d_image_segmentation_tpu'\n"
-        "    for n in sys.modules))\n")
+        "    for n in sys.modules), 'pandas' in sys.modules,\n"
+        "    'matplotlib' in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=tmp_path, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["False", "False", "False"]
+    assert out.stdout.split() == ["False"] * 5
 
 
 def test_get_config_matches_jax():
