@@ -12,7 +12,8 @@ supervision, 178,532 parameters), and HNOSeg and FNOSeg (NeuralOperatorSeg:
 filters 24, 24 blocks, modes (10,14,14), shared weights, Hartley or
 Fourier, 57,360 and 71,184 parameters), the last two on their default
 tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
-'block_s'. It checks them:
+'block_s'; then trains each of the five families at the same widths on
+1x4x120x120x78 volumes, the configs' training size. It checks them:
 
   1. device   the card's name and power limit, torch and CUDA versions;
   2. build    compile the CUDA kernels from ``csrc/`` (one nvcc per source,
@@ -73,29 +74,52 @@ tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
               small volume against the CPU; a control with each tower
               kernel's operands in TF32 must fail the bars; forward +
               argmax times of the three tower kernels;
- 13. backward the backward passes of conv_in (with and without SELU),
-              freq_chain and tail_resize at HNOSeg-XS's training shapes
-              (the kernel forward, the ``torch.autograd.Function``'s
-              backward) against autograd through their plain twins, with
-              their times; run after serving in the same process, so the
-              matrices serving cached under inference mode are saved for
-              backward here;
- 14. train    one full-width HNOSeg-XS train step at 1x4x120x120x78 on the
-              kernel path and the plain path from the same weights: the
-              loss and every gradient held to a float64 evaluation (2x the
-              plain path's distance), a TF32 control that must fail, and
-              the step's time (forward, backward, Adamax) and peak memory;
+ 13. backward the backward passes (each kernel's forward, its
+              ``torch.autograd.Function``'s backward) against autograd
+              through the plain twins, with their times beside the plain
+              graphs': conv_in (with and without SELU), freq_chain and
+              tail_resize at HNOSeg-XS's training shapes, tower_block at
+              HartleyMHASeg's, HNOSeg's and FNOSeg's (the 61x61x40 grid of
+              a 120x120x78 volume), tower_block_s at HNOSeg's,
+              tower_resident (HNOSeg's 24-block tower, with the peak memory
+              of its replay), and conv3 at every call of one V-Net-DS
+              training forward at 1x4x120x120x78; run after serving in the
+              same process, so the matrices serving cached under inference
+              mode are saved for backward here;
+ 14. train    one full-width train step of each family at 1x4x120x120x78
+              on the kernel path and the plain path from the same weights:
+              HNOSeg-XS, V-Net-DS, HartleyMHASeg, HNOSeg (on tower_block,
+              tower_block_s and tower_resident) and FNOSeg; the launches a
+              step (conv_in 1 and tail_resize 1, with freq_chain 8, conv3
+              29, tower_block 16 or 24, tower_block_s 24 or
+              tower_resident 1); the loss and every gradient held to a
+              float64 evaluation, each tensor on its own
+              (``utils/train_bars.py``: HNOSeg-XS and V-Net-DS each
+              tensor's largest error at most 2x the plain path's plus 1e-6
+              of scale; the three towers the loss so, and each gradient's
+              RMS error at most 5x the larger of the plain path's and the
+              plain twins path's (which must launch no kernel) and of their
+              typical level, as SELU's kink moves gradients by chance
+              factors on any fp32 path, and the typical error at most 2x);
+              a fault planted in one tower gradient (a block's w_cc_t
+              columns scaled by 1.05) that must fail, with the smallest
+              scaling the rules fail; a TF32 control that must fail
+              (conv_in's, conv3's or tower_block's operands rounded); each
+              path's step time (forward, backward, Adamax) and peak
+              memory;
  15. run      ``runtime/run.py::run`` on ``configs/config_hnoseg_xs.ini``
-              (2 epochs on 4 train and 2 valid synthetic cases at
-              120x120x78, then test and statistics on 2), launches (reset
-              just before) conv_in 14, freq_chain 112, tail_resize 14; its
-              artifacts and finite losses; run_inference on the run
+              (2 epochs) and on ``config_vnet-ds.ini``,
+              ``config_hartleymha.ini``, ``config_hnoseg.ini`` and
+              ``config_fnoseg.ini`` (1 epoch each) on 4 train and 2 valid
+              synthetic cases at 120x120x78, then test and statistics on
+              2; the launches of each run (reset just before); its
+              artifacts and finite losses; run_inference on each run
               directory gives the run's own test labels.
 
 Every failed check raises, so the exit code is not 0. The script refuses
 to run without CUDA. The line before the last is a JSON object with the
 kernels' numbers (``launches`` summed over the serving runs and the
-run; times are
+runs; ``backward_ms`` and ``backward_plain_ms`` from phase 13; times are
 medians of CUDA-event runs, conv3's of back-to-back calls, and conv_in and
 freq_chain also give ``stream_ms``, back to back; ``bound_ms`` is
 the larger of the bytes over 3.35 TB/s and the operations over 67 TFLOP/s
@@ -874,20 +898,31 @@ def conv3_work(args, kw, y):
     return 2 * macs, moved
 
 
-def record_conv3_calls(torch, model, x):
-    """Every conv3 call of one kernel-path forward, with its real inputs."""
+def _detached(v):
+    if isinstance(v, tuple):
+        return tuple(_detached(t) for t in v)
+    return v.detach() if hasattr(v, "detach") else v
+
+
+def record_conv3_calls(torch, model, x, grad=False):
+    """Every conv3 call of one kernel-path forward, with its real inputs
+    (detached); ``grad``: the forward of a train step, autograd on."""
     from multimodal_3d_image_segmentation_tpu_torch.models import \
         architectures
     calls, real = [], architectures.conv3
 
     def recording(*args, **kw):
-        calls.append((args, kw))
+        calls.append((_detached(args), {k: _detached(v)
+                                        for k, v in kw.items()}))
         return real(*args, **kw)
 
     architectures.conv3 = recording
     try:
-        with torch.inference_mode():
+        if grad:
             model(x)
+        else:
+            with torch.inference_mode():
+                model(x)
     finally:
         architectures.conv3 = real
     return calls
@@ -1228,29 +1263,75 @@ def phase_model_vnet(torch, state, case_dir: Path, dev):
 
 
 # ---------------------------------------------------------------- train
-TRAIN_SHAPE = (120, 120, 78)   # configs/config_hnoseg_xs.ini's training size
+TRAIN_SHAPE = (120, 120, 78)   # the configs' training size
 TRAIN_GRID = (61, 61, 40)      # its grid after conv_in
 TRAIN_CASES = {"train": 4, "valid": 2, "test": 2}
-TRAIN_EPOCHS = 2
+TRAIN_EPOCHS = 2               # HNOSeg-XS's run; the other families' run 1
 # a Function's gradients against autograd through its plain twin on the
 # card: fp32 sums over up to 148,840 voxels in another order (conv_in's
 # weight, the tail's transposed interpolation), so 1e-5 of each gradient's
 # largest magnitude, at least 1; a TF32 product would miss by about 5e-4
 GRAD_RTOL = 1e-5
-# the whole-model rule for one train step: each parameter's gradient (and
-# the loss) on the kernel path at most "ratio" times as far from a float64
-# evaluation as the plain path's, plus "slack" times the tensor's largest
-# float64 magnitude (the 1e-6 of the serving bars, on probabilities of at
-# most 1, made relative)
-BARS_TRAIN = {"ratio": 2.0, "slack": 1e-6}
+# the whole-model rules for one train step (``utils/train_bars.py``):
+# HNOSeg-XS and V-Net-DS hold the loss and each gradient to BARS_TRAIN
+# (each tensor's largest error at most 2x the plain path's, plus 1e-6 of
+# scale); the towers hold the loss so and each gradient to
+# BARS_TRAIN_SELU (its RMS error at most 5x the larger of the plain path's,
+# the plain twins path's and their typical level, plus 1e-6 of scale: SELU's
+# kink moves gradients by chance factors on any fp32 path), and their
+# typical error to 2x the larger of the two paths'. A fault planted in one
+# gradient of a passing tower step, a block's w_cc_t columns scaled by
+# 1 + PLANTED, must fail.
+PLANTED = 0.05
 N_TRAIN_TIMED = 20
+N_CONV3_BWD_TIMED = 10
+MIB = 1024 ** 2
 
 
-def phase_backward(torch, kernels, dev):
+def _as_tuple(t):
+    return t if isinstance(t, tuple) else (t,)
+
+
+def _backward_case(torch, fused, plain, args, g, n_timed=N_TIMED):
+    """One Function's gradients (its kernel forward, its backward) against
+    autograd through its plain twin on the same inputs and output
+    gradients: (max abs err and bar per gradient, backward ms, the plain
+    graph's backward ms)."""
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    y_fused, y_plain = _as_tuple(fused(*leaves)), _as_tuple(plain(*leaves))
+    got = torch.autograd.grad(y_fused, leaves, g, retain_graph=True)
+    want = torch.autograd.grad(y_plain, leaves, g, retain_graph=True)
+    errs = []
+    for a, ref in zip(got, want):
+        errs.append((float((a - ref).abs().max()),
+                     GRAD_RTOL * max(1.0, float(ref.abs().max()))))
+    ms = median_ms(torch, lambda: torch.autograd.grad(
+        y_fused, leaves, g, retain_graph=True), n=n_timed)
+    plain_ms = median_ms(torch, lambda: torch.autograd.grad(
+        y_plain, leaves, g, retain_graph=True), n=n_timed)
+    return errs, ms, plain_ms
+
+
+def phase_backward(torch, kernels, dev, vnet_state, resident_state):
     """Each kernel Function's backward on the card (the kernel forward, the
     Function's backward) against autograd through its plain twin, at the
-    training shapes, with the backward's time beside the plain graph's."""
+    training shapes, with the backward's time beside the plain graph's:
+    conv_in, freq_chain and tail_resize at HNOSeg-XS's shapes; tower_block
+    at HartleyMHASeg's, HNOSeg's and FNOSeg's (the 61x61x40 grid);
+    tower_block_s at HNOSeg's; tower_resident, HNOSeg's 24-block tower
+    with its weights ``resident_state``, with the peak memory of its
+    replay; conv3 at every call of one V-Net-DS training forward at
+    1x4x120x120x78 (weights ``vnet_state``). Returns kernel -> backward ms
+    and the plain graph's."""
     header("== backward")
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        tower_block as tb
+    from multimodal_3d_image_segmentation_tpu_torch.kernels.conv3 import \
+        flat_call
+    from multimodal_3d_image_segmentation_tpu_torch.models import (
+        NeuralOperatorSeg, VNetDS)
+    from multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep import \
+        BLOCK_SHAPES
     rng = np.random.default_rng(SEED + 3)
 
     def t(shape, scale=1.0):
@@ -1263,45 +1344,116 @@ def phase_backward(torch, kernels, dev):
     spec, ws = t((1, 20, 28, 28, 24)), [t((24, 24), 1 / np.sqrt(24))
                                         for _ in range(3)]
     logits, g_tail = t((1, 4) + TRAIN_GRID, 3.0), t((1, 4) + TRAIN_SHAPE)
-    cases = {  # fused, plain, inputs, output gradient
-        "conv_in": (kernels.conv_in_s2d, kernels.conv_in_plain,
+    cases = {  # label -> kernel, fused, plain, inputs, output gradients
+        "conv_in": ("conv_in", kernels.conv_in_s2d, kernels.conv_in_plain,
                     (x, w, b), g_in),
         "conv_in_noselu": (
-            lambda *a: kernels.conv_in_s2d(*a, apply_selu=False),
+            "conv_in", lambda *a: kernels.conv_in_s2d(*a, apply_selu=False),
             lambda *a: kernels.conv_in_plain(*a, apply_selu=False),
             (x, w, b), g_in),
-        "freq_chain": (lambda s, *w_: kernels.fused_freq_chain(s, list(w_)),
+        "freq_chain": ("freq_chain",
+                       lambda s, *w_: kernels.fused_freq_chain(s, list(w_)),
                        lambda s, *w_: kernels.freq_chain_plain(s, list(w_)),
                        (spec, *ws), t(tuple(spec.shape))),
         "tail_resize": (
+            "tail_resize",
             lambda a: kernels.fused_tail_softmax(a, TRAIN_SHAPE),
             lambda a: kernels.tail_plain(a, TRAIN_SHAPE), (logits,), g_tail),
     }
+    for i, (label, transform, modes, nds) in enumerate(BLOCK_SHAPES):
+        bspec = tb.make_tower_spec(transform, TRAIN_GRID, modes, 24,
+                                   n_ds=nds)
+        with torch.no_grad():
+            xb, s, w_cat, w_cc_t, b_cat, ds_prev = _tower_operands(
+                torch, tb, dev, bspec, SEED + 20 + i)
+            z = tb.d_stage_inverse(s, bspec).contiguous()
+        dsp = (ds_prev,) if nds else ()
+        g = (t(tuple(xb.shape)), t(tuple(z.shape))) + (
+            (t(tuple(ds_prev.shape)),) if nds else ())
+        cases[f"tower_block {label}"] = (
+            "tower_block",
+            lambda *a, s_=bspec: kernels.fused_tower_block(*a[:5], s_,
+                                                           *a[5:]),
+            lambda *a, s_=bspec: kernels.tower_block_plain(*a[:5], s_,
+                                                           *a[5:]),
+            (xb, z, w_cat, w_cc_t, b_cat, *dsp), g)
+        if label == "HNOSeg":
+            cases["tower_block_s HNOSeg"] = (
+                "tower_block_s",
+                lambda *a, s_=bspec: kernels.fused_tower_block_s(*a, s_),
+                lambda *a, s_=bspec: kernels.tower_block_s_plain(*a, s_),
+                (xb, s.contiguous(), w_cat, w_cc_t, b_cat),
+                (t(tuple(xb.shape)), t(tuple(s.shape))))
+            model = NeuralOperatorSeg(**NOSEG, transform_type="Hartley",
+                                      device=dev)
+            model.load_state_dict(resident_state)
+            with torch.no_grad():
+                weights = tuple(w_.detach().clone()
+                                for w_ in model.resident_operands())
+            del model
+            cases["tower_resident HNOSeg"] = (
+                "tower_resident",
+                lambda *a, s_=bspec: kernels.resident_tower(*a, s_),
+                lambda *a, s_=bspec: kernels.resident_tower_plain(*a, s_),
+                (xb, *weights), t(tuple(xb.shape)))
     results = {}
-    for name, (fused, plain, args, g) in cases.items():
-        leaves = [a.clone().requires_grad_(True) for a in args]
-        y_fused, y_plain = fused(*leaves), plain(*leaves)
-        got = torch.autograd.grad(y_fused, leaves, g, retain_graph=True)
-        want = torch.autograd.grad(y_plain, leaves, g, retain_graph=True)
-        errs = []
-        for a, ref in zip(got, want):
-            err = float((a - ref).abs().max())
-            bar = GRAD_RTOL * max(1.0, float(ref.abs().max()))
+    for label, (name, fused, plain, args, g) in cases.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        errs, ms, plain_ms = _backward_case(torch, fused, plain, args, g)
+        for err, bar in errs:
             check(np.isfinite(err) and err <= bar,
-                  f"{name} backward: max abs err {err} > {bar}")
-            errs.append((err, bar))
-        ms = median_ms(torch, lambda: torch.autograd.grad(
-            y_fused, leaves, g, retain_graph=True))
-        plain_ms = median_ms(torch, lambda: torch.autograd.grad(
-            y_plain, leaves, g, retain_graph=True))
-        results[name] = {"ms": ms, "plain_ms": plain_ms,
-                         "max_abs_err": [e for e, _ in errs]}
-        print(f"{name} backward at {tuple(args[0].shape)}: max abs err per "
+                  f"{label} backward: max abs err {err} > {bar}")
+        results.setdefault(name, {"backward_ms": ms,
+                                  "backward_plain_ms": plain_ms})
+        peak = (f"; peak allocated {torch.cuda.max_memory_allocated(dev) / MIB:.1f}"
+                f" MiB (both graphs kept)" if name == "tower_resident"
+                else "")
+        print(f"{label} backward at {tuple(args[0].shape)}: max abs err per "
               "gradient " + ", ".join(f"{e:.3e} (bar {bb:.3e})"
                                       for e, bb in errs)
               + f"; backward {ms:.4f} ms, autograd through the plain twin "
-              f"{plain_ms:.4f} ms (medians of {N_TIMED}, CUDA events)")
-        del leaves, y_fused, y_plain, got, want
+              f"{plain_ms:.4f} ms (medians of {N_TIMED}, CUDA events){peak}")
+    del cases
+    torch.cuda.empty_cache()
+
+    # conv3 at every call of one V-Net-DS training forward
+    model = VNetDS(**VNET, use_kernels=True, device=dev)
+    model.load_state_dict(vnet_state)
+    calls = record_conv3_calls(torch, model, t((1, 4) + TRAIN_SHAPE),
+                               grad=True)
+    del model
+    check(len(calls) == PER_VOLUME_VNET["conv3"],
+          f"{len(calls)} conv3 calls in a V-Net-DS training forward")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "err": 0.0}
+    for i, (args, kw) in enumerate(calls):
+        tensors, bind = flat_call(*args, **kw)
+        with torch.no_grad():
+            outs = _as_tuple(kernels.conv3_plain(*args, **kw))
+        g = tuple(t(tuple(o.shape)) for o in outs)
+        before = kernels.LAUNCHES["conv3"]
+        errs, ms, plain_ms = _backward_case(
+            torch, bind(kernels.conv3), bind(kernels.conv3_plain), tensors,
+            g, N_CONV3_BWD_TIMED)
+        check(kernels.LAUNCHES["conv3"] == before + 1,
+              f"conv3 call {i}: the kernel forward was not launched once")
+        for err, bar in errs:
+            check(np.isfinite(err) and err <= bar,
+                  f"conv3 call {i} backward: max abs err {err} > {bar}")
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["err"] = max([tot["err"]] + [e / bb for e, bb in errs])
+        print(f"conv3[{i}] backward {_describe(args, kw)}: {len(errs)} "
+              f"gradients, largest err / bar {max(e / bb for e, bb in errs):.3f}"
+              f"; backward {ms:.4f} ms, plain graph {plain_ms:.4f} ms")
+    print(f"conv3 backward, the {len(calls)} calls of one V-Net-DS training "
+          f"forward at 1x4x{'x'.join(map(str, TRAIN_SHAPE))}: {tot['ms']:.4f}"
+          f" ms, autograd through the plain twin {tot['plain_ms']:.4f} ms "
+          f"(sums of medians of {N_CONV3_BWD_TIMED}, CUDA events); largest "
+          f"err / bar {tot['err']:.3f}")
+    results["conv3"] = {"backward_ms": tot["ms"],
+                        "backward_plain_ms": tot["plain_ms"]}
+    del calls
     torch.cuda.empty_cache()
     return results
 
@@ -1315,114 +1467,251 @@ def _loss_and_grads(torch, model, x, y1h):
                            for k, p in model.named_parameters()}
 
 
-def _train_readings(torch, fast, plain, ref):
-    """Per tensor (the loss, then each parameter's gradient): distances
-    of the kernel and plain paths from float64, kernel from plain."""
-    out = {}
-    for k in ref:
-        r = ref[k]
-        out[k] = {"kernel_vs_fp64": float((fast[k].double() - r).abs().max()),
-                  "plain_vs_fp64": float((plain[k].double() - r).abs().max()),
-                  "kernel_vs_plain": float((fast[k] - plain[k]).abs().max()),
-                  "scale": float(r.abs().max()),
-                  "finite": bool(torch.isfinite(fast[k]).all())}
-    return out
+def _planted(paths, ref, name, eps):
+    """What fails the towers' rules with the kernel path's gradient of
+    ``name`` (a block's conv_concat weight) scaled by 1 + ``eps`` in its
+    first half of columns, the w_cc_t operand of the tower kernels."""
+    from multimodal_3d_image_segmentation_tpu_torch.utils.train_bars import \
+        readings, tower_failures
+    g = paths["kernel"][name].clone()
+    w = g.view(g.shape[0], -1)
+    w[:, :g.shape[0]] *= 1 + eps
+    return tower_failures(readings(
+        dict(paths, kernel={**paths["kernel"], name: g}), ref))
 
 
-def _train_failed(r, bars):
-    return [k for k, v in r.items()
-            if not (v["finite"] and v["kernel_vs_fp64"] <= bars["ratio"]
-                    * v["plain_vs_fp64"] + bars["slack"] * v["scale"])]
+def _tf32_through(torch, t):
+    """``t`` rounded to TF32 in the forward pass; the gradient passes
+    through unchanged (the exact difference of two nearby floats)."""
+    if t is None or not t.requires_grad:
+        return None if t is None else _tf32(torch, t)
+    return t + (_tf32(torch, t.detach()) - t.detach())
 
 
-def phase_train_step(torch, kernels, state, dev):
-    """One full-width HNOSeg-XS train step from the same weights and the
-    same seeded batch on the kernel path and the plain path, the loss and
-    every gradient held to a float64 evaluation; a control with conv_in's
-    operands in TF32 must fail; the step's time (forward, backward,
-    Adamax) and peak memory on both paths."""
-    header("== train step HNOSeg-XS")
-    from multimodal_3d_image_segmentation_tpu_torch.losses import PCCLoss
-    from multimodal_3d_image_segmentation_tpu_torch.models import HNOSegXS
-    from multimodal_3d_image_segmentation_tpu_torch.runtime.steps import \
-        make_train_step
+def tf32_conv3(torch, real):
+    """conv3 on TF32-rounded operands (input, x2 and weight)."""
+    def call(x1, w, b, **kw):
+        if kw.get("x2") is not None:
+            kw["x2"] = _tf32_through(torch, kw["x2"])
+        return real(_tf32_through(torch, x1), _tf32_through(torch, w), b,
+                    **kw)
+    return call
+
+
+def tf32_tower_block(torch, real):
+    """tower_block on TF32-rounded operands (the volume, z and the
+    weights)."""
+    def call(x1, z, w_cat, w_cc_t, b_cat, spec, ds_prev=None):
+        return real(*(_tf32_through(torch, a) for a in (x1, z, w_cat,
+                                                        w_cc_t)),
+                    b_cat, spec, ds_prev)
+    return call
+
+
+def _train_batch(torch, dev):
     from multimodal_3d_image_segmentation_tpu_torch.utils.labels import \
         to_categorical
-
-    def build(use_kernels, dtype=torch.float32, weights=state):
-        m = HNOSegXS(**FLAGSHIP, use_kernels=use_kernels).to(dev, dtype)
-        m.load_state_dict(weights)
-        return m
-
     rng = np.random.default_rng(SEED + 4)
     x = torch.from_numpy(rng.standard_normal((1, 4) + TRAIN_SHAPE)
                          .astype(np.float32)).to(dev)
     y = torch.from_numpy(_labels(rng, TRAIN_SHAPE)[None, None]
                          .astype(np.float32)).to(dev)
-    y1h = to_categorical(y, 4)
+    return x, y, to_categorical(y, 4)
 
-    def step_of(use_kernels, inp=x, weights=state, dtype=torch.float32):
-        loss, grads = _loss_and_grads(torch, build(use_kernels, dtype,
-                                                   weights),
+
+def phase_train_step(torch, kernels, label, build, variants, control,
+                     selu=False):
+    """One full-width train step of a family from the same weights and the
+    same seeded batch (1x4x120x120x78) on each kernel path of ``variants``
+    ((name, build keywords, launches a step)) and on the plain path: the
+    loss and every gradient held to a float64 evaluation (``BARS_TRAIN``;
+    with ``selu``, the towers' rules, ``train_bars.tower_failures``,
+    against the plain path and the kernel path's plain twins path, which
+    must launch no kernel, and a planted single-tensor fault that must fail
+    them), the
+    launches a step; ``control(step_of)``, the first kernel path on
+    TF32-rounded operands, must fail the rules; each path's step time
+    (forward, backward, Adamax) and peak memory. ``build(use_kernels,
+    dtype, **keywords)`` makes the model with the family's weights."""
+    header(f"== train step {label}")
+    from multimodal_3d_image_segmentation_tpu_torch.losses import PCCLoss
+    from multimodal_3d_image_segmentation_tpu_torch.runtime.steps import \
+        make_train_step
+    from multimodal_3d_image_segmentation_tpu_torch.utils.train_bars import (
+        over_bars, plain_twins, readings, tower_failures, typical)
+    dev = torch.device("cuda:0")
+    x, y, y1h = _train_batch(torch, dev)
+
+    def gate(r):
+        return tower_failures(r) if selu else over_bars(r, "kernel",
+                                                        ("plain",))
+
+    def step_of(use_kernels, dtype=torch.float32, inp=x, **kw):
+        loss, grads = _loss_and_grads(torch, build(use_kernels, dtype, **kw),
                                       inp.to(dtype), y1h.to(dtype))
         return {"loss": loss, **grads}
 
-    kernels.reset_launch_counts()
-    fast = step_of(True)
-    launches = {k: kernels.LAUNCHES[k] for k in
-                ("conv_in", "freq_chain", "tail_resize")}
-    check(launches == {"conv_in": 1, "freq_chain": 8, "tail_resize": 1},
-          f"train step launches {launches}")
+    def twins_of(name, **kw):
+        kernels.reset_launch_counts()
+        with plain_twins():
+            twins = step_of(True, **kw)
+        torch.cuda.synchronize()
+        check(not any(kernels.LAUNCHES.values()), f"{label} {name}: the "
+              f"plain twins path launched {dict(kernels.LAUNCHES)}")
+        return twins
+
+    def report(r):
+        worst = max(r, key=lambda k: r[k]["kernel"]["max"]
+                    / max(r[k]["plain"]["max"], 1e-300))
+        ratio = r[worst]["kernel"]["max"] / max(r[worst]["plain"]["max"],
+                                                1e-300)
+        typ = {p: typical(r, p) for p in r["loss"] if p != "scale"}
+        return (f"largest error ratio to the plain path's {ratio:.3f} "
+                f"({worst}: {r[worst]['kernel']['max']:.3e} / "
+                f"{r[worst]['plain']['max']:.3e}, scale "
+                f"{r[worst]['scale']:.3e}); typical error "
+                + ", ".join(f"{p} {e:.3e}" for p, e in typ.items())
+                + f"; tensors over BARS_TRAIN: "
+                f"{over_bars(r, 'kernel', ('plain',)) or 'none'}")
+
     plain = step_of(False)
     ref = step_of(False, dtype=torch.float64)
-    r = _train_readings(torch, fast, plain, ref)
-    failed = _train_failed(r, BARS_TRAIN)
-    worst = max(r, key=lambda k: r[k]["kernel_vs_fp64"]
-                / max(r[k]["plain_vs_fp64"], 1e-30))
-    ratios = [v["kernel_vs_fp64"] / max(v["plain_vs_fp64"], 1e-30)
-              for v in r.values()]
-    print(f"train step at 1x4x{'x'.join(map(str, TRAIN_SHAPE))}: loss "
-          f"{float(fast['loss']):.7f} (plain {float(plain['loss']):.7f}, "
-          f"float64 {float(ref['loss']):.7f}); over the loss and "
-          f"{len(r) - 1} gradients, kernel-vs-fp64 / plain-vs-fp64 median "
-          f"{np.median(ratios):.3f}, largest {max(ratios):.3f} ({worst}: "
-          f"{r[worst]['kernel_vs_fp64']:.3e} / "
-          f"{r[worst]['plain_vs_fp64']:.3e}, scale "
-          f"{r[worst]['scale']:.3e}); largest kernel-vs-plain relative "
-          f"{max(v['kernel_vs_plain'] / max(v['scale'], 1e-30) for v in r.values()):.3e}; "
-          f"tensors failing the bars: {failed or 'none'}")
-    check(not failed, f"train step failed the bars for {failed}")
+    first_twins = None
+    for name, kw, want in variants:
+        kernels.reset_launch_counts()
+        fast = step_of(True, **kw)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check(launches == want, f"{label} {name} train step launches "
+              f"{launches} != {want}")
+        paths = {"kernel": fast, "plain": plain}
+        if selu:
+            paths["twins"] = twins_of(name, **kw)
+            first_twins = first_twins or paths["twins"]
+        r = readings(paths, ref)
+        failed = gate(r)
+        print(f"{label} {name} train step at 1x4x"
+              f"{'x'.join(map(str, TRAIN_SHAPE))}: launches {launches}; "
+              f"loss {float(fast['loss']):.7f} (plain "
+              f"{float(plain['loss']):.7f}, float64 {float(ref['loss']):.7f})"
+              f"; over the loss and {len(r) - 1} gradients: {report(r)}; "
+              f"failing the {'towers' if selu else 'BARS_TRAIN'} rules: "
+              f"{failed or 'none'}")
+        check(not failed, f"{label} {name} train step failed the bars for "
+              f"{failed}")
+        if selu and name == variants[0][0]:
+            mid = len([k for k in fast if k.endswith(
+                "conv_concat.op.weight")]) // 2
+            tensor = f"layers.{mid}.conv_concat.op.weight"
+            failed = _planted(paths, ref, tensor, PLANTED)
+            lo, hi = 0.0, PLANTED
+            for _ in range(12):  # the smallest factor the rules fail
+                if _planted(paths, ref, tensor, (lo + hi) / 2):
+                    hi = (lo + hi) / 2
+                else:
+                    lo = (lo + hi) / 2
+            print(f"{label} planted fault, {tensor}'s w_cc_t columns scaled "
+                  f"by {1 + PLANTED}: failing {failed or 'none'}; the rules "
+                  f"fail this tensor scaled by 1 + {hi:.2e} and more")
+            check(failed, f"{label}: the planted fault passed the rules")
+        del fast
+    ctrl_label, ctrl = control(step_of)
+    paths = {"kernel": ctrl, "plain": plain}
+    if selu:
+        paths["twins"] = first_twins
+    r = readings(paths, ref)
+    failed_ctrl = gate(r)
+    print(f"{label} control, {ctrl_label}: "
+          f"{len(over_bars(r, 'kernel', ('plain',)))} of {len(ref)} tensors "
+          f"over BARS_TRAIN; typical error {typical(r, 'kernel'):.3e} "
+          f"({typical(r, 'kernel') / max(typical(r, 'plain'), 1e-300):.1f}x "
+          f"the plain path's); failing the "
+          f"{'towers' if selu else 'BARS_TRAIN'} rules: "
+          f"{len(failed_ctrl)} ({', '.join(failed_ctrl[:4])}, ...)")
+    check(failed_ctrl, f"{label}: the TF32 control passed the train-step "
+          "bars")
+    del plain, ref, ctrl, paths, first_twins
 
-    rounded = {k: _tf32(torch, v) if k == "conv_in.op.weight" else v
-               for k, v in state.items()}
-    ctrl = step_of(True, inp=_tf32(torch, x), weights=rounded)
-    failed_ctrl = _train_failed(_train_readings(torch, ctrl, plain, ref),
-                                BARS_TRAIN)
-    print(f"control, conv_in operands in TF32: {len(failed_ctrl)} of "
-          f"{len(r)} tensors fail the bars")
-    check(failed_ctrl, "the TF32 control passed the train-step bars")
-    del fast, plain, ref, ctrl
-
-    timing = {}
-    for label, use_kernels in (("kernels", True), ("plain", False)):
-        model = build(use_kernels)
+    for name, kw, _ in variants + [("plain", None, None)]:
+        model = build(kw is not None, torch.float32, **(kw or {}))
         opt = torch.optim.Adamax(model.parameters(), lr=5e-3)
         step = make_train_step(model, opt, None, PCCLoss(), 4)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()  # the float64 step's blocks, cached
         torch.cuda.reset_peak_memory_stats(dev)
         ms = median_ms(torch, lambda: step(x, y), n=N_TRAIN_TIMED)
-        mib = 1024 ** 2
-        timing[label] = {
-            "ms": ms, "peak_mib": torch.cuda.max_memory_allocated(dev) / mib,
-            "peak_reserved_mib": torch.cuda.max_memory_reserved(dev) / mib}
-        print(f"train step ({label}): {ms:.3f} ms (forward + backward + "
-              f"Adamax, median of {N_TRAIN_TIMED} CUDA-event steps after 3 "
-              f"warm-ups); peak allocated {timing[label]['peak_mib']:.1f} "
-              f"MiB, reserved {timing[label]['peak_reserved_mib']:.1f} MiB")
+        print(f"{label} train step ({name}): {ms:.3f} ms (forward + "
+              f"backward + Adamax, median of {N_TRAIN_TIMED} CUDA-event "
+              f"steps after 3 warm-ups); peak allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / MIB:.1f} MiB, "
+              f"reserved {torch.cuda.max_memory_reserved(dev) / MIB:.1f} MiB")
         del model, opt, step
         torch.cuda.empty_cache()
-    return timing
+
+
+def train_steps(torch, kernels, states, dev):
+    """``phase_train_step`` for every family at its config width: HNOSeg-XS
+    (control: conv_in's operands in TF32), V-Net-DS (conv3's), and
+    HartleyMHASeg, HNOSeg and FNOSeg (tower_block's), HNOSeg also on
+    tower_block_s and tower_resident."""
+    from multimodal_3d_image_segmentation_tpu_torch.models import (
+        HartleyMHASeg, HNOSegXS, NeuralOperatorSeg, VNetDS, architectures)
+
+    def builder(cls, kw, state):
+        def build(use_kernels, dtype, weights=state, **extra):
+            m = cls(**kw, use_kernels=use_kernels, **extra).to(dev, dtype)
+            m.load_state_dict(weights)
+            return m
+        return build
+
+    def patched(name, wrap):
+        def control(step_of):
+            real = getattr(architectures, name)
+            setattr(architectures, name, wrap(torch, real))
+            try:
+                return f"{name}'s operands in TF32", step_of(True)
+            finally:
+                setattr(architectures, name, real)
+        return control
+
+    def conv_in_control(step_of):
+        rounded = {k: _tf32(torch, v) if k == "conv_in.op.weight" else v
+                   for k, v in states["HNOSeg-XS"].items()}
+        x = _train_batch(torch, dev)[0]
+        return "conv_in operands in TF32", step_of(
+            True, inp=_tf32(torch, x), weights=rounded)
+
+    def per_step(per_volume):
+        return {k: v for k, v in per_volume.items() if v}
+
+    phase_train_step(
+        torch, kernels, "HNOSeg-XS",
+        builder(HNOSegXS, FLAGSHIP, states["HNOSeg-XS"]),
+        [("kernels", {}, per_step(PER_VOLUME_HNOSEG))], conv_in_control)
+    phase_train_step(
+        torch, kernels, "V-Net-DS", builder(VNetDS, VNET, states["V-Net-DS"]),
+        [("kernels", {}, per_step(PER_VOLUME_VNET))],
+        patched("conv3", tf32_conv3))
+    phase_train_step(
+        torch, kernels, "HartleyMHASeg",
+        builder(HartleyMHASeg, MHA, states["HartleyMHASeg"]),
+        [("kernels", {}, per_step(PER_VOLUME_MHA))],
+        patched("fused_tower_block", tf32_tower_block), selu=True)
+    for label, transform in (("HNOSeg", "Hartley"), ("FNOSeg", "Fourier")):
+        variants = [("kernels", {}, per_step(PER_VOLUME_NOSEG))]
+        if transform == "Hartley":
+            variants += [
+                ("block_s", {"tower_kernel": "block_s"},
+                 per_step(PER_VOLUME_NOSEG_BLOCK_S)),
+                ("resident", {"tower_kernel": "resident"},
+                 per_step(PER_VOLUME_NOSEG_RESIDENT))]
+        phase_train_step(
+            torch, kernels, label,
+            builder(NeuralOperatorSeg, dict(NOSEG, transform_type=transform),
+                    states[label]),
+            variants, patched("fused_tower_block", tf32_tower_block),
+            selu=True)
+        torch.cuda.empty_cache()
 
 
 def _labels(rng, shape):
@@ -1462,12 +1751,13 @@ def _write_training_cases(root: Path):
     return paths
 
 
-def phase_run(torch, kernels, work: Path):
-    """The main path of training: ``runtime/run.py::run`` on
-    ``configs/config_hnoseg_xs.ini`` (train, test, statistics), its launch
+def phase_run(torch, kernels, work: Path, lists, label, config, epochs,
+              per_volume):
+    """A main path of training: ``runtime/run.py::run`` on ``config``
+    (train, test, statistics) on the synthetic training cases, its launch
     counts set to 0 just before and read just after; then run_inference
     on the run directory must give the run's own test labels."""
-    header("== run HNOSeg-XS (train, test, statistics)")
+    header(f"== run {label} (train, test, statistics)")
     from multimodal_3d_image_segmentation_tpu_torch.data import read_img
     from multimodal_3d_image_segmentation_tpu_torch.runtime.config import \
         get_config
@@ -1477,33 +1767,29 @@ def phase_run(torch, kernels, work: Path):
     from multimodal_3d_image_segmentation_tpu_torch.runtime.train_test \
         import get_losses_from_file
 
-    t0 = time.perf_counter()
-    lists = _write_training_cases(work / "train_data")
-    print(f"set-up (synthetic training cases, {TRAIN_CASES}): "
-          f"{time.perf_counter() - t0:.2f} s")
-    out_dir = work / "hnoseg_xs_run"
-    cfg = get_config(str(REPO / "configs" / "config_hnoseg_xs.ini"))
+    out_dir = work / f"{label}_run"
+    cfg = get_config(str(REPO / "configs" / config))
     cfg["main"]["output_dir"] = str(out_dir)
     cfg["input_lists"]["data_dir"] = str(work / "train_data")
     for split, paths in lists.items():
         cfg["input_lists"][f"data_lists_{split}_paths"] = paths
-    cfg["train"]["num_epochs"] = TRAIN_EPOCHS
-    print("configs/config_hnoseg_xs.ini with output_dir, data_dir, the "
-          f"list paths and num_epochs = {TRAIN_EPOCHS} overridden; "
-          "everything else as the file sets it")
+    cfg["train"]["num_epochs"] = epochs
+    print(f"configs/{config} with output_dir, data_dir, the list paths and "
+          f"num_epochs = {epochs} overridden; everything else as the file "
+          "sets it")
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     run(cfg)
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    forwards = (TRAIN_EPOCHS * (TRAIN_CASES["train"] + TRAIN_CASES["valid"])
+    forwards = (epochs * (TRAIN_CASES["train"] + TRAIN_CASES["valid"])
                 + TRAIN_CASES["test"])
-    want = {k: v * forwards for k, v in PER_VOLUME_HNOSEG.items()}
-    check(launches == want, f"run launches {launches} != {want} "
+    want = {k: v * forwards for k, v in per_volume.items()}
+    check(launches == want, f"{label} run launches {launches} != {want} "
           f"({forwards} forwards)")
-    print(f"run: {seconds:.2f} s; launches ({forwards} forwards: "
-          f"{TRAIN_EPOCHS} epochs of {TRAIN_CASES['train']} train and "
+    print(f"run {label}: {seconds:.2f} s; launches ({forwards} forwards: "
+          f"{epochs} epochs of {TRAIN_CASES['train']} train and "
           f"{TRAIN_CASES['valid']} valid cases, {TRAIN_CASES['test']} test "
           f"cases): {launches}")
 
@@ -1514,30 +1800,42 @@ def phase_run(torch, kernels, work: Path):
               "results_regional.csv"] + [
             f"{cfg['test']['output_folder']}/images/{i}_pred.nii.gz"
             for i in ids]:
-        check((out_dir / f).is_file(), f"the run did not write {f}")
+        check((out_dir / f).is_file(), f"{label}: the run did not write {f}")
     train_loss, valid_loss = get_losses_from_file(str(out_dir / "stdout.txt"))
-    check(len(train_loss) == len(valid_loss) == TRAIN_EPOCHS
+    check(len(train_loss) == len(valid_loss) == epochs
           and np.isfinite(train_loss + valid_loss).all(),
-          f"losses {train_loss} / {valid_loss}")
-    print(f"train_loss {train_loss}, valid_loss {valid_loss}")
+          f"{label} losses {train_loss} / {valid_loss}")
+    print(f"{label} train_loss {train_loss}, valid_loss {valid_loss}")
     print((test_dir / "average_results_regional.txt").read_text().strip())
 
     cfg["test"]["output_folder"] = "served"
     kernels.reset_launch_counts()
     run_inference(cfg)
     served = dict(kernels.LAUNCHES)
-    want = {k: v * TRAIN_CASES["test"] for k, v in PER_VOLUME_HNOSEG.items()}
-    check(served == want, f"run_inference launches {served} != {want}")
+    want = {k: v * TRAIN_CASES["test"] for k, v in per_volume.items()}
+    check(served == want, f"{label} run_inference launches {served} != "
+          f"{want}")
     for i in ids:
         a = read_img(str(out_dir / "served" / "images" / f"{i}_pred.nii.gz"))
         b = read_img(str(test_dir / "images" / f"{i}_pred.nii.gz"))
         check(a.shape == TRAIN_SHAPE and np.array_equal(a, b),
-              f"{i}: run_inference's labels differ from the run's test")
-    print(f"run_inference on the run directory: the same labels for the "
-          f"{len(ids)} test cases; launches {served}")
+              f"{label} {i}: run_inference's labels differ from the run's "
+              "test")
+    print(f"run_inference on the {label} run directory: the same labels for "
+          f"the {len(ids)} test cases; launches {served}")
     for k, v in served.items():
         launches[k] += v
-    return launches, seconds
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
+
+
+RUNS = [  # label, config, epochs, launches per forward
+    ("HNOSeg-XS", "config_hnoseg_xs.ini", TRAIN_EPOCHS, PER_VOLUME_HNOSEG),
+    ("V-Net-DS", "config_vnet-ds.ini", 1, PER_VOLUME_VNET),
+    ("HartleyMHASeg", "config_hartleymha.ini", 1, PER_VOLUME_MHA),
+    ("HNOSeg", "config_hnoseg.ini", 1, PER_VOLUME_NOSEG),
+    ("FNOSeg", "config_fnoseg.ini", 1, PER_VOLUME_NOSEG),
+]
 
 
 def main():
@@ -1559,6 +1857,7 @@ def main():
     results["tower_resident"] = phase_tower_resident(torch, kernels, dev)
     (REPO / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="smoke_", dir=REPO / "build"))
+    states = {}
     try:
         t0 = time.perf_counter()
         list_paths = _write_cases(work / "data")
@@ -1571,6 +1870,7 @@ def main():
             "config_inference_hnoseg_xs.ini", hnoseg, 28248,
             PER_VOLUME_HNOSEG)
         phase_model_hnoseg(torch, hnoseg.state_dict(), case0, dev)
+        states["HNOSeg-XS"] = hnoseg.state_dict()
 
         vnet = VNetDS(**VNET, generator=torch.Generator().manual_seed(SEED))
         fast = VNetDS(**VNET, use_kernels=True, device=dev)
@@ -1588,6 +1888,7 @@ def main():
         for k, v in launches_v.items():
             launches[k] += v
         phase_model_vnet(torch, vnet.state_dict(), case0, dev)
+        states["V-Net-DS"] = vnet.state_dict()
         del vnet
         torch.cuda.empty_cache()
 
@@ -1599,6 +1900,7 @@ def main():
         for k, v in launches_m.items():
             launches[k] += v
         phase_model_mha(torch, mha.state_dict(), case0, dev)
+        states["HartleyMHASeg"] = mha.state_dict()
         del mha
         torch.cuda.empty_cache()
 
@@ -1623,17 +1925,27 @@ def main():
                     launches[k] += v
             phase_model_noseg(torch, noseg.state_dict(), transform, case0,
                               dev)
+            states[label] = noseg.state_dict()
             del noseg
             torch.cuda.empty_cache()
 
         # training after serving in the same process: the matrices that
         # serving cached under inference mode are saved for backward here
         t_train = time.perf_counter()
-        phase_backward(torch, kernels, dev)
-        phase_train_step(torch, kernels, hnoseg.state_dict(), dev)
-        launches_t, _ = phase_run(torch, kernels, work)
-        for k, v in launches_t.items():
-            launches[k] += v
+        backward = phase_backward(torch, kernels, dev, states["V-Net-DS"],
+                                  states["HNOSeg"])
+        for name, r in backward.items():
+            results[name].update(r)
+        train_steps(torch, kernels, states, dev)
+        t0 = time.perf_counter()
+        lists = _write_training_cases(work / "train_data")
+        print(f"set-up (synthetic training cases, {TRAIN_CASES}): "
+              f"{time.perf_counter() - t0:.2f} s")
+        for label, config, epochs, per_volume in RUNS:
+            launches_t = phase_run(torch, kernels, work, lists, label, config,
+                                   epochs, per_volume)
+            for k, v in launches_t.items():
+                launches[k] += v
         print(f"train phase: {time.perf_counter() - t_train:.2f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)

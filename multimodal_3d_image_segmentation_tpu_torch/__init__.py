@@ -1,6 +1,6 @@
-"""PyTorch + CUDA port of the serving paths of HNOSeg-XS, V-Net-DS,
-HartleyMHASeg and NeuralOperatorSeg (HNOSeg / FNOSeg), and of HNOSeg-XS's
-experiment run: training, testing and statistics (``runtime/run.py``).
+"""PyTorch + CUDA port of HNOSeg-XS, V-Net-DS, HartleyMHASeg and
+NeuralOperatorSeg (HNOSeg / FNOSeg): serving, and the experiment run of
+each (training, testing and statistics, ``runtime/run.py``).
 
 Mirrors the module layout of :mod:`multimodal_3d_image_segmentation_tpu`
 (the JAX/Pallas reference) so each counterpart is found under the same
@@ -9,14 +9,15 @@ module of the reference package: its host side (``data/``: NIfTI IO, the
 test-split flow, normalization) is its own.
 
 Kernels written by hand for Hopper (``csrc/*.cu``) replace the Pallas
-kernels on the serving paths: the fused input conv (``kernels/conv_in.py``),
-the frequency-resident chain (``kernels/freq_chain.py``), the fused
-resize + softmax output tail (``kernels/tail_resize.py``), the k=3 conv
+kernels: the fused input conv (``kernels/conv_in.py``), the
+frequency-resident chain (``kernels/freq_chain.py``), the fused resize +
+softmax output tail (``kernels/tail_resize.py``), the k=3 conv
 (``kernels/conv3.py``) and the fused tower blocks (``kernels/tower_block.py``,
-``kernels/tower_block_s.py``). Each wrapper runs its plain PyTorch version
-for CPU tensors and launches its CUDA kernel for CUDA tensors. conv_in, the
-chain and the tail are differentiable: their backward passes are the
-reference's, in PyTorch ops.
+``kernels/tower_block_s.py``, ``kernels/tower_resident.py``). Each wrapper
+runs its plain PyTorch version for CPU tensors and launches its CUDA kernel
+for CUDA tensors. Every kernel is differentiable: its backward pass is the
+reference's, in PyTorch ops (a closed form, or a replay of the plain
+version under autograd).
 """
 
 __version__ = "0.1.0"

@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "library", "launch", "reset_launch_counts",
-           "check_cuda_input", "check_forward_only", "needs_grad", "call",
+           "check_cuda_input", "needs_grad", "replay_grads", "call",
            "occupancy"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -174,16 +174,25 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def check_forward_only(*tensors: torch.Tensor) -> None:
-    """conv3 and the tower kernels have no backward yet: refuse to run
-    where autograd would need one. (conv_in, freq_chain and tail_resize
-    are ``torch.autograd.Function``s with their backward passes.)"""
-    if needs_grad(*tensors):
-        raise NotImplementedError(
-            "conv3 and the tower kernels are forward-only: their backward "
-            "passes come with the training of V-Net-DS, HartleyMHASeg and "
-            "NeuralOperatorSeg (ROADMAP.md, Open items 1, item 19); run "
-            "under torch.no_grad() / torch.inference_mode()")
+def replay_grads(plain, saved, need, grads):
+    """The backward of a kernel Function whose reference VJP is
+    ``jax.vjp`` of its plain twin: replay ``plain(*saved)`` under autograd
+    and return the gradients of the saved tensors whose ``need`` is True
+    (None elsewhere) for the output gradients ``grads`` (None for an
+    output that got no gradient)."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(bool(n))
+                  for t, n in zip(saved, need)]
+        outs = plain(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        wrt = [t for t in leaves if t is not None and t.requires_grad]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True) if pairs and wrt else [None] * len(wrt))
+    return [next(got) if t is not None and t.requires_grad else None
+            for t in leaves]
 
 
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:

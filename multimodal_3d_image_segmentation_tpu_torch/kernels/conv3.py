@@ -25,7 +25,9 @@ Options, each a flag of the one CUDA kernel (``csrc/conv3.cu``):
 
 ``conv3_plain`` computes the same with ``F.conv3d`` /
 ``F.conv_transpose3d`` (cuDNN on the GPU, TF32 off) and torch ops: the
-kernel's oracle and the CPU path.
+kernel's oracle and the CPU path. Under autograd ``conv3`` is a
+``torch.autograd.Function`` whose backward is the reference's
+``_conv3_bwd``: a replay of ``conv3_plain`` (cuDNN's backward on the GPU).
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from .. import not_ported
 from . import _build
 
 __all__ = ["conv3", "conv3_plain", "conv3_out_size", "conv3_plan",
-           "packed_weight", "KERNEL_ACTS", "PLAN_FIELDS"]
+           "flat_call", "packed_weight", "KERNEL_ACTS", "PLAN_FIELDS"]
 
 # prologue activation -> the kernel's code
 KERNEL_ACTS = {None: 0, "none": 0, "elu": 1, "selu": 2, "relu": 3}
@@ -102,14 +104,12 @@ def _check_args(x, weight, bias, x2, prologue, prologue_act, residual,
         not_ported(f"conv3 on {x.dtype} volumes", 12)
     if x.dim() != 5 or x.shape[0] != 1:
         raise ValueError(f"x must be (1, D, H, W, C), got {tuple(x.shape)}")
-    c1 = x.shape[-1]
-    c2 = 0
+    ci = x.shape[-1]
     if x2 is not None:
         if x2.dim() != 5 or x2.shape[:4] != x.shape[:4]:
             raise ValueError(f"x2 {tuple(x2.shape)} does not match x "
                              f"{tuple(x.shape)}")
-        c2 = x2.shape[-1]
-    ci = c1 + c2
+        ci += x2.shape[-1]
     co = weight.shape[0]
     if tuple(weight.shape) != (co, ci, 3, 3, 3) or tuple(bias.shape) != (co,):
         raise ValueError(f"weight {tuple(weight.shape)} / bias "
@@ -132,7 +132,6 @@ def _check_args(x, weight, bias, x2, prologue, prologue_act, residual,
                 or tuple(residual[1].shape) != (co,)):
             raise ValueError(f"residual weight must be ({co}, {ci}) and its "
                              f"bias ({co},)")
-    return c1, c2, ci, co
 
 
 # fields of the kernel's launch plan (``csrc/conv3.cu``, ``PlanField``)
@@ -187,6 +186,130 @@ def packed_weight(weight: torch.Tensor) -> torch.Tensor:
     return cached[1]
 
 
+def _conv3_plain_flat(x, x2, weight, bias, scale, shift, res_weight,
+                      res_bias, prologue_act, emit_stats, stride, dilation):
+    """``conv3_plain`` over ``_Conv3``'s flat argument list."""
+    return conv3_plain(
+        x, weight, bias, x2=x2,
+        prologue=None if scale is None else (scale, shift),
+        prologue_act=prologue_act,
+        residual=None if res_weight is None else (res_weight, res_bias),
+        emit_stats=emit_stats, stride=stride, dilation=dilation)
+
+
+def flat_call(x, weight, bias, *, x2=None, prologue=None, residual=None,
+              **opts):
+    """A conv3 call as its tensors in ``_Conv3``'s flat order (x, x2,
+    weight, bias, scale, shift, res_weight, res_bias; the absent ones left
+    out) and ``bind(fn)``: a function of those tensors that calls ``fn``
+    (``conv3`` or ``conv3_plain``) with the call's options."""
+    scale, shift = prologue if prologue is not None else (None, None)
+    res_weight, res_bias = residual if residual is not None else (None, None)
+    flat = (x, x2, weight, bias, scale, shift, res_weight, res_bias)
+    present = [i for i, t in enumerate(flat) if t is not None]
+
+    def bind(fn):
+        def call(*tensors):
+            full = [None] * len(flat)
+            for i, t in zip(present, tensors):
+                full[i] = t
+            x_, x2_, w_, b_, sc, sh, rw, rb = full
+            return fn(x_, w_, b_, x2=x2_,
+                      prologue=None if sc is None else (sc, sh),
+                      residual=None if rw is None else (rw, rb), **opts)
+        return call
+    return [flat[i] for i in present], bind
+
+
+def _conv3_forward(x, x2, weight, bias, scale, shift, res_weight, res_bias,
+                   prologue_act, emit_stats, stride, dilation):
+    """The kernel on CUDA tensors, ``conv3_plain`` on CPU ones (the
+    arguments already checked), over ``_Conv3``'s flat argument list."""
+    if x.device.type == "cpu":
+        return _conv3_plain_flat(x, x2, weight, bias, scale, shift,
+                                 res_weight, res_bias, prologue_act,
+                                 emit_stats, stride, dilation)
+    dev = x.device
+    tensors = {"x": (x, 5), "weight": (weight, 5), "bias": (bias, 1)}
+    if x2 is not None:
+        tensors["x2"] = (x2, 5)
+    if scale is not None:
+        tensors.update(scale=(scale, 1), shift=(shift, 1))
+    if res_weight is not None:
+        tensors.update(res_weight=(res_weight, 2), res_bias=(res_bias, 1))
+    for name, (t, nd) in tensors.items():
+        _build.check_cuda_input(name, t, dev, nd)
+    c1, c2 = x.shape[-1], 0 if x2 is None else x2.shape[-1]
+    ci, co = c1 + c2, weight.shape[0]
+    if c1 % 4 or c2 % 4 or co % 4:
+        raise ValueError(f"conv3 kernel needs channel counts that are "
+                         f"multiples of 4 (c1={c1}, c2={c2}, co={co})")
+    if x.numel() == 0:
+        raise ValueError("empty input")
+    if any(t.data_ptr() % 16 for t in (x, x2) if t is not None):
+        raise ValueError("conv3 kernel needs 16-byte aligned inputs")
+
+    d, h, w = x.shape[1:4]
+    out_sz = conv3_out_size((d, h, w), stride, dilation)
+    y = torch.empty((1,) + out_sz + (co,), dtype=torch.float32, device=dev)
+    r = torch.empty_like(y) if res_weight is not None else None
+    w_packed = packed_weight(weight)
+    mode = {(1, 1): 0, (2, 1): 1, (1, 2): 2}[(stride, dilation)]
+    plan = conv3_plan((d, h, w), ci, co, mode)
+    part = rpart = ws = None
+    if emit_stats:
+        part = torch.empty((plan[P_NPART], 2, co), dtype=torch.float32,
+                           device=dev)
+        if res_weight is not None:
+            rpart = torch.empty_like(part)
+    if plan[P_SPLIT] > 1:  # the chunks split over blocks: partial sums
+        n_ws = plan[P_SPLIT] * (2 if res_weight is not None else 1)
+        ws = torch.empty((n_ws,) + y.shape[1:], dtype=torch.float32,
+                         device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _build.launch("conv3", "m3seg_conv3", dev, x.data_ptr(), ptr(x2),
+                  w_packed.data_ptr(), bias.data_ptr(), ptr(scale),
+                  ptr(shift), KERNEL_ACTS[prologue_act], ptr(res_weight),
+                  ptr(res_bias),
+                  y.data_ptr(), ptr(r), ptr(part), ptr(rpart), ptr(ws), d, h,
+                  w, c1, c2, co, mode, plan)
+    outs = [y] + ([r] if r is not None else [])
+    if emit_stats:
+        # the per-block partials, summed in float64 in a fixed order
+        outs += [p.sum(0, dtype=torch.float64).float()
+                 for p in (part, rpart) if p is not None]
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+class _Conv3(torch.autograd.Function):
+    """conv3's forward (the kernel, or its plain twin on the CPU) over the
+    flat argument list (x, x2, weight, bias, scale, shift, res_weight,
+    res_bias; None where absent); the backward is the reference's
+    ``_conv3_bwd``: a replay of ``conv3_plain`` under autograd. The moment
+    sums are differentiable outputs: V-Net-DS's GroupNorm is built from
+    them."""
+
+    @staticmethod
+    def forward(ctx, x, x2, weight, bias, scale, shift, res_weight, res_bias,
+                prologue_act, emit_stats, stride, dilation):
+        ctx.opts = (prologue_act, emit_stats, stride, dilation)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, x2, weight, bias, scale, shift, res_weight,
+                              res_bias)
+        return _conv3_forward(x, x2, weight, bias, scale, shift, res_weight,
+                              res_bias, *ctx.opts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        got = _build.replay_grads(
+            lambda *a: _conv3_plain_flat(*a, *ctx.opts), ctx.saved_tensors,
+            ctx.needs_input_grad[:8], grads)
+        return (*got, None, None, None, None)
+
+
 def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
           x2: Optional[torch.Tensor] = None,
           prologue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -209,69 +332,18 @@ def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
         co); with ``emit_stats`` also the (2, co) moments of y (and of r),
         in the order of the reference's ``conv3_flat``. A CPU tensor runs
         ``conv3_plain``; a CUDA tensor launches the kernel (fp32,
-        contiguous, channel counts multiples of 4) or raises. Forward only.
-        The reference's ``dilated_depth``, ``halo`` and bf16 modes raise
+        contiguous, channel counts multiples of 4) or raises.
+        Differentiable in every tensor argument, the moments included: the
+        backward replays ``conv3_plain``. The reference's
+        ``dilated_depth``, ``halo`` and bf16 modes raise
         ``NotImplementedError`` naming their ROADMAP item.
     """
-    c1, c2, ci, co = _check_args(x, weight, bias, x2, prologue,
-                                 prologue_act, residual, stride, dilation,
-                                 precision, dilated_depth, halo)
-    kw = dict(x2=x2, prologue=prologue, prologue_act=prologue_act,
-              residual=residual, emit_stats=emit_stats, stride=stride,
-              dilation=dilation)
-    if x.device.type == "cpu":
-        return conv3_plain(x, weight, bias, **kw)
-    dev = x.device
-    tensors = {"x": (x, 5), "weight": (weight, 5), "bias": (bias, 1)}
-    if x2 is not None:
-        tensors["x2"] = (x2, 5)
-    if prologue is not None:
-        tensors.update(scale=(prologue[0], 1), shift=(prologue[1], 1))
-    if residual is not None:
-        tensors.update(res_weight=(residual[0], 2), res_bias=(residual[1], 1))
-    for name, (t, nd) in tensors.items():
-        _build.check_cuda_input(name, t, dev, nd)
-    _build.check_forward_only(*(t for t, _ in tensors.values()))
-    if c1 % 4 or c2 % 4 or co % 4:
-        raise ValueError(f"conv3 kernel needs channel counts that are "
-                         f"multiples of 4 (c1={c1}, c2={c2}, co={co})")
-    if x.numel() == 0:
-        raise ValueError("empty input")
-    if any(t.data_ptr() % 16 for t in (x, x2) if t is not None):
-        raise ValueError("conv3 kernel needs 16-byte aligned inputs")
-
-    d, h, w = x.shape[1:4]
-    out_sz = conv3_out_size((d, h, w), stride, dilation)
-    y = torch.empty((1,) + out_sz + (co,), dtype=torch.float32, device=dev)
-    r = torch.empty_like(y) if residual is not None else None
-    w_packed = packed_weight(weight)
-    mode = {(1, 1): 0, (2, 1): 1, (1, 2): 2}[(stride, dilation)]
-    plan = conv3_plan((d, h, w), ci, co, mode)
-    part = rpart = ws = None
-    if emit_stats:
-        part = torch.empty((plan[P_NPART], 2, co), dtype=torch.float32,
-                           device=dev)
-        if residual is not None:
-            rpart = torch.empty_like(part)
-    if plan[P_SPLIT] > 1:  # the chunks split over blocks: partial sums
-        n_ws = plan[P_SPLIT] * (2 if residual is not None else 1)
-        ws = torch.empty((n_ws,) + y.shape[1:], dtype=torch.float32,
-                         device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    pro = prologue if prologue is not None else (None, None)
-    res = residual if residual is not None else (None, None)
-    _build.launch("conv3", "m3seg_conv3", dev, x.data_ptr(), ptr(x2),
-                  w_packed.data_ptr(), bias.data_ptr(), ptr(pro[0]),
-                  ptr(pro[1]), KERNEL_ACTS[prologue_act], ptr(res[0]),
-                  ptr(res[1]),
-                  y.data_ptr(), ptr(r), ptr(part), ptr(rpart), ptr(ws), d, h,
-                  w, c1, c2, co, mode, plan)
-    outs = [y] + ([r] if r is not None else [])
-    if emit_stats:
-        # the per-block partials, summed in float64 in a fixed order
-        outs += [p.sum(0, dtype=torch.float64).float()
-                 for p in (part, rpart) if p is not None]
-    return outs[0] if len(outs) == 1 else tuple(outs)
+    _check_args(x, weight, bias, x2, prologue, prologue_act, residual,
+                stride, dilation, precision, dilated_depth, halo)
+    scale, shift = prologue if prologue is not None else (None, None)
+    res_weight, res_bias = residual if residual is not None else (None, None)
+    args = (x, x2, weight, bias, scale, shift, res_weight, res_bias,
+            prologue_act, bool(emit_stats), stride, dilation)
+    if _build.needs_grad(*(t for t in args[:8] if t is not None)):
+        return _Conv3.apply(*args)
+    return _conv3_forward(*args)

@@ -73,14 +73,10 @@ class _ConvIn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
-            y = conv_in_plain(*leaves, ctx.apply_selu)
-            wrt = [t for t, n in zip(leaves, need) if n]
-            grads = iter(torch.autograd.grad(y, wrt, g))
-        return (*(next(grads) if n else None for n in need), None)
+        grads = _build.replay_grads(
+            lambda *a: conv_in_plain(*a, ctx.apply_selu), ctx.saved_tensors,
+            ctx.needs_input_grad[:3], (g,))
+        return (*grads, None)
 
 
 def conv_in_s2d(x_cf: torch.Tensor, weight: torch.Tensor,

@@ -16,7 +16,9 @@ blocks (``block_spectrum_update``) run on the small (D, 2, C, KH, KW)
 tensors as torch einsums, as the reference leaves them to XLA.
 ``fused_tower_block`` launches the CUDA kernel (``csrc/tower_block.cu``) on
 CUDA tensors; ``tower_block_plain`` is the same block in torch ops (the
-reference's ``_block_reference``).
+reference's ``_block_reference``). Under autograd the block is a
+``torch.autograd.Function`` whose backward is the reference's
+``_fused_bwd``: a replay of ``tower_block_plain``.
 
 Transforms: Hartley (KW = 2 * mw, a real packed spectrum (KD, C, KH, KW))
 and Fourier (KW = mw, the rfft half spectrum of the last axis with the
@@ -310,37 +312,18 @@ def occupancy(spec: TowerSpec):
                             spec.kh, spec.kw, spec.n_ds)
 
 
-def fused_tower_block(x, z, w_cat, w_cc_t, b_cat, spec: TowerSpec,
-                      ds_prev: Optional[torch.Tensor] = None):
-    """One fused tower block: (x, z) -> (out, f[, ds]).
-
-    Args:
-        x: (D, H, W, C) block input, channels-last per plane.
-        z: (D, 2, C, KH, KW) depth-inverse pre-images of the updated
-            spectrum (``d_stage_inverse``, ``block_spectrum_update``).
-        w_cat: (2C + n_ds, C) rows [W_conv ; W_cc_x ; W_ds], each (out, in).
-        w_cc_t: (C, C) conv_concat matrix of the activated branch.
-        b_cat: (2C,) [conv-branch bias or zeros ; conv_concat bias].
-        spec: ``make_tower_spec``'s description.
-        ds_prev: (D, H, W, n_ds) fp32 running deep-supervision sum,
-            required iff ``spec.n_ds``.
-
-    Returns:
-        out (D, H, W, C); f (D, 2, C, KH, KW), the forward H/W partial
-        spectra of out; and, when ``spec.n_ds``, ds = ds_prev + the
-        bias-free deep-supervision projection of x. A CPU tensor runs
-        ``tower_block_plain``; a CUDA tensor launches the kernel (fp32,
-        contiguous, C in ``SUPPORTED_CHANNELS``) or raises. Forward only.
-    """
-    d, h, w = spec.sizes
-    c, kh, kw, n_ds = spec.channels, spec.kh, spec.kw, spec.n_ds
-    ops = _check_operands(spec, x, w_cat, w_cc_t, b_cat, ds_prev,
-                          z=(z, (d, 2, c, kh, kw)))
+def _tower_block_forward(x, z, w_cat, w_cc_t, b_cat, spec: TowerSpec,
+                         ds_prev):
+    """The kernel on CUDA tensors, ``tower_block_plain`` on CPU ones (the
+    operands' shapes and dtypes already checked)."""
     if x.device.type == "cpu":
         return tower_block_plain(x, z, w_cat, w_cc_t, b_cat, spec, ds_prev)
-    for name, (t, shape) in ops.items():
-        _build.check_cuda_input(name, t, x.device, len(shape))
-    _build.check_forward_only(*(t for t, _ in ops.values()))
+    d, h, w = spec.sizes
+    c, kh, kw, n_ds = spec.channels, spec.kh, spec.kw, spec.n_ds
+    for name, t in (("x", x), ("z", z), ("w_cat", w_cat), ("w_cc_t", w_cc_t),
+                    ("b_cat", b_cat), ("ds_prev", ds_prev)):
+        if t is not None:
+            _build.check_cuda_input(name, t, x.device, t.dim())
     check_kernel_spec(spec, "tower_block")
     if n_ds > MAX_DS_ROWS:
         raise ValueError(f"n_ds={n_ds} > {MAX_DS_ROWS}")
@@ -361,3 +344,60 @@ def fused_tower_block(x, z, w_cat, w_cc_t, b_cat, spec: TowerSpec,
                   f.data_ptr(), ds.data_ptr() if n_ds else None,
                   partial.data_ptr(), d, h, w, c, kh, kw, n_ds)
     return (out, f, ds) if n_ds else (out, f)
+
+
+class _TowerBlock(torch.autograd.Function):
+    """The block's forward (the kernel, or its plain twin on the CPU); the
+    backward is the reference's ``_fused_bwd``: a replay of
+    ``tower_block_plain`` under autograd. ds_prev is only added to the ds
+    output, so its gradient is the ds cotangent and the replay runs at
+    ds_prev = 0."""
+
+    @staticmethod
+    def forward(ctx, x, z, w_cat, w_cc_t, b_cat, ds_prev, spec):
+        ctx.spec = spec
+        ctx.set_materialize_grads(False)  # f after the last block: None
+        ctx.save_for_backward(x, z, w_cat, w_cc_t, b_cat)
+        return _tower_block_forward(x, z, w_cat, w_cc_t, b_cat, spec,
+                                    ds_prev)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        spec = ctx.spec
+        zero = ctx.saved_tensors[0].new_zeros(()) if spec.n_ds else None
+        got = _build.replay_grads(
+            lambda *a: tower_block_plain(*a, spec, zero), ctx.saved_tensors,
+            ctx.needs_input_grad[:5], grads)
+        g_ds = grads[2] if spec.n_ds and ctx.needs_input_grad[5] else None
+        return (*got, g_ds, None)
+
+
+def fused_tower_block(x, z, w_cat, w_cc_t, b_cat, spec: TowerSpec,
+                      ds_prev: Optional[torch.Tensor] = None):
+    """One fused tower block: (x, z) -> (out, f[, ds]).
+
+    Args:
+        x: (D, H, W, C) block input, channels-last per plane.
+        z: (D, 2, C, KH, KW) depth-inverse pre-images of the updated
+            spectrum (``d_stage_inverse``, ``block_spectrum_update``).
+        w_cat: (2C + n_ds, C) rows [W_conv ; W_cc_x ; W_ds], each (out, in).
+        w_cc_t: (C, C) conv_concat matrix of the activated branch.
+        b_cat: (2C,) [conv-branch bias or zeros ; conv_concat bias].
+        spec: ``make_tower_spec``'s description.
+        ds_prev: (D, H, W, n_ds) fp32 running deep-supervision sum,
+            required iff ``spec.n_ds``.
+
+    Returns:
+        out (D, H, W, C); f (D, 2, C, KH, KW), the forward H/W partial
+        spectra of out; and, when ``spec.n_ds``, ds = ds_prev + the
+        bias-free deep-supervision projection of x. A CPU tensor runs
+        ``tower_block_plain``; a CUDA tensor launches the kernel (fp32,
+        contiguous, C in ``SUPPORTED_CHANNELS``) or raises.
+        Differentiable: the backward replays ``tower_block_plain``.
+    """
+    d = spec.sizes[0]
+    ops = _check_operands(spec, x, w_cat, w_cc_t, b_cat, ds_prev,
+                          z=(z, (d, 2, spec.channels, spec.kh, spec.kw)))
+    if _build.needs_grad(*(t for t, _ in ops.values())):
+        return _TowerBlock.apply(x, z, w_cat, w_cc_t, b_cat, ds_prev, spec)
+    return _tower_block_forward(x, z, w_cat, w_cc_t, b_cat, spec, ds_prev)

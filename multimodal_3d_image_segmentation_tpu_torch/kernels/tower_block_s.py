@@ -14,7 +14,9 @@ on CUDA tensors: z and f never cross device memory. ``tower_block_s_plain``
 is the same block in torch ops (the reference's ``_block_reference_s``: the
 depth-inverse einsum, ``tower_block_plain``, ``d_stage_forward``). Between
 kernels the operator mixes the resident spectrum (``spectrum_mix_s``); the
-tower's entry is ``entry_spectrum_s``.
+tower's entry is ``entry_spectrum_s``. Under autograd the block is a
+``torch.autograd.Function`` whose backward is the reference's
+``_fused_bwd_s``: a replay of ``tower_block_s_plain``.
 
 The specs and matrices are ``kernels/tower_block.py``'s: the port has no
 lane padding, so ``make_tower_spec_s`` is ``make_tower_spec``, and the
@@ -96,36 +98,21 @@ def occupancy(spec: TowerSpec):
                             spec.kh, spec.kw, spec.n_ds)
 
 
-def fused_tower_block_s(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
-                        ds_prev: Optional[torch.Tensor] = None):
-    """One fused tower block on the resident spectrum: (x, sy) -> (out,
-    s_f[, ds]).
-
-    Args:
-        x: (D, H, W, C) block input, channels-last per plane.
-        sy: (KS, C, KH, KW) fp32 resident spectrum after the block's
-            operator (``spectrum_mix_s`` of the previous s_f, or of
-            ``entry_spectrum_s`` for the first block).
-        w_cat, w_cc_t, b_cat, spec, ds_prev: as ``fused_tower_block``.
-
-    Returns:
-        out (D, H, W, C); s_f (KS, C, KH, KW), the packed spectrum of out;
-        and, when ``spec.n_ds``, ds = ds_prev + the bias-free deep-
-        supervision projection of x. A CPU tensor runs
-        ``tower_block_s_plain``; a CUDA tensor launches the kernel (fp32,
-        contiguous, C in ``SUPPORTED_CHANNELS``) or raises. Forward only.
-    """
-    ks = spectrum_rows(spec)
-    d, h, w = spec.sizes
-    c, kh, kw, n_ds = spec.channels, spec.kh, spec.kw, spec.n_ds
-    ops = _check_operands(spec, x, w_cat, w_cc_t, b_cat, ds_prev,
-                          sy=(sy, (ks, c, kh, kw)))
+def _tower_block_s_forward(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
+                           ds_prev):
+    """The kernel on CUDA tensors, ``tower_block_s_plain`` on CPU ones (the
+    operands' shapes and dtypes already checked)."""
     if x.device.type == "cpu":
         return tower_block_s_plain(x, sy, w_cat, w_cc_t, b_cat, spec,
                                    ds_prev)
-    for name, (t, shape) in ops.items():
-        _build.check_cuda_input(name, t, x.device, len(shape))
-    _build.check_forward_only(*(t for t, _ in ops.values()))
+    ks = spectrum_rows(spec)
+    d, h, w = spec.sizes
+    c, kh, kw, n_ds = spec.channels, spec.kh, spec.kw, spec.n_ds
+    for name, t in (("x", x), ("sy", sy), ("w_cat", w_cat),
+                    ("w_cc_t", w_cc_t), ("b_cat", b_cat),
+                    ("ds_prev", ds_prev)):
+        if t is not None:
+            _build.check_cuda_input(name, t, x.device, t.dim())
     check_kernel_spec(spec, "tower_block_s")
     if n_ds > MAX_DS_ROWS:
         raise ValueError(f"n_ds={n_ds} > {MAX_DS_ROWS}")
@@ -148,3 +135,58 @@ def fused_tower_block_s(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
                   s_f.data_ptr(), ds.data_ptr() if n_ds else None,
                   partial.data_ptr(), d, h, w, c, kh, kw, n_ds, ks)
     return (out, s_f, ds) if n_ds else (out, s_f)
+
+
+class _TowerBlockS(torch.autograd.Function):
+    """The block's forward (the kernel, or its plain twin on the CPU); the
+    backward is the reference's ``_fused_bwd_s``: a replay of
+    ``tower_block_s_plain`` under autograd, the gradient of the resident
+    spectrum sy included. ds_prev's gradient is the ds cotangent, as in
+    ``tower_block._TowerBlock``."""
+
+    @staticmethod
+    def forward(ctx, x, sy, w_cat, w_cc_t, b_cat, ds_prev, spec):
+        ctx.spec = spec
+        ctx.set_materialize_grads(False)  # s_f after the last block: None
+        ctx.save_for_backward(x, sy, w_cat, w_cc_t, b_cat)
+        return _tower_block_s_forward(x, sy, w_cat, w_cc_t, b_cat, spec,
+                                      ds_prev)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        spec = ctx.spec
+        zero = ctx.saved_tensors[0].new_zeros(()) if spec.n_ds else None
+        got = _build.replay_grads(
+            lambda *a: tower_block_s_plain(*a, spec, zero),
+            ctx.saved_tensors, ctx.needs_input_grad[:5], grads)
+        g_ds = grads[2] if spec.n_ds and ctx.needs_input_grad[5] else None
+        return (*got, g_ds, None)
+
+
+def fused_tower_block_s(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
+                        ds_prev: Optional[torch.Tensor] = None):
+    """One fused tower block on the resident spectrum: (x, sy) -> (out,
+    s_f[, ds]).
+
+    Args:
+        x: (D, H, W, C) block input, channels-last per plane.
+        sy: (KS, C, KH, KW) fp32 resident spectrum after the block's
+            operator (``spectrum_mix_s`` of the previous s_f, or of
+            ``entry_spectrum_s`` for the first block).
+        w_cat, w_cc_t, b_cat, spec, ds_prev: as ``fused_tower_block``.
+
+    Returns:
+        out (D, H, W, C); s_f (KS, C, KH, KW), the packed spectrum of out;
+        and, when ``spec.n_ds``, ds = ds_prev + the bias-free deep-
+        supervision projection of x. A CPU tensor runs
+        ``tower_block_s_plain``; a CUDA tensor launches the kernel (fp32,
+        contiguous, C in ``SUPPORTED_CHANNELS``) or raises.
+        Differentiable: the backward replays ``tower_block_s_plain``.
+    """
+    ops = _check_operands(spec, x, w_cat, w_cc_t, b_cat, ds_prev,
+                          sy=(sy, (spectrum_rows(spec), spec.channels,
+                                   spec.kh, spec.kw)))
+    if _build.needs_grad(*(t for t, _ in ops.values())):
+        return _TowerBlockS.apply(x, sy, w_cat, w_cc_t, b_cat, ds_prev, spec)
+    return _tower_block_s_forward(x, sy, w_cat, w_cc_t, b_cat, spec,
+                                  ds_prev)

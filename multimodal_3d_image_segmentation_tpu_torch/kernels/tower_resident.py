@@ -17,8 +17,8 @@ spectrum is built in torch ops before the launch, as the TPU kernel's
 caller builds it in XLA (``_prep_s0``). The TPU kernel's lane-padded
 (D, C, W*HL) bf16 layout exists only for the TPU: here the volume is the
 port's channels-last fp32 (D, H, W, C), and the weights stay fp32 (the TPU
-kernel rounds them to bf16). Forward only, as the TPU kernel's backward is
-a replay of the reference chain.
+kernel rounds them to bf16). The backward, as the TPU kernel's, is a replay
+of the reference chain (``resident_tower_plain``) under autograd.
 """
 from __future__ import annotations
 
@@ -112,34 +112,17 @@ def _check_operands(spec: TowerSpec, x, op_stack, wcat_stack, wcc_stack,
     return want
 
 
-def resident_tower(x, op_stack, wcat_stack, wcc_stack, b_stack,
-                   spec: TowerSpec) -> torch.Tensor:
-    """The whole tower of B blocks in one launch.
-
-    Args:
-        x: (D, H, W, C) block-0 input, channels-last per plane; not written.
-        op_stack: (B, PR, C, C) operator weights, (O, I) layout: PR = 1
-            for Hartley (weight), 2 for Fourier (weight_real,
-            weight_imag).
-        wcat_stack: (B, 2C, C) stacked [conv_branch ; conv_concat-x].
-        wcc_stack: (B, C, C) conv_concat matrices of the mixed branch.
-        b_stack: (B, 2C) stacked [conv-branch bias or zeros ; conv_concat
-            bias].
-        spec: ``make_tower_spec``'s description; ``spec.n_ds`` must be 0.
-
-    Returns:
-        The tower's output (D, H, W, C). A CPU tensor runs
-        ``resident_tower_plain``; a CUDA tensor launches the kernel (fp32,
-        contiguous, C in ``SUPPORTED_CHANNELS``, KH at most ``MAX_KH``,
-        KS at most ``MAX_SPECTRUM_ROWS``) or raises. Forward only.
-    """
-    ops = _check_operands(spec, x, op_stack, wcat_stack, wcc_stack, b_stack)
+def _resident_forward(x, op_stack, wcat_stack, wcc_stack, b_stack,
+                      spec: TowerSpec):
+    """The kernel on CUDA tensors, ``resident_tower_plain`` on CPU ones
+    (the operands' shapes and dtypes already checked)."""
     if x.device.type == "cpu":
         return resident_tower_plain(x, op_stack, wcat_stack, wcc_stack,
                                     b_stack, spec)
-    for name, (t, shape) in ops.items():
-        _build.check_cuda_input(name, t, x.device, len(shape))
-    _build.check_forward_only(*(t for t, _ in ops.values()))
+    for name, t in (("x", x), ("op_stack", op_stack),
+                    ("wcat_stack", wcat_stack), ("wcc_stack", wcc_stack),
+                    ("b_stack", b_stack)):
+        _build.check_cuda_input(name, t, x.device, t.dim())
     d, h, w = spec.sizes
     c, kh, kw = spec.channels, spec.kh, spec.kw
     ks, nb = spectrum_rows(spec), op_stack.shape[0]
@@ -165,3 +148,53 @@ def resident_tower(x, op_stack, wcat_stack, wcc_stack, b_stack,
                   partial.data_ptr(), z.data_ptr(), d, h, w, c, kh, kw, ks,
                   nb, int(spec.transform == "Fourier"))
     return out
+
+
+class _ResidentTower(torch.autograd.Function):
+    """The tower's forward (the kernel, or its plain twin on the CPU); the
+    backward is the reference's ``_resident_bwd``: a replay of the whole
+    ``resident_tower_plain`` under autograd, which keeps every block's
+    intermediates until the gradients are formed."""
+
+    @staticmethod
+    def forward(ctx, x, op_stack, wcat_stack, wcc_stack, b_stack, spec):
+        ctx.spec = spec
+        ctx.save_for_backward(x, op_stack, wcat_stack, wcc_stack, b_stack)
+        return _resident_forward(x, op_stack, wcat_stack, wcc_stack,
+                                 b_stack, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        got = _build.replay_grads(
+            lambda *a: resident_tower_plain(*a, ctx.spec),
+            ctx.saved_tensors, ctx.needs_input_grad[:5], (g,))
+        return (*got, None)
+
+
+def resident_tower(x, op_stack, wcat_stack, wcc_stack, b_stack,
+                   spec: TowerSpec) -> torch.Tensor:
+    """The whole tower of B blocks in one launch.
+
+    Args:
+        x: (D, H, W, C) block-0 input, channels-last per plane; not written.
+        op_stack: (B, PR, C, C) operator weights, (O, I) layout: PR = 1
+            for Hartley (weight), 2 for Fourier (weight_real,
+            weight_imag).
+        wcat_stack: (B, 2C, C) stacked [conv_branch ; conv_concat-x].
+        wcc_stack: (B, C, C) conv_concat matrices of the mixed branch.
+        b_stack: (B, 2C) stacked [conv-branch bias or zeros ; conv_concat
+            bias].
+        spec: ``make_tower_spec``'s description; ``spec.n_ds`` must be 0.
+
+    Returns:
+        The tower's output (D, H, W, C). A CPU tensor runs
+        ``resident_tower_plain``; a CUDA tensor launches the kernel (fp32,
+        contiguous, C in ``SUPPORTED_CHANNELS``, KH at most ``MAX_KH``,
+        KS at most ``MAX_SPECTRUM_ROWS``) or raises. Differentiable: the
+        backward replays ``resident_tower_plain``.
+    """
+    ops = _check_operands(spec, x, op_stack, wcat_stack, wcc_stack, b_stack)
+    args = (x, op_stack, wcat_stack, wcc_stack, b_stack)
+    if _build.needs_grad(*(t for t, _ in ops.values())):
+        return _ResidentTower.apply(*args, spec)
+    return _resident_forward(*args, spec)

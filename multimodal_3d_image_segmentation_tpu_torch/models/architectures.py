@@ -155,6 +155,7 @@ class VNetDS(nn.Module):
                              "upsampled to section 0's size)")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        self.out_channels = out_channels
         self.num_blocks = [int(n) for n in num_blocks]
         self.use_resize = use_resize
         self.right_leg_indexes = rli
@@ -355,9 +356,10 @@ class VNetDS(nn.Module):
         flipped kernel in conv layout. Kept between forwards and made again
         when ``p``'s storage or version changes, so the kernel path flips
         (and conv3 packs) each weight once per version, not per forward.
-        Where autograd would track ``p``, the flip is made anew and the
-        kernel refuses it; parameters made under inference mode carry no
-        version counter and are flipped on every forward."""
+        Where autograd would track ``p``, the flip is made anew on every
+        forward, so that conv3's Function passes its gradient back to
+        ``p``; parameters made under inference mode carry no version
+        counter and are flipped on every forward too."""
         if (torch.is_grad_enabled() and p.requires_grad) or p.is_inference():
             return p.flip(2, 3, 4).transpose(0, 1).contiguous()
         key = (p.data_ptr(), p._version, p.device, p.dtype)

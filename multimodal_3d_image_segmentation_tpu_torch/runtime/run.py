@@ -6,8 +6,8 @@ config.ini``. One config trains (``is_train``), tests (``is_test``) and
 writes the regional statistics (``is_statistics``), with the sections and
 run artifacts of the upstream ``experiments/run.py:29-197``. The run is on
 the card named by ``[main] visible_devices``, or on the CPU where it says
-``'cpu'``. Training is ported for HNOSeg-XS; the other families test and
-score a trained run directory.
+``'cpu'``. Every family trains: HNOSeg-XS, V-Net-DS, HartleyMHASeg and
+NeuralOperatorSeg (HNOSeg, FNOSeg).
 """
 from __future__ import annotations
 
@@ -36,7 +36,6 @@ __all__ = ["run", "get_data_lists", "main"]
 
 _MODELS = {"HartleyMHASeg": HartleyMHASeg, "HNOSegXS": HNOSegXS,
            "NeuralOperatorSeg": NeuralOperatorSeg, "VNetDS": VNetDS}
-_TRAINABLE = ("HNOSegXS",)
 
 
 def get_data_lists(data_lists_paths, data_dir=None):
@@ -151,9 +150,6 @@ def run(config_args):
 
     model = None
     if is_train:
-        model_name = config_args["model"]["model_name"]
-        if model_name not in _TRAINABLE:
-            not_ported(f"training {model_name}", 19)
         if os.path.exists(output_dir) and not main_args.get("is_continue",
                                                             False):
             raise RuntimeError(f"output_dir already exists! \n{output_dir}")

@@ -1,5 +1,5 @@
-"""Device-time profile of a serving step, or of HNOSeg-XS's train step,
-on one CUDA card.
+"""Device-time profile of a serving step, or of a train step, on one
+CUDA card.
 
     python -m multimodal_3d_image_segmentation_tpu_torch.utils.profiling \
         [--model hnosegxs|vnetds|hartleymha|hnoseg|fnoseg]
@@ -24,10 +24,10 @@ already on the card) it prints:
 
 It excludes the host side of serving (NIfTI reads, the host-to-device
 copy, the label readback), which ``runtime/train_test.py::testing``
-measures. ``--train`` times and profiles HNOSeg-XS's train step instead
+measures. ``--train`` times and profiles the model's train step instead
 (``runtime/steps.py::make_train_step``: forward, PCC loss, backward,
-Adamax) at ``configs/config_hnoseg_xs.ini``'s training size 120x120x78,
-batch 1, on a seeded batch with seeded labels 0-3.
+Adamax) at the configs' training size 120x120x78, batch 1, on a seeded
+batch with seeded labels 0-3.
 """
 from __future__ import annotations
 
@@ -139,13 +139,11 @@ def main(argv=None):
                     help="the spectral towers' kernel (default: the "
                          "model's)")
     ap.add_argument("--train", action="store_true",
-                    help="the train step of HNOSeg-XS at 120x120x78")
+                    help="the train step at 120x120x78")
     ap.add_argument("--trace", help="write a Chrome trace here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
-    if args.train and args.model != "hnosegxs":
-        raise SystemExit("--train: only hnosegxs trains in the port")
     dev = torch.device("cuda:0")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

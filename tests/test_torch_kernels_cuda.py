@@ -16,10 +16,12 @@ tower_block_s sum up to 56 fp32 products per output in another order than
 cuBLAS: 1e-5 times each output's largest magnitude (at least 1); a TF32
 operand would miss by about 5e-4 of it. tower_resident chains those blocks
 and is held to the same bar against its plain version. The backward
-passes of conv_in, freq_chain and tail_resize (their
-``torch.autograd.Function``s) are held to autograd through the plain
-twins: 1e-5 times each gradient's largest magnitude (at least 1), fp32
-sums over up to 148,840 voxels in another order.
+passes of all seven kernels (their ``torch.autograd.Function``s) are held
+to autograd through the plain twins: 1e-5 times each gradient's largest
+magnitude (at least 1), fp32 sums over up to 148,840 voxels in another
+order. One train step of each family on its kernel path is held to its
+plain path: 1e-4 of each gradient's largest magnitude (at least 1), the
+whole-model bar of the CPU tests.
 """
 import ctypes
 
@@ -30,6 +32,8 @@ import torch
 from multimodal_3d_image_segmentation_tpu_torch import kernels
 from multimodal_3d_image_segmentation_tpu_torch.kernels import _build
 from multimodal_3d_image_segmentation_tpu_torch.kernels import tail_resize
+from multimodal_3d_image_segmentation_tpu_torch.kernels.conv3 import \
+    flat_call
 from multimodal_3d_image_segmentation_tpu_torch.kernels import \
     tower_block as tb
 from multimodal_3d_image_segmentation_tpu_torch.kernels import \
@@ -644,9 +648,14 @@ def test_tower_block_s_refuses_what_it_does_not_take(dev):
         dev, (7, 9, 6), (2, 3, 2), 12, 0, resident=True)
     with pytest.raises(ValueError, match="no instance for C=12"):
         kernels.fused_tower_block_s(x12, s12, w12, wc12, b12, spec12)
-    wg = w_cat.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.fused_tower_block_s(x, sy, wg, w_cc_t, b_cat, spec, ds_prev)
+    # under autograd: the kernel forward and the Function's backward
+    before = kernels.LAUNCHES["tower_block_s"]
+    _grads_close(lambda *a: kernels.fused_tower_block_s(*a, spec, ds_prev),
+                 lambda *a: kernels.tower_block_s_plain(*a, spec, ds_prev),
+                 (x, sy, w_cat, w_cc_t, b_cat),
+                 (_t(x.shape, 45, dev), _t(sy.shape, 46, dev),
+                  _t(ds_prev.shape, 47, dev)))
+    assert kernels.LAUNCHES["tower_block_s"] == before + 1
     # 2 * KD = 66 spectrum rows: more than MAX_SPECTRUM_ROWS (64)
     xb, sb, wb, wcb, bb, specb, _ = _tower_inputs(
         dev, (66, 9, 6), (33, 3, 2), 8, 0, transform="Fourier",
@@ -703,9 +712,14 @@ def test_tower_block_refuses_what_it_does_not_take(dev):
                                                         (2, 3, 2), 12, 0)
     with pytest.raises(ValueError, match="no instance for C=12"):
         kernels.fused_tower_block(x12, z12, w12, wc12, b12, spec12)
-    wg = w_cat.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.fused_tower_block(x, z, wg, w_cc_t, b_cat, spec, ds_prev)
+    # under autograd: the kernel forward and the Function's backward
+    before = kernels.LAUNCHES["tower_block"]
+    _grads_close(lambda *a: kernels.fused_tower_block(*a, spec, ds_prev),
+                 lambda *a: kernels.tower_block_plain(*a, spec, ds_prev),
+                 (x, z, w_cat, w_cc_t, b_cat),
+                 (_t(x.shape, 45, dev), _t(z.shape, 46, dev),
+                  _t(ds_prev.shape, 47, dev)))
+    assert kernels.LAUNCHES["tower_block"] == before + 1
 
 
 @pytest.mark.parametrize("patch", [None, 2])
@@ -888,9 +902,12 @@ def test_tower_resident_refuses_what_it_does_not_take(dev):
                                spec)
     with pytest.raises(ValueError, match="deep supervision"):
         kernels.resident_tower(x, ops, wcat, wcc, b, spec._replace(n_ds=4))
-    wg = wcat.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.resident_tower(x, ops, wg, wcc, b, spec)
+    # under autograd: the kernel forward and the Function's backward
+    before = kernels.LAUNCHES["tower_resident"]
+    _grads_close(lambda *a: kernels.resident_tower(*a, spec),
+                 lambda *a: kernels.resident_tower_plain(*a, spec),
+                 (x, ops, wcat, wcc, b), _t(x.shape, 45, dev))
+    assert kernels.LAUNCHES["tower_resident"] == before + 1
     args12 = _resident_inputs(dev, "Hartley", (7, 9, 6), (2, 3, 2), 12, 1)
     with pytest.raises(ValueError, match="no instance for C=12"):
         kernels.resident_tower(*args12)
@@ -927,11 +944,12 @@ GRAD_RTOL = 1e-5
 def _grads_close(fused, plain, args, g):
     """Gradients of ``fused`` (the kernel forward, the Function's
     backward) against autograd through ``plain``, for the same inputs and
-    output gradient."""
+    output gradient (a tuple for several outputs)."""
     leaves = [a.clone().requires_grad_(True) for a in args]
     got = torch.autograd.grad(fused(*leaves), leaves, g)
     leaves = [a.clone().requires_grad_(True) for a in args]
     want = torch.autograd.grad(plain(*leaves), leaves, g)
+    assert len(got) == len(want) == len(args)
     for a, b in zip(got, want):
         tol = GRAD_RTOL * max(1.0, float(b.abs().max()))
         torch.testing.assert_close(a, b, rtol=0, atol=tol)
@@ -1019,4 +1037,163 @@ def test_serving_then_training_on_the_card(dev):
             ("conv_in", "freq_chain", "tail_resize")} == \
         {"conv_in": 1, "freq_chain": 8, "tail_resize": 1}
     for k, p in model.named_parameters():
+        assert not torch.equal(before[k], p), k
+
+
+# the tower grid of a 120x120x78 training volume after conv_in
+TRAIN_GRID = (61, 61, 40)
+
+
+@pytest.mark.parametrize("label,transform,modes,n_ds", BLOCK_SHAPES)
+def test_tower_block_backward_matches_plain(dev, label, transform, modes,
+                                            n_ds):
+    """At HartleyMHASeg's (4 ds rows), HNOSeg's and FNOSeg's training
+    shapes, ds_prev's gradient (the ds cotangent) among them."""
+    x, z, w_cat, w_cc_t, b_cat, spec, ds_prev = _tower_inputs(
+        dev, TRAIN_GRID, modes, 24, n_ds, 48, transform)
+    args = (x, z, w_cat, w_cc_t, b_cat) + ((ds_prev,) if n_ds else ())
+    g = (_t(x.shape, 49, dev), _t(z.shape, 50, dev))
+    g += (_t(ds_prev.shape, 51, dev),) if n_ds else ()
+    before = kernels.LAUNCHES["tower_block"]
+    _grads_close(lambda *a: kernels.fused_tower_block(*a[:5], spec, *a[5:]),
+                 lambda *a: kernels.tower_block_plain(*a[:5], spec, *a[5:]),
+                 args, g)
+    assert kernels.LAUNCHES["tower_block"] == before + 1
+
+
+@pytest.mark.parametrize("transform,n_ds", [("Hartley", 0), ("Fourier", 4)])
+def test_tower_block_s_backward_matches_plain(dev, transform, n_ds):
+    """At HNOSeg's and FNOSeg's training shapes (modes (10,14,14)), the
+    resident spectrum's gradient among them."""
+    x, sy, w_cat, w_cc_t, b_cat, spec, ds_prev = _tower_inputs(
+        dev, TRAIN_GRID, (10, 14, 14), 24, n_ds, 52, transform,
+        resident=True)
+    args = (x, sy, w_cat, w_cc_t, b_cat) + ((ds_prev,) if n_ds else ())
+    g = (_t(x.shape, 53, dev), _t(sy.shape, 54, dev))
+    g += (_t(ds_prev.shape, 55, dev),) if n_ds else ()
+    before = kernels.LAUNCHES["tower_block_s"]
+    _grads_close(
+        lambda *a: kernels.fused_tower_block_s(*a[:5], spec, *a[5:]),
+        lambda *a: kernels.tower_block_s_plain(*a[:5], spec, *a[5:]),
+        args, g)
+    assert kernels.LAUNCHES["tower_block_s"] == before + 1
+
+
+@pytest.mark.parametrize("transform,sizes,modes,nb", [
+    ("Fourier", (9, 37, 21), (3, 5, 5), 3),
+    ("Hartley", TRAIN_GRID, (10, 14, 14), 24),  # HNOSeg's whole tower
+])
+def test_tower_resident_backward_matches_plain(dev, transform, sizes, modes,
+                                               nb):
+    args = _resident_inputs(dev, transform, sizes, modes, 24, nb)
+    spec = args[-1]
+    before = kernels.LAUNCHES["tower_resident"]
+    _grads_close(lambda *a: kernels.resident_tower(*a, spec),
+                 lambda *a: kernels.resident_tower_plain(*a, spec),
+                 args[:-1], _t(args[0].shape, 56, dev))
+    assert kernels.LAUNCHES["tower_resident"] == before + 1
+
+
+@pytest.mark.parametrize("sizes,ci,co", [((9, 8, 7), 24, 24),
+                                         ((13, 11, 9), 48, 24)])
+@pytest.mark.parametrize("option", CONV3_OPTIONS)
+def test_conv3_backward_matches_plain(dev, sizes, ci, co, option):
+    """Every option's gradients, the moment sums' cotangents included,
+    the stride-2 and dilation-2 modes among them."""
+    x, w, b, kw = _conv3_case(dev, sizes, ci, co, option)
+    args, call = flat_call(x, w, b, **kw)
+    with torch.no_grad():
+        outs = call(kernels.conv3_plain)(*args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = tuple(_t(o.shape, 60 + i, dev) for i, o in enumerate(outs))
+    before = kernels.LAUNCHES["conv3"]
+    _grads_close(call(kernels.conv3), call(kernels.conv3_plain), args,
+                 g if len(g) > 1 else g[0])
+    assert kernels.LAUNCHES["conv3"] == before + 1
+
+
+def test_conv3_repacks_its_weight_after_each_optimizer_step(dev):
+    """conv3 keeps its packed weight per weight version: after each
+    Adamax step (an in-place update) it packs again, so the third forward
+    equals conv3_plain on the updated weight."""
+    x = _t((1, 9, 8, 7, 24), 70, dev)
+    w = torch.nn.Parameter(_t((24, 24, 3, 3, 3), 71, dev, 0.05))
+    b = torch.nn.Parameter(_t((24,), 72, dev, 0.1))
+    g = _t((1, 9, 8, 7, 24), 73, dev)
+    opt = torch.optim.Adamax([w, b], lr=1e-2)
+    first = None
+    for _ in range(2):
+        opt.zero_grad()
+        y = kernels.conv3(x, w, b)
+        first = y.detach() if first is None else first
+        (y * g).sum().backward()
+        opt.step()
+    with torch.no_grad():
+        got = _launched("conv3", lambda: kernels.conv3(x, w, b))
+        want = kernels.conv3_plain(x, w, b)
+    _close(got, want)
+    assert float((got - first).abs().max()) > 1e-3  # the weight moved
+
+
+# small widths with the kernels' channel counts (C 8): kernel paths, one
+# train step each, and the launches it must make
+FAMILY_STEPS = {
+    "VNetDS": (dict(in_channels=2, out_channels=4, base_num_filters=8,
+                    num_blocks=[1, 2], right_leg_indexes=[0, 1]),
+               {"conv_in": 1, "conv3": 6, "tail_resize": 1}),
+    "HartleyMHASeg": (dict(in_channels=2, out_channels=4, filters=8,
+                           num_transform_blocks=2, num_heads=2,
+                           num_modes=(2, 3, 2), patch_size=None),
+                      {"conv_in": 1, "tower_block": 2, "tail_resize": 1}),
+    **{f"NeuralOperatorSeg-{t}-{k}": (
+        dict(in_channels=2, out_channels=4, filters=8,
+             num_transform_blocks=3, num_modes=(2, 3, 3), transform_type=t,
+             tower_kernel=k),
+        {"conv_in": 1, "tail_resize": 1,
+         {"block": "tower_block", "block_s": "tower_block_s",
+          "resident": "tower_resident"}[k]: 1 if k == "resident" else 3})
+       for t in ("Hartley", "Fourier") for k in ("block", "block_s",
+                                                 "resident")},
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_STEPS))
+def test_family_train_step_on_the_card(dev, family):
+    """One PCC-loss step of each family on its kernel path: the launches
+    of its kernels, the loss and every gradient within 1e-4 of the plain
+    path's (of each tensor's largest magnitude, at least 1), and every
+    parameter updated by an SGD step."""
+    from multimodal_3d_image_segmentation_tpu_torch import models
+    from multimodal_3d_image_segmentation_tpu_torch.losses import PCCLoss
+    from multimodal_3d_image_segmentation_tpu_torch.runtime.steps import \
+        make_train_step
+    from multimodal_3d_image_segmentation_tpu_torch.utils.labels import \
+        to_categorical
+    kw, launches = FAMILY_STEPS[family]
+    cls = getattr(models, family.split("-")[0])
+    fast = cls(**kw, use_kernels=True, device=dev)
+    plain = cls(**{k: v for k, v in kw.items() if k != "tower_kernel"},
+                device=dev)
+    plain.load_state_dict(fast.state_dict())
+    x = _t((1, 2, 20, 18, 15), 74, dev)
+    y = torch.from_numpy(np.random.default_rng(75).integers(
+        0, 4, (1, 1, 20, 18, 15)).astype(np.float32)).to(dev)
+    grads = []
+    for m in (fast, plain):
+        kernels.reset_launch_counts()
+        loss = PCCLoss()(m(x), to_categorical(y, 4))
+        loss.backward()
+        torch.cuda.synchronize()
+        if m is fast:
+            assert {k: v for k, v in kernels.LAUNCHES.items() if v} \
+                == launches
+        grads.append({"loss": loss.detach(), **{
+            k: p.grad for k, p in m.named_parameters()}})
+    for k, want in grads[1].items():
+        _close(grads[0][k], want)
+    before = {k: p.detach().clone() for k, p in fast.named_parameters()}
+    opt = torch.optim.SGD(fast.parameters(), lr=1.0)
+    assert torch.isfinite(make_train_step(fast, opt, None, PCCLoss(), 4)(
+        x, y))
+    for k, p in fast.named_parameters():
         assert not torch.equal(before[k], p), k

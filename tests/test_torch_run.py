@@ -1,8 +1,9 @@
 """The port's ``runtime/run.py::run`` end to end on the CPU: HNOSeg-XS
 trained, tested and scored from ``configs/config_hnoseg_xs.ini``, cut only
 in image size (16x16x12), epochs and reader processes, on a synthetic
-BraTS-layout dataset; resuming with ``is_continue``; serving the run
-directory; and the options that are not ported yet."""
+BraTS-layout dataset; the other families from their own INIs, also cut in
+width and depth; resuming with ``is_continue``; serving the run directory;
+and the options that are not ported yet."""
 import os
 import re
 import subprocess
@@ -15,8 +16,6 @@ import torch
 
 from multimodal_3d_image_segmentation_tpu_torch.data import (read_img,
                                                             write_image)
-from multimodal_3d_image_segmentation_tpu_torch.models import \
-    NeuralOperatorSeg
 from multimodal_3d_image_segmentation_tpu_torch.runtime.config import \
     get_config
 from multimodal_3d_image_segmentation_tpu_torch.runtime.inference import \
@@ -161,22 +160,47 @@ def test_resume_truncates_the_log_at_the_restored_epoch(tmp_path, dataset):
         run(cfg)  # nothing left to train
 
 
-def test_test_and_statistics_of_another_family(tmp_path, dataset):
-    """HNOSeg (NeuralOperatorSeg) cannot train yet, but tests and scores a
-    run directory."""
+# the other families' configs, cut in width and depth only (the keys each
+# INI sets; the rest as the file sets it)
+FAMILY_WIDTHS = {
+    "config_vnet-ds.ini": {"base_num_filters": "4", "num_blocks": "[1, 1]",
+                           "right_leg_indexes": "[0, 1]"},
+    "config_hartleymha.ini": {"filters": "4", "num_transform_blocks": "2",
+                              "num_heads": "2", "num_modes": "(2, 2, 2)"},
+    "config_hnoseg.ini": {"filters": "4", "num_transform_blocks": "2",
+                          "num_modes": "(2, 2, 2)"},
+    "config_fnoseg.ini": {"filters": "4", "num_transform_blocks": "2",
+                          "num_modes": "(2, 2, 2)"},
+}
+
+
+@pytest.mark.parametrize("config", sorted(FAMILY_WIDTHS))
+def test_test_and_statistics_of_another_family(tmp_path, dataset, config):
+    """V-Net-DS, HartleyMHASeg, HNOSeg and FNOSeg train from their own INI
+    (kernel paths on: each kernel Function's plain forward and its
+    backward on the CPU) for one epoch at small width, then test and score;
+    serving the run directory gives the run's own test labels."""
     out = tmp_path / "run"
-    cfg = _config(tmp_path, dataset, out, config="config_hnoseg.ini")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        run(cfg)
-    cfg["main"]["is_train"] = False
-    cfg["model"].update(filters=4, num_transform_blocks=2,
-                        num_modes=(2, 2, 2))
-    model = NeuralOperatorSeg(4, 4, 4, 2, (2, 2, 2))
-    (out / "model").mkdir(parents=True)
-    torch.save(model.state_dict(), out / "model" / "model.pt")
-    run(cfg)
-    assert (out / "test" / "results_regional.csv").is_file()
-    assert len(list((out / "test" / "images").glob("*_pred.nii.gz"))) == 2
+    cfg = _config(tmp_path, dataset, out, num_epochs=1, config=config,
+                  extra=FAMILY_WIDTHS[config])
+    assert cfg["model"]["use_pallas"] is True
+    model = run(cfg)
+    assert model.use_kernels
+    train, valid = get_losses_from_file(str(out / "stdout.txt"))
+    assert len(train) == len(valid) == 1
+    assert np.isfinite(train + valid).all()
+    best = torch.load(out / "model" / "model.pt", weights_only=True)
+    assert set(best) == set(model.state_dict())
+    rows = (out / "test" / "results_regional.csv").read_text().splitlines()
+    assert [r.split("\t")[0] for r in rows[1:]] == _ids("test") + ["End"]
+    cfg["test"]["output_folder"] = "served"
+    run_inference(cfg)
+    for pid in _ids("test"):
+        pred = read_img(str(out / "test" / "images" / f"{pid}_pred.nii.gz"))
+        assert pred.shape == SHAPE and set(np.unique(pred)) <= {0, 1, 2, 3}
+        np.testing.assert_array_equal(
+            read_img(str(out / "served" / "images" / f"{pid}_pred.nii.gz")),
+            pred)
 
 
 @pytest.mark.parametrize("section,key,val,item", [

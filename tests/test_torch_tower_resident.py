@@ -162,15 +162,16 @@ def test_wrapper_refuses_what_it_does_not_take():
 
 
 def test_a_tensor_off_the_cpu_never_runs_the_plain_version():
-    """Off the CPU the wrapper launches the kernel or raises: under autograd
-    it refuses (forward only), and a device that is not CUDA is refused at
-    the launch (meta tensors stand in for a card here)."""
+    """Off the CPU the wrapper launches the kernel or raises, with autograd
+    recording (the Function's forward) and without it: a device that is
+    not CUDA is refused at the launch (meta tensors stand in for a card
+    here), and no launch is counted."""
     x, ops, wcat, wcc, b = (t.to("meta") for t in _torch_inputs(c=8))
     spec = tb.make_tower_spec("Hartley", (5, 11, 7), (2, 3, 3), 8)
     wg = wcat.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.resident_tower(x, ops, wg, wcc, b, spec)
     before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA kernel launched for meta"):
+        tr.resident_tower(x, ops, wg, wcc, b, spec)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA kernel "
                                         "launched for meta"):
         tr.resident_tower(x, ops, wg, wcc, b, spec)

@@ -1,7 +1,8 @@
-"""The port's training path on the CPU: one HNOSeg-XS step against the
-JAX package, and serving then training in one process. (The kernel
-Functions' backward passes are held to ``jax.vjp`` in
-``tests/test_torch_backward.py``.)
+"""The port's training path on the CPU: one step of each family
+(HNOSeg-XS, V-Net-DS, HartleyMHASeg, HNOSeg and FNOSeg on their three
+tower kernels) against the JAX package, and serving then training in one
+process. (The kernel Functions' backward passes are held to ``jax.vjp`` in
+``tests/test_torch_backward.py`` and ``tests/test_torch_backward_item19.py``.)
 
 On a CPU tensor each kernel wrapper runs its plain forward, and its
 ``torch.autograd.Function`` runs the same backward as on the card. The
@@ -26,6 +27,7 @@ from multimodal_3d_image_segmentation_tpu import models as jmodels
 from multimodal_3d_image_segmentation_tpu.ops import spectral as jspectral
 from multimodal_3d_image_segmentation_tpu.utils.labels import \
     to_categorical as j_to_categorical
+from multimodal_3d_image_segmentation_tpu_torch import kernels
 from multimodal_3d_image_segmentation_tpu_torch.kernels import \
     tower_block as tb
 from multimodal_3d_image_segmentation_tpu_torch.losses import PCCLoss
@@ -111,6 +113,93 @@ def test_model_step_loss_and_gradients_match_jax(use_kernels, jax_step):
         _close(got[k].grad.numpy(), v.numpy(), STEP_RTOL)
 
 
+# one PCC-loss step of each other family, small widths: the JAX module
+# path (family -> JAX class, port class, arguments, input shape)
+FAMILY_MODELS = {
+    # every conv3 mode: the residual tap, stride 2, dilation 2, (up, skip)
+    "VNetDS": (jmodels.VNetDS, VNetDS, dict(
+        in_channels=2, out_channels=4, base_num_filters=4,
+        num_blocks=[1, 1], right_leg_indexes=[0, 1]), (1, 2, 12, 12, 10)),
+    "HartleyMHASeg": (jmodels.HartleyMHASeg, HartleyMHASeg, dict(
+        in_channels=2, out_channels=4, filters=4, num_transform_blocks=2,
+        num_heads=2, num_modes=(2, 2, 2), patch_size=2), (1, 2, 12, 12, 10)),
+    **{f"{t[0]}NOSeg{ds}": (jmodels.NeuralOperatorSeg, NeuralOperatorSeg,
+                            dict(in_channels=2, out_channels=4, filters=4,
+                                 num_transform_blocks=2, num_modes=(2, 2, 2),
+                                 transform_type=t,
+                                 use_deep_supervision=bool(ds)),
+                            (1, 2, 12, 11, 9))
+       for t in ("Hartley", "Fourier") for ds in ("", "-ds")},
+}
+# case -> (family, the port's path)
+FAMILY_STEPS = {
+    "VNetDS-kernels": ("VNetDS", dict(use_kernels=True)),
+    "VNetDS-plain": ("VNetDS", dict()),
+    "HartleyMHASeg-ds-kernels": ("HartleyMHASeg", dict(use_kernels=True)),
+    **{f"{f}-{k}": (f, dict(use_kernels=True, tower_kernel=k))
+       for f in ("HNOSeg", "FNOSeg") for k in ("block", "block_s",
+                                               "resident")},
+    "HNOSeg-ds-block": ("HNOSeg-ds", dict(use_kernels=True)),
+    "FNOSeg-ds-block_s": ("FNOSeg-ds", dict(use_kernels=True,
+                                            tower_kernel="block_s")),
+}
+
+
+@pytest.fixture(scope="module")
+def family_steps():
+    """family -> the JAX module path's loss and gradients (traced once per
+    family, for all of the port's paths)."""
+    cache = {}
+
+    def get(family):
+        if family not in cache:
+            jcls, _, kw, shape = FAMILY_MODELS[family]
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(jspectral, "PRECISION", jax.lax.Precision.HIGHEST)
+                jm = jcls(**kw)
+                x = _rand(shape, 21)
+                y = np.random.default_rng(22).integers(
+                    0, 4, (1, 1) + shape[2:]).astype(np.float32)
+                params = jax.jit(jm.init)(jax.random.PRNGKey(0),
+                                          jnp.asarray(x))["params"]
+                y1h = j_to_categorical(jnp.asarray(y), 4)
+                loss, grads = jax.jit(jax.value_and_grad(
+                    lambda p: jlosses.pcc_loss(
+                        jm.apply({"params": p}, jnp.asarray(x)), y1h)))(
+                    params)
+                conv = (dict(num_blocks=kw["num_blocks"])
+                        if family == "VNetDS" else {})
+                cache[family] = (
+                    state_dict_from_jax(jax.device_get(params), **conv), x,
+                    y, np.asarray(loss),
+                    state_dict_from_jax(jax.device_get(grads), **conv))
+        return cache[family]
+    return get
+
+
+@pytest.mark.parametrize("case", sorted(FAMILY_STEPS))
+def test_family_step_loss_and_gradients_match_jax(case, family_steps):
+    """One PCC-loss step of the port's model (its kernel path runs each
+    kernel Function's plain forward and its backward on the CPU) against
+    ``jax.value_and_grad`` of the JAX module path at 'highest'."""
+    family, path = FAMILY_STEPS[case]
+    weights, x, y, loss_j, want = family_steps(family)
+    _, cls, kw, _ = FAMILY_MODELS[family]
+    tm = cls(**kw, **path)
+    tm.load_state_dict(weights, strict=True)
+    before = dict(kernels.LAUNCHES)
+    loss = PCCLoss()(tm(torch.from_numpy(x)),
+                     to_categorical(torch.from_numpy(y), 4))
+    loss.backward()
+    assert kernels.LAUNCHES == before  # CPU tensors: no launch
+    _close(loss.detach().numpy(), loss_j, STEP_RTOL)
+    got = dict(tm.named_parameters())
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].grad is not None, k
+        _close(got[k].grad.numpy(), v.numpy(), STEP_RTOL)
+
+
 def test_sgd_steps_match_optax(highest):
     """Three SGD steps with momentum through the port's train step against
     optax on the JAX module path: the parameters within 1e-4 of each
@@ -162,10 +251,16 @@ FAMILIES = {
     "HNOSegXS-plain": lambda: HNOSegXS(**SMALL),
     "VNetDS-plain": lambda: VNetDS(2, 4, 4, [1, 1],
                                    right_leg_indexes=[0, 1]),
+    "VNetDS-kernels": lambda: VNetDS(2, 4, 4, [1, 1],
+                                     right_leg_indexes=[0, 1],
+                                     use_kernels=True),
     "HartleyMHASeg-kernels": lambda: HartleyMHASeg(
         2, 4, 4, 2, 2, (2, 2, 2), patch_size=2, use_kernels=True),
     "HNOSeg-block": lambda: NeuralOperatorSeg(
         2, 4, 4, 2, (2, 2, 2), "Hartley", use_kernels=True),
+    "HNOSeg-resident": lambda: NeuralOperatorSeg(
+        2, 4, 4, 2, (2, 2, 2), "Hartley", use_kernels=True,
+        tower_kernel="resident"),
     "FNOSeg-block_s": lambda: NeuralOperatorSeg(
         2, 4, 4, 2, (2, 2, 2), "Fourier", use_kernels=True,
         tower_kernel="block_s"),
