@@ -3,9 +3,10 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-Drives the port's seven serving paths once at full width on 4-modality
+Drives the port's serving paths once at full width on 4-modality
 240x240x155 volumes, batch 1, fp32, random weights from a seed: HNOSeg-XS
-(filters 24, blocks [3]*8, modes (10,14,14)), V-Net-DS (base 24, blocks
+(filters 24, blocks [3]*8, modes (10,14,14); also with ``[model]
+compute_dtype`` 'bfloat16' and 'mixed'), V-Net-DS (base 24, blocks
 [1,2,3,3,3], right leg [0..4], 22,547,764 parameters), HartleyMHASeg
 (filters 24, 16 blocks, 4 heads, modes (8,12,12), patch 2, deep
 supervision, 178,532 parameters), and HNOSeg and FNOSeg (NeuralOperatorSeg:
@@ -32,9 +33,29 @@ tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
               with the depth stages around it), the tower kernels'
               registers and spills from the build log, their occupancy
               and tower_resident's persistent grid;
+  3b. bf16   the bf16 instances of conv_in (also at 239x239x155, batch
+              element 1 of two), freq_chain and tail_resize (fp32 and bf16
+              probabilities) against their plain twins in the working type
+              (one bf16 ulp; the chain one more ulp of its largest
+              magnitude; at most 1e-3 of the elements more than one ulp
+              of their own magnitude apart, which the chain rounded once
+              at its end or with its first stage unrounded must fail),
+              with their times, bounds and the fp32 instances' times in
+              the same run;
   4. serve    ``runtime/inference.py::run_inference`` on 3 synthetic NIfTI
               cases through ``configs/config_inference_hnoseg_xs.ini``; the
-              launch counts (reset just before) must be 3 / 24 / 3;
+              launch counts (reset just before) must be 3 / 24 / 3; then
+              with ``compute_dtype = 'bfloat16'`` set on the loaded config
+              (conv_in_bf16 3, freq_chain_bf16 24, tail_resize_bf16 3) and
+              with 'mixed' (conv_in_bf16 3, freq_chain 24, tail_resize_bf16
+              3), each with its wall, device and peak beside fp32's;
+  4b. gate    ``utils/precision_gate.py``: HNOSeg-XS trained 400 steps at
+              1x4x120x120x78 on synthetic blob volumes, evaluated zero-shot
+              at 240x240x155 in every mode; fails unless the oracle learned
+              every class, both bf16 modes' kernel paths keep the
+              whole-model rule against their twins paths (the same
+              formulation in plain ops) and a control with 4-bit weights
+              breaks it; the 1e-3 Dice bar is reported;
   5. model    the HNOSeg-XS kernel path against the plain path
               (``use_kernels=False``) with the same weights, both held to a
               float64 evaluation: on one served volume on the card, and on
@@ -119,7 +140,10 @@ tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
 Every failed check raises, so the exit code is not 0. The script refuses
 to run without CUDA. The line before the last is a JSON object with the
 kernels' numbers (``launches`` summed over the serving runs and the
-runs; ``backward_ms`` and ``backward_plain_ms`` from phase 13; times are
+runs; the bf16 instances carry ``fp32_ms``, the fp32 instance's time in
+the same run, and conv_in_bf16 the odd shape's numbers (``odd_*``),
+tail_resize_bf16 the bf16 output's (``out_*``); ``backward_ms`` and
+``backward_plain_ms`` from phase 13; times are
 medians of CUDA-event runs, conv3's of back-to-back calls, and conv_in and
 freq_chain also give ``stream_ms``, back to back; ``bound_ms`` is
 the larger of the bytes over 3.35 TB/s and the operations over 67 TFLOP/s
@@ -151,6 +175,7 @@ NOSEG = dict(in_channels=4, out_channels=4, filters=24,
 GRID = (121, 121, 78)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # H100 SXM data sheet, CUDA cores
+BF16_FLOPS = 989e12         # H100 SXM data sheet, bf16 tensor cores, dense
 N_CASES = 3
 N_TIMED = 25
 # (kernel, source, the TPU kernel's pallas_call it replaces)
@@ -174,26 +199,46 @@ KERNELS = [
     ("tower_resident",
      "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_resident.cu",
      "multimodal_3d_image_segmentation_tpu/kernels/tower_resident.py:244"),
+    # the bf16 instances ([model] compute_dtype 'bfloat16' and 'mixed')
+    ("conv_in_bf16",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/conv_in.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/conv_in.py:277"),
+    ("freq_chain_bf16",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/freq_chain.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/freq_chain.py:58"),
+    ("tail_resize_bf16",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/tail_resize.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/tail_resize.py:149"),
 ]
+
+
+def per_volume(**counts):
+    """A main path's launches per volume: ``counts``, 0 for every other
+    kernel."""
+    return {name: counts.get(name, 0) for name, _, _ in KERNELS}
+
+
 # each main path's launches per volume
-PER_VOLUME_HNOSEG = {"conv_in": 1, "freq_chain": 8, "tail_resize": 1,
-                     "conv3": 0, "tower_block": 0, "tower_block_s": 0,
-                     "tower_resident": 0}
-PER_VOLUME_VNET = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
-                   "conv3": 29, "tower_block": 0, "tower_block_s": 0,
-                   "tower_resident": 0}
-PER_VOLUME_MHA = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
-                  "conv3": 0, "tower_block": 16, "tower_block_s": 0,
-                  "tower_resident": 0}
-PER_VOLUME_NOSEG = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
-                    "conv3": 0, "tower_block": 24, "tower_block_s": 0,
-                    "tower_resident": 0}
-PER_VOLUME_NOSEG_BLOCK_S = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
-                            "conv3": 0, "tower_block": 0,
-                            "tower_block_s": 24, "tower_resident": 0}
-PER_VOLUME_NOSEG_RESIDENT = {"conv_in": 1, "freq_chain": 0, "tail_resize": 1,
-                             "conv3": 0, "tower_block": 0,
-                             "tower_block_s": 0, "tower_resident": 1}
+PER_VOLUME_HNOSEG = per_volume(conv_in=1, freq_chain=8, tail_resize=1)
+PER_VOLUME_HNOSEG_BF16 = per_volume(conv_in_bf16=1, freq_chain_bf16=8,
+                                    tail_resize_bf16=1)
+# 'mixed': the spectra stay fp32, so the chain takes its fp32 instance
+PER_VOLUME_HNOSEG_MIXED = per_volume(conv_in_bf16=1, freq_chain=8,
+                                     tail_resize_bf16=1)
+PER_VOLUME_VNET = per_volume(conv_in=1, tail_resize=1, conv3=29)
+PER_VOLUME_MHA = per_volume(conv_in=1, tail_resize=1, tower_block=16)
+PER_VOLUME_NOSEG = per_volume(conv_in=1, tail_resize=1, tower_block=24)
+PER_VOLUME_NOSEG_BLOCK_S = per_volume(conv_in=1, tail_resize=1,
+                                      tower_block_s=24)
+PER_VOLUME_NOSEG_RESIDENT = per_volume(conv_in=1, tail_resize=1,
+                                       tower_resident=1)
+BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative
+# the share of a bf16 output's elements that may lie more than one ulp of
+# their own magnitude from the plain twin's. On an H100 (700 W) the chain
+# and the tail read 0 and conv_in 8.4e-7; the chain rounded once at its
+# end read 0.141 and with its first stage unrounded 0.147 (the controls of
+# phase_kernels_bf16, which must fail)
+BF16_SHARE = 1e-3
 
 
 T0 = time.perf_counter()
@@ -226,9 +271,10 @@ def median_ms(torch, fn, n=N_TIMED, warmup=3):
     return float(np.median(times))
 
 
-def bound(flops, nbytes):
-    """(ms, 'bytes' or 'operations'): the least time on the card."""
-    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound(flops, nbytes, peak=FP32_FLOPS):
+    """(ms, 'bytes' or 'operations'): the least time on the card, the
+    operations at ``peak`` (the rate of their operands' type)."""
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
 
@@ -261,6 +307,70 @@ def phase_build(kernels):
             print(line.strip())
 
 
+def held_to(torch, got, want, tol):
+    """(passed, max abs err, (rtol, atol), share): ``got`` against
+    ``want`` within ``tol`` = (rtol, atol) (or a function of the float
+    ``want`` giving them) on every element; for a bf16 output also the
+    share of elements more than one ulp of their own magnitude apart,
+    which must stay within ``BF16_SHARE`` (else None)."""
+    gf, wf = got.float(), want.float()
+    rtol, atol = tol(wf) if callable(tol) else tol
+    d = (gf - wf).abs()
+    err = float(d.max())
+    ok = bool(np.isfinite(err)) and float((d - rtol * wf.abs()).max()) <= atol
+    share = None
+    if got.dtype == torch.bfloat16:
+        mag = torch.maximum(gf.abs(), wf.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        share = float((d > ulp).float().mean())
+        ok = ok and share <= BF16_SHARE
+    return ok, err, (rtol, atol), share
+
+
+def kernel_case(torch, kernels, name, kern, plain, tol, bnd, lib):
+    """Launch ``kern`` once (its kernel's count must move by one), hold it
+    to ``plain`` in the output's type within ``tol`` (``held_to``), and
+    time the kernel, the
+    plain version and the library call ``lib``; returns the result and
+    the kernel's output."""
+    launched = name.removesuffix("_odd").removesuffix("_out")
+    before = kernels.LAUNCHES[launched]
+    got = kern()
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES[launched] == before + 1,
+          f"{name}: launch count did not move")
+    want = plain()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} "
+          f"{want.dtype}")
+    ok, err, (rtol, atol), share = held_to(torch, got, want, tol)
+    check(ok, f"{name}: max abs err {err}, tolerance (rtol {rtol:g}, atol "
+              f"{atol:g}), share more than one bf16 ulp apart {share} "
+              f"(bar {BF16_SHARE:g})")
+    if share is not None:
+        print(f"{name}: {share:.3e} of the elements more than one bf16 ulp "
+              f"apart (bar {BF16_SHARE:g})")
+    ms = median_ms(torch, kern)
+    plain_ms = median_ms(torch, plain)
+    lib_ms = median_ms(torch, lib) if lib is not None else None
+    b_ms, b_by = bnd
+    print(f"{name}: out {tuple(got.shape)} {str(got.dtype)[6:]} max_abs_err "
+          f"{err:.3e} (rtol {rtol:g}, atol {atol:.3g})  kernel {ms:.4f} ms  "
+          f"plain {plain_ms:.4f} ms  library "
+          f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms  bound "
+          f"{b_ms:.4f} ms ({b_by}) (medians of {N_TIMED}, CUDA events)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}, got
+
+
+def print_rate(name, logits, probs, ms):
+    moved = nbytes(logits, probs)
+    rate = moved / (ms * 1e-3)
+    print(f"{name}: {rate / 1e9:.1f} GB/s of {moved / 1e6:.1f} MB (logits "
+          f"in, probabilities out), {rate / HBM_BYTES_PER_S:.1%} of 3.35 "
+          "TB/s")
+
+
 def phase_kernels(torch, kernels, dev):
     """Each HNOSeg-XS kernel against its plain version at the serving
     shapes; conv_in and freq_chain also back to back (``stream_ms``), with
@@ -286,23 +396,24 @@ def phase_kernels(torch, kernels, dev):
     logits = t(rng.standard_normal((1, 4, 121, 121, 78)))
     out_cl = 121 * 121 * 78
     rows = spec.numel() // 24
-    cases = {  # kernel, plain, tolerance, bound, library call
+    cases = {  # kernel, plain, (rtol, atol), bound, library call
         "conv_in": (lambda: kernels.conv_in_s2d(x, w, b),
-                    lambda: kernels.conv_in_plain(x, w, b), 1e-5,
+                    lambda: kernels.conv_in_plain(x, w, b), (0, 1e-5),
                     bound(2 * out_cl * 8 * 4 * 24,
                           nbytes(x, w, b) + out_cl * 24 * 4),
                     lambda: F.conv3d(x, w, b, stride=2, padding=1)),
         "conv_in_odd": (lambda: kernels.conv_in_s2d(x_odd, w, b),
-                        lambda: kernels.conv_in_plain(x_odd, w, b), 1e-5,
+                        lambda: kernels.conv_in_plain(x_odd, w, b),
+                        (0, 1e-5),
                         bound(2 * out_odd * 8 * 4 * 24,
                               nbytes(x_odd, w, b) + out_odd * 24 * 4),
                         lambda: F.conv3d(x_odd, w, b, stride=2, padding=1)),
         "freq_chain": (lambda: kernels.fused_freq_chain(spec, ws),
-                       lambda: kernels.freq_chain_plain(spec, ws), 1e-5,
+                       lambda: kernels.freq_chain_plain(spec, ws), (0, 1e-5),
                        bound(3 * 2 * rows * 24 * 24,
                              2 * nbytes(spec) + nbytes(*ws)), None),
         "tail_resize": (lambda: kernels.fused_tail_softmax(logits, SHAPE),
-                        lambda: kernels.tail_plain(logits, SHAPE), 1e-6,
+                        lambda: kernels.tail_plain(logits, SHAPE), (0, 1e-6),
                         # 7 lerps and the softmax's exp, sum and divide
                         bound(17 * 4 * int(np.prod(SHAPE)),
                               nbytes(logits) + 4 * 4 * int(np.prod(SHAPE))),
@@ -310,41 +421,17 @@ def phase_kernels(torch, kernels, dev):
     }
     results = {}
     with torch.inference_mode():
-        for name, (kern, plain, tol, (b_ms, b_by), lib) in cases.items():
-            launched = name.removesuffix("_odd")
-            before = kernels.LAUNCHES[launched]
-            got = kern()
-            torch.cuda.synchronize()
-            check(kernels.LAUNCHES[launched] == before + 1,
-                  f"{name}: launch count did not move")
-            want = plain()
-            check(got.shape == want.shape,
-                  f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
-            err = float((got - want).abs().max())
-            check(np.isfinite(err) and err <= tol,
-                  f"{name}: max abs err {err} > {tol}")
-            ms = median_ms(torch, kern)
-            plain_ms = median_ms(torch, plain)
-            lib_ms = median_ms(torch, lib) if lib is not None else None
-            results[name] = {"max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": b_ms,
-                             "bound_by": b_by, "library_ms": lib_ms}
-            print(f"{name}: out {tuple(got.shape)} max_abs_err {err:.3e} "
-                  f"(tol {tol:g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
-                  f"ms  library {lib_ms if lib_ms is None else round(lib_ms, 4)}"
-                  f" ms  bound {b_ms:.4f} ms ({b_by}) (medians of "
-                  f"{N_TIMED}, CUDA events)")
-            if launched in ("conv_in", "freq_chain"):
+        for name, (kern, plain, tol, bnd, lib) in cases.items():
+            results[name], got = kernel_case(torch, kernels, name, kern,
+                                             plain, tol, bnd, lib)
+            ms = results[name]["ms"]
+            if name.removesuffix("_odd") in ("conv_in", "freq_chain"):
                 results[name]["stream_ms"] = stream_ms(kern)
                 print(f"{name}: kernel {results[name]['stream_ms']:.4f} ms "
                       f"back to back (median of 5 runs of 20 calls) against "
                       f"{ms:.4f} ms a call")
             if name == "tail_resize":
-                moved = nbytes(logits, got)
-                rate = moved / (ms * 1e-3)
-                print(f"tail_resize: {rate / 1e9:.1f} GB/s of "
-                      f"{moved / 1e6:.1f} MB (logits in, probabilities "
-                      f"out), {rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s")
+                print_rate(name, logits, got, ms)
     return results
 
 
@@ -658,6 +745,133 @@ def phase_tower_resident(torch, kernels, dev):
     return out
 
 
+def phase_kernels_bf16(torch, kernels, dev, fp32):
+    """The bf16 instances against their plain twins (the same function in
+    fp32 from the exact bf16 values, rounded where the kernel rounds) at
+    the serving shapes, in the working type: conv_in also at the odd
+    239x239x155 (batch element 1 of two, 8 bytes past a 16-byte boundary),
+    the tail with fp32 and bf16 probabilities; each with its time, bound
+    and the fp32 instance's time in this run (``fp32``)."""
+    header("== kernels, bf16 instances")
+    import torch.nn.functional as F
+    rng = np.random.default_rng(SEED + 5)
+    bf16 = torch.bfloat16
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            dev, dtype)
+
+    def r16(a):  # rounded through bf16, kept fp32 ('bfloat16' weights)
+        return a.to(bf16).float()
+
+    x = t(rng.standard_normal((1, 4) + SHAPE), bf16)
+    x_odd = t(rng.standard_normal((2, 4, 239, 239, 155)), bf16)[1:]
+    check(x_odd.data_ptr() % 16 == 8, "odd volume's element 1 alignment")
+    out_odd = 120 * 120 * 78
+    w = r16(t(rng.standard_normal((24, 4, 2, 2, 2)) / np.sqrt(32)))
+    b = r16(t(rng.uniform(-0.1, 0.1, 24)))
+    spec = t(rng.standard_normal((1, 20, 28, 28, 24)), bf16)
+    ws = [t(rng.standard_normal((24, 24)) / np.sqrt(24), bf16)
+          for _ in range(3)]
+    logits = t(rng.standard_normal((1, 4) + GRID) * 3, bf16)
+    out_cl = int(np.prod(GRID))
+    rows = spec.numel() // 24
+    n_out = int(np.prod(SHAPE))
+    # kernel, plain twin, (rtol, atol), bound, library call, fp32 instance
+    ulp = (BF16_ULP, 1e-5)
+    cases = {
+        "conv_in_bf16": (
+            lambda: kernels.conv_in_s2d(x, w, b),
+            lambda: kernels.conv_in_plain(x, w, b), ulp,
+            bound(2 * out_cl * 8 * 4 * 24,
+                  nbytes(x, w, b) + out_cl * 24 * 2),
+            lambda: F.conv3d(x, w.to(bf16), b.to(bf16), stride=2,
+                             padding=1), "conv_in"),
+        "conv_in_bf16_odd": (
+            lambda: kernels.conv_in_s2d(x_odd, w, b),
+            lambda: kernels.conv_in_plain(x_odd, w, b), ulp,
+            bound(2 * out_odd * 8 * 4 * 24,
+                  nbytes(x_odd, w, b) + out_odd * 24 * 2),
+            lambda: F.conv3d(x_odd, w.to(bf16), b.to(bf16), stride=2,
+                             padding=1), "conv_in_odd"),
+        # a rounding flipped at one stage moves the next stage's inputs by
+        # one ulp: one more ulp of the largest magnitude
+        "freq_chain_bf16": (
+            lambda: kernels.fused_freq_chain(spec, ws),
+            lambda: kernels.freq_chain_plain(spec, ws),
+            lambda want: (BF16_ULP, 1e-5 + BF16_ULP * max(
+                1.0, float(want.abs().max()))),
+            bound(3 * 2 * rows * 24 * 24, 2 * nbytes(spec) + nbytes(*ws),
+                  BF16_FLOPS),
+            None, "freq_chain"),
+        "tail_resize_bf16": (
+            lambda: kernels.fused_tail_softmax(logits, SHAPE),
+            lambda: kernels.tail_plain(logits, SHAPE), (0.0, 1e-6),
+            bound(17 * 4 * n_out, nbytes(logits) + 4 * 4 * n_out), None,
+            "tail_resize"),
+        "tail_resize_bf16_out": (
+            lambda: kernels.fused_tail_softmax(logits, SHAPE, bf16),
+            lambda: kernels.tail_plain(logits, SHAPE, bf16), (BF16_ULP, 1e-6),
+            bound(17 * 4 * n_out, nbytes(logits) + 4 * 2 * n_out), None,
+            "tail_resize"),
+    }
+    results = {}
+    with torch.inference_mode():
+        for name, (kern, plain, tol, bnd, lib, f32) in cases.items():
+            results[name], got = kernel_case(torch, kernels, name, kern,
+                                             plain, tol, bnd, lib)
+            results[name]["fp32_ms"] = fp32[f32]["ms"]
+            print(f"{name}: the fp32 instance {fp32[f32]['ms']:.4f} ms in "
+                  "this run")
+            if name.startswith("tail"):
+                print_rate(name, logits, got, results[name]["ms"])
+            del got
+        # controls of the chain's rounding after every stage: the chain
+        # rounded once at its end, or with its first stage's rounding
+        # skipped, must fail the check the kernel passed
+        want = kernels.freq_chain_plain(spec, ws)
+        for label, rounded in (("rounded once at the end", ()),
+                               ("first stage not rounded", (1,))):
+            y = spec.float()
+            for k, wk in enumerate(ws):
+                y = torch.selu(F.linear(y, wk.float()) + y)
+                if k in rounded:
+                    y = y.to(bf16).float()
+            ok, err, _, share = held_to(torch, y.to(bf16), want,
+                                        cases["freq_chain_bf16"][2])
+            print(f"freq_chain_bf16 control, chain {label}: max abs err "
+                  f"{err:.3e}, {share:.3e} of the elements more than one "
+                  "ulp apart")
+            check(not ok, f"freq_chain_bf16 control ({label}) passed")
+    out = {k: results[k] for k in ("conv_in_bf16", "freq_chain_bf16",
+                                   "tail_resize_bf16")}
+    for k, extra in (("conv_in_bf16", "conv_in_bf16_odd"),
+                     ("tail_resize_bf16", "tail_resize_bf16_out")):
+        tag = extra.removeprefix(k + "_")
+        out[k] = dict(out[k], **{f"{tag}_{f}": v for f, v in
+                                 results[extra].items()
+                                 if f in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms")})
+    return out
+
+
+def phase_gate(torch, dev):
+    """The trained-network precision gate (``utils/precision_gate.py``):
+    train HNOSeg-XS at 120x120x78, evaluate zero-shot at 240x240x155 in
+    every mode; its failures fail the run, its 1e-3 Dice bar is reported."""
+    header("== precision gate (HNOSeg-XS, trained)")
+    from multimodal_3d_image_segmentation_tpu_torch.utils import \
+        precision_gate
+    res = precision_gate.run_gate(dev)
+    check(not res["failures"], f"precision gate: {res['failures']}")
+    for name in ("fp32_kernels", "bf16_kernels", "bf16_plain",
+                 "mixed_kernels", "mixed_plain"):
+        print(f"gate {name}: Dice delta vs the fp32 oracle "
+              f"{res[name]['dice_delta_vs_oracle']}, 1e-3 bar "
+              f"{'met' if res[name]['dice_bar_met'] else 'missed'}")
+    return res
+
+
 def _write_cases(root: Path):
     """3 synthetic 4-modality cases + label maps as NIfTI, and list files."""
     from multimodal_3d_image_segmentation_tpu_torch.data import write_image
@@ -685,6 +899,9 @@ def _write_cases(root: Path):
         p.write_text("\n".join(names) + "\n")
         paths.append(str(p))
     return paths
+
+
+SERVED = {}  # label -> run_inference's timing and memory numbers
 
 
 def phase_serve(torch, kernels, work: Path, list_paths, label, config,
@@ -724,6 +941,7 @@ def phase_serve(torch, kernels, work: Path, list_paths, label, config,
         check(set(np.unique(y).tolist()) <= {0, 1, 2, 3},
               f"labels {np.unique(y)} outside 0..3")
     check(stats["n_volumes"] == N_CASES, f"{stats['n_volumes']} volumes")
+    SERVED[label] = stats
     print(f"serving {label}: {N_CASES} predictions of {SHAPE}; average "
           f"prediction time {stats['avg_time_s'] * 1e3:.3f} ms/volume (wall "
           f"clock with readback, mean of the {N_CASES - 1} volumes after the "
@@ -1852,6 +2070,7 @@ def main():
     phase_device(torch)
     phase_build(kernels)
     results = phase_kernels(torch, kernels, dev)
+    results.update(phase_kernels_bf16(torch, kernels, dev, results))
     results["tower_block"] = phase_tower_block(torch, kernels, dev)
     results["tower_block_s"] = phase_tower_block_s(torch, kernels, dev)
     results["tower_resident"] = phase_tower_resident(torch, kernels, dev)
@@ -1871,6 +2090,23 @@ def main():
             PER_VOLUME_HNOSEG)
         phase_model_hnoseg(torch, hnoseg.state_dict(), case0, dev)
         states["HNOSeg-XS"] = hnoseg.state_dict()
+        for mode, per_vol in (("bfloat16", PER_VOLUME_HNOSEG_BF16),
+                              ("mixed", PER_VOLUME_HNOSEG_MIXED)):
+            label = f"HNOSeg-XS-{mode}"
+            launches_b = phase_serve(
+                torch, kernels, work, list_paths, label,
+                "config_inference_hnoseg_xs.ini", hnoseg, 28248, per_vol,
+                {"compute_dtype": mode})
+            for k, v in launches_b.items():
+                launches[k] += v
+            a, f = SERVED[label], SERVED["HNOSeg-XS"]
+            print(f"serving {label} against fp32: wall "
+                  f"{a['avg_time_s'] * 1e3:.3f} against "
+                  f"{f['avg_time_s'] * 1e3:.3f} ms/volume, device "
+                  f"{a['avg_device_ms']:.3f} against "
+                  f"{f['avg_device_ms']:.3f} ms, peak allocated "
+                  f"{a['peak_mib']:.1f} against {f['peak_mib']:.1f} MiB")
+        phase_gate(torch, dev)
 
         vnet = VNetDS(**VNET, generator=torch.Generator().manual_seed(SEED))
         fast = VNetDS(**VNET, use_kernels=True, device=dev)

@@ -30,6 +30,14 @@
 // Bits: each output is h = 0, then fmaf over the inputs i in ascending
 // order, then selu(h + x_o): the order of the one-thread-per-row kernel it
 // replaces, so both give the same bits.
+//
+// bf16 (the JAX kernel under compute_dtype 'bfloat16', whose rows and
+// weights are both bf16): the rows are widened to fp32 as they enter shared
+// memory (16-byte loads of 8 values where x is 16-byte aligned, else 2-byte
+// ones), the weights as they are transposed; the sums and the SELU run in
+// fp32 as above, and each stage's output is rounded to bf16 (nearest even)
+// before the next stage reads it, as the JAX kernel's
+// ``.astype(acc.dtype)`` rounds after every stage.
 #include <cstdint>
 
 #include "common.cuh"
@@ -40,17 +48,19 @@ constexpr int kMaxChain = 8;
 constexpr int kThreads = 256;
 constexpr int kLanes = 2;  // lanes of a row
 
+template <class T>
 struct ChainWeights {
-  const float* w[kMaxChain];  // W_k, (C, C) row-major (out, in)
+  const T* w[kMaxChain];  // W_k, (C, C) row-major (out, in)
 };
 
-template <int C>
+// T: the type of the rows and weights, float or bf16
+template <int C, class T>
 __global__ void __launch_bounds__(kThreads)
-freq_chain_kernel(const float* __restrict__ x, ChainWeights wts,
-                  float* __restrict__ out, long long n_rows, int n_chain) {
+freq_chain_kernel(const T* __restrict__ x, ChainWeights<T> wts,
+                  T* __restrict__ out, long long n_rows, int n_chain) {
   constexpr int OPL = C / kLanes;   // outputs of a lane
   constexpr int RPW = 32 / kLanes;  // rows of a warp
-  constexpr int N4 = RPW * C / 4;   // 16-byte words of a warp's rows
+  constexpr int N4 = RPW * C / 4;   // float4 words of a warp's rows
   constexpr int kPer = (C * C + kThreads - 1) / kThreads;
   static_assert(OPL % 4 == 0);
   extern __shared__ float4 smem4[];
@@ -58,18 +68,26 @@ freq_chain_kernel(const float* __restrict__ x, ChainWeights wts,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* v = ws + n_chain * C * C + warp * RPW * C;  // [row][C]
 
-  // the warp's rows: one span of RPW * C floats, read in 16-byte loads
-  // where x is 16-byte aligned, else in 4-byte ones
+  // the warp's rows: one span of RPW * C values, read in 16-byte loads
+  // where x is 16-byte aligned, else one value at a time
   const long long row0 = ((long long)blockIdx.x * (kThreads / 32) + warp) *
                          RPW;
   if ((reinterpret_cast<uintptr_t>(x) & 15) == 0) {
-    for (int q = lane; q < N4; q += 32)
-      if (row0 * C + 4 * q < n_rows * C)
-        reinterpret_cast<float4*>(v)[q] =
-            *reinterpret_cast<const float4*>(x + row0 * C + 4 * q);
+    if constexpr (sizeof(T) == 4) {
+      for (int q = lane; q < N4; q += 32)
+        if (row0 * C + 4 * q < n_rows * C)
+          reinterpret_cast<float4*>(v)[q] =
+              *reinterpret_cast<const float4*>(x + row0 * C + 4 * q);
+    } else {  // 8 values a load; C is a multiple of 8
+      for (int q = lane; q < N4 / 2; q += 32)
+        if (row0 * C + 8 * q < n_rows * C)
+          m3seg::bf16x8_to_float4x2(
+              *reinterpret_cast<const uint4*>(x + row0 * C + 8 * q),
+              reinterpret_cast<float4*>(v) + 2 * q);
+    }
   } else {
     for (int e = lane; e < RPW * C; e += 32)
-      if (row0 * C + e < n_rows * C) v[e] = x[row0 * C + e];
+      if (row0 * C + e < n_rows * C) v[e] = m3seg::to_float(x[row0 * C + e]);
   }
   // the weights transposed, neighbouring threads on neighbouring words of
   // shared memory; all of a thread's loads are issued before its stores
@@ -79,7 +97,8 @@ freq_chain_kernel(const float* __restrict__ x, ChainWeights wts,
 #pragma unroll
     for (int m = 0; m < kPer; ++m) {
       const int e = tid + m * kThreads;
-      if (k < n_chain && e < C * C) wv[k][m] = wts.w[k][e % C * C + e / C];
+      if (k < n_chain && e < C * C)
+        wv[k][m] = m3seg::to_float(wts.w[k][e % C * C + e / C]);
     }
 #pragma unroll
   for (int k = 0; k < kMaxChain; ++k)
@@ -117,29 +136,55 @@ freq_chain_kernel(const float* __restrict__ x, ChainWeights wts,
     }
     float nv[OPL];
 #pragma unroll
-    for (int o = 0; o < OPL; ++o) nv[o] = m3seg::selu(h[o] + vr[l * OPL + o]);
+    for (int o = 0; o < OPL; ++o)
+      nv[o] = m3seg::round_to<T>(m3seg::selu(h[o] + vr[l * OPL + o]));
     __syncwarp();  // both lanes of the row have read it
 #pragma unroll
     for (int o = 0; o < OPL; ++o) vr[l * OPL + o] = nv[o];
     __syncwarp();
   }
 
-  for (int q = lane; q < N4; q += 32)
-    if (row0 * C + 4 * q < n_rows * C)
-      *reinterpret_cast<float4*>(out + row0 * C + 4 * q) =
-          reinterpret_cast<const float4*>(v)[q];
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  if constexpr (sizeof(T) == 4) {
+    for (int q = lane; q < N4; q += 32)
+      if (row0 * C + 4 * q < n_rows * C)
+        *reinterpret_cast<float4*>(out + row0 * C + 4 * q) = v4[q];
+  } else {  // exact: every value already holds a bf16
+    for (int q = lane; q < N4 / 2; q += 32)
+      if (row0 * C + 8 * q < n_rows * C)
+        *reinterpret_cast<uint4*>(out + row0 * C + 8 * q) =
+            m3seg::float4x2_to_bf16x8(v4[2 * q], v4[2 * q + 1]);
+  }
 }
 
-template <int C>
-cudaError_t launch(const float* x, const ChainWeights& w, float* out,
+template <int C, class T>
+cudaError_t launch(const T* x, const ChainWeights<T>& w, T* out,
                    long long n_rows, int n_chain, cudaStream_t stream) {
   constexpr long long rows_per_block = kThreads / kLanes;
   const long long blocks = (n_rows + rows_per_block - 1) / rows_per_block;
   const size_t smem =
       sizeof(float) * ((size_t)n_chain * C * C + rows_per_block * C);
-  freq_chain_kernel<C><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  freq_chain_kernel<C, T><<<(unsigned)blocks, kThreads, smem, stream>>>(
       x, w, out, n_rows, n_chain);
   return cudaGetLastError();
+}
+
+template <class T>
+int entry(const void* x, const void* const* weights, void* out,
+          long long n_rows, int c, int n_chain, void* stream) {
+  if (n_rows <= 0 || n_chain <= 0 || n_chain > kMaxChain ||
+      sizeof(float) * n_chain * c * c > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  ChainWeights<T> w{};
+  for (int k = 0; k < n_chain; ++k) w.w[k] = static_cast<const T*>(weights[k]);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  switch (c) {
+    case 8: return (int)launch<8>(xt, w, ot, n_rows, n_chain, s);
+    case 24: return (int)launch<24>(xt, w, ot, n_rows, n_chain, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -150,17 +195,16 @@ cudaError_t launch(const float* x, const ChainWeights& w, float* out,
 M3SEG_API int m3seg_freq_chain(const float* x, const float* const* weights,
                                float* out, long long n_rows, int c,
                                int n_chain, void* stream) {
-  if (n_rows <= 0 || n_chain <= 0 || n_chain > kMaxChain ||
-      sizeof(float) * n_chain * c * c > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
-  ChainWeights w{};
-  for (int k = 0; k < n_chain; ++k) w.w[k] = weights[k];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (c) {
-    case 8: return (int)launch<8>(x, w, out, n_rows, n_chain, s);
-    case 24: return (int)launch<24>(x, w, out, n_rows, n_chain, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return entry<float>(x, reinterpret_cast<const void* const*>(weights), out,
+                      n_rows, c, n_chain, stream);
+}
+
+// The bf16 instance: x, out and the weights bf16 (x at any 2-byte
+// alignment), as above.
+M3SEG_API int m3seg_freq_chain_bf16(const void* x, const void* const* weights,
+                                    void* out, long long n_rows, int c,
+                                    int n_chain, void* stream) {
+  return entry<__nv_bfloat16>(x, weights, out, n_rows, c, n_chain, stream);
 }
 
 // Message for a status returned by any entry point of the library.

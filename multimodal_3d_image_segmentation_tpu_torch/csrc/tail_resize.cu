@@ -37,6 +37,13 @@
 // Every value goes through the plain version's lerps along D, H and W,
 // then expf and one divide, in that order, so a rerun and the design before
 // it give the same bits.
+//
+// bf16 input (the JAX kernel's bf16 logits under compute_dtype 'bfloat16'
+// and 'mixed'): each logit is widened to fp32 as it is read, and everything
+// after is the fp32 kernel's; the probabilities are stored as fp32 or, for a
+// bf16 output, rounded once to nearest even and stored 4 values (8 bytes) at
+// a time where the fp32 output stores 16 bytes. The shared memory holds fp32
+// rows either way, so its size does not depend on the types.
 #include <algorithm>
 
 #include "common.cuh"
@@ -68,9 +75,10 @@ inline size_t tail_smem_floats(int C, int R, int h, int w, int H, int W) {
          3 * (size_t)W + 3 * (size_t)R + (size_t)C * R * w;
 }
 
-template <int C>
+// Tin: the logits' type, Tout: the probabilities', float or bf16
+template <int C, class Tin, class Tout>
 __global__ void __launch_bounds__(kTailThreads)
-tail_kernel(const float* __restrict__ x, float* __restrict__ out,
+tail_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
             const int* __restrict__ taps, const float* __restrict__ wts,
             int d, int h, int w, int D, int H, int W, int R, int A) {
   extern __shared__ float4 smem4[];
@@ -110,13 +118,13 @@ tail_kernel(const float* __restrict__ x, float* __restrict__ out,
   const size_t in_plane = (size_t)h * w, in_vol = (size_t)d * in_plane;
   for (int e = tid; e < C * w; e += kTailThreads) {
     const int c = e / w, xi = e - c * w;
-    const float* p0 = x + c * in_vol + z0 * in_plane + (size_t)y0 * w + xi;
-    const float* p1 = x + c * in_vol + z1 * in_plane + (size_t)y0 * w + xi;
+    const Tin* p0 = x + c * in_vol + z0 * in_plane + (size_t)y0 * w + xi;
+    const Tin* p1 = x + c * in_vol + z1 * in_plane + (size_t)y0 * w + xi;
     float* ac = a_s + c * A * w + xi;
 #pragma unroll 8
     for (int y = 0; y < na; ++y)
-      ac[y * w] = lerp(__ldg(p0 + (size_t)y * w), __ldg(p1 + (size_t)y * w),
-                       wz);
+      ac[y * w] = lerp(m3seg::to_float(__ldg(p0 + (size_t)y * w)),
+                       m3seg::to_float(__ldg(p1 + (size_t)y * w)), wz);
   }
   __syncthreads();
   // then along H, into the band's rows
@@ -137,7 +145,7 @@ tail_kernel(const float* __restrict__ x, float* __restrict__ out,
   const size_t hw = (size_t)H * W, n_out = D * hw;
   const bool vec = (hw & 3) == 0;  // every band 16-byte aligned
   const int np = rows * W, lane = tid % 32;
-  float* ob = out + oz * hw + (size_t)oy0 * W;
+  Tout* ob = out + oz * hw + (size_t)oy0 * W;
   float* st = st_s + (tid / 32) * kWarpVoxels * C;  // [C][128]
   for (int j0 = tid / 32 * kWarpVoxels; j0 < np;
        j0 += kTailThreads / 32 * kWarpVoxels) {
@@ -171,21 +179,28 @@ tail_kernel(const float* __restrict__ x, float* __restrict__ out,
     const int j = j0 + 4 * lane;
     if (vec && j + 4 <= np) {
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        *reinterpret_cast<float4*>(ob + c * n_out + j) =
+      for (int c = 0; c < C; ++c) {
+        const float4 p =
             *reinterpret_cast<const float4*>(st + c * kWarpVoxels + 4 * lane);
+        if constexpr (sizeof(Tout) == 4)
+          *reinterpret_cast<float4*>(ob + c * n_out + j) = p;
+        else
+          *reinterpret_cast<uint2*>(ob + c * n_out + j) =
+              m3seg::float4_to_bf16x4(p);
+      }
     } else {
       for (int k = 0; k < 4 && j + k < np; ++k)
 #pragma unroll
         for (int c = 0; c < C; ++c)
-          ob[c * n_out + j + k] = st[c * kWarpVoxels + 4 * lane + k];
+          ob[c * n_out + j + k] =
+              m3seg::from_float<Tout>(st[c * kWarpVoxels + 4 * lane + k]);
     }
     __syncwarp();
   }
 }
 
-template <int C>
-cudaError_t launch(const float* x, float* out, const int* taps,
+template <int C, class Tin, class Tout>
+cudaError_t launch(const Tin* x, Tout* out, const int* taps,
                    const float* wts, int d, int h, int w, int D, int H,
                    int W, cudaStream_t stream) {
   // the most rows (a multiple of 4, at least 4) whose shared memory needs
@@ -197,13 +212,35 @@ cudaError_t launch(const float* x, float* out, const int* taps,
   const size_t smem = tail_smem_floats(C, R, h, w, H, W) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tail_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        tail_kernel<C, Tin, Tout>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  tail_kernel<C><<<dim3((H + R - 1) / R, D), kTailThreads, smem, stream>>>(
-      x, out, taps, wts, d, h, w, D, H, W, R, tail_input_rows(R, h, H));
+  tail_kernel<C, Tin, Tout>
+      <<<dim3((H + R - 1) / R, D), kTailThreads, smem, stream>>>(
+          x, out, taps, wts, d, h, w, D, H, W, R, tail_input_rows(R, h, H));
   return cudaGetLastError();
+}
+
+template <class Tin, class Tout>
+int entry(const void* x_, void* out_, const int* taps, const float* wts,
+          int C, int d, int h, int w, int D, int H, int W, void* stream) {
+  if (C < 1 || C > kMaxC || d < 1 || h < 1 || w < 1 || D < 1 || H < 1 ||
+      W < 1 || D > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Tin* x = static_cast<const Tin*>(x_);
+  Tout* out = static_cast<Tout*>(out_);
+  switch (C) {
+    case 1: return (int)launch<1>(x, out, taps, wts, d, h, w, D, H, W, s);
+    case 2: return (int)launch<2>(x, out, taps, wts, d, h, w, D, H, W, s);
+    case 3: return (int)launch<3>(x, out, taps, wts, d, h, w, D, H, W, s);
+    case 4: return (int)launch<4>(x, out, taps, wts, d, h, w, D, H, W, s);
+    case 5: return (int)launch<5>(x, out, taps, wts, d, h, w, D, H, W, s);
+    case 6: return (int)launch<6>(x, out, taps, wts, d, h, w, D, H, W, s);
+    case 7: return (int)launch<7>(x, out, taps, wts, d, h, w, D, H, W, s);
+    default: return (int)launch<8>(x, out, taps, wts, d, h, w, D, H, W, s);
+  }
 }
 
 }  // namespace
@@ -215,20 +252,21 @@ M3SEG_API int m3seg_tail_resize_softmax(const float* x, float* out,
                                         const int* taps, const float* wts,
                                         int C, int d, int h, int w, int D,
                                         int H, int W, void* stream) {
-  if (C < 1 || C > kMaxC || d < 1 || h < 1 || w < 1 || D < 1 || H < 1 ||
-      W < 1 || D > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 1: return (int)launch<1>(x, out, taps, wts, d, h, w, D, H, W, s);
-    case 2: return (int)launch<2>(x, out, taps, wts, d, h, w, D, H, W, s);
-    case 3: return (int)launch<3>(x, out, taps, wts, d, h, w, D, H, W, s);
-    case 4: return (int)launch<4>(x, out, taps, wts, d, h, w, D, H, W, s);
-    case 5: return (int)launch<5>(x, out, taps, wts, d, h, w, D, H, W, s);
-    case 6: return (int)launch<6>(x, out, taps, wts, d, h, w, D, H, W, s);
-    case 7: return (int)launch<7>(x, out, taps, wts, d, h, w, D, H, W, s);
-    default: return (int)launch<8>(x, out, taps, wts, d, h, w, D, H, W, s);
-  }
+  return entry<float, float>(x, out, taps, wts, C, d, h, w, D, H, W, stream);
+}
+
+// The bf16-input instance: x bf16 logits; out fp32 or, with out_bf16 set,
+// bf16; otherwise as above.
+M3SEG_API int m3seg_tail_resize_softmax_bf16(const void* x, void* out,
+                                             int out_bf16, const int* taps,
+                                             const float* wts, int C, int d,
+                                             int h, int w, int D, int H,
+                                             int W, void* stream) {
+  if (out_bf16)
+    return entry<__nv_bfloat16, __nv_bfloat16>(x, out, taps, wts, C, d, h,
+                                               w, D, H, W, stream);
+  return entry<__nv_bfloat16, float>(x, out, taps, wts, C, d, h, w, D, H, W,
+                                     stream);
 }
 
 // Dynamic shared memory of a block of R output rows (tail_smem_floats), in

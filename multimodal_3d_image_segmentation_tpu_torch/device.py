@@ -10,8 +10,14 @@ port that does arithmetic imports this one.
 The reference's serving knob ``transform_precision`` takes 'highest'
 (bf16x6 on the TPU, fp32-exact) or 'high' (bf16x3). The port maps both to
 exact fp32, which is at least as strict as either. 'default' (one bf16
-pass) has no fp32-exact meaning and raises: faster modes wait for the
-trained-network Dice gate (ROADMAP, Constraints).
+pass on fp32 activations) raises (ROADMAP item 12).
+
+The bf16 modes are opt-in per model, never a process-wide default:
+``[model] compute_dtype = 'bfloat16'`` or ``'mixed'`` (HNOSeg-XS, serving
+only; ``ops/spectral.compute_dtypes``). Their bf16 products accumulate in
+fp32: cuBLAS's reduced-precision bf16 reductions are pinned off here too.
+The trained-network Dice gate (``utils/precision_gate.py``) reports how far
+each mode is from the fp32 oracle; the default stays exact fp32.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ __all__ = ["resolve_device", "check_transform_precision",
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 TRANSFORM_PRECISIONS = ("high", "highest")
 
@@ -33,8 +40,9 @@ def check_transform_precision(mode: str) -> None:
     if mode not in TRANSFORM_PRECISIONS:
         raise ValueError(
             f"transform_precision {mode!r} is not served by the port: "
-            f"{TRANSFORM_PRECISIONS} both run exact fp32; faster modes wait "
-            f"for the Dice gate (ROADMAP Open items 1, item 12)")
+            f"{TRANSFORM_PRECISIONS} both run exact fp32; 'default' is not "
+            f"ported yet (ROADMAP Open items 1, item 12); bf16 serving is "
+            f"[model] compute_dtype")
 
 
 def resolve_device(visible_devices: Optional[Union[str, int, torch.device]]

@@ -42,6 +42,10 @@ _SIGNATURES = {
     "m3seg_conv_in": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "m3seg_tail_resize_softmax": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _P],
+    "m3seg_conv_in_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "m3seg_freq_chain_bf16": [_P, _P, _P, _LL, _I, _I, _P],
+    "m3seg_tail_resize_softmax_bf16": [_P, _P, _I, _P, _P, _I, _I, _I, _I,
+                                       _I, _I, _I, _P],
     "m3seg_conv3": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                     _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _P],
     "m3seg_conv3_plan": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
@@ -57,8 +61,10 @@ _SIGNATURES = {
     "m3seg_tower_resident_phase_ns": [_P, _I],
 }
 
+# the bf16 instances count apart from the fp32 ones
 LAUNCHES = {"conv_in": 0, "freq_chain": 0, "tail_resize": 0, "conv3": 0,
-            "tower_block": 0, "tower_block_s": 0, "tower_resident": 0}
+            "tower_block": 0, "tower_block_s": 0, "tower_resident": 0,
+            "conv_in_bf16": 0, "freq_chain_bf16": 0, "tail_resize_bf16": 0}
 
 _lock = threading.Lock()
 _library = None
@@ -153,13 +159,14 @@ def reset_launch_counts() -> None:
 
 
 def check_cuda_input(name: str, t: torch.Tensor, device: torch.device,
-                     ndim: int) -> None:
-    """Raise unless ``t`` is what the kernels take: fp32, contiguous, on
-    ``device``, with ``ndim`` axes."""
+                     ndim: int, dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is what the kernels take: ``dtype`` (fp32 unless
+    an instance takes another), contiguous, on ``device``, with ``ndim``
+    axes."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} axes, got "
                          f"{tuple(t.shape)}")

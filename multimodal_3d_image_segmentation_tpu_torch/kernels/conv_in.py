@@ -9,6 +9,13 @@ weight in its torch layout;
 ``conv_in_plain`` is ``F.conv3d`` (cuDNN on the GPU, TF32 off) + SELU,
 the reference's ``_reference_xla``.
 
+A bf16 input (``compute_dtype`` 'bfloat16' or 'mixed') takes the bf16
+instance: fp32 weights (in 'bfloat16' the caller passes them rounded
+through bf16, as the reference's ``_isl`` does), fp32 sums on the exact
+bf16 values, a bf16 output, as the Pallas kernel raises its operands per
+tap and writes the input's dtype. Its plain twin is ``conv_in_plain`` in
+fp32 on the widened input, rounded to bf16 at the end.
+
 The backward pass is the reference's (``_conv_in_bwd``): a replay of
 ``conv_in_plain`` under autograd, which gives the gradients of x, weight
 and bias (cuDNN's backward on the GPU, TF32 off).
@@ -31,18 +38,24 @@ _MAX_SMEM_BYTES = 48 * 1024
 def conv_in_plain(x_cf: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor, apply_selu: bool = True
                   ) -> torch.Tensor:
-    """The conv as plain tensor ops: the kernel's oracle and CPU path."""
-    y = F.conv3d(x_cf, weight, bias, stride=2, padding=1)
+    """The conv as plain tensor ops: the kernel's oracle and CPU path. It
+    computes in the weight's type, at least fp32, and returns the input's
+    type (a bf16 input is widened, and the output rounded once)."""
+    dt = torch.promote_types(weight.dtype, torch.float32)
+    y = F.conv3d(x_cf.to(dt), weight.to(dt), bias.to(dt), stride=2,
+                 padding=1)
     if apply_selu:
         y = torch.selu(y)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    return y.permute(0, 2, 3, 4, 1).contiguous().to(x_cf.dtype)
 
 
 def _conv_in_forward(x_cf, weight, bias, apply_selu):
     """The kernel on a CUDA tensor, ``conv_in_plain`` on a CPU one."""
     if x_cf.device.type == "cpu":
         return conv_in_plain(x_cf, weight, bias, apply_selu)
-    _build.check_cuda_input("x_cf", x_cf, x_cf.device, 5)
+    bf16 = x_cf.dtype == torch.bfloat16
+    _build.check_cuda_input("x_cf", x_cf, x_cf.device, 5,
+                            torch.bfloat16 if bf16 else torch.float32)
     _build.check_cuda_input("weight", weight, x_cf.device, 5)
     _build.check_cuda_input("bias", bias, x_cf.device, 1)
     b, c, d, h, w = x_cf.shape
@@ -50,15 +63,18 @@ def _conv_in_forward(x_cf, weight, bias, apply_selu):
     if f not in SUPPORTED_FEATURES:
         raise ValueError(f"conv_in kernel has no instance for F={f} "
                          f"(supported: {SUPPORTED_FEATURES})")
+    # the weights sit in shared memory as fp32 in both instances (the
+    # input spans too: a bf16 instance widens them as it copies them)
     if 4 * (8 * c * f + f) > _MAX_SMEM_BYTES:
         raise ValueError(f"C={c}, F={f} weights exceed the kernel's shared "
                          "memory")
     if x_cf.numel() == 0:
         raise ValueError("empty input")
     out = torch.empty((b, d // 2 + 1, h // 2 + 1, w // 2 + 1, f),
-                      dtype=torch.float32, device=x_cf.device)
+                      dtype=x_cf.dtype, device=x_cf.device)
     # the kernel reads the weight in its torch layout (F, C, kz, ky, kx)
-    _build.launch("conv_in", "m3seg_conv_in", x_cf.device,
+    kernel = "conv_in_bf16" if bf16 else "conv_in"
+    _build.launch(kernel, f"m3seg_{kernel}", x_cf.device,
                   x_cf.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                   out.data_ptr(), b, c, d, h, w, f, int(bool(apply_selu)))
     return out
@@ -91,9 +107,10 @@ def conv_in_s2d(x_cf: torch.Tensor, weight: torch.Tensor,
         bias: (F,).
 
     Returns:
-        Channels-last (B, D//2+1, H//2+1, W//2+1, F). A CPU tensor runs
-        ``conv_in_plain``; a CUDA tensor launches the kernel (fp32,
-        contiguous, F in ``SUPPORTED_FEATURES``; one output row, its input
+        Channels-last (B, D//2+1, H//2+1, W//2+1, F) in x's type. A CPU
+        tensor runs ``conv_in_plain``; a CUDA tensor launches the kernel
+        (x fp32 or bf16, weight and bias fp32, contiguous, F in
+        ``SUPPORTED_FEATURES``; one output row, its input
         rows and the weights must fit a block's 227 KB of shared memory,
         about (16 C + 2 F) W bytes, W <= 2,000 at C = 4, F = 24) or raises.
         Differentiable: the backward replays ``conv_in_plain``.

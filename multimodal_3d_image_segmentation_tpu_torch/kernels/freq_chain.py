@@ -12,6 +12,12 @@ modes), so the spectrum is a set of rows of C channels. The CUDA kernel
 keeps it in shared memory through the whole chain, reading the weights in
 their torch layout; ``freq_chain_plain`` is the same chain in PyTorch.
 
+bf16 rows (``compute_dtype`` 'bfloat16') take the bf16 instance with bf16
+weights, as the reference casts the weights to the rows' dtype: each stage
+sums in fp32 on the exact bf16 values, applies the SELU in fp32 and rounds
+its output to bf16 before the next stage, as the Pallas kernel does.
+``freq_chain_plain`` computes the same on bf16 rows.
+
 The backward pass is the reference's closed form (``_fused_rows_bwd``):
 replay the chain in plain ops keeping each stage's input x_k and
 pre-activation p_k, then from the last stage to the first
@@ -40,7 +46,13 @@ _MAX_WEIGHT_BYTES = 48 * 1024  # dynamic shared memory without opt-in
 
 def freq_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor]
                      ) -> torch.Tensor:
-    """The chain as plain tensor ops: the kernel's oracle and CPU path."""
+    """The chain as plain tensor ops: the kernel's oracle and CPU path. On
+    bf16 rows each stage runs in fp32 and rounds its output to bf16."""
+    if x.dtype == torch.bfloat16:
+        for w in weights:
+            xf = x.float()
+            x = torch.selu(F.linear(xf, w.float()) + xf).to(torch.bfloat16)
+        return x
     for w in weights:
         x = torch.selu(F.linear(x, w) + x)
     return x
@@ -74,13 +86,14 @@ def _chain_forward(x: torch.Tensor, weights: Sequence[torch.Tensor]
     if x.device.type == "cpu":
         return freq_chain_plain(x, weights)
     c = x.shape[-1]
+    dt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     for i, w in enumerate(weights):
-        _build.check_cuda_input(f"weights[{i}]", w, x.device, 2)
-    _build.check_cuda_input("x", x, x.device, x.dim())
+        _build.check_cuda_input(f"weights[{i}]", w, x.device, 2, dt)
+    _build.check_cuda_input("x", x, x.device, x.dim(), dt)
     if c not in SUPPORTED_CHANNELS:
         raise ValueError(f"freq_chain kernel has no instance for C={c} "
                          f"(supported: {SUPPORTED_CHANNELS})")
-    if 4 * len(weights) * c * c > _MAX_WEIGHT_BYTES:
+    if 4 * len(weights) * c * c > _MAX_WEIGHT_BYTES:  # fp32 in both
         raise ValueError(f"{len(weights)} weights of {c}x{c} exceed the "
                          "kernel's shared memory")
     if len(weights) > MAX_CHAIN:
@@ -92,9 +105,9 @@ def _chain_forward(x: torch.Tensor, weights: Sequence[torch.Tensor]
         return out
     # the kernel reads each W_k (out, in) in place: one pointer per weight
     ptrs = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))
-    _build.launch("freq_chain", "m3seg_freq_chain", x.device,
-                  x.data_ptr(), ptrs, out.data_ptr(), n_rows, c,
-                  len(weights))
+    kernel = "freq_chain_bf16" if dt == torch.bfloat16 else "freq_chain"
+    _build.launch(kernel, f"m3seg_{kernel}", x.device, x.data_ptr(), ptrs,
+                  out.data_ptr(), n_rows, c, len(weights))
     return out
 
 
@@ -120,10 +133,11 @@ def fused_freq_chain(x: torch.Tensor, weights: Sequence[torch.Tensor]
     """Apply the chain to a channels-last packed spectrum (B, *modes, C).
 
     ``weights`` are (out, in) matrices with out == in == C. A CPU tensor
-    runs ``freq_chain_plain``; a CUDA tensor launches the kernel (fp32,
-    contiguous, C in ``SUPPORTED_CHANNELS``, at most ``MAX_CHAIN``
-    weights) or raises. Differentiable: the backward is the closed form
-    of the module docstring, in plain ops on either device.
+    runs ``freq_chain_plain``; a CUDA tensor launches the kernel (rows and
+    weights all fp32 or all bf16, contiguous, C in ``SUPPORTED_CHANNELS``,
+    at most ``MAX_CHAIN`` weights) or raises. Differentiable: the backward
+    is the closed form of the module docstring, in plain ops on either
+    device.
     """
     c = x.shape[-1]
     for w in weights:

@@ -9,6 +9,12 @@ one pass, reading the float64-derived tap tables of
 ``ops/resize.py::_linear_taps_np``; ``tail_plain`` is ``resize_linear``
 (interpolation matrices) + ``torch.softmax``.
 
+bf16 logits (``compute_dtype`` 'bfloat16' and 'mixed') take the
+bf16-input instance, which widens each logit as it reads it and writes the
+probabilities as fp32 or, with ``out_dtype=torch.bfloat16``, rounded once to
+bf16, as the Pallas kernel keeps its softmax fp32 and casts to
+``out_dtype``. ``tail_plain`` computes the same from the widened logits.
+
 The backward pass is the reference's closed form (``_tail_bwd``) from the
 saved fp32 probabilities y: ``gz = y * (g - sum_c y g)``, then the
 transposed interpolation matrices take gz back to the input grid, axis by
@@ -17,7 +23,7 @@ axis (``ops/resize.py::resize_linear_transpose``).
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,11 +71,16 @@ def tail_supported(shape: Sequence[int], sizes: Sequence[int]) -> bool:
                            int(sizes[1]), int(sizes[2])) <= _SMEM_BYTES
 
 
-def tail_plain(x_cf: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
+def tail_plain(x_cf: torch.Tensor, sizes: Sequence[int],
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Resize + softmax as plain tensor ops: the kernel's oracle and CPU
-    path."""
-    return torch.softmax(resize_linear(x_cf, sizes, channel_first=True),
-                         dim=1)
+    path. bf16 logits are widened to fp32 first; the probabilities are
+    returned as ``out_dtype`` (default: the logits' type, fp32 for bf16
+    logits)."""
+    if x_cf.dtype == torch.bfloat16:
+        x_cf = x_cf.float()
+    y = torch.softmax(resize_linear(x_cf, sizes, channel_first=True), dim=1)
+    return y if out_dtype is None else y.to(out_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,26 +99,38 @@ def _tap_tables(in_sizes: Tuple[int, ...], out_sizes: Tuple[int, ...],
         return taps.to(device), w.to(device)
 
 
-def _tail_forward(x_cf: torch.Tensor, sizes: Tuple[int, ...]
-                  ) -> torch.Tensor:
+def _tail_forward(x_cf: torch.Tensor, sizes: Tuple[int, ...],
+                  out_dtype: Optional[torch.dtype]) -> torch.Tensor:
     """The kernel on a CUDA tensor, ``tail_plain`` on a CPU one."""
     if x_cf.device.type == "cpu":
-        return tail_plain(x_cf, sizes)
-    _build.check_cuda_input("x_cf", x_cf, x_cf.device, 5)
+        return tail_plain(x_cf, sizes, out_dtype)
+    bf16 = x_cf.dtype == torch.bfloat16
+    _build.check_cuda_input("x_cf", x_cf, x_cf.device, 5,
+                            torch.bfloat16 if bf16 else torch.float32)
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    if out_dtype not in ((torch.float32, torch.bfloat16) if bf16
+                         else (torch.float32,)):
+        raise TypeError(f"fused tail has no instance for {x_cf.dtype} "
+                        f"logits to {out_dtype} probabilities")
     _, c, d, h, w = x_cf.shape
     taps, wts = _tap_tables((d, h, w), sizes, x_cf.device)
-    out = torch.empty((1, c) + sizes, dtype=torch.float32,
-                      device=x_cf.device)
-    _build.launch("tail_resize", "m3seg_tail_resize_softmax", x_cf.device,
-                  x_cf.data_ptr(), out.data_ptr(), taps.data_ptr(),
-                  wts.data_ptr(), c, d, h, w, *sizes)
+    out = torch.empty((1, c) + sizes, dtype=out_dtype, device=x_cf.device)
+    if bf16:
+        _build.launch("tail_resize_bf16", "m3seg_tail_resize_softmax_bf16",
+                      x_cf.device, x_cf.data_ptr(), out.data_ptr(),
+                      int(out_dtype == torch.bfloat16), taps.data_ptr(),
+                      wts.data_ptr(), c, d, h, w, *sizes)
+    else:
+        _build.launch("tail_resize", "m3seg_tail_resize_softmax",
+                      x_cf.device, x_cf.data_ptr(), out.data_ptr(),
+                      taps.data_ptr(), wts.data_ptr(), c, d, h, w, *sizes)
     return out
 
 
 class _TailSoftmax(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x_cf, sizes):
-        y = _tail_forward(x_cf, sizes)
+    def forward(ctx, x_cf, sizes, out_dtype):
+        y = _tail_forward(x_cf, sizes, out_dtype)
         ctx.in_sizes = tuple(x_cf.shape[2:])
         ctx.in_dtype = x_cf.dtype
         ctx.save_for_backward(y)
@@ -119,17 +142,20 @@ class _TailSoftmax(torch.autograd.Function):
         # y (g - sum_c y g) in one launch, as autograd's softmax backward
         gz = torch._softmax_backward_data(g.to(y.dtype), y, 1, y.dtype)
         gz = resize_linear_transpose(gz, ctx.in_sizes, channel_first=True)
-        return gz.to(ctx.in_dtype), None
+        return gz.to(ctx.in_dtype), None, None
 
 
-def fused_tail_softmax(x_cf: torch.Tensor, sizes: Sequence[int]
+def fused_tail_softmax(x_cf: torch.Tensor, sizes: Sequence[int],
+                       out_dtype: Optional[torch.dtype] = None
                        ) -> torch.Tensor:
     """(1, C, d, h, w) channel-first logits -> trilinear resize to
-    ``sizes`` + softmax over C, (1, C, *sizes) fp32.
+    ``sizes`` + softmax over C, (1, C, *sizes) in ``out_dtype`` (default
+    fp32).
 
     A CPU tensor runs ``tail_plain``; a CUDA tensor launches the kernel
-    (fp32, contiguous, ``tail_supported``) or raises. Differentiable: the
-    backward is the closed form of the module docstring.
+    (fp32 logits to fp32, or bf16 logits to fp32 or bf16; contiguous,
+    ``tail_supported``) or raises. Differentiable: the backward is the
+    closed form of the module docstring.
     """
     sizes = tuple(int(s) for s in sizes)
     if not tail_supported(tuple(x_cf.shape), sizes):
@@ -138,5 +164,5 @@ def fused_tail_softmax(x_cf: torch.Tensor, sizes: Sequence[int]
                          f"and a block of {_MIN_BAND_ROWS} output rows within "
                          f"{_SMEM_BYTES} bytes of shared memory)")
     if _build.needs_grad(x_cf):
-        return _TailSoftmax.apply(x_cf, sizes)
-    return _tail_forward(x_cf, sizes)
+        return _TailSoftmax.apply(x_cf, sizes, out_dtype)
+    return _tail_forward(x_cf, sizes, out_dtype)

@@ -13,6 +13,12 @@ channels-last. ``use_kernels=True`` routes the three hand-written kernels
 their plain versions. The module tree's ``state_dict()`` keys are those of
 ``utils/torch_compat.py::export_reference_state_dict`` (the upstream
 model's names), so reference weights load with ``strict=True``.
+
+``compute_dtype`` is the reference's: 'float32' (the default, exact fp32),
+'bfloat16' (bf16 activations and weights, fp32 sums) or 'mixed' (bf16
+activation storage with fp32 islands for every weight and transform-matrix
+contraction; the reference's 'bfloat16' under ``set_bf16_exact``). Serving
+only: a forward that autograd would record raises (ROADMAP item 12).
 """
 from __future__ import annotations
 
@@ -32,8 +38,8 @@ from ..ops.convs import ConcatConvNormAct, ConvNormAct, _SplitKernelConv1x1
 from ..ops.operators import HartleyOperator
 from ..ops.padcrop import spatial_padcrop
 from ..ops.resize import resize_linear
-from ..ops.spectral import clip_modes, dht_crop, dht_pad_inverse, \
-    normalize_modes
+from ..ops.spectral import clip_modes, compute_dtypes, dht_crop, \
+    dht_pad_inverse, normalize_modes
 
 __all__ = ["HNOSegXS", "HNOXSBlock"]
 
@@ -68,16 +74,18 @@ class HNOXSBlock(nn.Module):
     def __init__(self, num_convs: int, in_channels: int, out_channels: int,
                  num_modes, weights_type: str = "shared", activation="selu",
                  use_conv_branch: bool = False, use_block_concat: bool = True,
-                 snn_init: bool = False, use_kernels: bool = False, *,
+                 snn_init: bool = False, use_kernels: bool = False,
+                 compute_dtype: str = "float32", *,
                  generator: torch.Generator):
         super().__init__()
         self.num_modes = num_modes
         self.use_kernels = use_kernels
+        self.compute_dtype = compute_dtype
         snn = is_selu(activation)
+        g = dict(compute_dtype=compute_dtype, generator=generator)
         self.mapping_conv = (
             ConcatConvNormAct(in_channels, out_channels, use_bias=True,
-                              activation=activation, use_snn=snn,
-                              generator=generator)
+                              activation=activation, use_snn=snn, **g)
             if in_channels != out_channels else None)
         self.conv_blocks = nn.ModuleList(
             _FreqResidentConv(out_channels, out_channels, num_modes,
@@ -89,8 +97,7 @@ class HNOXSBlock(nn.Module):
         self.act = get_activation(activation)
         self.conv_concat = (
             ConcatConvNormAct(2 * out_channels, out_channels, use_bias=True,
-                              activation=activation, use_snn=snn,
-                              generator=generator)
+                              activation=activation, use_snn=snn, **g)
             if use_block_concat else None)
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None
@@ -105,16 +112,21 @@ class HNOXSBlock(nn.Module):
         sizes = tuple(x.shape[1:-1])
         modes = clip_modes(normalize_modes(self.num_modes, len(sizes)),
                            sizes)
-        # TransformCrop: one forward DHT restricted to the kept modes
-        y = dht_crop(x, modes)
+        # TransformCrop: one forward DHT restricted to the kept modes, at
+        # the island dtype ('mixed': the spectra stay fp32, so the chain
+        # takes its fp32 instance; 'bfloat16': bf16 rows and weights)
+        isl = compute_dtypes(self.compute_dtype, tmp.dtype)[1]
+        y = dht_crop(x, modes, isl)
         if self.use_kernels:
             y = fused_freq_chain(y.contiguous(),
-                                 [cb.op.weight for cb in self.conv_blocks])
+                                 [cb.op.weight.to(y.dtype)
+                                  for cb in self.conv_blocks])
         else:
             for cb in self.conv_blocks:
                 y = cb(y)
-        # PadInverse: one inverse DHT back to the block grid
-        x = self.act(dht_pad_inverse(y, sizes))
+        # PadInverse: one inverse DHT back to the block grid, then back to
+        # the activation dtype
+        x = self.act(dht_pad_inverse(y, sizes, isl).to(tmp.dtype))
         # block skip AFTER the activation (upstream nets/hnosegxs.py:270-277)
         if self.conv_concat is not None:
             return self.conv_concat((x, tmp))
@@ -127,12 +139,14 @@ class HNOSegXS(nn.Module):
     *spatial).
 
     ``generator`` seeds the init (default: a generator seeded with 0);
-    ``device`` places the parameters. The model computes in its parameters'
+    ``device`` places the parameters, which stay fp32 in every
+    ``compute_dtype``. With 'float32' the model computes in its parameters'
     dtype: fp32, or float64 after ``.double()`` as a reference for checks
-    (the CUDA kernels take fp32 only, so such a model runs
-    ``use_kernels=False``). Options of the reference that the
-    port does not cover yet raise ``NotImplementedError`` naming their
-    ROADMAP item.
+    (the CUDA kernels take fp32 and bf16 only, so such a model runs
+    ``use_kernels=False``). 'bfloat16' and 'mixed' serve (module
+    docstring); a forward that autograd would record raises. Options of
+    the reference that the port does not cover yet raise
+    ``NotImplementedError`` naming their ROADMAP item.
     """
 
     def __init__(self, in_channels: int, out_channels: int, filters: int,
@@ -150,8 +164,7 @@ class HNOSegXS(nn.Module):
         super().__init__()
         if ndim != 5:
             not_ported("HNOSegXS ndim=4 (2D)", 11)
-        if compute_dtype != "float32":
-            not_ported(f"compute_dtype={compute_dtype!r}", 12)
+        compute_dtypes(compute_dtype)  # a known name
         if use_flat:
             not_ported("HNOSegXS use_flat (flat-layout tower)", 5)
         if use_remat:
@@ -170,11 +183,12 @@ class HNOSegXS(nn.Module):
         self.channel_first_io = channel_first_io
         self.output_activation = output_activation
         self.use_kernels = use_kernels
+        self.compute_dtype = compute_dtype
 
         ntb = num_transform_blocks
         ntb = [int(ntb)] if np.isscalar(ntb) else [int(n) for n in ntb]
         self.num_blocks = len(ntb)
-        g = dict(generator=generator)
+        g = dict(compute_dtype=compute_dtype, generator=generator)
 
         self.conv_in = (ConvNormAct(in_channels, filters, kernel_size=2,
                                     strides=2, activation=activation, **g)
@@ -205,13 +219,23 @@ class HNOSegXS(nn.Module):
             raise ValueError(f"expected (B, C, D, H, W), got "
                              f"{tuple(x.shape)}")
         in_dtype = x.dtype
-        dtype = self.conv1.op.weight.dtype  # fp32 (float64 after .double())
+        # activations and islands: the parameters' dtype (fp32, float64
+        # after .double()) in 'float32'; bf16 activations otherwise
+        dtype, isl = compute_dtypes(self.compute_dtype,
+                                    self.conv1.op.weight.dtype)
+        if (dtype == torch.bfloat16 and torch.is_grad_enabled()
+                and self.conv1.op.weight.requires_grad):
+            not_ported(f"training with compute_dtype={self.compute_dtype!r} "
+                       "(serve under torch.no_grad or inference_mode)", 12)
         if self.use_resize and self.channel_first_io and self.use_kernels:
             # the fused conv_in reads the channel-first input directly and
-            # emits the channels-last half-resolution grid
+            # emits the channels-last half-resolution grid; its weights are
+            # rounded to the island dtype and passed as fp32 (the bf16
+            # instance sums in fp32)
             image_size = tuple(x.shape[2:])
-            x = conv_in_s2d(x.to(dtype).contiguous(), self.conv_in.op.weight,
-                            self.conv_in.op.bias)
+            w, b = self.conv_in.op.weight, self.conv_in.op.bias
+            x = conv_in_s2d(x.to(dtype).contiguous(),
+                            w.to(isl).to(w.dtype), b.to(isl).to(b.dtype))
         else:
             if self.channel_first_io:
                 x = x.permute(0, 2, 3, 4, 1)
@@ -237,7 +261,11 @@ class HNOSegXS(nn.Module):
         if (self.use_kernels and self.use_resize
                 and self.output_activation == "softmax"
                 and tail_supported(tuple(x.shape), image_size)):
-            x = fused_tail_softmax(x.contiguous(), image_size).to(in_dtype)
+            # the probabilities in the caller's dtype where an instance
+            # writes it, as the reference's out_dtype = in_dtype
+            out = in_dtype if in_dtype == torch.bfloat16 else torch.float32
+            x = fused_tail_softmax(x.contiguous(), image_size,
+                                   out).to(in_dtype)
         else:
             if self.use_resize:
                 x = resize_linear(x, image_size, channel_first=True)

@@ -10,6 +10,12 @@ are those of ``export_reference_state_dict``. Activations are channels-last
 Both variants of the reference are ported: self-normalizing (SELU, no
 normalization, SNN init) and GroupNorm(num_groups=1) + activation (torch's
 default init), as V-Net-DS uses.
+
+bf16 activations (``compute_dtype`` 'bfloat16' or 'mixed', see
+``spectral.compute_dtypes``) follow the reference's ``ops/convs.py``: a
+1x1 conv runs at the island dtype (bf16 operands widened into an fp32
+product in 'mixed') and returns the activation dtype; any other conv runs
+at the input's dtype; the bias is added in the output's dtype.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from .. import device as _device  # noqa: F401  (fp32 policy)
 from . import initializers as inits
 from .activations import get_activation, is_selu
 from .resize import resize_nearest
+from .spectral import compute_dtypes
 
 __all__ = ["Conv", "ConvTranspose", "ConvNormAct", "ConvTransposeNormAct",
            "ConcatConvNormAct", "GroupNorm1", "_SplitKernelConv1x1"]
@@ -55,9 +62,12 @@ class Conv(nn.Module):
     def __init__(self, in_features: int, features: int,
                  kernel_size: Union[int, Sequence[int]] = 1,
                  strides: Union[int, Sequence[int]] = 1,
-                 use_bias: bool = True, snn_init: bool = False, *,
+                 use_bias: bool = True, snn_init: bool = False,
+                 compute_dtype: str = "float32", *,
                  generator: torch.Generator):
         super().__init__()
+        compute_dtypes(compute_dtype)  # a known name
+        self.compute_dtype = compute_dtype
         self.kernel_size = _tuple(kernel_size, 3)
         self.strides = _tuple(strides, 3)
         pointwise = (all(k == 1 for k in self.kernel_size)
@@ -70,15 +80,22 @@ class Conv(nn.Module):
         self.pointwise = pointwise
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weight, self.bias
         if self.pointwise:
-            w = self.weight.reshape(self.weight.shape[:2])
-            return F.linear(x, w, self.bias)
+            w = w.reshape(w.shape[:2])
+            isl = compute_dtypes(self.compute_dtype, w.dtype)[1]
+            if x.dtype == w.dtype == isl:
+                return F.linear(x, w, b)
+            y = F.linear(x.to(isl), w.to(isl)).to(x.dtype)
+            return y if b is None else y + b.to(y.dtype)
         same = all(s == 1 for s in self.strides)
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight, self.bias,
-                     stride=self.strides,
+        sep = x.dtype != w.dtype  # bf16: weights at x's dtype, bias after
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype),
+                     None if sep else b, stride=self.strides,
                      padding="same" if same else
                      tuple(k // 2 for k in self.kernel_size))
-        return y.permute(0, 2, 3, 4, 1)
+        y = y.permute(0, 2, 3, 4, 1)
+        return y + b.to(y.dtype) if sep and b is not None else y
 
 
 class ConvTranspose(nn.Module):
@@ -135,9 +152,12 @@ class _SplitKernelConv1x1(nn.Module):
     projection (exact: the gather commutes with the per-voxel product)."""
 
     def __init__(self, in_features: int, features: int,
-                 use_bias: bool = True, snn_init: bool = False, *,
+                 use_bias: bool = True, snn_init: bool = False,
+                 compute_dtype: str = "float32", *,
                  generator: torch.Generator):
         super().__init__()
+        compute_dtypes(compute_dtype)  # a known name
+        self.compute_dtype = compute_dtype
         fan_in = self.in_features = int(in_features)
         self.weight = nn.Parameter(_weight_init(fan_in, snn_init)(
             (features, fan_in, 1, 1, 1), generator))
@@ -155,17 +175,19 @@ class _SplitKernelConv1x1(nn.Module):
             raise ValueError(f"input channels {cins} do not sum to "
                              f"{self.in_features}")
         w = self.weight.reshape(self.weight.shape[:2])
+        isl = compute_dtypes(self.compute_dtype, w.dtype)[1]
         y = None
         off = 0
         for x, c in zip(inputs, cins):
-            part = F.linear(x, w[:, off:off + c])
+            # at the island dtype, each part back in the activation dtype
+            part = F.linear(x.to(isl), w[:, off:off + c].to(isl)).to(x.dtype)
             if (upsample_to is not None
                     and tuple(part.shape[1:-1]) != upsample_to):
                 part = resize_nearest(part, upsample_to)
             y = part if y is None else y + part
             off += c
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.bias.to(y.dtype)
         return y
 
 
@@ -198,13 +220,14 @@ class ConvNormAct(_NormAct):
                  strides: Union[int, Sequence[int]] = 1,
                  use_bias: bool = True,
                  activation: Optional[str] = "selu", use_snn: bool = True,
+                 compute_dtype: str = "float32",
                  *, generator: torch.Generator):
         super().__init__()
         _check_snn(activation, use_snn)
         self.op = Conv(in_features, features, kernel_size, strides,
                        use_bias=use_bias,
                        snn_init=use_snn and is_selu(activation),
-                       generator=generator)
+                       compute_dtype=compute_dtype, generator=generator)
         self._setup_norm_act(features, activation, use_snn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -237,12 +260,14 @@ class ConcatConvNormAct(_NormAct):
     def __init__(self, in_features: int, features: int,
                  use_bias: bool = True,
                  activation: Optional[str] = "selu", use_snn: bool = True,
+                 compute_dtype: str = "float32",
                  *, generator: torch.Generator):
         super().__init__()
         _check_snn(activation, use_snn)
         self.op = _SplitKernelConv1x1(in_features, features,
                                       use_bias=use_bias,
                                       snn_init=use_snn and is_selu(activation),
+                                      compute_dtype=compute_dtype,
                                       generator=generator)
         self._setup_norm_act(features, activation, use_snn)
 

@@ -77,7 +77,8 @@ class HartleyOperator(_SpectralOperator):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.use_transform:
-            return F.linear(x, self.weight)
+            # at the spectrum's dtype, the island dtype of its transform
+            return F.linear(x, self.weight.to(x.dtype))
         sizes, modes = self._modes(x)
         y = torch.selu(F.linear(dht_crop(x, modes), self.weight))
         return dht_pad_inverse(y, sizes)

@@ -12,16 +12,26 @@ modes [0..m-1] of the last axis (the rfft half spectrum); its inverse folds
 the Hermitian doubling weights (1, 2, 2, ...) into the last stage.
 
 Matrices are built in float64 on the host (``_dft_mats_np``), rounded to
-the tensor's dtype once (fp32; float64 for a reference model), and cached
-on the device per (n, m, kind, device, dtype), so the serving loop uploads
-them once. The contractions are plain ``torch.einsum`` (cuBLAS
-on the GPU, exact fp32 under ``device.py``'s policy), in the reference's
-axis order.
+the contraction's dtype once (fp32; bf16; float64 for a reference model),
+and cached on the device per (n, m, kind, device, dtype), so the serving
+loop uploads them once. The contractions are plain ``torch.einsum`` (cuBLAS
+on the GPU, exact fp32 under ``device.py``'s policy, fp32 accumulation for
+bf16), in the reference's axis order.
+
+``compute_dtype`` (the reference's ``[model] compute_dtype``, with
+``set_bf16_exact`` folded in as the value 'mixed') is an explicit argument
+here, not a process-wide flag: ``compute_dtypes`` maps it to the
+activation dtype and the island dtype, the dtype at which weight and
+transform-matrix contractions run (the reference's ``_isl``). 'float32':
+both the parameters' dtype; 'bfloat16': both bf16; 'mixed': bf16
+activations, fp32 islands (bf16 operands widened into the contraction).
+The transforms take the island dtype as ``island``: their output stays in
+it, as the reference's einsum promotes to the wider operand.
 """
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +39,25 @@ import torch
 from .. import device as _device  # noqa: F401  (fp32 policy)
 
 __all__ = ["normalize_modes", "clip_modes", "spatial_axes", "dht_crop",
-           "dht_pad_inverse", "rfft_crop", "rfft_pad_inverse"]
+           "dht_pad_inverse", "rfft_crop", "rfft_pad_inverse",
+           "COMPUTE_DTYPES", "compute_dtypes"]
+
+COMPUTE_DTYPES = ("float32", "bfloat16", "mixed")
+
+
+def compute_dtypes(compute_dtype: str,
+                   param_dtype: torch.dtype = torch.float32
+                   ) -> Tuple[torch.dtype, torch.dtype]:
+    """(activation dtype, island dtype) of a ``compute_dtype`` for a model
+    whose parameters are ``param_dtype`` (fp32; float64 for a reference)."""
+    if compute_dtype == "float32":
+        return param_dtype, param_dtype
+    if compute_dtype == "bfloat16":
+        return torch.bfloat16, torch.bfloat16
+    if compute_dtype == "mixed":
+        return torch.bfloat16, torch.float32
+    raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got "
+                     f"{compute_dtype!r}")
 
 
 def spatial_axes(ndim: int) -> Tuple[int, ...]:
@@ -116,8 +144,9 @@ def _stage_tensor(n: int, m: int, forward: bool, kind: str,
                   device: torch.device, dtype: torch.dtype, sign: int = -1,
                   half: bool = False) -> torch.Tensor:
     """Device copy of one stage matrix, uploaded once per (n, m, direction,
-    kind, device, dtype, sign, half), outside inference mode. fp32 matrices
-    are the float64 ones rounded once; a float64 model (a reference for checks) gets the float64
+    kind, device, dtype, sign, half), outside inference mode. fp32 and
+    bf16 matrices are the float64 ones rounded to fp32 and then to
+    ``dtype``; a float64 model (a reference for checks) gets the float64
     matrices. ``half`` is the rfft half-spectrum axis, whose inverse is the
     'fold' with the Hermitian weights."""
     np_dt = np.float64 if dtype == torch.float64 else np.float32
@@ -131,7 +160,7 @@ def _stage_tensor(n: int, m: int, forward: bool, kind: str,
     # a normal tensor even when serving builds it first: a later autograd
     # graph saves it for backward
     with torch.inference_mode(False):
-        return torch.from_numpy(mat).to(device)
+        return torch.from_numpy(mat).to(device, dtype)
 
 
 def _axis_order(pairs):
@@ -184,10 +213,13 @@ def _cas_chain(x: torch.Tensor, stages) -> torch.Tensor:
     return x
 
 
-def dht_crop(x: torch.Tensor, modes: Sequence[int]) -> torch.Tensor:
+def dht_crop(x: torch.Tensor, modes: Sequence[int],
+             island: Optional[torch.dtype] = None) -> torch.Tensor:
     """Forward DHT (1/N norm) of a channels-last (B, *spatial, C) tensor,
     evaluated only at the packed corner modes (``modes`` already clipped).
-    Returns the real packed spectrum (B, *2*modes, C)."""
+    Returns the real packed spectrum (B, *2*modes, C) in the island dtype
+    ``island`` (default: x's)."""
+    x = x if island is None else x.to(island)
     axes = spatial_axes(x.ndim)
     mdict = dict(zip(axes, modes))
     pairs = [(ax, x.shape[ax], 2 * m) for ax, m in zip(axes, modes)]
@@ -199,9 +231,12 @@ def dht_crop(x: torch.Tensor, modes: Sequence[int]) -> torch.Tensor:
     return _cas_chain(x, stages)
 
 
-def dht_pad_inverse(y: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
+def dht_pad_inverse(y: torch.Tensor, sizes: Sequence[int],
+                    island: Optional[torch.dtype] = None) -> torch.Tensor:
     """Inverse DHT (no norm) from a packed corner spectrum (B, *2m, C) to
-    the full grid ``sizes``; modes are inferred as (packed size)//2."""
+    the full grid ``sizes``, in the island dtype ``island`` (default: y's);
+    modes are inferred as (packed size)//2."""
+    y = y if island is None else y.to(island)
     axes = spatial_axes(y.ndim)
     modes = {ax: y.shape[ax] // 2 for ax in axes}
     ndict = dict(zip(axes, sizes))

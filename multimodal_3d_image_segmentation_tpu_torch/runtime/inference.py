@@ -8,8 +8,10 @@ torch state dict in the upstream reference's key names (the upstream
 project's own weights-only format), or else ``model.msgpack``, the JAX
 package's export (``utils/msgpack_params.py`` reads it and
 ``utils/jax_compat.py`` converts it), so a run directory that the JAX
-package wrote serves here too. The model is shape-polymorphic, so a model
-trained at one size serves at another (zero-shot super-resolution).
+package wrote serves here too. ``[model] compute_dtype = 'bfloat16'`` or
+``'mixed'`` serves in that mode (HNOSeg-XS). The model is
+shape-polymorphic, so a model trained at one size serves at another
+(zero-shot super-resolution).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from ..data.normalization import normalize_modalities
 from ..device import resolve_device
 from .checkpoint import load_weights
 from .config import get_config
-from .run import _build_model, get_data_lists
+from .run import _build_model, get_data_lists, warn_autocast
 from .train_test import testing
 
 __all__ = ["run_inference", "load_weights", "main"]
@@ -65,7 +67,7 @@ def run_inference(config_args):
     test_dir = os.path.join(output_dir,
                             test_args.pop("output_folder", "inference"))
     if test_args.pop("use_autocast", None):
-        not_ported("[test] use_autocast", 12)
+        warn_autocast("test")
     return testing(model=model, input_data=input_data, output_dir=test_dir,
                    **test_args)
 

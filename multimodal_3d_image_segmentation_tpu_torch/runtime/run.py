@@ -32,10 +32,17 @@ from .config import get_config, save_config
 from .optim import build_optimizer, build_schedule
 from .train_test import testing, training
 
-__all__ = ["run", "get_data_lists", "main"]
+__all__ = ["run", "get_data_lists", "warn_autocast", "main"]
 
 _MODELS = {"HartleyMHASeg": HartleyMHASeg, "HNOSegXS": HNOSegXS,
            "NeuralOperatorSeg": NeuralOperatorSeg, "VNetDS": VNetDS}
+
+
+def warn_autocast(section: str) -> None:
+    """``[train]`` / ``[test] use_autocast`` is ignored, as the reference
+    ignores it: mixed precision is ``[model] compute_dtype``."""
+    print(f"Warning: [{section}] use_autocast is ignored; use [model] "
+          "compute_dtype = 'bfloat16' or 'mixed' for mixed precision.")
 
 
 def get_data_lists(data_lists_paths, data_dir=None):
@@ -61,7 +68,10 @@ def _build_model(config_args, input_data, image_size_getter,
     from ``generator`` (default: seeded with 0).
 
     ``use_pallas`` maps to ``use_kernels``; ``transform_precision`` 'high'
-    and 'highest' both mean exact fp32 (``device.py``)."""
+    and 'highest' both mean exact fp32 (``device.py``); ``compute_dtype``
+    'float32', 'bfloat16' or 'mixed' passes through by name (the
+    reference maps 'mixed' to 'bfloat16' plus a process-wide flag; the
+    port's models take 'mixed' itself)."""
     model_args = copy.deepcopy(config_args["model"])
     model_args["in_channels"] = input_data.get_num_x_modalities()
     model_args["ndim"] = len(image_size_getter()) + 2
@@ -158,7 +168,7 @@ def run(config_args):
 
         train_args = copy.deepcopy(config_args["train"])
         if train_args.pop("use_autocast", None):
-            not_ported("[train] use_autocast", 12)
+            warn_autocast("train")
         if train_args.pop("checkpoint_backend", "msgpack") != "msgpack":
             not_ported("[train] checkpoint_backend = 'orbax'", 15)
         gen = torch.Generator().manual_seed(int(train_args.pop("seed", 0)))
@@ -195,7 +205,7 @@ def run(config_args):
         is_print = test_args.get("is_print", True)
     test_args.pop("is_print", None)
     if test_args.pop("use_autocast", None):
-        not_ported("[test] use_autocast", 12)
+        warn_autocast("test")
     if is_test:
         testing(model=model, input_data=input_data, output_dir=test_dir,
                 is_print=is_print, **test_args)

@@ -144,16 +144,18 @@ def needed_ratio(r, test, refs):
 
 
 @contextlib.contextmanager
-def plain_twins():
-    """The models call each kernel wrapper's plain twin instead."""
-    real = {name: getattr(architectures, name) for name in _TWINS}
+def plain_twins(module=architectures, twins=None):
+    """The models of ``module`` call each kernel wrapper's plain twin
+    instead (``twins``, name -> function; default the towers' families')."""
+    twins = _TWINS if twins is None else twins
+    real = {name: getattr(module, name) for name in twins}
     try:
-        for name, twin in _TWINS.items():
-            setattr(architectures, name, twin)
+        for name, twin in twins.items():
+            setattr(module, name, twin)
         yield
     finally:
         for name, fn in real.items():
-            setattr(architectures, name, fn)
+            setattr(module, name, fn)
 
 
 def _step(model, x, y1h):

@@ -155,8 +155,6 @@ def test_generator_seeds_the_init():
 @pytest.mark.parametrize("opts", [
     dict(use_flat=True),
     dict(use_remat=True),
-    dict(compute_dtype="bfloat16"),
-    dict(compute_dtype="mixed"),
     dict(ndim=4),
     dict(weights_type="individual"),
     dict(activation="relu"),
@@ -165,3 +163,15 @@ def test_generator_seeds_the_init():
 def test_unported_options_raise(opts):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HNOSegXS(**{**SMALL, **opts})
+
+
+@pytest.mark.parametrize("mode", ["bfloat16", "mixed"])
+def test_training_in_a_bf16_mode_raises(mode):
+    """Serving only: a forward autograd would record raises, naming item
+    12; the same model serves under no_grad."""
+    m = HNOSegXS(**SMALL, compute_dtype=mode, use_kernels=True)
+    x = torch.from_numpy(_x())
+    with pytest.raises(NotImplementedError, match="item 12"):
+        m(x)
+    with torch.no_grad():
+        assert torch.isfinite(m(x)).all()

@@ -1197,3 +1197,186 @@ def test_family_train_step_on_the_card(dev, family):
         x, y))
     for k, p in fast.named_parameters():
         assert not torch.equal(before[k], p), k
+
+
+# The bf16 instances (compute_dtype 'bfloat16' and 'mixed') against their
+# plain twins, which compute the same function in fp32 from the exact bf16
+# values and round where the kernel rounds. A kernel and its twin sum in
+# another order, so a value whose fp32 sums straddle a rounding point
+# rounds the other way: one bf16 ulp, at most 2^-7 of the value (rtol), on
+# top of the fp32 tests' 1e-5 (atol). The chain rounds after each of its
+# stages, so a flip at one stage moves the next stage's inputs by one ulp:
+# its bar adds one ulp of the output's largest magnitude.
+BF16_ULP = 2.0 ** -7
+
+
+def _bf16(shape, seed, dev, scale=1.0):
+    return _t(shape, seed, dev, scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 4, 16, 14, 11),    # even D/H, odd W
+    (1, 4, 15, 13, 12),    # odd D/H
+    (2, 3, 9, 8, 7),       # batch 2, C 3
+    (1, 4, 5, 13, 155),    # the serving W: spans at every offset modulo 8
+    (1, 4, 2, 3, 600),     # rows wider than a block
+    (1, 1, 3, 30, 3),      # one channel, 8-row bands
+])
+@pytest.mark.parametrize("f", [8, 24])
+@pytest.mark.parametrize("selu", [True, False])
+def test_conv_in_bf16_kernel_matches_plain(dev, shape, f, selu):
+    c = shape[1]
+    x = _bf16(shape, 70, dev)
+    w = _t((f, c, 2, 2, 2), 71, dev, 1 / np.sqrt(8 * c))
+    b = _t((f,), 72, dev, 0.1)
+    with torch.no_grad():
+        got = _launched("conv_in_bf16", lambda: kernels.conv_in_s2d(
+            x, w, b, apply_selu=selu))
+        want = kernels.conv_in_plain(x, w, b, apply_selu=selu)
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ULP,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("offset", list(range(8)))
+@pytest.mark.parametrize("shape", [(1, 4, 5, 13, 155), (1, 1, 5, 7, 13)])
+def test_conv_in_bf16_kernel_takes_an_unaligned_view(dev, shape, offset):
+    # a contiguous view `offset` values into its storage: each span's
+    # 16-byte alignment comes from its address, 8 bf16 values a word
+    x = _bf16((int(np.prod(shape)) + offset,), 73, dev)[offset:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2 * offset
+    c = shape[1]
+    w = _t((24, c, 2, 2, 2), 74, dev, 1 / np.sqrt(8 * c))
+    b = _t((24,), 75, dev, 0.1)
+    with torch.no_grad():
+        got = _launched("conv_in_bf16",
+                        lambda: kernels.conv_in_s2d(x, w, b))
+        torch.testing.assert_close(
+            got.float(), kernels.conv_in_plain(x, w, b).float(),
+            rtol=BF16_ULP, atol=1e-5)
+
+
+def test_conv_in_bf16_kernel_batch_element_1_of_the_odd_volume(dev):
+    # batch element 1 of a 2 x 4 x 239 x 239 x 155 bf16 volume starts 8
+    # bytes past a 16-byte boundary (the reference's odd-D/H variant)
+    xx = _bf16((2, 4, 239, 239, 155), 76, dev)
+    x = xx[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 8
+    w = _t((24, 4, 2, 2, 2), 77, dev, 1 / np.sqrt(32))
+    b = _t((24,), 78, dev, 0.1)
+    with torch.no_grad():
+        got = _launched("conv_in_bf16",
+                        lambda: kernels.conv_in_s2d(x, w, b))
+        want = kernels.conv_in_plain(x, w, b)
+    assert got.shape == (1, 120, 120, 78, 24)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ULP,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [1, 33, 129, 15680])
+@pytest.mark.parametrize("c", [8, 24])
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_freq_chain_bf16_kernel_matches_plain(dev, rows, c, n):
+    x = _bf16((rows, c), 80, dev)
+    ws = [_bf16((c, c), 81 + k, dev, 1 / np.sqrt(c)) for k in range(n)]
+    with torch.no_grad():
+        got = _launched("freq_chain_bf16",
+                        lambda: kernels.fused_freq_chain(x, ws))
+        want = kernels.freq_chain_plain(x, ws)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=BF16_ULP,
+        atol=1e-5 + BF16_ULP * max(1.0, float(want.float().abs().max())))
+
+
+@pytest.mark.parametrize("offset", list(range(8)))
+def test_freq_chain_bf16_kernel_takes_an_unaligned_view(dev, offset):
+    rows, c = 131, 24
+    x = _bf16((rows * c + offset,), 90, dev)[offset:].view(rows, c)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2 * offset
+    ws = [_bf16((c, c), 91 + k, dev, 1 / np.sqrt(c)) for k in range(3)]
+    with torch.no_grad():
+        got = _launched("freq_chain_bf16",
+                        lambda: kernels.fused_freq_chain(x, ws))
+        want = kernels.freq_chain_plain(x, ws)
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=BF16_ULP,
+        atol=1e-5 + BF16_ULP * max(1.0, float(want.float().abs().max())))
+
+
+def test_freq_chain_bf16_rounds_after_every_stage(dev):
+    # against a chain that rounds only at its end, the kernel must differ:
+    # the per-stage rounding is the reference's bf16 chain
+    x = _bf16((4096, 24), 95, dev)
+    ws = [_bf16((24, 24), 96 + k, dev, 1 / np.sqrt(24)) for k in range(3)]
+    with torch.no_grad():
+        got = kernels.fused_freq_chain(x, ws).float()
+        once = kernels.freq_chain_plain(
+            x.float(), [w.float() for w in ws]).to(torch.bfloat16).float()
+        want = kernels.freq_chain_plain(x, ws).float()
+    assert float((got - want).abs().max()) < float((got - once).abs().max())
+
+
+@pytest.mark.parametrize("sizes_in,sizes,c", [
+    (a, b, c) for a, b in TAIL_BAND_CASES for c in (1, 4, 8)] + [
+    ((121, 121, 78), (240, 240, 155), 4)])  # the serving shape, W 155
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_tail_bf16_kernel_matches_plain(dev, sizes_in, sizes, c, out_dtype):
+    x = _bf16((1, c) + sizes_in, 100, dev, 3.0)
+    with torch.no_grad():
+        got = _launched("tail_resize_bf16", lambda: kernels.fused_tail_softmax(
+            x, sizes, out_dtype))
+        want = kernels.tail_plain(x, sizes, out_dtype)
+    assert got.dtype == want.dtype == out_dtype
+    rtol = BF16_ULP if out_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-6)
+
+
+def test_bf16_instances_refuse_what_they_do_not_take(dev):
+    x = _bf16((1, 4, 8, 8, 8), 110, dev)
+    w = _t((24, 4, 2, 2, 2), 111, dev)
+    b = _t((24,), 112, dev)
+    with pytest.raises(TypeError):  # the bf16 instance takes fp32 weights
+        kernels.conv_in_s2d(x, w.to(torch.bfloat16), b)
+    with pytest.raises(TypeError):  # no fp16 instance
+        kernels.conv_in_s2d(x.half(), w, b)
+    rows = _bf16((10, 24), 113, dev)
+    with pytest.raises(TypeError):  # bf16 rows take bf16 weights
+        kernels.fused_freq_chain(rows, [_t((24, 24), 114, dev)])
+    with pytest.raises(TypeError):
+        kernels.fused_freq_chain(rows.float(), [_bf16((24, 24), 114, dev)])
+    logits = _bf16((1, 4, 6, 8, 8), 115, dev)
+    with pytest.raises(TypeError):  # no fp16 output
+        kernels.fused_tail_softmax(logits, (8, 10, 10), torch.float16)
+    with pytest.raises(TypeError):  # fp32 logits write fp32 only
+        kernels.fused_tail_softmax(logits.float(), (8, 10, 10),
+                                   torch.bfloat16)
+    with pytest.raises(TypeError):
+        kernels.fused_tail_softmax(logits.half(), (8, 10, 10))
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "mixed"])
+def test_hnosegxs_bf16_kernel_path_launches_the_bf16_instances(
+        dev, compute_dtype):
+    from multimodal_3d_image_segmentation_tpu_torch.models import HNOSegXS
+    kw = dict(in_channels=4, out_channels=4, filters=24,
+              num_transform_blocks=[3, 3], num_modes=(3, 4, 4),
+              compute_dtype=compute_dtype)
+    plain = HNOSegXS(**kw, device=dev)
+    fast = HNOSegXS(**kw, use_kernels=True, device=dev)
+    fast.load_state_dict(plain.state_dict())
+    x = _t((1, 4, 16, 18, 13), 120, dev)
+    before = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        got, want = fast(x), plain(x)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+             if v != before[k]}
+    chain = "freq_chain_bf16" if compute_dtype == "bfloat16" \
+        else "freq_chain"
+    assert moved == {"conv_in_bf16": 1, chain: 2, "tail_resize_bf16": 1}
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    # two bf16 paths that round at other places: the probabilities agree
+    # to bf16's class, not fp32's
+    assert float((got - want).abs().mean()) < 1e-2

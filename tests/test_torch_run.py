@@ -206,7 +206,7 @@ def test_test_and_statistics_of_another_family(tmp_path, dataset, config):
 @pytest.mark.parametrize("section,key,val,item", [
     ("parallel", "n_data", 2, "item 15"),
     ("augmentation", "device", True, "item 13"),
-    ("train", "use_autocast", True, "item 12"),
+    ("model", "compute_dtype", "mixed", "item 12"),
 ])
 def test_options_not_ported_raise(tmp_path, dataset, section, key, val,
                                   item):
@@ -214,6 +214,19 @@ def test_options_not_ported_raise(tmp_path, dataset, section, key, val,
     cfg.setdefault(section, {})[key] = val
     with pytest.raises(NotImplementedError, match=item):
         run(cfg)
+
+
+def test_train_use_autocast_warns_and_trains(tmp_path, dataset, capsys):
+    """``[train] use_autocast`` is ignored with a warning pointing to
+    ``[model] compute_dtype``, as the JAX package's run does, and the run
+    trains."""
+    out = tmp_path / "run"
+    extra = {"is_test": "False", "is_statistics": "False"}
+    cfg = _config(tmp_path, dataset, out, num_epochs=1, extra=extra)
+    cfg["train"]["use_autocast"] = True
+    run(cfg)
+    assert "[train] use_autocast is ignored" in capsys.readouterr().out
+    assert (out / "model" / "model.pt").is_file()
 
 
 def test_cli_runs_the_config(tmp_path, dataset):

@@ -168,7 +168,7 @@ def test_port_never_imports_jax(tmp_path):
         "from multimodal_3d_image_segmentation_tpu_torch.runtime import "
         "inference, config\n"
         "from multimodal_3d_image_segmentation_tpu_torch.utils import "
-        "jax_compat, labels\n"
+        "jax_compat, labels, precision_gate\n"
         "import multimodal_3d_image_segmentation_tpu_torch.data\n"
         "import multimodal_3d_image_segmentation_tpu_torch.kernels\n"
         "torch.set_num_threads(1)\n"
@@ -252,14 +252,18 @@ def test_parallel_section_is_refused():
         run_inference(cfg)
 
 
-def test_autocast_is_refused(tmp_path):
+def test_autocast_warns_and_serves(tmp_path, capsys):
+    """``[test] use_autocast`` is ignored with a warning pointing to
+    ``[model] compute_dtype``, as the JAX package's run_inference does, and
+    the volumes are served."""
     cfg, _ = _cfg(tmp_path)
     (tmp_path / "out" / "model").mkdir(parents=True)
     torch.save(_build_model(cfg, _Sizes2(), lambda: SHAPE).state_dict(),
                tmp_path / "out" / "model" / "model.pt")
     cfg["test"]["use_autocast"] = True
-    with pytest.raises(NotImplementedError, match="use_autocast.*item 12"):
-        run_inference(cfg)
+    stats = run_inference(cfg)
+    assert "[test] use_autocast is ignored" in capsys.readouterr().out
+    assert stats["n_volumes"] == 2  # _write_cases' two cases
 
 
 @pytest.mark.parametrize("as_tensor", [False, True])
