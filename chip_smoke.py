@@ -9,12 +9,14 @@ Drives the port's serving paths once at full width on 4-modality
 compute_dtype`` 'bfloat16' and 'mixed'), V-Net-DS (base 24, blocks
 [1,2,3,3,3], right leg [0..4], 22,547,764 parameters), HartleyMHASeg
 (filters 24, 16 blocks, 4 heads, modes (8,12,12), patch 2, deep
-supervision, 178,532 parameters), and HNOSeg and FNOSeg (NeuralOperatorSeg:
-filters 24, 24 blocks, modes (10,14,14), shared weights, Hartley or
-Fourier, 57,360 and 71,184 parameters), the last two on their default
-tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
-'block_s'; then trains each of the five families at the same widths on
-1x4x120x120x78 volumes, the configs' training size. It checks them:
+supervision, 178,532 parameters; also in 'bfloat16' and 'mixed'), and
+HNOSeg and FNOSeg (NeuralOperatorSeg: filters 24, 24 blocks, modes
+(10,14,14), shared weights, Hartley or Fourier, 57,360 and 71,184
+parameters), the last two on their default tower kernel ``tower_kernel``
+'block' and on 'resident', HNOSeg also on 'block_s', and both in
+'bfloat16' and 'mixed' on all three; then trains each of the five
+families at the same widths on 1x4x120x120x78 volumes, the configs'
+training size. It checks them:
 
   1. device   the card's name and power limit, torch and CUDA versions;
   2. build    compile the CUDA kernels from ``csrc/`` (one nvcc per source,
@@ -42,6 +44,17 @@ tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
               at its end or with its first stage unrounded must fail),
               with their times, bounds and the fp32 instances' times in
               the same run;
+  3c. towers  the 'bfloat16' and 'mixed' instances of tower_block and
+              tower_block_s at the three shapes, and of tower_resident at
+              HNOSeg's and FNOSeg's, against their plain twins in the
+              working type (bf16 outputs: one ulp plus one ulp of the
+              largest magnitude, at most 1e-3 of the elements more than one
+              ulp of their own magnitude plus 1e-5 apart; fp32 outputs 1e-4
+              of the largest magnitude; tower_resident one block so, two
+              and 24 blocks at most 2x the twin's distance from float64),
+              with controls (the twin with one of its roundings left out)
+              that must fail, each instance's time beside the fp32
+              instance's and its bound;
   4. serve    ``runtime/inference.py::run_inference`` on 3 synthetic NIfTI
               cases through ``configs/config_inference_hnoseg_xs.ini``; the
               launch counts (reset just before) must be 3 / 24 / 3; then
@@ -76,7 +89,11 @@ tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
               control with conv3's operands in TF32 must fail the bars;
   9. serve    run_inference serves the same cases through
               ``configs/config_hartleymha.ini``; launches (reset just before)
-              must be conv_in 3, tower_block 48, tail_resize 3;
+              must be conv_in 3, tower_block 48, tail_resize 3; then with
+              ``compute_dtype`` 'bfloat16' (conv_in_bf16 3, tower_block_bf16
+              48, tail_resize_bf16 3) and 'mixed' (tower_block_mixed 48);
+              then the precision gate of a trained HartleyMHASeg (4b's
+              rule, its kernel path on tower_block);
  10. model    the HartleyMHASeg kernel path against its plain path and
               float64, on a served volume and on a small volume against the
               CPU, with both tower kernels; a control with tower_block's
@@ -88,7 +105,11 @@ tower kernel ``tower_kernel`` 'block' and on 'resident', HNOSeg also on
               ``tower_kernel = 'resident'`` set on the loaded config:
               conv_in 3, tower_resident 3, tail_resize 3; HNOSeg also with
               ``tower_kernel = 'block_s'``: conv_in 3, tower_block_s 72,
-              tail_resize 3;
+              tail_resize 3; then each in 'bfloat16' and 'mixed' on all
+              three tower kernels (conv_in_bf16 3, tail_resize_bf16 3 and
+              72 of tower_block's or tower_block_s's instance, or 3 of
+              tower_resident's); then the precision gate of each trained
+              family (HNOSeg's kernel paths on all three tower kernels);
  12. model    for each of the two, the kernel paths on tower_block (the
               default), tower_block_s and tower_resident against the plain
               path and float64 on a served volume, and the first on a
@@ -209,6 +230,25 @@ KERNELS = [
     ("tail_resize_bf16",
      "multimodal_3d_image_segmentation_tpu_torch/csrc/tail_resize.cu",
      "multimodal_3d_image_segmentation_tpu/kernels/tail_resize.py:149"),
+    # the tower kernels' 'bfloat16' and 'mixed' instances
+    ("tower_block_bf16",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/tower_block.py:377"),
+    ("tower_block_mixed",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/tower_block.py:377"),
+    ("tower_block_s_bf16",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block_s.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/tower_block_s.py:332"),
+    ("tower_block_s_mixed",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block_s.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/tower_block_s.py:332"),
+    ("tower_resident_bf16",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_resident.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/tower_resident.py:244"),
+    ("tower_resident_mixed",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_resident.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/tower_resident.py:244"),
 ]
 
 
@@ -232,6 +272,15 @@ PER_VOLUME_NOSEG_BLOCK_S = per_volume(conv_in=1, tail_resize=1,
                                       tower_block_s=24)
 PER_VOLUME_NOSEG_RESIDENT = per_volume(conv_in=1, tail_resize=1,
                                        tower_resident=1)
+
+
+def per_volume_tower(mode, tower, n):
+    """A tower family's launches per volume in a bf16 mode: conv_in's and
+    the tail's bf16 instances and ``n`` launches of ``tower``'s instance
+    ('bfloat16' or 'mixed')."""
+    suffix = "_bf16" if mode == "bfloat16" else "_mixed"
+    return per_volume(conv_in_bf16=1, tail_resize_bf16=1,
+                      **{tower + suffix: n})
 BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative
 # the share of a bf16 output's elements that may lie more than one ulp of
 # their own magnitude from the plain twin's. On an H100 (700 W) the chain
@@ -239,6 +288,11 @@ BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative
 # end read 0.141 and with its first stage unrounded 0.147 (the controls of
 # phase_kernels_bf16, which must fail)
 BF16_SHARE = 1e-3
+# the tower kernels' fp32 outputs of a bf16 instance (s_f, 'mixed''s f, ds):
+# a rounding flipped upstream moves them by about one bf16 ulp of one
+# operand's contribution, 1.3e-5 of the largest magnitude at most on an
+# H100 (700 W); the controls of phase_towers_bf16 read 2e-4 to 4e-4
+TOWER_FP32_REL = 1e-4
 
 
 T0 = time.perf_counter()
@@ -307,12 +361,13 @@ def phase_build(kernels):
             print(line.strip())
 
 
-def held_to(torch, got, want, tol):
+def held_to(torch, got, want, tol, share_atol=0.0):
     """(passed, max abs err, (rtol, atol), share): ``got`` against
     ``want`` within ``tol`` = (rtol, atol) (or a function of the float
     ``want`` giving them) on every element; for a bf16 output also the
-    share of elements more than one ulp of their own magnitude apart,
-    which must stay within ``BF16_SHARE`` (else None)."""
+    share of elements more than one ulp of their own magnitude (plus
+    ``share_atol``) apart, which must stay within ``BF16_SHARE`` (else
+    None)."""
     gf, wf = got.float(), want.float()
     rtol, atol = tol(wf) if callable(tol) else tol
     d = (gf - wf).abs()
@@ -322,7 +377,7 @@ def held_to(torch, got, want, tol):
     if got.dtype == torch.bfloat16:
         mag = torch.maximum(gf.abs(), wf.abs()).clamp_min(2.0 ** -126)
         ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-        share = float((d > ulp).float().mean())
+        share = float((d > ulp + share_atol).float().mean())
         ok = ok and share <= BF16_SHARE
     return ok, err, (rtol, atol), share
 
@@ -435,9 +490,11 @@ def phase_kernels(torch, kernels, dev):
     return results
 
 
-def tower_block_work(spec):
+def tower_block_work(spec, vol_bytes=4, f_bytes=4):
     """(flops, bytes) of one tower_block call: x, z and ds_prev read once,
-    out, f and ds written once (weights and stage matrices are KB)."""
+    out, f and ds written once (weights and stage matrices are KB); the
+    volume's and f's elements take ``vol_bytes`` and ``f_bytes`` (2 in the
+    bf16 instances), z and ds 4."""
     d, h, w = spec.sizes
     c, kh, kw, nds = spec.channels, spec.kh, spec.kw, spec.n_ds
     macs = d * (4 * c * kh * kw * w            # inverse W stage
@@ -446,32 +503,36 @@ def tower_block_work(spec):
                 + h * w * c * c                # W_cc_t
                 + c * w * 2 * kh * h           # forward H stage
                 + 4 * c * kh * kw * w)         # forward W stage
-    moved = 4 * 2 * (d * h * w * c + d * 2 * c * kh * kw + d * h * w * nds)
+    moved = (2 * vol_bytes * d * h * w * c + (4 + f_bytes) * d * 2 * c * kh
+             * kw + 4 * 2 * d * h * w * nds)
     return 2 * macs, moved
 
 
-def tower_block_s_work(spec, ks):
+def tower_block_s_work(spec, ks, vol_bytes=4):
     """(flops, bytes) of one tower_block_s call: tower_block's operations
     plus the two depth stages (2 KS C KH KW MACs per plane each way); x,
-    sy and ds_prev read once, out, s_f and ds written once (no z or f)."""
+    sy and ds_prev read once, out, s_f and ds written once (no z or f); the
+    volume's elements take ``vol_bytes``."""
     d, h, w = spec.sizes
     c, kh, kw, nds = spec.channels, spec.kh, spec.kw, spec.n_ds
     flops = tower_block_work(spec)[0] + 2 * d * 4 * ks * c * kh * kw
-    moved = 4 * 2 * (d * h * w * c + ks * c * kh * kw + d * h * w * nds)
+    moved = (2 * vol_bytes * d * h * w * c + 4 * 2 * ks * c * kh * kw
+             + 4 * 2 * d * h * w * nds)
     return flops, moved
 
 
-def tower_resident_work(spec, ks, nb):
+def tower_resident_work(spec, ks, nb, vol_bytes=4, w_bytes=4):
     """(flops, bytes) of one tower_resident call of nb blocks: nb
     tower_block_s blocks and nb operator mixes of the packed spectrum (block
     0's entry spectrum, built before the launch, does the forward work that
-    the last block skips); x read and out written once, and the weights."""
+    the last block skips); x read and out written once (``vol_bytes`` an
+    element), and the weights (the channel mixes ``w_bytes`` an element)."""
     c, kh, kw = spec.channels, spec.kh, spec.kw
     pr = 1 if spec.transform == "Hartley" else 2
     mix_macs = pr * ks * c * c * kh * kw
     flops = nb * (tower_block_s_work(spec, ks)[0] + 2 * mix_macs)
-    moved = 4 * (2 * int(np.prod(spec.sizes)) * c
-                 + nb * (pr * c * c + 3 * c * c + 2 * c))
+    moved = (2 * vol_bytes * int(np.prod(spec.sizes)) * c
+             + nb * (4 * (pr * c * c + 2 * c) + w_bytes * 3 * c * c))
     return flops, moved
 
 
@@ -855,18 +916,255 @@ def phase_kernels_bf16(torch, kernels, dev, fp32):
     return out
 
 
-def phase_gate(torch, dev):
+# the tower kernels' bf16 instances by compute_dtype: (name suffix, the
+# channel-mix weights' dtype name)
+TOWER_MODES = (("bfloat16", "_bf16", "bfloat16"), ("mixed", "_mixed",
+                                                   "float32"))
+# the twins' roundings whose controls must fail, per kernel (HNOSeg's shape)
+TOWER_CONTROLS = {"tower_block": ({"F"}, {"z"}),
+                  "tower_block_s": ({"sy"}, {"f"}),
+                  "tower_resident": ({"sy"},)}
+
+
+def _tower_tol(torch, got):
+    """(tolerance, share_atol) of a tower kernel output of a bf16
+    instance: a bf16 output (out; 'bfloat16''s f) one bf16 ulp plus 1e-5
+    plus one ulp of its largest magnitude (a rounding flipped upstream),
+    and at most ``BF16_SHARE`` of its elements more than one ulp of their
+    own magnitude plus 1e-5 apart (f is an fp32 sum with cancellation,
+    rounded once: near 0 its fp32 summation order shows); an fp32 output
+    ``TOWER_FP32_REL`` of its largest magnitude."""
+    if got.dtype == torch.bfloat16:
+        return (lambda w: (BF16_ULP, 1e-5 + BF16_ULP * max(
+            1.0, float(w.abs().max())))), 1e-5
+    return (lambda w: (0.0, TOWER_FP32_REL * float(w.abs().max()))), 0.0
+
+
+def _held_tower(torch, label, names, got, want):
+    """(passed, largest error, largest share): each output of a tower
+    kernel's bf16 instance (or of a control) against its twin's, by
+    ``_tower_tol``; prints each reading."""
+    ok_all, err, share_max = True, 0.0, 0.0
+    for oname, g, w in zip(names, got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{label} {oname}: {tuple(g.shape)} {g.dtype} against "
+              f"{tuple(w.shape)} {w.dtype}")
+        tol, share_atol = _tower_tol(torch, g)
+        ok, e, (rtol, atol), share = held_to(torch, g, w, tol, share_atol)
+        print(f"{label} {oname} {str(g.dtype)[6:]}: max abs err {e:.3e} "
+              f"(rtol {rtol:g}, atol {atol:.3g}, largest |value| "
+              f"{float(w.float().abs().max()):.3f})" + (
+                  "" if share is None else f", {share:.3e} of the elements "
+                  f"more than one ulp of their own magnitude + "
+                  f"{share_atol:g} apart (bar {BF16_SHARE:g})"))
+        ok_all, err = ok_all and ok, max(err, e)
+        share_max = max(share_max, share or 0.0)
+    return ok_all, err, share_max
+
+
+def phase_towers_bf16(torch, kernels, dev):
+    """The tower kernels' 'bfloat16' and 'mixed' instances against their
+    plain twins (fp32 sums on the bf16 values, rounded where the kernel
+    rounds) in the working type, at the shapes their fp32 instances are
+    checked at: tower_block and tower_block_s at HartleyMHASeg's, HNOSeg's
+    and FNOSeg's, each output by ``_tower_tol`` and a second run
+    bit-identical; tower_resident at HNOSeg's and FNOSeg's, one block by
+    ``_tower_tol``, two blocks and the whole 24-block tower by the
+    whole-model rule (the largest distance from a float64 evaluation of the
+    same tower at most 2x the twin's: the kernel's operator mix sums in
+    another fp32 order than the twin's, and the next block's bf16 rounding
+    of the spectrum spreads a flip through every voxel). At HNOSeg's shape the 'bfloat16' twin with one of its
+    roundings left out (``TOWER_CONTROLS``) must fail the check the kernel
+    passed. Each instance's time beside the fp32 instance's in this run and
+    its bound (operations at the bf16 rate for 'bfloat16', fp32 for
+    'mixed', whose operands are fp32; bytes at each element's size). The
+    kernels line reports tower_block at HartleyMHASeg's shape, the others
+    at HNOSeg's, with the largest error over the shapes."""
+    header("== tower kernels, bf16 and mixed instances")
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        tower_block as tb
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        tower_block_s as tbs
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        tower_resident as tr
+    from multimodal_3d_image_segmentation_tpu_torch.models import \
+        NeuralOperatorSeg
+    from multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep import \
+        BLOCK_SHAPES
+    bf16 = torch.bfloat16
+    dtypes = {"bfloat16": bf16, "float32": torch.float32}
+    results = {}
+
+    def record(name, label, err, ms, fp32_ms, plain_ms, bnd, share):
+        b_ms, b_by = bnd
+        print(f"{name} {label}: kernel {ms:.4f} ms (the fp32 instance "
+              f"{fp32_ms:.4f} ms in this run)  plain {plain_ms:.4f} ms  "
+              f"library None  bound {b_ms:.4f} ms ({b_by}) (medians of "
+              f"{N_TIMED}, CUDA events)")
+        results.setdefault(name, {})[label] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "fp32_ms": fp32_ms, "share_beyond_ulp": share}
+
+    for i, (label, transform, modes, nds) in enumerate(BLOCK_SHAPES):
+        spec = tb.make_tower_spec(transform, GRID, modes, 24, n_ds=nds)
+        ks = tb.spectrum_rows(spec)
+        with torch.inference_mode():
+            x, s, w_cat, w_cc_t, b_cat, ds_prev = _tower_operands(
+                torch, tb, dev, spec, SEED + 20 + i)
+            z = tb.d_stage_inverse(s, spec).contiguous()
+            xb = x.to(bf16)
+            for kernel, fused, plain, spectrum, outs in (
+                    ("tower_block", kernels.fused_tower_block,
+                     kernels.tower_block_plain, z, ("out", "f", "ds")),
+                    ("tower_block_s", kernels.fused_tower_block_s,
+                     kernels.tower_block_s_plain, s, ("out", "s_f", "ds"))):
+                outs = outs[:3 if nds else 2]
+                fp32_ms = median_ms(torch, lambda: fused(
+                    x, spectrum, w_cat, w_cc_t, b_cat, spec, ds_prev))
+                for mode, suffix, wname in TOWER_MODES:
+                    wd = dtypes[wname]
+                    args = (xb, spectrum, w_cat.to(wd), w_cc_t.to(wd), b_cat,
+                            spec, ds_prev)
+                    name = kernel + suffix
+                    before = kernels.LAUNCHES[name]
+                    got = fused(*args)
+                    torch.cuda.synchronize()
+                    check(kernels.LAUNCHES[name] == before + 1,
+                          f"{name} {label}: launch count did not move")
+                    want = plain(*args)
+                    ok, err, share = _held_tower(torch, f"{name} {label}",
+                                                 outs, got, want)
+                    check(ok, f"{name} {label}: outside its tolerance")
+                    check(all(bool(torch.equal(a, b))
+                              for a, b in zip(fused(*args), got)),
+                          f"{name} {label}: a second run differs")
+                    if mode == "bfloat16" and label == "HNOSeg":
+                        for left in TOWER_CONTROLS[kernel]:
+                            ctl = plain(*args, unrounded=frozenset(left))
+                            bad, _, _ = _held_tower(
+                                torch, f"{name} control, {sorted(left)} "
+                                "unrounded", outs, ctl, want)
+                            check(not bad, f"{name} control ({left}) passed")
+                    ms = median_ms(torch, lambda: fused(*args))
+                    plain_ms = median_ms(torch, lambda: plain(*args))
+                    vb = 2
+                    if kernel == "tower_block":
+                        work = tower_block_work(spec, vb,
+                                                2 if wd == bf16 else 4)
+                    else:
+                        work = tower_block_s_work(spec, ks, vb)
+                    record(name, label, err, ms, fp32_ms, plain_ms,
+                           bound(*work, BF16_FLOPS if wd == bf16
+                                 else FP32_FLOPS), share)
+                    del got, want
+            del x, s, z, xb
+
+    nb = NOSEG["num_transform_blocks"]
+    for i, (label, transform) in enumerate((("HNOSeg", "Hartley"),
+                                            ("FNOSeg", "Fourier"))):
+        spec = tb.make_tower_spec(transform, GRID, NOSEG["num_modes"], 24)
+        ks = tb.spectrum_rows(spec)
+        model = NeuralOperatorSeg(**NOSEG, transform_type=transform,
+                                  generator=torch.Generator().manual_seed(
+                                      SEED), device=dev)
+        with torch.inference_mode():
+            x = torch.from_numpy(np.random.default_rng(SEED + 9 + i)
+                                 .standard_normal(GRID + (24,),
+                                                  dtype=np.float32)).to(dev)
+            xb = x.to(bf16)
+            w32 = model.resident_operands()
+            fp32_ms = median_ms(torch, lambda: kernels.resident_tower(
+                x, *w32, spec))
+            for mode, suffix, wname in TOWER_MODES:
+                name = "tower_resident" + suffix
+                w = model.resident_operands(dtypes[wname])
+                # one block element by element (the last block has no depth
+                # pass or mix); from the second block on, the operator mix
+                # sums s_f in another fp32 order than the twin's einsum, and
+                # in 'bfloat16' the next z pass rounds that spectrum to
+                # bf16, so a few flips spread through every voxel: two
+                # blocks and the whole tower are held to float64 below
+                w1 = tuple(t[:1] for t in w)
+                before = kernels.LAUNCHES[name]
+                got = kernels.resident_tower(xb, *w1, spec)
+                torch.cuda.synchronize()
+                check(kernels.LAUNCHES[name] == before + 1,
+                      f"{name} {label}: launch count did not move")
+                want = kernels.resident_tower_plain(xb, *w1, spec)
+                ok, err1, share = _held_tower(
+                    torch, f"{name} {label}, 1 block", ("out",), (got,),
+                    (want,))
+                check(ok, f"{name} {label}: 1 block outside the tolerance")
+                if mode == "bfloat16" and label == "HNOSeg":
+                    for left in TOWER_CONTROLS["tower_resident"]:
+                        ctl, _ = tbs.tower_block_s_plain(
+                            xb, tr._entry(xb, w1[0], w1[1], spec), w1[1][0],
+                            w1[2][0], w1[3][0], spec,
+                            unrounded=frozenset(left))
+                        bad, _, _ = _held_tower(
+                            torch, f"{name} control, {sorted(left)} "
+                            "unrounded", ("out",), (ctl,), (want,))
+                        check(not bad, f"{name} control ({left}) passed")
+                for n_blocks in (2, nb):
+                    wn = tuple(t[:n_blocks] for t in w)
+                    got = kernels.resident_tower(xb, *wn, spec)
+                    check(bool(torch.equal(
+                        kernels.resident_tower(xb, *wn, spec), got)),
+                        f"{name} {label}: a second run differs")
+                    twin = kernels.resident_tower_plain(xb, *wn, spec)
+                    ref = kernels.resident_tower_plain(
+                        xb.double(), *(t.double() for t in wn), spec)
+                    k64 = float((got.double() - ref).abs().max())
+                    t64 = float((twin.double() - ref).abs().max())
+                    print(f"{name} {label}, {n_blocks} blocks: max abs err "
+                          f"against float64 (the same bf16 volume and "
+                          f"weights, nothing rounded) kernel {k64:.3e}, twin "
+                          f"{t64:.3e} (bar 2x the twin's), largest |value| "
+                          f"{float(ref.abs().max()):.3f}")
+                    check(k64 <= 2 * t64 + 1e-6,
+                          f"{name} {label}, {n_blocks} blocks: {k64} from "
+                          f"float64, twin {t64}")
+                    del twin, ref
+                ms = median_ms(torch, lambda: kernels.resident_tower(
+                    xb, *w, spec))
+                plain_ms = median_ms(torch, lambda: kernels.resident_tower_plain(
+                    xb, *w, spec), n=5)
+                (blocks, regs) = tr.occupancy(spec, mode)
+                print(f"{name} {label}: persistent grid "
+                      f"{tr.resident_grid(spec, mode)} blocks, {blocks} per "
+                      f"SM, {regs} registers per thread")
+                record(name, label, err1, ms, fp32_ms, plain_ms,
+                       bound(*tower_resident_work(
+                           spec, ks, nb, 2, 2 if mode == "bfloat16" else 4),
+                           BF16_FLOPS if mode == "bfloat16" else FP32_FLOPS),
+                       share)
+        del model, x, xb
+        torch.cuda.empty_cache()
+    out = {}
+    for name, by_label in results.items():
+        first = ("HartleyMHASeg" if name.startswith("tower_block_")
+                 and not name.startswith("tower_block_s") else "HNOSeg")
+        out[name] = dict(by_label[first])
+        out[name]["max_abs_err"] = max(r["max_abs_err"]
+                                       for r in by_label.values())
+    return out
+
+
+def phase_gate(torch, dev, family="hnosegxs"):
     """The trained-network precision gate (``utils/precision_gate.py``):
-    train HNOSeg-XS at 120x120x78, evaluate zero-shot at 240x240x155 in
+    train ``family`` at 120x120x78, evaluate zero-shot at 240x240x155 in
     every mode; its failures fail the run, its 1e-3 Dice bar is reported."""
-    header("== precision gate (HNOSeg-XS, trained)")
+    header(f"== precision gate ({family}, trained)")
     from multimodal_3d_image_segmentation_tpu_torch.utils import \
         precision_gate
-    res = precision_gate.run_gate(dev)
-    check(not res["failures"], f"precision gate: {res['failures']}")
-    for name in ("fp32_kernels", "bf16_kernels", "bf16_plain",
-                 "mixed_kernels", "mixed_plain"):
-        print(f"gate {name}: Dice delta vs the fp32 oracle "
+    res = precision_gate.run_gate(dev, family=family)
+    check(not res["failures"], f"precision gate {family}: "
+                               f"{res['failures']}")
+    for name in precision_gate.modes_of(family):
+        if "twins" in name or name == "fp32_plain":
+            continue
+        print(f"gate {family} {name}: Dice delta vs the fp32 oracle "
               f"{res[name]['dice_delta_vs_oracle']}, 1e-3 bar "
               f"{'met' if res[name]['dice_bar_met'] else 'missed'}")
     return res
@@ -949,6 +1247,31 @@ def phase_serve(torch, kernels, work: Path, list_paths, label, config,
           f"peak allocated {stats['peak_mib']:.1f} MiB, peak reserved "
           f"{stats['peak_reserved_mib']:.1f} MiB")
     return launches
+
+
+def served_mode(torch, kernels, work: Path, list_paths, launches, label,
+                config, model, n_params, mode, tower, n, tower_kernel):
+    """A tower family served in a bf16 mode through ``run_inference``:
+    ``[model] compute_dtype = mode`` and ``tower_kernel`` set on the
+    loaded config, the launches of conv_in's and the tail's bf16 instances
+    and ``n`` of ``tower``'s instance a volume; its wall, device and peak
+    printed beside the fp32 path's (``label``, served before)."""
+    keys = {"compute_dtype": mode}
+    if tower_kernel != "block":
+        keys["tower_kernel"] = tower_kernel
+    name = f"{label}-{mode}" + ("" if tower_kernel == "block"
+                                else f"-{tower_kernel}")
+    got = phase_serve(torch, kernels, work, list_paths, name, config, model,
+                      n_params, per_volume_tower(mode, tower, n), keys)
+    for k, v in got.items():
+        launches[k] += v
+    fp32 = label + ("" if tower_kernel == "block" else f"-{tower_kernel}")
+    a, f = SERVED[name], SERVED.get(fp32, SERVED[label])
+    print(f"serving {name} against fp32 ({fp32}): wall "
+          f"{a['avg_time_s'] * 1e3:.3f} against {f['avg_time_s'] * 1e3:.3f} "
+          f"ms/volume, device {a['avg_device_ms']:.3f} against "
+          f"{f['avg_device_ms']:.3f} ms, peak allocated {a['peak_mib']:.1f} "
+          f"against {f['peak_mib']:.1f} MiB")
 
 
 # Whole-model bars. The random-init flagship grows activations to
@@ -2074,6 +2397,7 @@ def main():
     results["tower_block"] = phase_tower_block(torch, kernels, dev)
     results["tower_block_s"] = phase_tower_block_s(torch, kernels, dev)
     results["tower_resident"] = phase_tower_resident(torch, kernels, dev)
+    results.update(phase_towers_bf16(torch, kernels, dev))
     (REPO / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="smoke_", dir=REPO / "build"))
     states = {}
@@ -2135,6 +2459,12 @@ def main():
             "config_hartleymha.ini", mha, 178532, PER_VOLUME_MHA)
         for k, v in launches_m.items():
             launches[k] += v
+        for mode in ("bfloat16", "mixed"):
+            served_mode(torch, kernels, work, list_paths, launches,
+                        "HartleyMHASeg", "config_hartleymha.ini", mha,
+                        178532, mode, "tower_block",
+                        MHA["num_transform_blocks"], "block")
+        phase_gate(torch, dev, "hartleymha")
         phase_model_mha(torch, mha.state_dict(), case0, dev)
         states["HartleyMHASeg"] = mha.state_dict()
         del mha
@@ -2159,6 +2489,15 @@ def main():
                     noseg, n_params, per_volume, keys)
                 for k, v in launches_n.items():
                     launches[k] += v
+            nb = NOSEG["num_transform_blocks"]
+            for mode in ("bfloat16", "mixed"):
+                for tower, n, kernel in (("tower_block", nb, "block"),
+                                         ("tower_block_s", nb, "block_s"),
+                                         ("tower_resident", 1, "resident")):
+                    served_mode(torch, kernels, work, list_paths, launches,
+                                label, config, noseg, n_params, mode, tower,
+                                n, kernel)
+            phase_gate(torch, dev, label.lower())
             phase_model_noseg(torch, noseg.state_dict(), transform, case0,
                               dev)
             states[label] = noseg.state_dict()

@@ -39,36 +39,42 @@
 // around the body move bytes: the partial spectra, 182 MB in the tile sum
 // (0.054 ms at 3.35 TB/s), read with 16-byte loads, four in flight a
 // thread; z and f, each 18.2 MB, through L2. The body's own design against
-// the operations bound is in tower_block.cuh.
+// the operations bound is in tower_block.cuh. Three instances, as
+// tower_block's: fp32, 'bfloat16' (bf16 volume and weights; the depth
+// stages' operands bf16 values too, as the TPU kernel's depth dots take
+// them; the resident spectrum stays fp32) and 'mixed' (bf16 volume, the
+// rest fp32).
 #include "tower_spectrum.cuh"
 
 namespace {
 
-template <int C>
+template <int C, class T, class TW>
 __global__ void __launch_bounds__(kThreads, 2)
-tower_block_s_kernel(const float* __restrict__ x, const float* __restrict__ z,
-                     const float* __restrict__ wcat,
-                     const float* __restrict__ wcc,
+tower_block_s_kernel(const T* __restrict__ x, const float* __restrict__ z,
+                     const TW* __restrict__ wcat,
+                     const TW* __restrict__ wcc,
                      const float* __restrict__ bias, Mats m,
-                     const float* __restrict__ ds_prev,
-                     float* __restrict__ out, float* __restrict__ partial,
+                     const float* __restrict__ ds_prev, T* __restrict__ out,
+                     float* __restrict__ partial,
                      float* __restrict__ ds_out, int H, int W, int KH,
                      int KW, int nds) {
-  const ZFromTensor<false> zsrc{z + (size_t)blockIdx.y * 2 * C * KH * KW, C,
-                                KH, KW};
-  tower_block_body<C>(zsrc, blockIdx.y, blockIdx.x, gridDim.x, true, x,
-                      wcat, wcc, bias, m, ds_prev, out, partial, ds_out, H,
-                      W, KH, KW, nds);
+  const ZFromTensor<false, kRoundOps<TW>> zsrc{
+      z + (size_t)blockIdx.y * 2 * C * KH * KW, C, KH, KW};
+  tower_block_body<C, T, TW>(zsrc, blockIdx.y, blockIdx.x, gridDim.x, true,
+                             x, wcat, wcc, bias, m, ds_prev, out, partial,
+                             ds_out, H, W, KH, KW, nds);
 }
 
 // The z pass: one thread per four elements of a spectrum row (C KH KW)
 // and plane group (z_group_element).
+template <bool kRound>
 __global__ void tower_spectrum_z(const float* __restrict__ sy,
                                  const float* __restrict__ mi,
                                  float* __restrict__ z, int D, int ng,
                                  int KS) {
   const int e4 = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
-  if (e4 < ng) z_group_element<false>(sy, mi, z, D, ng, KS, e4, blockIdx.y);
+  if (e4 < ng)
+    z_group_element<false, kRound>(sy, mi, z, D, ng, KS, e4, blockIdx.y);
 }
 
 // The depth pass: one thread per element e and kDepthRows spectrum rows
@@ -83,54 +89,102 @@ __global__ void tower_spectrum_depth(const float* __restrict__ f,
                       e, blockIdx.y * kDepthRows);
 }
 
-template <int C>
-cudaError_t launch(const float* x, const float* sy, const float* mi,
-                   const float4* mf4, const float* wcat, const float* wcc,
+template <int C, class T, class TW>
+cudaError_t launch(const void* x, const float* sy, const float* mi,
+                   const float4* mf4, const void* wcat, const void* wcc,
                    const float* bias, Mats m, const float* ds_prev,
-                   float* out, float* s_f, float* ds, float* partial, int D,
+                   void* out, float* s_f, float* ds, float* partial, int D,
                    int H, int W, int KH, int KW, int nds, int KS,
                    cudaStream_t stream) {
+  constexpr bool kRound = kRoundOps<TW>;
   const int n_tiles = (W + kTW - 1) / kTW, ng = C * KH * KW;
   const int e_blocks = (ng + kPassThreads - 1) / kPassThreads;
   // z (D, 2, ng), then f over it: after the partial spectra
   float* zf = partial + (size_t)D * n_tiles * 2 * ng;
-  tower_spectrum_z<<<dim3((ng / 4 + kPassThreads - 1) / kPassThreads,
-                          kZGroups),
-                     kPassThreads, 0, stream>>>(sy, mi, zf, D, ng, KS);
+  tower_spectrum_z<kRound>
+      <<<dim3((ng / 4 + kPassThreads - 1) / kPassThreads, kZGroups),
+         kPassThreads, 0, stream>>>(sy, mi, zf, D, ng, KS);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = sizeof(float) * smem_floats(C, KH, KW);
-  err = cudaFuncSetAttribute(tower_block_s_kernel<C>,
+  err = cudaFuncSetAttribute(tower_block_s_kernel<C, T, TW>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  tower_block_s_kernel<C><<<dim3(n_tiles, D), kThreads, smem, stream>>>(
-      x, zf, wcat, wcc, bias, m, ds_prev, out, partial, ds, H, W, KH, KW,
-      nds);
+  tower_block_s_kernel<C, T, TW>
+      <<<dim3(n_tiles, D), kThreads, smem, stream>>>(
+          static_cast<const T*>(x), zf, static_cast<const TW*>(wcat),
+          static_cast<const TW*>(wcc), bias, m, ds_prev,
+          static_cast<T*>(out), partial, ds, H, W, KH, KW, nds);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_tile_sum(partial, zf, D, n_tiles, ng, stream);
+  err = launch_tile_sum<float, kRound>(partial, zf, D, n_tiles, ng, stream);
   if (err != cudaSuccess) return err;
   tower_spectrum_depth<<<dim3(e_blocks, (KS + kDepthRows - 1) / kDepthRows),
                          kPassThreads, 0, stream>>>(zf, mf4, s_f, D, ng, KS);
   return cudaGetLastError();
 }
 
+template <int C>
+cudaError_t launch_mode(int mode, const void* x, const float* sy,
+                        const float* mi, const float4* mf4, const void* wcat,
+                        const void* wcc, const float* bias, Mats m,
+                        const float* ds_prev, void* out, float* s_f,
+                        float* ds, float* partial, int D, int H, int W,
+                        int KH, int KW, int nds, int KS,
+                        cudaStream_t stream) {
+  switch (mode) {
+    case kFp32:
+      return launch<C, float, float>(x, sy, mi, mf4, wcat, wcc, bias, m,
+                                     ds_prev, out, s_f, ds, partial, D, H, W,
+                                     KH, KW, nds, KS, stream);
+    case kBf16:
+      return launch<C, bf16, bf16>(x, sy, mi, mf4, wcat, wcc, bias, m,
+                                   ds_prev, out, s_f, ds, partial, D, H, W,
+                                   KH, KW, nds, KS, stream);
+    case kMixed:
+      return launch<C, bf16, float>(x, sy, mi, mf4, wcat, wcc, bias, m,
+                                    ds_prev, out, s_f, ds, partial, D, H, W,
+                                    KH, KW, nds, KS, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int C>
+cudaError_t occupancy_mode(int mode, size_t smem, int* blocks, int* regs) {
+  switch (mode) {
+    case kFp32:
+      return kernel_occupancy(tower_block_s_kernel<C, float, float>, smem,
+                              blocks, regs);
+    case kBf16:
+      return kernel_occupancy(tower_block_s_kernel<C, bf16, bf16>, smem,
+                              blocks, regs);
+    case kMixed:
+      return kernel_occupancy(tower_block_s_kernel<C, bf16, float>, smem,
+                              blocks, regs);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// x, out: (D, H, W, c); sy, s_f: (ks, c, kh, kw); wcat: (2c + nds, c) and
-// wcc: (c, c), rows = outputs; bias: (2c,); mats: the stage matrices in the
-// order of unpack_mats, then mi (D, 2, ks) and mf packed (ceil(ks / 4), D,
-// 2, 4); ds_prev, ds: (D, H, W, nds) or null when nds == 0; partial:
-// scratch of D (ceil(W / 8) + 1) 2 c kh kw floats (the partial spectra,
-// then z and f). fp32, contiguous.
-M3SEG_API int m3seg_tower_block_s(const float* x, const float* sy,
-                                  const float* wcat, const float* wcc,
+// x, out: (D, H, W, c); sy, s_f: (ks, c, kh, kw) fp32; wcat: (2c + nds, c)
+// and wcc: (c, c), rows = outputs; bias: (2c,) fp32; mats: the fp32 stage
+// matrices in the order of unpack_mats, then mi (D, 2, ks) and mf packed
+// (ceil(ks / 4), D, 2, 4) (bf16-rounded values for mode kBf16); ds_prev,
+// ds: (D, H, W, nds) fp32, or null when nds == 0; partial: fp32 scratch of
+// D (ceil(W / 8) + 1) 2 c kh kw floats (the partial spectra, then z and
+// f). mode: kFp32 (x, out, wcat, wcc fp32), kBf16 (all four bf16) or
+// kMixed (x, out bf16; wcat, wcc fp32). Contiguous.
+M3SEG_API int m3seg_tower_block_s(const void* x, const float* sy,
+                                  const void* wcat, const void* wcc,
                                   const float* bias, const float* mats,
-                                  const float* ds_prev, float* out,
+                                  const float* ds_prev, void* out,
                                   float* s_f, float* ds, float* partial,
                                   int D, int H, int W, int c, int kh, int kw,
-                                  int nds, int ks, void* stream) {
+                                  int nds, int ks, int mode, void* stream) {
   if (D <= 0 || H <= 0 || W <= 0 || kh <= 0 || kh > kMaxKH || (kh & 1) ||
       kw <= 0 || nds < 0 || nds > kMaxDs || ks <= 0 || ks > kMaxKS ||
       (nds > 0 && (ds_prev == nullptr || ds == nullptr)))
@@ -142,28 +196,29 @@ M3SEG_API int m3seg_tower_block_s(const float* x, const float* sy,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
     case 8:
-      return (int)launch<8>(x, sy, mi, mf4, wcat, wcc, bias, m, ds_prev, out,
-                            s_f, ds, partial, D, H, W, kh, kw, nds, ks, s);
+      return (int)launch_mode<8>(mode, x, sy, mi, mf4, wcat, wcc, bias, m,
+                                 ds_prev, out, s_f, ds, partial, D, H, W, kh,
+                                 kw, nds, ks, s);
     case 24:
-      return (int)launch<24>(x, sy, mi, mf4, wcat, wcc, bias, m, ds_prev, out,
-                             s_f, ds, partial, D, H, W, kh, kw, nds, ks, s);
+      return (int)launch_mode<24>(mode, x, sy, mi, mf4, wcat, wcc, bias, m,
+                                  ds_prev, out, s_f, ds, partial, D, H, W,
+                                  kh, kw, nds, ks, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // Resident blocks per SM and registers per thread of the c-channel instance
-// at (kh, kw, nds); launches nothing.
+// of `mode` at (kh, kw, nds); launches nothing.
 M3SEG_API int m3seg_tower_block_s_occupancy(int c, int kh, int kw, int nds,
-                                            int* blocks, int* regs) {
+                                            int mode, int* blocks,
+                                            int* regs) {
   const size_t smem = sizeof(float) * smem_floats(c, kh, kw);
   switch (c) {
     case 8:
-      return (int)kernel_occupancy(tower_block_s_kernel<8>, smem, blocks,
-                                   regs);
+      return (int)occupancy_mode<8>(mode, smem, blocks, regs);
     case 24:
-      return (int)kernel_occupancy(tower_block_s_kernel<24>, smem, blocks,
-                                   regs);
+      return (int)occupancy_mode<24>(mode, smem, blocks, regs);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -62,7 +62,11 @@
 // writes, may come through L1. The grid is the
 // number of blocks the CUDA runtime lets reside on an SM at this shared
 // memory times the SM count; a refused cooperative launch returns its
-// error and the wrapper raises.
+// error and the wrapper raises. Three instances, as tower_block_s's: fp32,
+// 'bfloat16' (bf16 volumes and body weights, each product's operands bf16
+// values, the depth stages' too; the spectra and the operator mix stay
+// fp32, as the TPU kernel's spectrum scratch) and 'mixed' (bf16 volumes,
+// the rest fp32); each gives the bits of its tower_block_s blocks.
 #include <cooperative_groups.h>
 
 #include "tower_spectrum.cuh"
@@ -141,17 +145,18 @@ __device__ __forceinline__ void mix_point(const float* s_f,
   }
 }
 
-template <int C>
+template <int C, class T, class TW>
 __global__ void __launch_bounds__(kThreads, 2)
-tower_resident_kernel(const float* __restrict__ x0, float* s_cur,
+tower_resident_kernel(const T* __restrict__ x0, float* s_cur,
                       const float* __restrict__ ops,
-                      const float* __restrict__ wcat,
-                      const float* __restrict__ wcc,
+                      const TW* __restrict__ wcat,
+                      const TW* __restrict__ wcc,
                       const float* __restrict__ bias, Mats m,
                       const float* __restrict__ mi,
-                      const float4* __restrict__ mf4, float* out, float* tmp,
+                      const float4* __restrict__ mf4, T* out, T* tmp,
                       float* partial, float* z, int D, int H, int W, int KH,
                       int KW, int KS, int nb, int fourier) {
+  constexpr bool kRound = kRoundOps<TW>;
   cg::grid_group grid = cg::this_grid();
   const int n_tiles = (W + kTW - 1) / kTW, n_items = D * n_tiles;
   const int khw = KH * KW, ng = C * khw;
@@ -161,24 +166,26 @@ tower_resident_kernel(const float* __restrict__ x0, float* s_cur,
   const int n_rows = (KS + kDepthRows - 1) / kDepthRows;
   const int per4 = 2 * ng / 4;
   float* s_f = partial + (size_t)D * n_tiles * 2 * ng;
-  const float* x = x0;
+  const T* x = x0;
   PhaseClock clock;
   clock.mark(-1);
   for (int b = 0; b < nb; ++b) {
     for (int item = blockIdx.x; item < n_e4 * kZGroups; item += gridDim.x) {
       const int e4 = 4 * ((item % n_e4) * kThreads + threadIdx.x);
       if (e4 < ng)
-        z_group_element<true>(s_cur, mi, z, D, ng, KS, e4, item / n_e4);
+        z_group_element<true, kRound>(s_cur, mi, z, D, ng, KS, e4,
+                                      item / n_e4);
     }
     grid.sync();
     clock.mark(4);
     // the volumes ping-pong so that the last block writes out
-    float* y = ((nb - 1 - b) & 1) ? tmp : out;
+    T* y = ((nb - 1 - b) & 1) ? tmp : out;
     const bool forward = b + 1 < nb;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const int d = item / n_tiles, tile = item % n_tiles;
-      const ZFromTensor<true> zsrc{z + (size_t)d * 2 * ng, C, KH, KW};
-      tower_block_body<C>(zsrc, d, tile, n_tiles, forward, x,
+      const ZFromTensor<true, kRound> zsrc{z + (size_t)d * 2 * ng, C, KH,
+                                           KW};
+      tower_block_body<C, T, TW>(zsrc, d, tile, n_tiles, forward, x,
                           wcat + (size_t)b * 2 * C * C,
                           wcc + (size_t)b * C * C, bias + (size_t)b * 2 * C,
                           m, nullptr, y, partial, nullptr, H, W, KH, KW, 0);
@@ -191,7 +198,7 @@ tower_resident_kernel(const float* __restrict__ x0, float* s_cur,
     // f over z, which no thread reads any more
     for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
          i < (long long)D * per4; i += (long long)gridDim.x * kThreads)
-      tile_sum4<true>(partial, z, n_tiles, per4, i);
+      tile_sum4<true, float, kRound>(partial, z, n_tiles, per4, i);
     grid.sync();
     for (int item = blockIdx.x; item < n_e * n_rows; item += gridDim.x) {
       const int e = (item % n_e) * kThreads + threadIdx.x, r = item / n_e;
@@ -213,18 +220,19 @@ tower_resident_kernel(const float* __restrict__ x0, float* s_cur,
 
 // Resident blocks per SM at the kernel's dynamic shared memory (set here),
 // and registers per thread.
-template <int C>
+template <int C, class T, class TW>
 cudaError_t resident_occupancy(int KH, int KW, size_t* smem, int* blocks,
                                int* regs) {
   *smem = sizeof(float) * smem_floats(C, KH, KW);
-  return kernel_occupancy(tower_resident_kernel<C>, *smem, blocks, regs);
+  return kernel_occupancy(tower_resident_kernel<C, T, TW>, *smem, blocks,
+                          regs);
 }
 
-template <int C>
-cudaError_t launch(const float* x, float* s_cur, const float* ops,
-                   const float* wcat, const float* wcc, const float* bias,
-                   Mats m, const float* mi, const float4* mf4, float* out,
-                   float* tmp, float* partial, float* z, int D, int H, int W,
+template <int C, class T, class TW>
+cudaError_t launch(const void* xv, float* s_cur, const float* ops,
+                   const void* wcatv, const void* wccv, const float* bias,
+                   Mats m, const float* mi, const float4* mf4, void* outv,
+                   void* tmpv, float* partial, float* z, int D, int H, int W,
                    int KH, int KW, int KS, int nb, int fourier,
                    cudaStream_t stream) {
   int dev = 0, sms = 0, coop = 0, blocks = 0, regs = 0;
@@ -235,38 +243,91 @@ cudaError_t launch(const float* x, float* s_cur, const float* ops,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = resident_occupancy<C>(KH, KW, &smem, &blocks, &regs);
+    err = resident_occupancy<C, T, TW>(KH, KW, &smem, &blocks, &regs);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
+  // the kernel's parameters, in its order and types
+  const T* x = static_cast<const T*>(xv);
+  const TW* wcat = static_cast<const TW*>(wcatv);
+  const TW* wcc = static_cast<const TW*>(wccv);
+  T* out = static_cast<T*>(outv);
+  T* tmp = static_cast<T*>(tmpv);
   void* args[] = {&x,  &s_cur, &ops, &wcat,    &wcc, &bias, &m,
                   &mi, &mf4,   &out, &tmp,     &partial, &z, &D,
                   &H,  &W,     &KH,  &KW,      &KS,  &nb,   &fourier};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(tower_resident_kernel<C>),
+      reinterpret_cast<const void*>(tower_resident_kernel<C, T, TW>),
       dim3(blocks * sms), dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+template <int C>
+cudaError_t launch_mode(int mode, const void* x, float* s_cur,
+                        const float* ops, const void* wcat, const void* wcc,
+                        const float* bias, Mats m, const float* mi,
+                        const float4* mf4, void* out, void* tmp,
+                        float* partial, float* z, int D, int H, int W,
+                        int KH, int KW, int KS, int nb, int fourier,
+                        cudaStream_t stream) {
+  switch (mode) {
+    case kFp32:
+      return launch<C, float, float>(x, s_cur, ops, wcat, wcc, bias, m, mi,
+                                     mf4, out, tmp, partial, z, D, H, W, KH,
+                                     KW, KS, nb, fourier, stream);
+    case kBf16:
+      return launch<C, bf16, bf16>(x, s_cur, ops, wcat, wcc, bias, m, mi,
+                                   mf4, out, tmp, partial, z, D, H, W, KH,
+                                   KW, KS, nb, fourier, stream);
+    case kMixed:
+      return launch<C, bf16, float>(x, s_cur, ops, wcat, wcc, bias, m, mi,
+                                    mf4, out, tmp, partial, z, D, H, W, KH,
+                                    KW, KS, nb, fourier, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int C>
+cudaError_t occupancy_mode(int mode, int KH, int KW, int* blocks,
+                           int* regs) {
+  size_t smem = 0;
+  switch (mode) {
+    case kFp32:
+      return resident_occupancy<C, float, float>(KH, KW, &smem, blocks,
+                                                 regs);
+    case kBf16:
+      return resident_occupancy<C, bf16, bf16>(KH, KW, &smem, blocks, regs);
+    case kMixed:
+      return resident_occupancy<C, bf16, float>(KH, KW, &smem, blocks,
+                                                regs);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // x, out, tmp: (D, H, W, c) (tmp unused when nb == 1); s_cur: (ks, c, kh,
-// kw), block 0's operator on the entry spectrum of x, overwritten; ops:
-// (nb, 1 or 2, c, c) operator weights, rows = outputs (Fourier: real,
-// imaginary); wcat: (nb, 2c, c), wcc: (nb, c, c), bias: (nb, 2c); mats:
-// the stage matrices in the order of unpack_mats, then mi (D, 2, ks) and
-// mf packed (ceil(ks / 4), D, 2, 4); partial: scratch of D ceil(W / 8) 2 c
-// kh kw + ks c kh kw floats (the partial spectra, then s_f); z: scratch
-// (D, 2, c, kh, kw) (z, then f). fp32, contiguous. fourier: ks = 2 kd,
-// [re; im].
-M3SEG_API int m3seg_tower_resident(const float* x, float* s_cur,
-                                   const float* ops, const float* wcat,
-                                   const float* wcc, const float* bias,
-                                   const float* mats, float* out, float* tmp,
+// kw) fp32, block 0's operator on the entry spectrum of x, overwritten;
+// ops: (nb, 1 or 2, c, c) fp32 operator weights, rows = outputs (Fourier:
+// real, imaginary); wcat: (nb, 2c, c), wcc: (nb, c, c); bias: (nb, 2c)
+// fp32; mats: the fp32 stage matrices in the order of unpack_mats, then mi
+// (D, 2, ks) and mf packed (ceil(ks / 4), D, 2, 4) (bf16-rounded values
+// for mode kBf16); partial: fp32 scratch of D ceil(W / 8) 2 c kh kw + ks c
+// kh kw floats (the partial spectra, then s_f); z: fp32 scratch (D, 2, c,
+// kh, kw) (z, then f). mode: kFp32 (x, out, tmp, wcat, wcc fp32), kBf16
+// (all five bf16) or kMixed (the volumes bf16, wcat and wcc fp32).
+// Contiguous. fourier: ks = 2 kd, [re; im].
+M3SEG_API int m3seg_tower_resident(const void* x, float* s_cur,
+                                   const float* ops, const void* wcat,
+                                   const void* wcc, const float* bias,
+                                   const float* mats, void* out, void* tmp,
                                    float* partial, float* z, int D, int H,
                                    int W, int c, int kh, int kw, int ks,
-                                   int nb, int fourier, void* stream) {
+                                   int nb, int fourier, int mode,
+                                   void* stream) {
   if (D <= 0 || H <= 0 || W <= 0 || kh <= 0 || kh > kMaxKH || (kh & 1) ||
       kw <= 0 || ks <= 0 || ks > kMaxKS || nb <= 0 || z == nullptr ||
       (fourier && (ks & 1)) || (nb > 1 && tmp == nullptr))
@@ -278,29 +339,28 @@ M3SEG_API int m3seg_tower_resident(const float* x, float* s_cur,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
     case 8:
-      return (int)launch<8>(x, s_cur, ops, wcat, wcc, bias, m, mi, mf4, out,
-                            tmp, partial, z, D, H, W, kh, kw, ks, nb, fourier,
-                            s);
+      return (int)launch_mode<8>(mode, x, s_cur, ops, wcat, wcc, bias, m, mi,
+                                 mf4, out, tmp, partial, z, D, H, W, kh, kw,
+                                 ks, nb, fourier, s);
     case 24:
-      return (int)launch<24>(x, s_cur, ops, wcat, wcc, bias, m, mi, mf4, out,
-                             tmp, partial, z, D, H, W, kh, kw, ks, nb,
-                             fourier, s);
+      return (int)launch_mode<24>(mode, x, s_cur, ops, wcat, wcc, bias, m,
+                                  mi, mf4, out, tmp, partial, z, D, H, W, kh,
+                                  kw, ks, nb, fourier, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // Resident blocks per SM and registers per thread of the c-channel
-// instance at (kh, kw); launches nothing. The launch's grid is the blocks
-// per SM times the SM count.
-M3SEG_API int m3seg_tower_resident_occupancy(int c, int kh, int kw,
+// instance of `mode` at (kh, kw); launches nothing. The launch's grid is
+// the blocks per SM times the SM count.
+M3SEG_API int m3seg_tower_resident_occupancy(int c, int kh, int kw, int mode,
                                              int* blocks, int* regs) {
-  size_t smem = 0;
   switch (c) {
     case 8:
-      return (int)resident_occupancy<8>(kh, kw, &smem, blocks, regs);
+      return (int)occupancy_mode<8>(mode, kh, kw, blocks, regs);
     case 24:
-      return (int)resident_occupancy<24>(kh, kw, &smem, blocks, regs);
+      return (int)occupancy_mode<24>(mode, kh, kw, blocks, regs);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -14,7 +14,11 @@
 // The spectrum (KS, C, KH, KW) fp32: Hartley KS = KD, real; Fourier
 // KS = 2 KD, [re; im]. mi: the inverse depth matrix (D, 2, KS), one row
 // per plane; mf: the forward one, packed (ceil(KS / 4), D, 2, 4). kL2: the
-// buffer read was written by the same launch (see m3seg::ldg_or_cg). No
+// buffer read was written by the same launch (see m3seg::ldg_or_cg).
+// kRound (the 'bfloat16' instances): the depth stages' operands are bf16
+// values, as the TPU kernel's two depth dots take them: the spectrum read
+// by the z pass and f written by the tile sum are rounded (mi and mf come
+// rounded from the wrapper); z, f's tile sums and s_f are fp32 sums. No
 // atomics: every sum has one fixed order, so a second run gives the same
 // bits.
 #pragma once
@@ -41,7 +45,7 @@ constexpr int kPassThreads = 256;  // threads of a pass launched on its own
 // card and right ones in a host run of the same source; its cause was not
 // found. The CUDA tests hold this function at C 8 with short last plane
 // groups, in both kernels.)
-template <bool kL2>
+template <bool kL2, bool kRound>
 __device__ __forceinline__ void z_group_element(const float* s,
                                                 const float* __restrict__ mi,
                                                 float* z, int D, int ng,
@@ -55,7 +59,8 @@ __device__ __forceinline__ void z_group_element(const float* s,
     for (int k = 0; k < KS; ++k) {
       const float4 q = m3seg::ldg_or_cg<kL2>(
           reinterpret_cast<const float4*>(s + (size_t)k * ng + e4));
-      const float v[4] = {q.x, q.y, q.z, q.w};
+      const float v[4] = {operand<kRound>(q.x), operand<kRound>(q.y),
+                          operand<kRound>(q.z), operand<kRound>(q.w)};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         if (i < n) {
@@ -83,9 +88,10 @@ __device__ __forceinline__ void z_group_element(const float* s,
 // Float4 i of f (D, 2 ng): the sum over the n_tiles tiles of plane
 // d = i / per4 of partial (D, n_tiles, 2 ng), in tile order; per4 = 2 ng / 4
 // (ng is a multiple of 4: C is 8 or 24). Each thread keeps four 16-byte
-// loads in flight.
-template <bool kL2>
-__device__ __forceinline__ void tile_sum4(const float* partial, float* f,
+// loads in flight. f's type TF: fp32, or bf16 (tower_block's 'bfloat16'
+// f, four values as one 8-byte store); kRound: fp32 values rounded to bf16.
+template <bool kL2, class TF = float, bool kRound = false>
+__device__ __forceinline__ void tile_sum4(const float* partial, TF* f,
                                           int n_tiles, int per4,
                                           long long i) {
   const long long d = i / per4, e4 = i % per4;
@@ -100,27 +106,34 @@ __device__ __forceinline__ void tile_sum4(const float* partial, float* f,
     s.z += v.z;
     s.w += v.w;
   }
-  reinterpret_cast<float4*>(f)[i] = s;
+  if constexpr (std::is_same<TF, float>::value)
+    reinterpret_cast<float4*>(f)[i] =
+        make_float4(operand<kRound>(s.x), operand<kRound>(s.y),
+                    operand<kRound>(s.z), operand<kRound>(s.w));
+  else
+    reinterpret_cast<uint2*>(f)[i] = m3seg::float4_to_bf16x4(s);
 }
 
 // The tile sum as a launch of its own: one thread per float4 of f.
+template <class TF, bool kRound>
 __global__ void tower_spectrum_tiles(const float* __restrict__ partial,
-                                     float* __restrict__ f, int n_tiles,
+                                     TF* __restrict__ f, int n_tiles,
                                      int per4, long long total4) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < total4) tile_sum4<false>(partial, f, n_tiles, per4, i);
+  if (i < total4)
+    tile_sum4<false, TF, kRound>(partial, f, n_tiles, per4, i);
 }
 
-// f (D, 2 ng) = partial (D, n_tiles, 2 ng) summed over its tiles.
-inline cudaError_t launch_tile_sum(const float* partial, float* f, int D,
-                                   int n_tiles, int ng,
-                                   cudaStream_t stream) {
+// f (D, 2 ng) = partial (D, n_tiles, 2 ng) summed over its tiles, as TF
+// (rounded to bf16 values with kRound).
+template <class TF, bool kRound = false>
+cudaError_t launch_tile_sum(const float* partial, TF* f, int D, int n_tiles,
+                            int ng, cudaStream_t stream) {
   const int per4 = 2 * ng / 4;
   const long long total4 = (long long)D * per4;
-  tower_spectrum_tiles<<<(unsigned)((total4 + kPassThreads - 1) /
-                                    kPassThreads),
-                         kPassThreads, 0, stream>>>(partial, f, n_tiles,
-                                                    per4, total4);
+  tower_spectrum_tiles<TF, kRound>
+      <<<(unsigned)((total4 + kPassThreads - 1) / kPassThreads),
+         kPassThreads, 0, stream>>>(partial, f, n_tiles, per4, total4);
   return cudaGetLastError();
 }
 

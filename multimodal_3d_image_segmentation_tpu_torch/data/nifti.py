@@ -5,7 +5,10 @@ Arrays are in (z, y, x) index order (``sitk.GetArrayFromImage``), origins
 in (x, y, z) with ITK's LPS convention, and the writer emits the same
 header as the reference package (LPS->RAS sign flips on the affine), so
 files written by either package read back the same in both. Decompression
-is Python's ``gzip``; the reference's native zlib plane is not ported.
+is Python's ``gzip``; the reference's native zlib plane is not ported. The
+writer compresses at zlib's default level 6, not gzip's 9: a 240x240x155
+label map of a noisy prediction takes several times less host time for
+a file a few percent larger, with the same content.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ _DTYPE_CODES = {np.dtype(v): k for k, v in _DTYPES.items()}
 
 def _open(filename, mode="rb"):
     if str(filename).endswith(".gz"):
-        return gzip.open(filename, mode)
+        return gzip.open(filename, mode, compresslevel=6)
     return open(filename, mode)
 
 

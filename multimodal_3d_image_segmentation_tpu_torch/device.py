@@ -13,8 +13,9 @@ exact fp32, which is at least as strict as either. 'default' (one bf16
 pass on fp32 activations) raises (ROADMAP item 12).
 
 The bf16 modes are opt-in per model, never a process-wide default:
-``[model] compute_dtype = 'bfloat16'`` or ``'mixed'`` (HNOSeg-XS, serving
-only; ``ops/spectral.compute_dtypes``). Their bf16 products accumulate in
+``[model] compute_dtype = 'bfloat16'`` or ``'mixed'`` (HNOSeg-XS,
+HartleyMHASeg, HNOSeg and FNOSeg, serving only;
+``ops/spectral.compute_dtypes``). Their bf16 products accumulate in
 fp32: cuBLAS's reduced-precision bf16 reductions are pinned off here too.
 The trained-network Dice gate (``utils/precision_gate.py``) reports how far
 each mode is from the fp32 oracle; the default stays exact fp32.

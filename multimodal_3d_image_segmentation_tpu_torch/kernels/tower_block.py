@@ -32,6 +32,19 @@ and its padded stage matrices exist only for the TPU); the per-plane
 spectra keep the reference's (D, 2, C, KH, KW). Stage matrices are the
 float64 ones of ``ops/spectral.py``, rounded to the tensor's dtype once and
 cached on the device.
+
+Instances (``instance``), chosen by the operands' dtypes: fp32 (x and the
+channel-mix weights fp32); 'bfloat16' (x and the weights bf16: every
+product's operands are bf16 values, as each product of the TPU kernel is
+one bf16 pass with fp32 accumulation, so z, the inverse W stage's output,
+t, out and the forward H stage's output are rounded to bf16 where the TPU
+kernel rounds them, the stage matrices are bf16-rounded, and f is written
+as bf16, the TPU kernel's f in the volume's dtype); 'mixed' (x bf16, the
+weights fp32: the reference's fp32 islands on a bf16 volume, f fp32).
+z, the biases, ds_prev and ds are fp32 in every instance. The plain twin
+of a bf16 instance (``tower_block_plain`` on a bf16 x) computes in fp32
+from the bf16 values and rounds where the kernel rounds; ``acc=float64``
+sums in float64 instead (the precision gate's twins64 path).
 """
 from __future__ import annotations
 
@@ -48,8 +61,8 @@ from . import _build
 __all__ = ["TowerSpec", "make_tower_spec", "fused_tower_block",
            "tower_block_plain", "entry_forward_hw", "d_stage_forward",
            "d_stage_inverse", "spectrum_mix", "block_spectrum_update",
-           "spectrum_rows", "kernel_smem_bytes", "occupancy",
-           "SUPPORTED_CHANNELS", "MAX_DS_ROWS", "MAX_KH"]
+           "spectrum_rows", "kernel_smem_bytes", "occupancy", "instance",
+           "INSTANCES", "SUPPORTED_CHANNELS", "MAX_DS_ROWS", "MAX_KH"]
 
 # template instances in the .cu: the configs' width 24, and 8 for tests
 SUPPORTED_CHANNELS = (8, 24)
@@ -57,6 +70,25 @@ MAX_DS_ROWS = 8           # per-thread register bound of the ds rows
 MAX_KH = 32               # csrc/tower_block.cuh kMaxKH: F's registers
 _TILE_W, _TILE_H = 8, 32  # csrc/tower_block.cuh kTW, kTH
 _MAX_SMEM_BYTES = 227 * 1024
+# instance -> (the C entries' mode, csrc/tower_block.cuh kFp32 / kBf16 /
+# kMixed; the suffix its launches count under)
+INSTANCES = {"float32": (0, ""), "bfloat16": (1, "_bf16"),
+             "mixed": (2, "_mixed")}
+_BF16 = torch.bfloat16
+
+
+def instance(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The tower kernels' instance of a volume ``x`` and channel-mix
+    weights ``w``: 'float32' (both fp32, or float64 on the CPU),
+    'bfloat16' (both bf16) or 'mixed' (x bf16, w fp32)."""
+    wide = (torch.float32, torch.float64)
+    if x.dtype in wide and w.dtype in wide:
+        return "float32"
+    if x.dtype == _BF16 and w.dtype in (_BF16, torch.float32):
+        return "bfloat16" if w.dtype == _BF16 else "mixed"
+    raise TypeError(f"the tower kernels take x and the weights float32, "
+                    f"both bfloat16, or x bfloat16 with float32 weights; got "
+                    f"{x.dtype} and {w.dtype}")
 
 
 class TowerSpec(NamedTuple):
@@ -141,32 +173,47 @@ def _spec_mats(spec: TowerSpec):
 @functools.lru_cache(maxsize=None)
 def _stage(spec: TowerSpec, key: str, device: torch.device,
            dtype: torch.dtype):
-    """Device copy of one stage matrix (or pair), uploaded once."""
+    """Device copy of one stage matrix (or pair), uploaded once: float64,
+    or rounded to fp32 and then to ``dtype`` (bf16)."""
     m = _spec_mats(spec)[key]
     np_dt = np.float64 if dtype == torch.float64 else np.float32
 
     def put(a):
-        return torch.from_numpy(np.asarray(a, np_dt)).to(device)
+        return torch.from_numpy(np.asarray(a, np_dt)).to(device, dtype)
     with torch.inference_mode(False):  # see ops/spectral.py::_stage_tensor
         return tuple(put(a) for a in m) if isinstance(m, tuple) else put(m)
 
 
+def _buffer(parts, device: torch.device, rounded: bool) -> torch.Tensor:
+    """``parts`` flattened into one fp32 device buffer, each value rounded
+    to bf16 where ``rounded`` (the 'bfloat16' instance's matrices)."""
+    flat = torch.from_numpy(np.concatenate(
+        [np.asarray(p, np.float32).ravel() for p in parts]))
+    if rounded:
+        flat = flat.to(_BF16).float()
+    with torch.inference_mode(False):  # see ops/spectral.py::_stage_tensor
+        return flat.to(device)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_mats(spec: TowerSpec, device: torch.device) -> torch.Tensor:
+def _kernel_mats(spec: TowerSpec, device: torch.device,
+                 rounded: bool = False) -> torch.Tensor:
     """The kernel's fp32 stage matrices in one buffer, in the order the
     .cu reads them: mhf (H, 2KH) = [cos | sin]; cwi, swi (KW, W); ha, hb
-    (KH, H); cw, sw (W, KW)."""
+    (KH, H); cw, sw (W, KW). ``rounded``: bf16-rounded values, packed once
+    per spec and device."""
     m = _spec_mats(spec)
-    parts = [np.concatenate(m["h_fwd"], axis=1), *m["w_inv"], *m["h_inv"],
-             *m["w_fwd"]]
-    flat = np.concatenate([np.asarray(p, np.float32).ravel() for p in parts])
-    with torch.inference_mode(False):  # see ops/spectral.py::_stage_tensor
-        return torch.from_numpy(flat).to(device)
+    return _buffer([np.concatenate(m["h_fwd"], axis=1), *m["w_inv"],
+                    *m["h_inv"], *m["w_fwd"]], device, rounded)
 
 
-def entry_forward_hw(x: torch.Tensor, spec: TowerSpec) -> torch.Tensor:
+def entry_forward_hw(x: torch.Tensor, spec: TowerSpec,
+                     island: Optional[torch.dtype] = None) -> torch.Tensor:
     """Forward H/W stages of a whole volume: (D, H, W, C) -> per-plane
-    partial spectra (D, 2, C, KH, KW)."""
+    partial spectra (D, 2, C, KH, KW), computed in the island dtype
+    ``island`` (default x's; bf16: each stage's output in bf16, as the
+    reference's bf16 einsums)."""
+    x = x if island is None else x.to(island)
     ch, sh = _stage(spec, "h_fwd", x.device, x.dtype)
     cw, sw = _stage(spec, "w_fwd", x.device, x.dtype)
     fre = torch.einsum("dhwc,hk->dcwk", x, ch)
@@ -178,17 +225,26 @@ def entry_forward_hw(x: torch.Tensor, spec: TowerSpec) -> torch.Tensor:
     return torch.stack([gre, gim], dim=1)
 
 
+def _widened(t: torch.Tensor) -> torch.Tensor:
+    """``t`` at fp32 at least (bf16 widened; float64 kept)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def d_stage_forward(f: torch.Tensor, spec: TowerSpec) -> torch.Tensor:
     """(D, 2, C, KH, KW) per-plane partial spectra -> the packed spectrum
     (KS, C, KH, KW) (Fourier: [re; im], the reference's (2, KD, ...)
-    merged on the first axis)."""
+    merged on the first axis). Computed in fp32 at least: a bf16 f is
+    widened first, so the sum over the D planes runs in fp32, as the
+    reference pins it."""
+    f = _widened(f)
     m = _stage(spec, "d_fwd", f.device, f.dtype)
     return torch.einsum("dqcxy,dqk->kcxy", f, m)
 
 
 def d_stage_inverse(s: torch.Tensor, spec: TowerSpec) -> torch.Tensor:
     """Packed spectrum (KS, C, KH, KW) -> per-plane complex pre-images
-    (D, 2, C, KH, KW)."""
+    (D, 2, C, KH, KW), in fp32 at least."""
+    s = _widened(s)
     m = _stage(spec, "d_inv", s.device, s.dtype)
     return torch.einsum("kcxy,dqk->dqcxy", s, m)
 
@@ -221,10 +277,86 @@ def block_spectrum_update(f: torch.Tensor, op_params, spec: TowerSpec
                                         spec), spec)
 
 
+def _operands(rounded: bool, acc: torch.dtype):
+    """The rounding of a bf16 instance's product operands: to bf16 and
+    back to ``acc`` where ``rounded`` ('bfloat16'), else only to ``acc``."""
+    if rounded:
+        return lambda t: t.to(_BF16).to(acc)
+    return lambda t: t.to(acc)
+
+
+def _plain_mats(spec: TowerSpec, device, rounded: bool, acc: torch.dtype):
+    """Stage-matrix getter of a bf16 instance's twin: the kernel's values
+    (bf16-rounded where ``rounded``) in ``acc``."""
+    dt = _BF16 if rounded else torch.float32
+
+    def mats(key):
+        m = _stage(spec, key, device, dt)
+        return (tuple(a.to(acc) for a in m) if isinstance(m, tuple)
+                else m.to(acc))
+    return mats
+
+
+# the operand roundings of the 'bfloat16' twin, in the block's order
+ROUNDINGS = ("z", "y", "t", "F", "f")
+
+
+def _tower_block_plain_bf16(x, z, w_cat, w_cc_t, b_cat, spec: TowerSpec,
+                            ds_prev, acc: torch.dtype,
+                            unrounded=frozenset()):
+    """The 'bfloat16' or 'mixed' instance (by ``w_cat``'s dtype) in torch
+    ops: sums in ``acc`` from the kernel's operand values, rounded where
+    the kernel rounds; out bf16, f bf16 ('bfloat16') or fp32, ds fp32.
+    ``unrounded``: roundings of ``ROUNDINGS`` to leave out, the controls
+    that a check of the kernel's roundings must fail."""
+    c = spec.channels
+    rounded = w_cat.dtype == _BF16
+    ops = {k: _operands(rounded and k not in unrounded, acc)
+           for k in ROUNDINGS}
+    mats = _plain_mats(spec, x.device, rounded, acc)
+    cwi, swi = mats("w_inv")
+    ha, hb = mats("h_inv")
+    z = ops["z"](z)
+    zre, zim = z[:, 0], z[:, 1]
+    yre = ops["y"](torch.einsum("dcxj,jw->dcxw", zre, cwi)
+                   - torch.einsum("dcxj,jw->dcxw", zim, swi))
+    yim = ops["y"](torch.einsum("dcxj,jw->dcxw", zre, swi)
+                   + torch.einsum("dcxj,jw->dcxw", zim, cwi))
+    y1 = torch.einsum("dcxw,xh->dhwc", yre, ha) \
+        + torch.einsum("dcxw,xh->dhwc", yim, hb)
+    pq = torch.einsum("dhwc,oc->dhwo", x.to(acc), w_cat.to(acc))
+    ds = pq[..., 2 * c:]
+    pq = pq[..., :2 * c] + b_cat.to(acc)
+    t = ops["t"](torch.selu(y1 + pq[..., :c]))
+    o = torch.selu(torch.einsum("dhwc,oc->dhwo", t, w_cc_t.to(acc))
+                   + pq[..., c:]).to(_BF16)
+    ch, sh = mats("h_fwd")
+    cw, sw = mats("w_fwd")
+    of = o.to(acc)
+    fre = ops["F"](torch.einsum("dhwc,hk->dcwk", of, ch))
+    fim = ops["F"](torch.einsum("dhwc,hk->dcwk", of, sh))
+    gre = torch.einsum("dcwk,wj->dckj", fre, cw) \
+        - torch.einsum("dcwk,wj->dckj", fim, sw)
+    gim = torch.einsum("dcwk,wj->dckj", fre, sw) \
+        + torch.einsum("dcwk,wj->dckj", fim, cw)
+    f = torch.stack([gre, gim], dim=1).to(
+        _BF16 if rounded and "f" not in unrounded else torch.float32)
+    if not spec.n_ds:
+        return o, f
+    return o, f, (ds_prev.to(acc) + ds).float()
+
+
 def tower_block_plain(x, z, w_cat, w_cc_t, b_cat, spec: TowerSpec,
-                      ds_prev: Optional[torch.Tensor] = None):
+                      ds_prev: Optional[torch.Tensor] = None,
+                      acc: torch.dtype = torch.float32,
+                      unrounded=frozenset()):
     """The block in torch ops over all planes at once: the kernel's oracle
-    and CPU path (the reference's ``_block_reference``)."""
+    and CPU path (the reference's ``_block_reference``). A bf16 x runs the
+    twin of its instance (module docstring), summing in ``acc``, with the
+    roundings ``unrounded`` left out (controls)."""
+    if x.dtype == _BF16:
+        return _tower_block_plain_bf16(x, z, w_cat, w_cc_t, b_cat, spec,
+                                       ds_prev, acc, unrounded)
     c = spec.channels
     cwi, swi = _stage(spec, "w_inv", x.device, x.dtype)
     ha, hb = _stage(spec, "h_inv", x.device, x.dtype)
@@ -251,8 +383,10 @@ def tower_block_plain(x, z, w_cat, w_cc_t, b_cat, spec: TowerSpec,
 def _check_operands(spec: TowerSpec, x, w_cat, w_cc_t, b_cat, ds_prev,
                     **spectrum):
     """Shapes and dtypes of a block's operands; ``spectrum`` names the
-    block's spectrum operand as (tensor, expected shape). Returns name ->
-    (tensor, shape) of every operand given."""
+    block's spectrum operand as (tensor, expected shape). x, w_cat and
+    w_cc_t take one instance's dtypes (``instance``); the rest is fp32
+    (float64 on the CPU). Returns name -> (tensor, shape) of every operand
+    given."""
     d, h, w = spec.sizes
     c, n_ds = spec.channels, spec.n_ds
     want = {"x": (x, (d, h, w, c)), **spectrum,
@@ -264,13 +398,17 @@ def _check_operands(spec: TowerSpec, x, w_cat, w_cc_t, b_cat, ds_prev,
         want["ds_prev"] = (ds_prev, (d, h, w, n_ds))
     elif ds_prev is not None:
         raise ValueError("ds_prev given for a spec with n_ds=0")
+    instance(x, w_cat)
+    if (w_cc_t.dtype == _BF16) != (w_cat.dtype == _BF16):
+        raise TypeError(f"w_cc_t is {w_cc_t.dtype}, w_cat {w_cat.dtype}")
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
-        if t.dtype not in (torch.float32, torch.float64):
+        if (name not in ("x", "w_cat", "w_cc_t")
+                and t.dtype not in (torch.float32, torch.float64)):
             raise TypeError(f"{name} must be float32 (or float64 on the "
-                            f"CPU), got {t.dtype}")
+                            f"CPU, with x), got {t.dtype}")
     return want
 
 
@@ -305,11 +443,28 @@ def check_kernel_spec(spec: TowerSpec, kernel: str) -> None:
     kernel_smem_bytes(spec)
 
 
-def occupancy(spec: TowerSpec):
-    """(blocks per SM, registers per thread) of the kernel at ``spec``'s
-    channels, modes and ds rows, as the CUDA runtime reports them."""
+def occupancy(spec: TowerSpec, inst: str = "float32"):
+    """(blocks per SM, registers per thread) of the kernel's instance
+    ``inst`` at ``spec``'s channels, modes and ds rows, as the CUDA runtime
+    reports them."""
     return _build.occupancy("m3seg_tower_block_occupancy", spec.channels,
-                            spec.kh, spec.kw, spec.n_ds)
+                            spec.kh, spec.kw, spec.n_ds, INSTANCES[inst][0])
+
+
+def check_cuda_operands(x, named, inst: str) -> None:
+    """Raise unless the CUDA operands ``named`` ((name, tensor or None)
+    pairs) are what instance ``inst`` takes: the volumes x, out, tmp and
+    the channel-mix weights w_cat, w_cc_t, wcat_stack, wcc_stack in the
+    instance's dtypes, everything else fp32; contiguous, on x's device."""
+    vol = torch.float32 if inst == "float32" else _BF16
+    mix = _BF16 if inst == "bfloat16" else torch.float32
+    for name, t in named:
+        if t is None:
+            continue
+        dt = (vol if name in ("x", "out", "tmp") else
+              mix if name.startswith(("w_cat", "w_cc", "wcat", "wcc"))
+              else torch.float32)
+        _build.check_cuda_input(name, t, x.device, t.dim(), dt)
 
 
 def _tower_block_forward(x, z, w_cat, w_cc_t, b_cat, spec: TowerSpec,
@@ -320,29 +475,31 @@ def _tower_block_forward(x, z, w_cat, w_cc_t, b_cat, spec: TowerSpec,
         return tower_block_plain(x, z, w_cat, w_cc_t, b_cat, spec, ds_prev)
     d, h, w = spec.sizes
     c, kh, kw, n_ds = spec.channels, spec.kh, spec.kw, spec.n_ds
-    for name, t in (("x", x), ("z", z), ("w_cat", w_cat), ("w_cc_t", w_cc_t),
-                    ("b_cat", b_cat), ("ds_prev", ds_prev)):
-        if t is not None:
-            _build.check_cuda_input(name, t, x.device, t.dim())
+    inst = instance(x, w_cat)
+    check_cuda_operands(x, (("x", x), ("z", z), ("w_cat", w_cat),
+                            ("w_cc_t", w_cc_t), ("b_cat", b_cat),
+                            ("ds_prev", ds_prev)), inst)
     check_kernel_spec(spec, "tower_block")
     if n_ds > MAX_DS_ROWS:
         raise ValueError(f"n_ds={n_ds} > {MAX_DS_ROWS}")
     n_tiles = -(-w // _TILE_W)
     out = torch.empty_like(x)
-    f = torch.empty((d, 2, c, kh, kw), dtype=torch.float32, device=x.device)
+    # f in the weights' dtype: bf16 in 'bfloat16', fp32 otherwise
+    f = torch.empty((d, 2, c, kh, kw), dtype=w_cat.dtype, device=x.device)
     ds = (torch.empty((d, h, w, n_ds), dtype=torch.float32, device=x.device)
           if n_ds else None)
     # per (plane, W-tile) partial spectra, summed in tile order by the
     # kernel's second pass (deterministic, no atomics)
     partial = torch.empty((d, n_tiles, 2, c, kh, kw), dtype=torch.float32,
                           device=x.device)
-    mats = _kernel_mats(spec, x.device)
-    _build.launch("tower_block", "m3seg_tower_block", x.device,
+    mats = _kernel_mats(spec, x.device, inst == "bfloat16")
+    mode, suffix = INSTANCES[inst]
+    _build.launch("tower_block" + suffix, "m3seg_tower_block", x.device,
                   x.data_ptr(), z.data_ptr(), w_cat.data_ptr(),
                   w_cc_t.data_ptr(), b_cat.data_ptr(), mats.data_ptr(),
                   ds_prev.data_ptr() if n_ds else None, out.data_ptr(),
                   f.data_ptr(), ds.data_ptr() if n_ds else None,
-                  partial.data_ptr(), d, h, w, c, kh, kw, n_ds)
+                  partial.data_ptr(), d, h, w, c, kh, kw, n_ds, mode)
     return (out, f, ds) if n_ds else (out, f)
 
 
@@ -377,21 +534,25 @@ def fused_tower_block(x, z, w_cat, w_cc_t, b_cat, spec: TowerSpec,
     """One fused tower block: (x, z) -> (out, f[, ds]).
 
     Args:
-        x: (D, H, W, C) block input, channels-last per plane.
-        z: (D, 2, C, KH, KW) depth-inverse pre-images of the updated
+        x: (D, H, W, C) block input, channels-last per plane; fp32, or
+            bf16 ('bfloat16' and 'mixed').
+        z: (D, 2, C, KH, KW) fp32 depth-inverse pre-images of the updated
             spectrum (``d_stage_inverse``, ``block_spectrum_update``).
-        w_cat: (2C + n_ds, C) rows [W_conv ; W_cc_x ; W_ds], each (out, in).
-        w_cc_t: (C, C) conv_concat matrix of the activated branch.
-        b_cat: (2C,) [conv-branch bias or zeros ; conv_concat bias].
+        w_cat: (2C + n_ds, C) rows [W_conv ; W_cc_x ; W_ds], each (out, in);
+            fp32, or bf16 with a bf16 x ('bfloat16').
+        w_cc_t: (C, C) conv_concat matrix of the activated branch, in
+            w_cat's dtype.
+        b_cat: (2C,) fp32 [conv-branch bias or zeros ; conv_concat bias].
         spec: ``make_tower_spec``'s description.
         ds_prev: (D, H, W, n_ds) fp32 running deep-supervision sum,
             required iff ``spec.n_ds``.
 
     Returns:
-        out (D, H, W, C); f (D, 2, C, KH, KW), the forward H/W partial
-        spectra of out; and, when ``spec.n_ds``, ds = ds_prev + the
-        bias-free deep-supervision projection of x. A CPU tensor runs
-        ``tower_block_plain``; a CUDA tensor launches the kernel (fp32,
+        out (D, H, W, C) in x's dtype; f (D, 2, C, KH, KW), the forward
+        H/W partial spectra of out, in w_cat's dtype; and, when
+        ``spec.n_ds``, ds = ds_prev + the bias-free deep-supervision
+        projection of x, fp32. A CPU tensor runs ``tower_block_plain``; a
+        CUDA tensor launches the kernel's instance (``instance``;
         contiguous, C in ``SUPPORTED_CHANNELS``) or raises.
         Differentiable: the backward replays ``tower_block_plain``.
     """

@@ -21,7 +21,10 @@ tower's entry is ``entry_spectrum_s``. Under autograd the block is a
 The specs and matrices are ``kernels/tower_block.py``'s: the port has no
 lane padding, so ``make_tower_spec_s`` is ``make_tower_spec``, and the
 depth matrices mi = ``d_inv`` and mf = ``d_fwd`` are (D, 2, KS), one row
-per plane. The TPU kernel's probe of a Mosaic miscompile (``_hw_probe_ok``)
+per plane. The instances are tower_block's (``instance``); the resident
+spectrum sy and s_f stay fp32 in all three. In 'bfloat16' the depth
+stages' operands are bf16 values too, as the TPU kernel's two depth dots
+take them: sy, mi, f and mf are rounded to bf16 and the sums stay fp32. The TPU kernel's probe of a Mosaic miscompile (``_hw_probe_ok``)
 has no counterpart here: ``chip_smoke.py`` holds the kernel against the
 plain version on the card.
 """
@@ -34,11 +37,14 @@ import numpy as np
 import torch
 
 from . import _build
-from .tower_block import (MAX_DS_ROWS, _TILE_W, TowerSpec,
-                          _check_operands, _kernel_mats, _spec_mats, _stage,
-                          check_kernel_spec, d_stage_forward,
-                          entry_forward_hw, make_tower_spec, spectrum_mix,
-                          spectrum_rows, tower_block_plain)
+from .tower_block import (_BF16, INSTANCES, MAX_DS_ROWS, _TILE_W,
+                          TowerSpec, _buffer, _check_operands, _kernel_mats,
+                          _operands, _plain_mats, _spec_mats, _stage,
+                          _tower_block_plain_bf16,
+                          check_cuda_operands, check_kernel_spec,
+                          d_stage_forward, entry_forward_hw, instance,
+                          make_tower_spec, spectrum_mix, spectrum_rows,
+                          tower_block_plain)
 
 __all__ = ["make_tower_spec_s", "fused_tower_block_s", "tower_block_s_plain",
            "spectrum_mix_s", "entry_spectrum_s", "occupancy",
@@ -52,15 +58,33 @@ make_tower_spec_s = make_tower_spec
 spectrum_mix_s = spectrum_mix
 
 
-def entry_spectrum_s(x: torch.Tensor, spec: TowerSpec) -> torch.Tensor:
-    """Tower entry: the forward H/W and depth stages of the volume (D, H, W,
-    C) straight to the resident spectrum (KS, C, KH, KW)."""
-    return d_stage_forward(entry_forward_hw(x, spec), spec)
+def entry_spectrum_s(x: torch.Tensor, spec: TowerSpec,
+                     island: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Tower entry: the forward H/W stages of the volume (D, H, W, C) in
+    the island dtype ``island`` (default x's), then the depth stage in
+    fp32 at least, straight to the resident spectrum (KS, C, KH, KW)."""
+    return d_stage_forward(entry_forward_hw(x, spec, island), spec)
 
 
 def tower_block_s_plain(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
-                        ds_prev: Optional[torch.Tensor] = None):
-    """The block in torch ops: the kernel's oracle and CPU path."""
+                        ds_prev: Optional[torch.Tensor] = None,
+                        acc: torch.dtype = torch.float32,
+                        unrounded=frozenset()):
+    """The block in torch ops: the kernel's oracle and CPU path. A bf16 x
+    runs the twin of its instance (``tower_block_plain``), summing in
+    ``acc``, with the depth stages' operands sy and f rounded as the kernel
+    rounds them ('bfloat16'); ``unrounded`` leaves out roundings of
+    ("sy",) + ``tower_block.ROUNDINGS`` (the controls)."""
+    if x.dtype == _BF16:
+        rounded = w_cat.dtype == _BF16
+        op_sy, op_f = (_operands(rounded and k not in unrounded, acc)
+                       for k in ("sy", "f"))
+        mats = _plain_mats(spec, x.device, rounded, acc)
+        z = torch.einsum("dqk,kcxy->dqcxy", mats("d_inv"), op_sy(sy))
+        res = _tower_block_plain_bf16(x, z, w_cat, w_cc_t, b_cat, spec,
+                                      ds_prev, acc, unrounded)
+        s_f = torch.einsum("dqcxy,dqk->kcxy", op_f(res[1]), mats("d_fwd"))
+        return (res[0], s_f.float()) + tuple(res[2:])
     mi = _stage(spec, "d_inv", x.device, x.dtype)
     z = torch.einsum("dqk,kcxy->dqcxy", mi, sy.to(x.dtype))
     res = tower_block_plain(x, z, w_cat, w_cc_t, b_cat, spec, ds_prev)
@@ -79,23 +103,25 @@ def _pack_depth_rows(mf: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_mats_s(spec: TowerSpec, device: torch.device) -> torch.Tensor:
+def _kernel_mats_s(spec: TowerSpec, device: torch.device,
+                   rounded: bool = False) -> torch.Tensor:
     """tower_block's stage-matrix buffer followed by mi (D, 2, KS) and mf
-    packed by ``_pack_depth_rows``, fp32."""
+    packed by ``_pack_depth_rows``, fp32 (bf16-rounded values where
+    ``rounded``), packed once per spec and device."""
     m = _spec_mats(spec)
-    depth = np.concatenate([
-        np.asarray(m["d_inv"], np.float32).ravel(),
-        _pack_depth_rows(np.asarray(m["d_fwd"], np.float32)).ravel()])
+    depth = _buffer([np.asarray(m["d_inv"], np.float32),
+                     _pack_depth_rows(np.asarray(m["d_fwd"], np.float32))],
+                    device, rounded)
     with torch.inference_mode(False):  # see ops/spectral.py::_stage_tensor
-        return torch.cat([_kernel_mats(spec, device),
-                          torch.from_numpy(depth).to(device)])
+        return torch.cat([_kernel_mats(spec, device, rounded), depth])
 
 
-def occupancy(spec: TowerSpec):
-    """(blocks per SM, registers per thread) of the kernel at ``spec``'s
-    channels, modes and ds rows, as the CUDA runtime reports them."""
+def occupancy(spec: TowerSpec, inst: str = "float32"):
+    """(blocks per SM, registers per thread) of the kernel's instance
+    ``inst`` at ``spec``'s channels, modes and ds rows, as the CUDA runtime
+    reports them."""
     return _build.occupancy("m3seg_tower_block_s_occupancy", spec.channels,
-                            spec.kh, spec.kw, spec.n_ds)
+                            spec.kh, spec.kw, spec.n_ds, INSTANCES[inst][0])
 
 
 def _tower_block_s_forward(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
@@ -108,11 +134,10 @@ def _tower_block_s_forward(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
     ks = spectrum_rows(spec)
     d, h, w = spec.sizes
     c, kh, kw, n_ds = spec.channels, spec.kh, spec.kw, spec.n_ds
-    for name, t in (("x", x), ("sy", sy), ("w_cat", w_cat),
-                    ("w_cc_t", w_cc_t), ("b_cat", b_cat),
-                    ("ds_prev", ds_prev)):
-        if t is not None:
-            _build.check_cuda_input(name, t, x.device, t.dim())
+    inst = instance(x, w_cat)
+    check_cuda_operands(x, (("x", x), ("sy", sy), ("w_cat", w_cat),
+                            ("w_cc_t", w_cc_t), ("b_cat", b_cat),
+                            ("ds_prev", ds_prev)), inst)
     check_kernel_spec(spec, "tower_block_s")
     if n_ds > MAX_DS_ROWS:
         raise ValueError(f"n_ds={n_ds} > {MAX_DS_ROWS}")
@@ -127,13 +152,14 @@ def _tower_block_s_forward(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
     # s_f through the depth forward stage in a fixed order
     partial = torch.empty(d * (-(-w // _TILE_W) + 1) * 2 * c * kh * kw,
                           dtype=torch.float32, device=x.device)
-    mats = _kernel_mats_s(spec, x.device)
-    _build.launch("tower_block_s", "m3seg_tower_block_s", x.device,
+    mats = _kernel_mats_s(spec, x.device, inst == "bfloat16")
+    mode, suffix = INSTANCES[inst]
+    _build.launch("tower_block_s" + suffix, "m3seg_tower_block_s", x.device,
                   x.data_ptr(), sy.data_ptr(), w_cat.data_ptr(),
                   w_cc_t.data_ptr(), b_cat.data_ptr(), mats.data_ptr(),
                   ds_prev.data_ptr() if n_ds else None, out.data_ptr(),
                   s_f.data_ptr(), ds.data_ptr() if n_ds else None,
-                  partial.data_ptr(), d, h, w, c, kh, kw, n_ds, ks)
+                  partial.data_ptr(), d, h, w, c, kh, kw, n_ds, ks, mode)
     return (out, s_f, ds) if n_ds else (out, s_f)
 
 
@@ -169,18 +195,19 @@ def fused_tower_block_s(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
     s_f[, ds]).
 
     Args:
-        x: (D, H, W, C) block input, channels-last per plane.
+        x: (D, H, W, C) block input, channels-last per plane; fp32 or bf16.
         sy: (KS, C, KH, KW) fp32 resident spectrum after the block's
             operator (``spectrum_mix_s`` of the previous s_f, or of
             ``entry_spectrum_s`` for the first block).
         w_cat, w_cc_t, b_cat, spec, ds_prev: as ``fused_tower_block``.
 
     Returns:
-        out (D, H, W, C); s_f (KS, C, KH, KW), the packed spectrum of out;
-        and, when ``spec.n_ds``, ds = ds_prev + the bias-free deep-
-        supervision projection of x. A CPU tensor runs
-        ``tower_block_s_plain``; a CUDA tensor launches the kernel (fp32,
-        contiguous, C in ``SUPPORTED_CHANNELS``) or raises.
+        out (D, H, W, C) in x's dtype; s_f (KS, C, KH, KW) fp32, the
+        packed spectrum of out; and, when ``spec.n_ds``, ds = ds_prev + the
+        bias-free deep-supervision projection of x, fp32. A CPU tensor runs
+        ``tower_block_s_plain``; a CUDA tensor launches the kernel's
+        instance (``instance``; contiguous, C in ``SUPPORTED_CHANNELS``)
+        or raises.
         Differentiable: the backward replays ``tower_block_s_plain``.
     """
     ops = _check_operands(spec, x, w_cat, w_cc_t, b_cat, ds_prev,

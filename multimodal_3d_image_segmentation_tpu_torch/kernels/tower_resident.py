@@ -15,10 +15,15 @@ and the next operator. ``resident_tower_plain`` is the same tower in torch ops (
 reference's ``_reference_chain``, on the resident spectrum). Block 0's
 spectrum is built in torch ops before the launch, as the TPU kernel's
 caller builds it in XLA (``_prep_s0``). The TPU kernel's lane-padded
-(D, C, W*HL) bf16 layout exists only for the TPU: here the volume is the
-port's channels-last fp32 (D, H, W, C), and the weights stay fp32 (the TPU
-kernel rounds them to bf16). The backward, as the TPU kernel's, is a replay
-of the reference chain (``resident_tower_plain``) under autograd.
+(D, C, W*HL) layout exists only for the TPU: here the volume is the port's
+channels-last (D, H, W, C). The instances are tower_block_s's
+(``tower_block.instance`` of x and wcat_stack): fp32; 'bfloat16' (bf16
+volume and body weights, the TPU kernel's bf16 serving class); 'mixed'
+(bf16 volume, fp32 weights). The operator weights and the spectra stay
+fp32 in all three, and block 0's entry spectrum is computed at the body
+weights' dtype, as the model's block_s path computes it, so each instance
+gives its tower_block_s blocks' bits. The backward, as the TPU kernel's, is
+a replay of the reference chain (``resident_tower_plain``) under autograd.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ import ctypes
 import torch
 
 from . import _build
-from .tower_block import (_TILE_W, TowerSpec, check_kernel_spec,
+from .tower_block import (_BF16, INSTANCES, _TILE_W, TowerSpec,
+                          check_cuda_operands, check_kernel_spec, instance,
                           spectrum_rows)
 from .tower_block_s import (MAX_SPECTRUM_ROWS, _kernel_mats_s,
                             entry_spectrum_s, spectrum_mix_s,
@@ -40,30 +46,42 @@ __all__ = ["resident_tower", "resident_tower_plain", "occupancy",
 PHASES = ("body", "depth", "mix", "last_body", "z")
 
 
+def _entry(x, op_stack, wcat_stack, spec: TowerSpec) -> torch.Tensor:
+    """Block 0's spectrum: its operator on the entry spectrum of x,
+    computed at the body weights' dtype for a bf16 x."""
+    island = wcat_stack.dtype if x.dtype == _BF16 else None
+    return spectrum_mix_s(entry_spectrum_s(x, spec, island), op_stack[0],
+                          spec)
+
+
 def resident_tower_plain(x, op_stack, wcat_stack, wcc_stack, b_stack,
-                         spec: TowerSpec) -> torch.Tensor:
-    """The tower in torch ops: the kernel's oracle and CPU path."""
-    s = spectrum_mix_s(entry_spectrum_s(x, spec), op_stack[0], spec)
+                         spec: TowerSpec,
+                         acc: torch.dtype = torch.float32) -> torch.Tensor:
+    """The tower in torch ops: the kernel's oracle and CPU path (a bf16 x:
+    its instance's twin, the blocks summing in ``acc``)."""
+    s = _entry(x, op_stack, wcat_stack, spec)
+    kw = {} if x.dtype != _BF16 else {"acc": acc}
     for b in range(op_stack.shape[0]):
         x, s_f = tower_block_s_plain(x, s, wcat_stack[b], wcc_stack[b],
-                                     b_stack[b], spec)
+                                     b_stack[b], spec, **kw)
         if b + 1 < op_stack.shape[0]:
             s = spectrum_mix_s(s_f, op_stack[b + 1], spec)
     return x
 
 
-def occupancy(spec: TowerSpec):
-    """(blocks per SM, registers per thread) of the kernel at ``spec``'s
-    channels and modes, as the CUDA runtime reports them."""
+def occupancy(spec: TowerSpec, inst: str = "float32"):
+    """(blocks per SM, registers per thread) of the kernel's instance
+    ``inst`` at ``spec``'s channels and modes, as the CUDA runtime reports
+    them."""
     return _build.occupancy("m3seg_tower_resident_occupancy", spec.channels,
-                            spec.kh, spec.kw)
+                            spec.kh, spec.kw, INSTANCES[inst][0])
 
 
-def resident_grid(spec: TowerSpec) -> int:
+def resident_grid(spec: TowerSpec, inst: str = "float32") -> int:
     """Blocks of the persistent grid on the current device: blocks per SM
     times the SM count, as the launch computes it."""
     props = torch.cuda.get_device_properties(torch.cuda.current_device())
-    return occupancy(spec)[0] * props.multi_processor_count
+    return occupancy(spec, inst)[0] * props.multi_processor_count
 
 
 def z_scratch_shape(spec: TowerSpec):
@@ -102,11 +120,16 @@ def _check_operands(spec: TowerSpec, x, op_stack, wcat_stack, wcc_stack,
             "b_stack": (b_stack, (nb, 2 * c))}
     if nb < 1:
         raise ValueError("op_stack holds no block")
+    instance(x, wcat_stack)
+    if (wcc_stack.dtype == _BF16) != (wcat_stack.dtype == _BF16):
+        raise TypeError(f"wcc_stack is {wcc_stack.dtype}, wcat_stack "
+                        f"{wcat_stack.dtype}")
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
-        if t.dtype not in (torch.float32, torch.float64):
+        if (name not in ("x", "wcat_stack", "wcc_stack")
+                and t.dtype not in (torch.float32, torch.float64)):
             raise TypeError(f"{name} must be float32 (or float64 on the "
                             f"CPU), got {t.dtype}")
     return want
@@ -119,10 +142,11 @@ def _resident_forward(x, op_stack, wcat_stack, wcc_stack, b_stack,
     if x.device.type == "cpu":
         return resident_tower_plain(x, op_stack, wcat_stack, wcc_stack,
                                     b_stack, spec)
-    for name, t in (("x", x), ("op_stack", op_stack),
-                    ("wcat_stack", wcat_stack), ("wcc_stack", wcc_stack),
-                    ("b_stack", b_stack)):
-        _build.check_cuda_input(name, t, x.device, t.dim())
+    inst = instance(x, wcat_stack)
+    check_cuda_operands(x, (("x", x), ("op_stack", op_stack),
+                            ("wcat_stack", wcat_stack),
+                            ("wcc_stack", wcc_stack), ("b_stack", b_stack)),
+                        inst)
     d, h, w = spec.sizes
     c, kh, kw = spec.channels, spec.kh, spec.kw
     ks, nb = spectrum_rows(spec), op_stack.shape[0]
@@ -130,8 +154,7 @@ def _resident_forward(x, op_stack, wcat_stack, wcc_stack, b_stack,
     if ks > MAX_SPECTRUM_ROWS:
         raise ValueError(f"KS={ks} spectrum rows > {MAX_SPECTRUM_ROWS}")
     # block 0's spectrum; the kernel overwrites it with each next block's
-    s_cur = spectrum_mix_s(entry_spectrum_s(x, spec), op_stack[0],
-                           spec).contiguous()
+    s_cur = _entry(x, op_stack, wcat_stack, spec).contiguous()
     out = torch.empty_like(x)
     tmp = torch.empty_like(x) if nb > 1 else None
     ng = c * kh * kw
@@ -139,14 +162,15 @@ def _resident_forward(x, op_stack, wcat_stack, wcc_stack, b_stack,
                           dtype=torch.float32, device=x.device)
     z = torch.empty(z_scratch_shape(spec), dtype=torch.float32,
                     device=x.device)
-    mats = _kernel_mats_s(spec, x.device)
-    _build.launch("tower_resident", "m3seg_tower_resident", x.device,
+    mats = _kernel_mats_s(spec, x.device, inst == "bfloat16")
+    mode, suffix = INSTANCES[inst]
+    _build.launch("tower_resident" + suffix, "m3seg_tower_resident", x.device,
                   x.data_ptr(), s_cur.data_ptr(), op_stack.data_ptr(),
                   wcat_stack.data_ptr(), wcc_stack.data_ptr(),
                   b_stack.data_ptr(), mats.data_ptr(), out.data_ptr(),
                   tmp.data_ptr() if tmp is not None else None,
                   partial.data_ptr(), z.data_ptr(), d, h, w, c, kh, kw, ks,
-                  nb, int(spec.transform == "Fourier"))
+                  nb, int(spec.transform == "Fourier"), mode)
     return out
 
 
@@ -176,22 +200,25 @@ def resident_tower(x, op_stack, wcat_stack, wcc_stack, b_stack,
     """The whole tower of B blocks in one launch.
 
     Args:
-        x: (D, H, W, C) block-0 input, channels-last per plane; not written.
-        op_stack: (B, PR, C, C) operator weights, (O, I) layout: PR = 1
-            for Hartley (weight), 2 for Fourier (weight_real,
+        x: (D, H, W, C) block-0 input, channels-last per plane; not
+            written. fp32, or bf16 ('bfloat16' and 'mixed').
+        op_stack: (B, PR, C, C) fp32 operator weights, (O, I) layout:
+            PR = 1 for Hartley (weight), 2 for Fourier (weight_real,
             weight_imag).
-        wcat_stack: (B, 2C, C) stacked [conv_branch ; conv_concat-x].
-        wcc_stack: (B, C, C) conv_concat matrices of the mixed branch.
-        b_stack: (B, 2C) stacked [conv-branch bias or zeros ; conv_concat
-            bias].
+        wcat_stack: (B, 2C, C) stacked [conv_branch ; conv_concat-x]; fp32,
+            or bf16 with a bf16 x ('bfloat16').
+        wcc_stack: (B, C, C) conv_concat matrices of the mixed branch, in
+            wcat_stack's dtype.
+        b_stack: (B, 2C) fp32 stacked [conv-branch bias or zeros ;
+            conv_concat bias].
         spec: ``make_tower_spec``'s description; ``spec.n_ds`` must be 0.
 
     Returns:
-        The tower's output (D, H, W, C). A CPU tensor runs
-        ``resident_tower_plain``; a CUDA tensor launches the kernel (fp32,
-        contiguous, C in ``SUPPORTED_CHANNELS``, KH at most ``MAX_KH``,
-        KS at most ``MAX_SPECTRUM_ROWS``) or raises. Differentiable: the
-        backward replays ``resident_tower_plain``.
+        The tower's output (D, H, W, C) in x's dtype. A CPU tensor runs
+        ``resident_tower_plain``; a CUDA tensor launches the kernel's
+        instance (contiguous, C in ``SUPPORTED_CHANNELS``, KH at most
+        ``MAX_KH``, KS at most ``MAX_SPECTRUM_ROWS``) or raises.
+        Differentiable: the backward replays ``resident_tower_plain``.
     """
     ops = _check_operands(spec, x, op_stack, wcat_stack, wcc_stack, b_stack)
     args = (x, op_stack, wcat_stack, wcc_stack, b_stack)

@@ -41,6 +41,16 @@ resident packed spectrum between blocks and runs the depth stages inside
 the kernel (``tower_block_s``); ``"block"`` exchanges per-plane spectra
 with torch einsums between kernels (``tower_block``); NeuralOperatorSeg's
 ``"resident"`` runs the whole tower in one launch (``tower_resident``).
+
+The towers' ``compute_dtype`` is the reference's: 'float32' (the default,
+exact fp32), 'bfloat16' (bf16 activations and weights, fp32 sums) or
+'mixed' (bf16 activation storage with fp32 islands for every weight and
+transform-matrix contraction; the reference's 'bfloat16' under
+``set_bf16_exact``). On the kernel path both take the tower kernels' bf16
+instances ('bfloat16': bf16 weights; 'mixed': fp32 weights), conv_in's and
+the tail's, with the spectra between kernels and the deep-supervision sum
+in fp32, as the reference keeps them. Serving only: a forward that
+autograd would record raises (ROADMAP item 12).
 """
 from __future__ import annotations
 
@@ -69,7 +79,7 @@ from ..ops.convs import (ConcatConvNormAct, Conv, ConvNormAct,
 from ..ops.operators import FourierOperator, HartleyOperator
 from ..ops.padcrop import spatial_padcrop
 from ..ops.resize import resize_linear
-from ..ops.spectral import clip_modes, normalize_modes
+from ..ops.spectral import clip_modes, compute_dtypes, normalize_modes
 
 __all__ = ["VNetDS", "HartleyMHASeg", "HartleyMHABlock", "NeuralOperatorSeg",
            "NeuralOperatorBlock"]
@@ -88,11 +98,16 @@ def _channel_first_tail(x, image_size, use_resize, in_dtype,
                         output_activation, use_kernels=False):
     """Output tail: channel-first while the tensor is small, upsample,
     pad/crop, activation over the channels. With ``use_kernels`` the
-    resize + softmax run as the fused tail kernel where it applies."""
+    resize + softmax run as the fused tail kernel where it applies, the
+    probabilities in the caller's dtype where an instance writes it (bf16
+    logits write bf16 ones for a bf16 caller, as the reference's
+    ``out_dtype = in_dtype``)."""
     x = x.permute(0, 4, 1, 2, 3)
     if (use_kernels and use_resize and output_activation == "softmax"
             and tail_supported(tuple(x.shape), image_size)):
-        return fused_tail_softmax(x.contiguous(), image_size).to(in_dtype)
+        out = in_dtype if in_dtype == torch.bfloat16 else torch.float32
+        return fused_tail_softmax(x.contiguous(), image_size,
+                                  out).to(in_dtype)
     if use_resize:
         x = resize_linear(x, image_size, channel_first=True)
     x = spatial_padcrop(x, image_size, channel_first=True)
@@ -110,6 +125,25 @@ def _gn_affine(stats, n_voxels, norm, eps=1e-5):
     scale = inv * norm.weight.to(stats.dtype)
     shift = norm.bias.to(stats.dtype) - m * scale
     return scale, shift
+
+
+def _cached(owner: nn.Module, name: str, params, build):
+    """``build()``, kept on ``owner`` under ``name`` between forwards and
+    made again when a tensor of ``params`` changes storage or version, so
+    the kernel path packs its weights once per weight version, not per
+    call. Where autograd would track one of ``params``, or on inference
+    tensors (no version counter), it is built anew on every call."""
+    if any(p.is_inference() for p in params) or (
+            torch.is_grad_enabled() and any(p.requires_grad for p in params)):
+        return build()
+    key = tuple((p.data_ptr(), p._version, p.device) for p in params)
+    cache = owner.__dict__.setdefault("_m3seg_packed", {})
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        # normal tensors, also under inference mode
+        with torch.inference_mode(False), torch.no_grad():
+            hit = cache[name] = (key, build())
+    return hit[1]
 
 
 class VNetDS(nn.Module):
@@ -432,7 +466,7 @@ class _TransBlockMixin:
 
     def _setup_tail(self, in_channels: int, out_channels: int, activation,
                     use_block_skip: bool, use_block_concat: bool,
-                    generator: torch.Generator) -> None:
+                    compute_dtype: str, generator: torch.Generator) -> None:
         snn = is_selu(activation)
         self.out_channels = out_channels
         self.use_block_skip = use_block_skip
@@ -441,7 +475,8 @@ class _TransBlockMixin:
         self.conv_concat = (
             ConcatConvNormAct(out_channels + in_channels, out_channels,
                               use_bias=True, activation=activation,
-                              use_snn=snn, generator=generator)
+                              use_snn=snn, compute_dtype=compute_dtype,
+                              generator=generator)
             if use_block_skip and use_block_concat else None)
 
     def _block_tail(self, x1, x2, tmp):
@@ -456,18 +491,25 @@ class _TransBlockMixin:
             x = x + tmp
         return x
 
-    def tower_weights(self):
+    def tower_weights(self, ds_rows: Optional[torch.Tensor] = None,
+                      dtype: Optional[torch.dtype] = None):
         """(w_cat, w_cc_t, b_cat) of the fused tower block kernels: rows
-        [W_conv ; the conv_concat columns of the block input], the
-        conv_concat columns of the activated branch, and [conv-branch bias
-        or zeros ; conv_concat bias]. Needs the concat skip."""
+        [W_conv ; the conv_concat columns of the block input (; ds_rows,
+        the block input's deep-supervision rows)], the conv_concat columns
+        of the activated branch, both in ``dtype`` (default the
+        parameters'; bf16 for the 'bfloat16' instances), and [conv-branch
+        bias or zeros ; conv_concat bias] in the parameters' dtype. Needs
+        the concat skip."""
         c = self.out_channels
         w_conv = self.conv_branch.weight.reshape(c, -1)
         w_cc = self.conv_concat.op.weight.reshape(c, -1)
+        dtype = dtype or w_cc.dtype
         b_conv = (self.conv_branch.bias if self.conv_branch.bias is not None
                   else torch.zeros_like(self.conv_concat.op.bias))
-        return (torch.cat([w_conv, w_cc[:, c:]]).contiguous(),
-                w_cc[:, :c].contiguous(),
+        rows = [w_conv, w_cc[:, c:]] + ([] if ds_rows is None
+                                        else [ds_rows])
+        return (torch.cat(rows).to(dtype).contiguous(),
+                w_cc[:, :c].to(dtype).contiguous(),
                 torch.cat([b_conv, self.conv_concat.op.bias]).contiguous())
 
 
@@ -480,20 +522,23 @@ class HartleyMHABlock(_TransBlockMixin, nn.Module):
                  num_modes, patch_size=None, attention_activation="selu",
                  activation="selu", use_bias_conv_branch: bool = False,
                  use_block_skip: bool = True, use_block_concat: bool = True,
-                 *, generator: torch.Generator):
+                 compute_dtype: str = "float32", *,
+                 generator: torch.Generator):
         super().__init__()
         # the reference's SNN re-init skips the MHA projections
         # (``nets/nets_utils.py:108-117``): default init always
         self.op = HartleyMultiHeadAttention(
             in_channels, out_channels, num_heads, num_modes,
             patch_size=patch_size, attention_activation=attention_activation,
-            snn_init=False, generator=generator)
+            snn_init=False, compute_dtype=compute_dtype, generator=generator)
         self.conv_branch = Conv(in_channels, out_channels, 1,
                                 use_bias=use_bias_conv_branch,
                                 snn_init=is_selu(activation),
+                                compute_dtype=compute_dtype,
                                 generator=generator)
         self._setup_tail(in_channels, out_channels, activation,
-                         use_block_skip, use_block_concat, generator)
+                         use_block_skip, use_block_concat, compute_dtype,
+                         generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._block_tail(self.op(x), self.conv_branch(x), x)
@@ -509,7 +554,8 @@ class NeuralOperatorBlock(_TransBlockMixin, nn.Module):
                  transform_type: str, weights_type: str = "shared",
                  activation="selu", use_bias_conv_branch: bool = False,
                  use_block_skip: bool = True, use_block_concat: bool = True,
-                 *, generator: torch.Generator):
+                 compute_dtype: str = "float32", *,
+                 generator: torch.Generator):
         super().__init__()
         if transform_type not in ("Fourier", "Hartley"):
             raise ValueError(f"transform_type must be 'Fourier' or "
@@ -519,12 +565,14 @@ class NeuralOperatorBlock(_TransBlockMixin, nn.Module):
                   else HartleyOperator)
         self.op = op_cls(in_channels, out_channels, num_modes,
                          weights_type=weights_type, snn_init=snn,
-                         generator=generator)
+                         compute_dtype=compute_dtype, generator=generator)
         self.conv_branch = Conv(in_channels, out_channels, 1,
                                 use_bias=use_bias_conv_branch, snn_init=snn,
+                                compute_dtype=compute_dtype,
                                 generator=generator)
         self._setup_tail(in_channels, out_channels, activation,
-                         use_block_skip, use_block_concat, generator)
+                         use_block_skip, use_block_concat, compute_dtype,
+                         generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._block_tail(self.op(x), self.conv_branch(x), x)
@@ -551,9 +599,11 @@ class _TransSegBase(nn.Module):
                      num_transform_blocks: int, use_resize: bool,
                      use_deep_supervision: bool, activation,
                      output_activation, channel_first_io: bool, make_block,
-                     generator: torch.Generator) -> None:
+                     compute_dtype: str, generator: torch.Generator) -> None:
         snn = is_selu(activation)
-        g = dict(generator=generator)
+        compute_dtypes(compute_dtype)  # a known name
+        self.compute_dtype = compute_dtype
+        g = dict(compute_dtype=compute_dtype, generator=generator)
         self.out_channels = out_channels
         self.filters = filters
         self.use_resize = use_resize
@@ -576,10 +626,19 @@ class _TransSegBase(nn.Module):
                              else filters, out_channels, 1, use_bias=False,
                              snn_init=snn, **g)
 
+    def _dtypes(self):
+        """(activation dtype, island dtype) of ``compute_dtype`` for the
+        parameters' dtype (fp32, or float64 after ``.double()``)."""
+        return compute_dtypes(self.compute_dtype, self.conv_out.weight.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() != 5:
             raise ValueError(f"expected (B, C, D, H, W), got "
                              f"{tuple(x.shape)}")
+        if (self._dtypes()[0] == torch.bfloat16 and torch.is_grad_enabled()
+                and self.conv_out.weight.requires_grad):
+            not_ported(f"training with compute_dtype={self.compute_dtype!r} "
+                       "(serve under torch.no_grad or inference_mode)", 12)
         if self.use_kernels:
             return self._kernel_forward(x)
         return self._module_tower(x)
@@ -590,16 +649,20 @@ class _TransSegBase(nn.Module):
         return w[:, idx * self.filters:(idx + 1) * self.filters]
 
     def _ds_fold(self, acc, part, idx):
+        """The running deep-supervision sum plus part idx's projection,
+        at the island dtype and stored in the part's dtype (the reference's
+        module path)."""
         if self.conv_ds is None:
             return None
-        p = F.linear(part, self._ds_rows(idx))
+        isl = self._dtypes()[1]
+        p = F.linear(part.to(isl), self._ds_rows(idx).to(isl)).to(part.dtype)
         return p if acc is None else acc + p
 
     def _module_tower(self, x: torch.Tensor) -> torch.Tensor:
         if self.channel_first_io:
             x = x.permute(0, 2, 3, 4, 1)
         in_dtype = x.dtype
-        x = x.to(self.conv_out.weight.dtype)
+        x = x.to(self._dtypes()[0])
         image_size = tuple(x.shape[1:-1])
         if self.conv_in is not None:
             x = self.conv_in(x)
@@ -609,7 +672,8 @@ class _TransSegBase(nn.Module):
             x = block(x)
             acc = self._ds_fold(acc, x, i + 1)
         if acc is not None:
-            x = self.conv_ds._norm_act(acc + self.conv_ds.op.bias)
+            x = self.conv_ds._norm_act(acc + self.conv_ds.op.bias.to(
+                acc.dtype))
         return self._output(self.conv_out(x), image_size, in_dtype, False)
 
     def _output(self, x, image_size, in_dtype, use_kernels):
@@ -619,33 +683,54 @@ class _TransSegBase(nn.Module):
 
     def _kernel_entry(self, x: torch.Tensor) -> torch.Tensor:
         """conv_in (the conv_in kernel, SELU fused) and conv1 on the
-        channel-first batch-1 input -> the tower grid (D, H, W, filters)."""
+        channel-first batch-1 input -> the tower grid (D, H, W, filters),
+        in the activation dtype. conv_in's weights are rounded to the island
+        dtype and passed in their own (the bf16 instance sums in fp32)."""
         if x.shape[0] != 1:
             raise ValueError(f"the kernel path serves batch 1, got "
                              f"{x.shape[0]}")
-        x = x.to(self.conv_out.weight.dtype).contiguous()
+        dtype, isl = self._dtypes()
+        x = x.to(dtype).contiguous()
         if self.conv_in is not None:
-            x = conv_in_s2d(x, self.conv_in.op.weight, self.conv_in.op.bias)
+            w, b = self.conv_in.op.weight, self.conv_in.op.bias
+            x = conv_in_s2d(x, w.to(isl).to(w.dtype), b.to(isl).to(b.dtype))
         else:
             x = x.permute(0, 2, 3, 4, 1)
         return self.conv1(x)[0].contiguous()
 
+    def _block_operands(self, i: int, block, n_ds: int):
+        """Block i's (w_cat, w_cc_t, b_cat) for the tower kernels, with its
+        deep-supervision rows, the channel-mix weights in the island dtype
+        (bf16 selects the 'bfloat16' instances), packed once per weight
+        version."""
+        isl = self._dtypes()[1]
+        params = list(block.conv_branch.parameters()) + list(
+            block.conv_concat.parameters())
+        if n_ds:
+            params.append(self.conv_ds.op.weight)
+        return _cached(block, f"tower_{isl}_{n_ds}", params,
+                       lambda: block.tower_weights(
+                           self._ds_rows(i) if n_ds else None, isl))
+
     def _kernel_tower(self, x, spec, mix):
         """Every block of the tower through the fused tower block kernel of
         ``self.tower_kernel``; ``mix(block, s)`` is the block's operator on
-        a packed spectrum (KS, C, KH, KW). Returns the tower's output and
-        the running deep-supervision sum (None without conv_ds)."""
+        a packed spectrum (KS, C, KH, KW). The volume x is in the
+        activation dtype; the spectra between kernels and the running
+        deep-supervision sum stay fp32 (float64 for a float64 model).
+        Returns the tower's output and that sum (None without conv_ds)."""
         n_ds = spec.n_ds
-        ds = (torch.zeros(spec.sizes + (n_ds,), dtype=x.dtype,
+        wide = self.conv_out.weight.dtype
+        isl = self._dtypes()[1]
+        ds = (torch.zeros(spec.sizes + (n_ds,), dtype=wide,
                           device=x.device) if n_ds else None)
         resident = self.tower_kernel == "block_s"
-        # the resident spectrum (block_s) or the per-plane spectra (block)
-        s = entry_spectrum_s(x, spec) if resident else entry_forward_hw(
-            x, spec)
+        # the resident spectrum (block_s) or the per-plane spectra (block),
+        # the volume's transforms at the island dtype
+        s = (entry_spectrum_s(x, spec, isl) if resident
+             else entry_forward_hw(x, spec, isl))
         for i, block in enumerate(self.layers):
-            w_cat, w_cc_t, b_cat = block.tower_weights()
-            if n_ds:
-                w_cat = torch.cat([w_cat, self._ds_rows(i)]).contiguous()
+            w_cat, w_cc_t, b_cat = self._block_operands(i, block, n_ds)
             if resident:
                 res = fused_tower_block_s(x, mix(block, s).contiguous(),
                                           w_cat, w_cc_t, b_cat, spec, ds)
@@ -659,11 +744,13 @@ class _TransSegBase(nn.Module):
         return x, ds
 
     def _kernel_exit(self, x, ds, image_size, in_dtype):
-        """The last block's deep-supervision part, conv_ds's bias + SELU,
-        conv_out, and the output tail (the tail_resize kernel)."""
+        """The last block's deep-supervision part and conv_ds's bias + SELU
+        in the sum's dtype, back to the activation dtype, conv_out, and the
+        output tail (the tail_resize kernel)."""
         if ds is not None:
-            ds = ds + F.linear(x, self._ds_rows(len(self.layers)))
-            x = torch.selu(ds + self.conv_ds.op.bias)
+            ds = ds + F.linear(x.to(ds.dtype),
+                               self._ds_rows(len(self.layers)))
+            x = torch.selu(ds + self.conv_ds.op.bias).to(x.dtype)
         return self._output(self.conv_out(x)[None], image_size, in_dtype,
                             True)
 
@@ -681,9 +768,11 @@ class HartleyMHASeg(_TransSegBase):
     attention reads the packed spectrum from the depth forward stage of
     the per-plane spectra) or ``"block_s"`` (the attention reads the
     resident spectrum). ``generator`` seeds the init (default: seeded with
-    0); ``device`` places the parameters. The model computes in its
+    0); ``device`` places the parameters, which stay fp32 in every
+    ``compute_dtype``. With 'float32' the model computes in its
     parameters' dtype (fp32, or float64 after ``.double()`` as a
-    reference, which runs ``use_kernels=False`` on the card).
+    reference, which runs ``use_kernels=False`` on the card); 'bfloat16'
+    and 'mixed' serve (module docstring).
     """
 
     def __init__(self, in_channels: int, out_channels: int, filters: int,
@@ -702,8 +791,6 @@ class HartleyMHASeg(_TransSegBase):
         super().__init__()
         if ndim != 5:
             not_ported("HartleyMHASeg ndim=4 (2D)", 11)
-        if compute_dtype != "float32":
-            not_ported(f"compute_dtype={compute_dtype!r}", 12)
         if use_kernels and not (is_selu(activation) and use_block_skip
                                 and use_block_concat and channel_first_io):
             raise ValueError("HartleyMHASeg use_kernels takes SELU, the "
@@ -721,20 +808,21 @@ class HartleyMHASeg(_TransSegBase):
         self.use_kernels = use_kernels
         self.tower_kernel = tower_kernel
 
-        def make_block(c, generator):
+        def make_block(c, compute_dtype, generator):
             return HartleyMHABlock(
                 c, filters, num_heads, num_modes, patch_size=patch_size,
                 attention_activation=attention_activation,
                 activation=activation,
                 use_bias_conv_branch=use_bias_conv_branch,
                 use_block_skip=use_block_skip,
-                use_block_concat=use_block_concat, generator=generator)
+                use_block_concat=use_block_concat,
+                compute_dtype=compute_dtype, generator=generator)
 
         self._setup_tower(in_channels, out_channels, filters,
                           num_transform_blocks, use_resize,
                           use_deep_supervision, activation,
                           output_activation, channel_first_io, make_block,
-                          generator)
+                          compute_dtype, generator)
         if device is not None:
             self.to(device)
 
@@ -775,9 +863,11 @@ class NeuralOperatorSeg(_TransSegBase):
     conv-branch bias, batch 1, channel-first IO) and raises outside it,
     where the reference falls back to its module path. Deep supervision
     rides the kernel's ds rows. ``generator`` seeds the init (default:
-    seeded with 0); ``device`` places the parameters. The model computes in
-    its parameters' dtype (fp32, or float64 after ``.double()`` as a
-    reference, which runs ``use_kernels=False`` on the card).
+    seeded with 0); ``device`` places the parameters, which stay fp32 in
+    every ``compute_dtype``. With 'float32' the model computes in its
+    parameters' dtype (fp32, or float64 after ``.double()`` as a
+    reference, which runs ``use_kernels=False`` on the card); 'bfloat16'
+    and 'mixed' serve on all three tower kernels (module docstring).
     """
 
     def __init__(self, in_channels: int, out_channels: int, filters: int,
@@ -797,8 +887,6 @@ class NeuralOperatorSeg(_TransSegBase):
         super().__init__()
         if ndim != 5:
             not_ported("NeuralOperatorSeg ndim=4 (2D)", 11)
-        if compute_dtype != "float32":
-            not_ported(f"compute_dtype={compute_dtype!r}", 12)
         if weights_type == "individual":
             not_ported("NeuralOperatorSeg weights_type='individual'", 18)
         if use_kernels and not (
@@ -821,19 +909,20 @@ class NeuralOperatorSeg(_TransSegBase):
         self.use_kernels = use_kernels
         self.tower_kernel = tower_kernel
 
-        def make_block(c, generator):
+        def make_block(c, compute_dtype, generator):
             return NeuralOperatorBlock(
                 c, filters, num_modes, transform_type,
                 weights_type=weights_type, activation=activation,
                 use_bias_conv_branch=use_bias_conv_branch,
                 use_block_skip=use_block_skip,
-                use_block_concat=use_block_concat, generator=generator)
+                use_block_concat=use_block_concat,
+                compute_dtype=compute_dtype, generator=generator)
 
         self._setup_tower(in_channels, out_channels, filters,
                           num_transform_blocks, use_resize,
                           use_deep_supervision, activation,
                           output_activation, channel_first_io, make_block,
-                          generator)
+                          compute_dtype, generator)
         if device is not None:
             self.to(device)
 
@@ -848,17 +937,24 @@ class NeuralOperatorSeg(_TransSegBase):
             clip_modes(normalize_modes(self.num_modes, 3), sizes),
             self.filters, n_ds=n_ds)
         if self.tower_kernel == "resident":
-            x, ds = resident_tower(x, *self.resident_operands(), spec), None
+            x, ds = resident_tower(
+                x, *self.resident_operands(self._dtypes()[1]), spec), None
         else:
             x, ds = self._kernel_tower(
                 x, spec, lambda block, s: spectrum_mix_s(
                     s, block.op_weights(), spec))
         return self._kernel_exit(x, ds, image_size, in_dtype)
 
-    def resident_operands(self):
+    def resident_operands(self, dtype: Optional[torch.dtype] = None):
         """(op_stack, wcat_stack, wcc_stack, b_stack) of ``resident_tower``:
-        every block's ``op_weights()`` and ``tower_weights()``, stacked."""
-        ops = torch.stack([torch.stack(block.op_weights())
-                           for block in self.layers])
-        return (ops, *(torch.stack(t) for t in zip(
-            *(block.tower_weights() for block in self.layers))))
+        every block's ``op_weights()`` and ``tower_weights()``, stacked, the
+        channel-mix stacks in ``dtype`` (default the parameters'; bf16 for
+        the 'bfloat16' instance), packed once per weight version."""
+        def build():
+            ops = torch.stack([torch.stack(block.op_weights())
+                               for block in self.layers])
+            return (ops, *(torch.stack(t) for t in zip(
+                *(block.tower_weights(dtype=dtype)
+                  for block in self.layers))))
+        return _cached(self, f"resident_{dtype}", list(self.layers.parameters()),
+                       build)

@@ -50,16 +50,19 @@ class _FreqResidentConv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, num_modes,
                  weights_type: str = "shared", activation="selu",
-                 use_conv_branch: bool = False, snn_init: bool = False, *,
+                 use_conv_branch: bool = False, snn_init: bool = False,
+                 compute_dtype: str = "float32", *,
                  generator: torch.Generator):
         super().__init__()
         if use_conv_branch:
             not_ported("HNO-XS use_conv_branch", 5)
         if not is_selu(activation):
             not_ported("HNO-XS non-SELU activations (GroupNorm)", 5)
+        # on a packed spectrum the operator mixes at the spectrum's dtype
         self.op = HartleyOperator(in_channels, out_channels, num_modes,
                                   use_bias=False, weights_type=weights_type,
                                   use_transform=False, snn_init=snn_init,
+                                  compute_dtype=compute_dtype,
                                   generator=generator)
         self.act = get_activation(activation)
 
@@ -92,7 +95,7 @@ class HNOXSBlock(nn.Module):
                               weights_type=weights_type,
                               activation=activation,
                               use_conv_branch=use_conv_branch,
-                              snn_init=snn_init, generator=generator)
+                              snn_init=snn_init, **g)
             for _ in range(num_convs))
         self.act = get_activation(activation)
         self.conv_concat = (

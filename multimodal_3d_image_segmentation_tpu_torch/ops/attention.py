@@ -15,6 +15,13 @@ transform (upstream ``nets/hartley_mha.py``):
 The transforms are ``ops/spectral.py``'s pruned matmul chains; the QK and
 AV contractions are plain ``torch.einsum`` (cuBLAS on the GPU), as the
 reference leaves them to XLA. Layout: channels-last (B, *spatial, C).
+
+``compute_dtype`` (``spectral.compute_dtypes``): the transforms, the
+projections and the attention run at the island dtype (bf16 in
+'bfloat16'; fp32 in 'mixed', the reference's fp32 island, where the
+spectra ride fp32), and only the inverse's volume-scale output returns to
+the input's dtype. A packed spectrum given with ``use_transform=False`` is
+attended at the island dtype of its own dtype.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ from .. import device as _device  # noqa: F401  (fp32 policy)
 from .. import not_ported
 from . import initializers as inits
 from .activations import get_activation
-from .spectral import dht_crop, dht_pad_inverse, normalize_modes
+from .spectral import (compute_dtypes, dht_crop, dht_pad_inverse,
+                       normalize_modes)
 
 __all__ = ["HartleyMultiHeadAttention"]
 
@@ -91,10 +99,13 @@ class HartleyMultiHeadAttention(nn.Module):
                  key_in_channels: Optional[int] = None,
                  value_in_channels: Optional[int] = None,
                  use_bias: bool = False, use_transform: bool = True,
-                 snn_init: bool = False, *, generator: torch.Generator):
+                 snn_init: bool = False, compute_dtype: str = "float32", *,
+                 generator: torch.Generator):
         super().__init__()
         if use_bias:
             not_ported("HartleyMultiHeadAttention use_bias", 9)
+        compute_dtypes(compute_dtype)  # a known name
+        self.compute_dtype = compute_dtype
         self.num_heads = num_heads
         self.num_modes = num_modes
         self.patch_size = patch_size
@@ -126,16 +137,25 @@ class HartleyMultiHeadAttention(nn.Module):
             return lambda a: torch.softmax(a, dim=-1)
         return get_activation(self.attention_activation)
 
+    def _island(self, dtype: torch.dtype) -> torch.dtype:
+        """The dtype the attention runs at for ``dtype`` inputs: the
+        island of ``compute_dtype`` for bf16 inputs, else ``dtype``."""
+        if dtype != torch.bfloat16:
+            return dtype
+        return compute_dtypes(self.compute_dtype)[1]
+
     def attend(self, query: torch.Tensor, key: torch.Tensor,
                value: torch.Tensor) -> torch.Tensor:
         """The frequency-resident part: projections, grouping, attention,
-        ungrouping and the output projection on packed spectra."""
+        ungrouping and the output projection on packed spectra, at the
+        island dtype of the query's dtype."""
         nd = query.dim() - 2
         patch = (None if self.patch_size is None
                  else normalize_modes(self.patch_size, nd))
+        isl = self._island(query.dtype)
 
         def freq_conv(w, x):  # (B, *sp, I) -> (B, *sp, Z, O)
-            return torch.einsum("...i,zoi->...zo", x, w.to(x.dtype))
+            return torch.einsum("...i,zoi->...zo", x.to(isl), w.to(isl))
 
         q = freq_conv(self.weight_query, query)
         k = freq_conv(self.weight_key, key)
@@ -159,8 +179,7 @@ class HartleyMultiHeadAttention(nn.Module):
             out = _ungrouping(out, self.value_dim, patch)
         # merge the heads (z slowest) and project
         out = out.reshape(out.shape[:-2] + (-1,))
-        return torch.einsum("...i,oi->...o", out,
-                            self.weight_out.to(out.dtype))
+        return torch.einsum("...i,oi->...o", out, self.weight_out.to(isl))
 
     def forward(self, inputs) -> torch.Tensor:
         if isinstance(inputs, torch.Tensor):
@@ -179,8 +198,9 @@ class HartleyMultiHeadAttention(nn.Module):
         if any(s < 2 * m for s, m in zip(sizes, modes)):
             raise ValueError(f"spatial sizes {sizes} must be >= 2 * modes "
                              f"{modes}")
-        query = dht_crop(q_in, modes)
-        key = query if k_in is q_in else dht_crop(k_in, modes)
-        value = key if v_in is k_in else dht_crop(v_in, modes)
+        isl = self._island(q_in.dtype)
+        query = dht_crop(q_in, modes, isl)
+        key = query if k_in is q_in else dht_crop(k_in, modes, isl)
+        value = key if v_in is k_in else dht_crop(v_in, modes, isl)
         out = self.attend(query, key, value)
         return dht_pad_inverse(out, sizes).to(q_in.dtype)

@@ -12,6 +12,11 @@ already a packed spectrum (the HNOSeg-XS frequency-resident step), for
 Fourier a (real, imag) pair. Fourier keeps its complex weight as the real
 pair ``weight_real`` / ``weight_imag`` and the rfft half-spectrum layout of
 the last axis.
+
+``compute_dtype`` (``spectral.compute_dtypes``): the transforms, the mix
+and the frequency-domain SELU run at the island dtype (bf16 in
+'bfloat16'; fp32 in 'mixed', the reference's fp32 island), and only the
+inverse's volume-scale output returns to the input's dtype.
 """
 from __future__ import annotations
 
@@ -24,8 +29,9 @@ from torch import nn
 from .. import device as _device  # noqa: F401  (fp32 policy)
 from .. import not_ported
 from . import initializers as inits
-from .spectral import (clip_modes, dht_crop, dht_pad_inverse,
-                       normalize_modes, rfft_crop, rfft_pad_inverse)
+from .spectral import (clip_modes, compute_dtypes, dht_crop,
+                       dht_pad_inverse, normalize_modes, rfft_crop,
+                       rfft_pad_inverse)
 
 __all__ = ["HartleyOperator", "FourierOperator"]
 
@@ -42,8 +48,11 @@ class _SpectralOperator(nn.Module):
     raises naming its ROADMAP item."""
 
     def __init__(self, name: str, num_modes, use_bias: bool,
-                 weights_type: str, use_transform: bool):
+                 weights_type: str, use_transform: bool,
+                 compute_dtype: str = "float32"):
         super().__init__()
+        compute_dtypes(compute_dtype)  # a known name
+        self.compute_dtype = compute_dtype
         if weights_type not in ("individual", "shared"):
             raise ValueError(
                 "weights_type must be one of {'individual', 'shared'}")
@@ -61,6 +70,10 @@ class _SpectralOperator(nn.Module):
         return sizes, clip_modes(normalize_modes(self.num_modes, len(sizes)),
                                  sizes)
 
+    def _island(self, w: torch.Tensor) -> torch.dtype:
+        """The dtype the transforms and the mix run at."""
+        return compute_dtypes(self.compute_dtype, w.dtype)[1]
+
 
 class HartleyOperator(_SpectralOperator):
     """Hartley-domain spectral convolution with the upstream parameter name
@@ -69,10 +82,11 @@ class HartleyOperator(_SpectralOperator):
     def __init__(self, in_channels: int, out_channels: int,
                  num_modes: Optional[Union[int, Sequence[int]]] = None,
                  use_bias: bool = False, weights_type: str = "shared",
-                 use_transform: bool = True, snn_init: bool = False, *,
+                 use_transform: bool = True, snn_init: bool = False,
+                 compute_dtype: str = "float32", *,
                  generator: torch.Generator):
         super().__init__("HartleyOperator", num_modes, use_bias,
-                         weights_type, use_transform)
+                         weights_type, use_transform, compute_dtype)
         self.weight = _weight(out_channels, in_channels, snn_init, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -80,8 +94,10 @@ class HartleyOperator(_SpectralOperator):
             # at the spectrum's dtype, the island dtype of its transform
             return F.linear(x, self.weight.to(x.dtype))
         sizes, modes = self._modes(x)
-        y = torch.selu(F.linear(dht_crop(x, modes), self.weight))
-        return dht_pad_inverse(y, sizes)
+        isl = self._island(self.weight)
+        y = torch.selu(F.linear(dht_crop(x, modes, isl),
+                                self.weight.to(isl)))
+        return dht_pad_inverse(y, sizes).to(x.dtype)
 
 
 class FourierOperator(_SpectralOperator):
@@ -91,18 +107,21 @@ class FourierOperator(_SpectralOperator):
     def __init__(self, in_channels: int, out_channels: int,
                  num_modes: Optional[Union[int, Sequence[int]]] = None,
                  use_bias: bool = False, weights_type: str = "shared",
-                 use_transform: bool = True, snn_init: bool = False, *,
+                 use_transform: bool = True, snn_init: bool = False,
+                 compute_dtype: str = "float32", *,
                  generator: torch.Generator):
         super().__init__("FourierOperator", num_modes, use_bias,
-                         weights_type, use_transform)
+                         weights_type, use_transform, compute_dtype)
         self.weight_real = _weight(out_channels, in_channels, snn_init,
                                    generator)
         self.weight_imag = _weight(out_channels, in_channels, snn_init,
                                    generator)
 
     def _mix(self, re, im):
-        """(wr + i wi)(re + i im), contracting the channels."""
-        wr, wi = self.weight_real, self.weight_imag
+        """(wr + i wi)(re + i im), contracting the channels, at the
+        spectrum's dtype."""
+        wr, wi = (w.to(re.dtype) for w in (self.weight_real,
+                                           self.weight_imag))
         return (F.linear(re, wr) - F.linear(im, wi),
                 F.linear(re, wi) + F.linear(im, wr))
 
@@ -110,4 +129,6 @@ class FourierOperator(_SpectralOperator):
         if not self.use_transform:
             return self._mix(*x)
         sizes, modes = self._modes(x)
-        return rfft_pad_inverse(*self._mix(*rfft_crop(x, modes)), sizes)
+        isl = self._island(self.weight_real)
+        return rfft_pad_inverse(*self._mix(*rfft_crop(x, modes, isl)),
+                                sizes).to(x.dtype)

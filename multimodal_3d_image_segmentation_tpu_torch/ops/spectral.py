@@ -254,12 +254,15 @@ def dht_pad_inverse(y: torch.Tensor, sizes: Sequence[int],
     return _cas_chain(y, stages)
 
 
-def rfft_crop(x: torch.Tensor, modes: Sequence[int]
+def rfft_crop(x: torch.Tensor, modes: Sequence[int],
+              island: Optional[torch.dtype] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward real FFT (1/N norm) of a channels-last (B, *spatial, C)
     tensor at the kept modes: packed corners [0..m-1, n-m..n-1] on every
     spatial axis but the last, [0..m-1] (the rfft half spectrum) on the
-    last. Returns the (real, imag) pair of the cropped spectrum."""
+    last. Returns the (real, imag) pair of the cropped spectrum, in the
+    island dtype ``island`` (default: x's)."""
+    x = x if island is None else x.to(island)
     axes = spatial_axes(x.ndim)
     last = axes[-1]
     pairs = [(ax, x.shape[ax], m if ax == last else 2 * m, m)
@@ -276,11 +279,15 @@ def rfft_crop(x: torch.Tensor, modes: Sequence[int]
 
 
 def rfft_pad_inverse(re: torch.Tensor, im: torch.Tensor,
-                     sizes: Sequence[int]) -> torch.Tensor:
+                     sizes: Sequence[int],
+                     island: Optional[torch.dtype] = None) -> torch.Tensor:
     """Inverse real FFT (unnormalized) from the kept modes to the full grid
     ``sizes``, as zero-padding the modes into the rfftn half spectrum and
     irfftn would: e^{+i theta} 'mid' stages on the other axes, largest
-    expansion last, then the Hermitian last axis as a 'fold'."""
+    expansion last, then the Hermitian last axis as a 'fold'; in the island
+    dtype ``island`` (default: re's)."""
+    if island is not None:
+        re, im = re.to(island), im.to(island)
     axes = spatial_axes(re.ndim)
     last = axes[-1]
     pairs = []

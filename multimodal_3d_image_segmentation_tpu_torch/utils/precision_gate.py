@@ -1,28 +1,33 @@
 """The trained-network precision gate of the serving modes, the port of
-``tools/bench_precision.py`` for HNOSeg-XS.
+``tools/bench_precision.py``, for HNOSeg-XS and the tower families.
 
 Usage::
 
     python -m multimodal_3d_image_segmentation_tpu_torch.utils.precision_gate \\
-        [--cpu] [--out FILE] [--steps N] [--seed N] \\
-        [--train-size D H W] [--eval-size D H W]
+        [--family hnosegxs|hartleymha|hnoseg|fnoseg] [--cpu] [--out FILE] \\
+        [--steps N] [--seed N] [--train-size D H W] [--eval-size D H W]
 
-The protocol is the reference's: train the flagship HNOSeg-XS (filters 24,
-blocks [3]*8, modes (10,14,14)) for 400 steps of Adamax (lr 5e-3, cosine
-warm restarts to 1e-3, PCC loss) on 6 synthetic blob volumes at
-1x4x120x120x78, then evaluate the same weights zero-shot on 3 held-out
-volumes at 240x240x155 under each serving mode, and report per-class Dice,
-its delta from the fp32 oracle and the argmax agreement with it. The
-oracle is the fp32 plain path (``use_kernels=False``, TF32 off); the modes
-are the fp32, 'bfloat16' and 'mixed' kernel paths and the 'bfloat16' and
-'mixed' plain paths. The reference's Dice bar is |delta| <= 1e-3 on every
-class: it is reported as met or missed and decides nothing here (the
-port's default stays fp32).
+The protocol is the reference's: train a family at its full width (by
+default the flagship HNOSeg-XS: filters 24, blocks [3]*8, modes
+(10,14,14); ``--family`` takes HartleyMHASeg, HNOSeg or FNOSeg at the
+widths of ``configs/config_hartleymha.ini``, ``config_hnoseg.ini`` and
+``config_fnoseg.ini``) for 400 steps of Adamax (lr 5e-3, cosine warm
+restarts to 1e-3, PCC loss) on 6 synthetic blob volumes at 1x4x120x120x78,
+then evaluate the same weights zero-shot on 3 held-out volumes at
+240x240x155 under each serving mode, and report per-class Dice, its delta
+from the fp32 oracle and the argmax agreement with it. The oracle is the
+fp32 plain path (``use_kernels=False``, TF32 off); the modes are the fp32,
+'bfloat16' and 'mixed' kernel paths (the tower families on each of their
+tower kernels: HNOSeg on ``block``, ``block_s`` and ``resident``,
+HartleyMHASeg and FNOSeg on their default ``block``; a tower path's name
+ends in its kernel) and the 'bfloat16' and 'mixed' plain paths. The
+reference's Dice bar is |delta| <= 1e-3 on every class: it is reported as
+met or missed and decides nothing here (the port's default stays fp32).
 
 What fails the gate (``failures`` in the result, exit code 1):
   * the oracle has not learned every class (mean Dice <= 0.2 on one, as
     the reference flags it);
-  * in 'bfloat16' or 'mixed', the kernel path breaks the rule against
+  * in 'bfloat16' or 'mixed', a kernel path breaks the rule against
     that mode's twins path on some volume. The twins path is the kernel
     path's own formulation with each kernel wrapper replaced by its plain
     twin (PyTorch ops that round where the kernel rounds; no launch), a
@@ -36,16 +41,19 @@ What fails the gate (``failures`` in the result, exit code 1):
     sets: any change to the bf16 roundings, even a rare one-ulp flip,
     moves the argmax of a share of voxels above the fp32 rule's
     1 - ``AGREE`` (PERF.md, section 6);
-  * the control, the 'bfloat16' kernel path with conv_in's and the
-    chains' weights rounded to 4 mantissa bits (16 times bf16's
-    rounding), passes that rule.
+  * the control, the 'bfloat16' kernel path (a tower's on ``block``) with
+    conv_in's and the chains' or the tower blocks' channel-mix weights
+    rounded to 4 mantissa bits (16 times bf16's rounding), passes that
+    rule.
 Reported, met or missed: the fp32 kernel path's whole-model rule taken
 literally against the mode's plain path (``use_kernels=False``, which
 rounds at other places): largest distance from float64 at most ``RATIO``
 times the plain path's, argmax agreement at least ``AGREE``, for the
-kernel and the twins paths; and the probe, the twins path with the chain
-rounded to bf16 once at its end instead of after every stage, against the
-rule (``chip_smoke.py`` checks the per-stage rounding at the kernel).
+kernel and the twins paths; and the probe, the twins path with the
+per-stage rounding of its kernel's twin left out (HNOSeg-XS: the chain
+rounded once at its end; the towers: the tower blocks' z, y, t and F
+operands unrounded), against the rule (``chip_smoke.py`` checks the
+roundings at the kernel).
 
 It also reports, for the trained network, the largest activation magnitude
 after conv_in, conv1 and each block (fp32 plain path, first volume), and
@@ -59,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import sys
 import time
@@ -71,14 +80,15 @@ import torch.nn.functional as F
 from .. import kernels
 from ..device import resolve_device
 from ..losses import pcc_loss
-from ..models import HNOSegXS, hnosegxs
+from ..models import (HartleyMHASeg, HNOSegXS, NeuralOperatorSeg,
+                      architectures, hnosegxs)
 from ..runtime.optim import build_optimizer, build_schedule
 from ..runtime.steps import make_train_step
 from . import train_bars
 
 __all__ = ["blob_volume", "make_dataset", "dice_per_class", "train",
            "evaluate", "run_gate", "main", "plain_twins", "references",
-           "MODES", "CONTROL", "PROBE"]
+           "modes_of", "MODES", "CONTROL", "PROBE", "FAMILIES"]
 
 TRAIN_SHAPE = (120, 120, 78)
 EVAL_SHAPE = (240, 240, 155)
@@ -87,8 +97,24 @@ N_EVAL = 3
 STEPS = 400
 FLAGSHIP = dict(in_channels=4, out_channels=4, filters=24,
                 num_transform_blocks=[3] * 8, num_modes=(10, 14, 14))
-# name: (use_kernels, compute_dtype, twins: None, "fp32" or "fp64"); the
-# first is the oracle
+# the configs' widths (configs/config_hartleymha.ini, config_hnoseg.ini,
+# config_fnoseg.ini)
+MHA = dict(in_channels=4, out_channels=4, filters=24, num_transform_blocks=16,
+           num_heads=4, num_modes=(8, 12, 12), patch_size=2)
+NOSEG = dict(in_channels=4, out_channels=4, filters=24,
+             num_transform_blocks=24, num_modes=(10, 14, 14))
+# family: (model class, its widths, the tower kernels its kernel paths run
+# on, None for HNOSeg-XS)
+FAMILIES = {
+    "hnosegxs": (HNOSegXS, FLAGSHIP, None),
+    "hartleymha": (HartleyMHASeg, MHA, ("block",)),
+    "hnoseg": (NeuralOperatorSeg, dict(NOSEG, transform_type="Hartley"),
+               ("block", "block_s", "resident")),
+    "fnoseg": (NeuralOperatorSeg, dict(NOSEG, transform_type="Fourier"),
+               ("block",)),
+}
+# HNOSeg-XS's paths, name: (use_kernels, compute_dtype, twins: None, "fp32"
+# or "fp64"); the first is the oracle (a tower family's: ``modes_of``)
 MODES = {
     "fp32_plain": (False, "float32", None),
     "fp32_kernels": (True, "float32", None),
@@ -101,12 +127,15 @@ MODES = {
     "mixed_twins64": (True, "mixed", "fp64"),
     "mixed_plain": (False, "mixed", None),
 }
-# the bf16 kernel path with conv_in's and the chains' weights rounded to
-# CONTROL_BITS mantissa bits: it must break the rule
+# the bf16 kernel path with conv_in's and the chains' (a tower's: the
+# blocks' channel-mix) weights rounded to CONTROL_BITS mantissa bits: it
+# must break the rule
 CONTROL = "control_weights_4bit"
 CONTROL_BITS = 4
-# the bf16 twins path with the chain rounded once at its end: reported
+# the bf16 twins path with its kernel twin's per-stage rounding left out:
+# reported
 PROBE = "probe_chain_rounded_once"
+PROBE_TOWER = "probe_operands_unrounded"
 DICE_BAR = 1e-3
 LEARNED = 0.2
 RATIO = 2.0
@@ -156,19 +185,44 @@ def dice_per_class(pred: np.ndarray, true: np.ndarray, n_classes: int = 4):
     return out
 
 
+def modes_of(family: str) -> Dict[str, tuple]:
+    """A family's paths, name: (use_kernels, compute_dtype, twins: None,
+    "fp32" or "fp64", tower kernel or None); the first is the oracle.
+    HNOSeg-XS's are ``MODES``; a tower family's kernel, twins and twins64
+    paths run on each of its tower kernels, named with it."""
+    kernels_of = FAMILIES[family][2]
+    if kernels_of is None:
+        return {name: spec + (None,) for name, spec in MODES.items()}
+    out = {"fp32_plain": (False, "float32", None, None)}
+    out.update({f"fp32_kernels_{k}": (True, "float32", None, k)
+                for k in kernels_of})
+    for mode, cd in (("bf16", "bfloat16"), ("mixed", "mixed")):
+        for k in kernels_of:
+            out.update({f"{mode}_kernels_{k}": (True, cd, None, k),
+                        f"{mode}_twins_{k}": (True, cd, "fp32", k),
+                        f"{mode}_twins64_{k}": (True, cd, "fp64", k)})
+        out[f"{mode}_plain"] = (False, cd, None, None)
+    return out
+
+
+def _probe(family: str) -> str:
+    return PROBE if FAMILIES[family][2] is None else PROBE_TOWER
+
+
 def train(device: torch.device, steps: int = STEPS,
           shape: Sequence[int] = TRAIN_SHAPE, n_train: int = N_TRAIN,
-          seed: int = 0):
-    """Train the flagship fp32 on its kernel path (the port's training
-    path); returns (state dict, loss history every 50 steps, seconds)."""
+          seed: int = 0, family: str = "hnosegxs"):
+    """Train ``family`` at its full width, fp32, on its kernel path (the
+    port's training path; the towers on ``block``); returns (state dict,
+    loss history every 50 steps, seconds)."""
     xs, ys = make_dataset(1, n_train, shape)
     fracs = [float(np.mean(ys == c)) for c in range(4)]
     if not all(f > 1e-4 for f in fracs):
         raise ValueError(f"a class rasterized away at {tuple(shape)}: "
                          f"class fractions {fracs}")
-    model = HNOSegXS(**FLAGSHIP, use_kernels=True,
-                     generator=torch.Generator().manual_seed(seed),
-                     device=device)
+    cls, widths, _ = FAMILIES[family]
+    model = cls(**widths, use_kernels=True,
+                generator=torch.Generator().manual_seed(seed), device=device)
     optimizer = build_optimizer({"optimizer_name": "Adamax", "lr": 5e-3},
                                 model.parameters())
     scheduler = build_schedule(
@@ -188,20 +242,26 @@ def train(device: torch.device, steps: int = STEPS,
 
 
 def _model(state, use_kernels: bool, compute_dtype: str,
-           device: torch.device, dtype=torch.float32) -> HNOSegXS:
-    m = HNOSegXS(**FLAGSHIP, use_kernels=use_kernels,
-                 compute_dtype=compute_dtype).to(device, dtype)
+           device: torch.device, dtype=torch.float32,
+           family: str = "hnosegxs", tower_kernel: Optional[str] = None):
+    cls, widths, _ = FAMILIES[family]
+    kw = {} if tower_kernel is None else {"tower_kernel": tower_kernel}
+    m = cls(**widths, use_kernels=use_kernels, compute_dtype=compute_dtype,
+            **kw).to(device, dtype)
     m.load_state_dict(state)
     return m.eval()
 
 
 def _rounded(state, bits: int = CONTROL_BITS):
-    """``state`` with conv_in's and the chains' weights rounded to ``bits``
-    mantissa bits (nearest, ties away)."""
+    """``state`` with conv_in's weight and the chains' (HNOSeg-XS) or the
+    tower blocks' channel-mix weights (conv_branch, conv_concat) rounded to
+    ``bits`` mantissa bits (nearest, ties away)."""
     drop = 23 - bits
     out = dict(state)
     for k, v in state.items():
-        if k == "conv_in.op.weight" or ".conv_blocks." in k:
+        if k == "conv_in.op.weight" or ".conv_blocks." in k or (
+                k.startswith("layers.") and k.endswith(".weight")
+                and (".conv_branch." in k or ".conv_concat." in k)):
             b = v.contiguous().view(torch.int32)
             out[k] = ((b + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(
                 torch.float32)
@@ -242,15 +302,38 @@ _TWINS = {"conv_in_s2d": kernels.conv_in_plain,
           "fused_tail_softmax": kernels.tail_plain}
 _TWINS64 = {"conv_in_s2d": _conv_in64, "fused_freq_chain": _chain64,
             "fused_tail_softmax": _tail64}
+_F64 = dict(acc=torch.float64)
+# the tower families' wrappers (models/architectures.py) and their twins
+_TOWER_TWINS = train_bars._TWINS
+_TOWER_TWINS64 = {
+    "conv_in_s2d": _conv_in64, "fused_tail_softmax": _tail64,
+    "fused_tower_block": functools.partial(kernels.tower_block_plain,
+                                           **_F64),
+    "fused_tower_block_s": functools.partial(kernels.tower_block_s_plain,
+                                             **_F64),
+    "resident_tower": functools.partial(kernels.resident_tower_plain,
+                                        **_F64)}
+# the probe's: the tower blocks' intermediate operands unrounded
+_UNROUNDED = frozenset({"sy", "z", "y", "t", "F"})
 
 
-def plain_twins(twins=None):
-    """HNOSeg-XS calls each kernel wrapper's plain twin instead (``twins``,
-    name -> function, default ``_TWINS``)."""
-    return train_bars.plain_twins(hnosegxs, twins or _TWINS)
+def plain_twins(twins=None, family: str = "hnosegxs"):
+    """``family``'s model calls each kernel wrapper's plain twin instead
+    (``twins``, name -> function, default the family's)."""
+    if FAMILIES[family][2] is None:
+        return train_bars.plain_twins(hnosegxs, twins or _TWINS)
+    return train_bars.plain_twins(architectures, twins or _TOWER_TWINS)
 
 
-def _activations(model: HNOSegXS, x: torch.Tensor) -> Dict[str, float]:
+def _probe_twins(family: str):
+    if FAMILIES[family][2] is None:
+        return dict(_TWINS, fused_freq_chain=_chain_rounded_once)
+    return dict(_TOWER_TWINS, **{
+        name: functools.partial(_TOWER_TWINS[name], unrounded=_UNROUNDED)
+        for name in ("fused_tower_block", "fused_tower_block_s")})
+
+
+def _activations(model, x: torch.Tensor) -> Dict[str, float]:
     """The largest magnitude after conv_in, conv1 and each block."""
     seen, hooks = {}, []
     named = [("conv_in", model.conv_in), ("conv1", model.conv1)] + [
@@ -272,41 +355,67 @@ def _agree(pred: torch.Tensor, probs: torch.Tensor) -> float:
     return float((pred == probs.argmax(1)).float().mean())
 
 
-def _mode(name: str) -> str:
-    return "bf16" if name in (CONTROL, PROBE) else name.split("_")[0]
+def _parts(name: str):
+    """(mode, kind, tower kernel or None) of a path name: "bf16_kernels" or
+    "bf16_kernels_block" -> ("bf16", "kernels", None or "block"); the
+    control and the probes are 'bfloat16' paths."""
+    if name in (CONTROL, PROBE, PROBE_TOWER):
+        return "bf16", name, None
+    parts = name.split("_", 2)
+    return parts[0], parts[1], parts[2] if len(parts) > 2 else None
 
 
-def references(name: str) -> Dict[str, str]:
+def _default_suffix(family: str) -> str:
+    """The name suffix of a family's first tower kernel ("" for HNOSeg-XS):
+    the control's and the probe's."""
+    kernels_of = FAMILIES[family][2]
+    return "" if kernels_of is None else f"_{kernels_of[0]}"
+
+
+def references(name: str, family: str = "hnosegxs") -> Dict[str, str]:
     """The paths ``name`` is compared with, by role: "plain" (the mode's
-    plain path) and "twins" (the mode's twins path)."""
-    mode, kind = _mode(name), name.split("_", 1)[1]
+    plain path) and "twins" (the mode's twins path on the same tower
+    kernel)."""
+    if name in (CONTROL, PROBE, PROBE_TOWER):
+        return {"twins": f"bf16_twins{_default_suffix(family)}"}
+    mode, kind, kernel = _parts(name)
+    sfx = "" if kernel is None else f"_{kernel}"
     if kind == "plain":
         return {}
-    if kind == "twins64" or name in (CONTROL, PROBE):
-        return {"twins": f"{mode}_twins"}
+    if kind == "twins64":
+        return {"twins": f"{mode}_twins{sfx}"}
     refs = {"plain": f"{mode}_plain"}
     if kind == "kernels" and mode != "fp32":
-        refs["twins"] = f"{mode}_twins"
+        refs["twins"] = f"{mode}_twins{sfx}"
     return refs
 
 
 def evaluate(state, device: torch.device, shape: Sequence[int] = EVAL_SHAPE,
-             n_eval: int = N_EVAL) -> Dict:
+             n_eval: int = N_EVAL, family: str = "hnosegxs") -> Dict:
     """Every path on the held-out volumes: per-volume Dice and argmax,
     distances from float64, and the readings against ``references``."""
     xs, ys = make_dataset(99, n_eval, shape)  # held-out geometry
-    twins = {None: contextlib.nullcontext, "fp32": plain_twins,
-             "fp64": lambda: plain_twins(_TWINS64)}
+    towers = FAMILIES[family][2] is not None
+    tw, tw64 = ((_TOWER_TWINS, _TOWER_TWINS64) if towers
+                else (_TWINS, _TWINS64))
+    twins = {None: contextlib.nullcontext,
+             "fp32": lambda: plain_twins(tw, family),
+             "fp64": lambda: plain_twins(tw64, family)}
     # name: (model, the context it runs in)
-    paths = {name: (_model(state, k, cd, device), twins[t])
-             for name, (k, cd, t) in MODES.items()}
-    paths[CONTROL] = (_model(_rounded(state), True, "bfloat16", device),
+    paths = {name: (_model(state, k, cd, device, family=family,
+                           tower_kernel=tk), twins[t])
+             for name, (k, cd, t, tk) in modes_of(family).items()}
+    sfx = _default_suffix(family)
+    paths[CONTROL] = (_model(_rounded(state), True, "bfloat16", device,
+                             family=family, tower_kernel=sfx[1:] or None),
                       contextlib.nullcontext)
-    paths[PROBE] = (paths["bf16_twins"][0], lambda: plain_twins(
-        dict(_TWINS, fused_freq_chain=_chain_rounded_once)))
-    ref_model = _model(state, False, "float32", device, torch.float64)
+    paths[_probe(family)] = (paths[f"bf16_twins{sfx}"][0],
+                             lambda: plain_twins(_probe_twins(family),
+                                                 family))
+    ref_model = _model(state, False, "float32", device, torch.float64,
+                       family=family)
     out = {name: {"dice": [], "vs_fp64": [], "agree_oracle": [],
-                  **{f"{f}_{role}": [] for role in references(name)
+                  **{f"{f}_{role}": [] for role in references(name, family)
                      for f in ("max_abs_vs", "agree")}}
            for name in paths}
     with torch.inference_mode():
@@ -331,7 +440,7 @@ def evaluate(state, device: torch.device, shape: Sequence[int] = EVAL_SHAPE,
                 r["vs_fp64"].append(float((p.double() - ref).abs().max()))
                 r["agree_oracle"].append(_agree(pred,
                                                 probs["fp32_plain"]))
-                for role, other in references(name).items():
+                for role, other in references(name, family).items():
                     q = probs[other]
                     r[f"max_abs_vs_{role}"].append(float(
                         (p.float() - q.float()).abs().max()))
@@ -341,11 +450,16 @@ def evaluate(state, device: torch.device, shape: Sequence[int] = EVAL_SHAPE,
     return out
 
 
-def _broken(r: Dict, ev: Dict, name: str):
+def _floor(twins: str) -> str:
+    """The twins64 path of a twins path: the rule's floor."""
+    return twins.replace("_twins", "_twins64", 1)
+
+
+def _broken(r: Dict, ev: Dict, name: str, family: str):
     """Volumes on which readings ``r`` of path ``name`` break the rule
     against its twins path (module docstring)."""
-    mode = _mode(name)
-    twins, floor = ev[f"{mode}_twins"], ev[f"{mode}_twins64"]
+    other = references(name, family)["twins"]
+    twins, floor = ev[other], ev[_floor(other)]
     return [i for i, (k, t, a, f) in enumerate(zip(
         r["vs_fp64"], twins["vs_fp64"], r["agree_twins"],
         floor["agree_twins"]))
@@ -362,12 +476,13 @@ def _literal(r: Dict, plain: Dict):
         if k > RATIO * p + 1e-6 or a < AGREE]
 
 
-def _summary(ev: Dict) -> Dict:
+def _summary(ev: Dict, family: str = "hnosegxs") -> Dict:
     """Per-path means, deltas and rules, and the gate's failures."""
     res, failures = {}, []
     oracle = np.nanmean(np.asarray(ev["fp32_plain"]["dice"]), axis=0)
-    for name in list(MODES) + [CONTROL, PROBE]:
+    for name in list(modes_of(family)) + [CONTROL, _probe(family)]:
         r = ev[name]
+        refs = references(name, family)
         mean = np.nanmean(np.asarray(r["dice"]), axis=0)
         rec = {"per_class_dice_mean": [float(v) for v in mean],
                "max_abs_vs_fp64": max(r["vs_fp64"]),
@@ -382,7 +497,7 @@ def _summary(ev: Dict) -> Dict:
             delta = mean - oracle
             rec["dice_delta_vs_oracle"] = [float(v) for v in delta]
             rec["dice_bar_met"] = bool(np.all(np.abs(delta) <= DICE_BAR))
-        for role, other in references(name).items():
+        for role, other in refs.items():
             rec.update({
                 f"{role}_path": other,
                 f"max_abs_vs_{role}": max(r[f"max_abs_vs_{role}"]),
@@ -390,12 +505,12 @@ def _summary(ev: Dict) -> Dict:
                 f"vs_fp64_ratio_{role}": max(
                     k / p if p > 0 else float("inf")
                     for k, p in zip(r["vs_fp64"], ev[other]["vs_fp64"]))})
-        if "plain" in references(name):
+        if "plain" in refs:
             rec["literal_rule_vs_plain_broken_on"] = _literal(
-                r, ev[references(name)["plain"]])
-        if "twins" in references(name) and "twins64" not in name:
-            broken = _broken(r, ev, name)
-            floor = ev[f"{_mode(name)}_twins64"]["agree_twins"]
+                r, ev[refs["plain"]])
+        if "twins" in refs and _parts(name)[1] != "twins64":
+            broken = _broken(r, ev, name, family)
+            floor = ev[_floor(refs["twins"])]["agree_twins"]
             rec["rule_broken_vs_twins_on"] = broken
             rec["argmax_disagreement_ratio_twins"] = max(
                 (1 - a) / (1 - f) if f < 1 else
@@ -403,17 +518,16 @@ def _summary(ev: Dict) -> Dict:
                 for a, f in zip(r["agree_twins"], floor))
             if name == CONTROL and not broken:
                 failures.append(f"{CONTROL} passed the rule")
-            elif name.endswith("_kernels") and broken:
-                mode = _mode(name)
+            elif _parts(name)[1] == "kernels" and broken:
                 failures.append(
-                    f"{name} breaks the rule against {mode}_twins on "
+                    f"{name} breaks the rule against {refs['twins']} on "
                     f"volumes {broken}: largest distance from float64 "
                     f"{r['vs_fp64']} against {RATIO} x "
-                    f"{ev[f'{mode}_twins']['vs_fp64']}, argmax agreement "
+                    f"{ev[refs['twins']]['vs_fp64']}, argmax agreement "
                     f"{r['agree_twins']} against the twins paths' "
-                    f"{ev[f'{mode}_twins64']['agree_twins']}")
+                    f"{ev[_floor(refs['twins'])]['agree_twins']}")
         res[name] = rec
-    fp32 = res["fp32_kernels"]
+    fp32 = res[f"fp32_kernels{_default_suffix(family)}"]
     res["fp32_abs_1e-4_bar_holds"] = fp32["max_abs_vs_plain"] <= ABS_BAR
     res["activations_fp32"] = ev["activations_fp32"]
     res["failures"] = failures
@@ -423,30 +537,34 @@ def _summary(ev: Dict) -> Dict:
 def run_gate(device: torch.device, steps: int = STEPS,
              train_shape: Sequence[int] = TRAIN_SHAPE,
              eval_shape: Sequence[int] = EVAL_SHAPE, n_train: int = N_TRAIN,
-             n_eval: int = N_EVAL, seed: int = 0, log=print) -> Dict:
-    """Train (initial weights from ``seed``), evaluate every mode
-    zero-shot, and judge: the result dict (``failures`` empty where the
-    gate passes)."""
+             n_eval: int = N_EVAL, seed: int = 0, log=print,
+             family: str = "hnosegxs") -> Dict:
+    """Train ``family`` (initial weights from ``seed``), evaluate every
+    mode zero-shot, and judge: the result dict (``failures`` empty where
+    the gate passes)."""
     state, history, train_s = train(device, steps, train_shape, n_train,
-                                    seed)
-    log(f"trained {steps} steps at {tuple(train_shape)} on {n_train} "
-        f"volumes in {train_s:.2f} s; loss every 50 steps {history}")
+                                    seed, family)
+    log(f"{family}: trained {steps} steps at {tuple(train_shape)} on "
+        f"{n_train} volumes in {train_s:.2f} s; loss every 50 steps "
+        f"{history}")
     t0 = time.perf_counter()
-    ev = evaluate(state, device, eval_shape, n_eval)
-    res = _summary(ev)
-    res.update(train_shape=list(train_shape), eval_shape=list(eval_shape),
-               steps=steps, n_train=n_train, n_eval=n_eval, seed=seed,
-               train_loss_history=history, train_seconds=train_s,
+    ev = evaluate(state, device, eval_shape, n_eval, family)
+    res = _summary(ev, family)
+    res.update(family=family, train_shape=list(train_shape),
+               eval_shape=list(eval_shape), steps=steps, n_train=n_train,
+               n_eval=n_eval, seed=seed, train_loss_history=history,
+               train_seconds=train_s,
                eval_seconds=time.perf_counter() - t0, device=str(device),
                protocol="tools/bench_precision.py's: train at train_shape, "
                         "zero-shot eval of the same weights at eval_shape; "
                         f"Dice bar |delta| <= {DICE_BAR} (reported)")
-    for name in list(MODES) + [CONTROL, PROBE]:
+    for name in list(modes_of(family)) + [CONTROL, _probe(family)]:
         log(f"{name}: {json.dumps(res[name])}")
     log(f"activations (largest magnitude, fp32 plain path): "
         f"{json.dumps(res['activations_fp32'])}")
-    log(f"fp32 kernel path: {res['fp32_kernels']['max_abs_vs_plain']:.3e} "
-        f"from the plain path, {res['fp32_kernels']['max_abs_vs_fp64']:.3e} "
+    fp32 = res[f"fp32_kernels{_default_suffix(family)}"]
+    log(f"fp32 kernel path: {fp32['max_abs_vs_plain']:.3e} "
+        f"from the plain path, {fp32['max_abs_vs_fp64']:.3e} "
         f"from float64 (plain path {res['fp32_plain']['max_abs_vs_fp64']:.3e});"
         f" an absolute {ABS_BAR:g} bar against the plain path "
         f"{'holds' if res['fp32_abs_1e-4_bar_holds'] else 'does not hold'}")
@@ -456,6 +574,8 @@ def run_gate(device: torch.device, steps: int = STEPS,
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--family", choices=list(FAMILIES), default="hnosegxs",
+                    help="the family to train and gate")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernel paths run their plain "
                          "twins there)")
@@ -470,7 +590,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
     device = resolve_device("cpu" if args.cpu else None)
     res = run_gate(device, args.steps, args.train_size, args.eval_size,
-                   seed=args.seed)
+                   seed=args.seed, family=args.family)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

@@ -33,7 +33,8 @@ largest difference. The same file copied into another checkout of the port
 that checkout's kernels on the same inputs, so that two kernel versions
 are compared in one call on one card. Prints the card's name and power
 limit first, then each kernel instance's registers and spills from the
-build log (tower kernels, conv_in and freq_chain). ``chip_smoke.py`` holds
+build log (tower kernels, with their bf16 and mixed instances, conv_in and
+freq_chain). ``chip_smoke.py`` holds
 each kernel to its plain version; this script does not.
 """
 from __future__ import annotations
@@ -94,9 +95,12 @@ def build_report(kinds=TOWER_KINDS + EDGE_KINDS):
         if kind is None:
             continue
         c = "24" if "ILi24E" in name else "8" if "ILi8E" in name else "?"
+        # the tower kernels' instances: <C, volume type, weight type>
+        inst = ("" if "__nv_bfloat16" not in name else
+                " mixed" if "__nv_bfloat16fE" in name else " bf16")
         props = [ln.split(":", 1)[-1].strip() for ln in log[i + 1:i + 4]
                  if "spill" in ln or "Used" in ln]
-        print(f"build: {kind.removesuffix('_kernel')} width {c}: "
+        print(f"build: {kind.removesuffix('_kernel')}{inst} width {c}: "
               f"{'; '.join(props)}")
 
 

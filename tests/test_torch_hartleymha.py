@@ -239,7 +239,7 @@ def test_kernel_path_refuses_batch_2():
 
 @pytest.mark.parametrize("opts,exc", [
     (dict(ndim=4), NotImplementedError),
-    (dict(compute_dtype="bfloat16"), NotImplementedError),
+    (dict(compute_dtype="float16"), ValueError),
     (dict(use_kernels=True, activation="elu"), ValueError),
     (dict(use_kernels=True, use_block_concat=False), ValueError),
     (dict(use_kernels=True, channel_first_io=False), ValueError),

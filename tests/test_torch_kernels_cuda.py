@@ -1380,3 +1380,177 @@ def test_hnosegxs_bf16_kernel_path_launches_the_bf16_instances(
     # two bf16 paths that round at other places: the probabilities agree
     # to bf16's class, not fp32's
     assert float((got - want).abs().mean()) < 1e-2
+
+
+# The tower kernels' 'bfloat16' and 'mixed' instances against their twins
+# (fp32 sums on the bf16 values, rounded where the kernel rounds). A bf16
+# output (out; 'bfloat16''s f) is held to one ulp plus 1e-5 plus one ulp of
+# its largest magnitude (a rounding flipped upstream moves later values by
+# about that), and at most 1e-3 of its elements more than one ulp of their
+# own magnitude plus 1e-5 apart (f is an fp32 sum with cancellation,
+# rounded once); an fp32 output (s_f, 'mixed''s f, ds) to 1e-4 of its
+# largest magnitude (a flipped bf16 operand upstream moves it by about one
+# ulp of that operand's contribution). chip_smoke.py holds the same rule
+# at the serving shapes, with controls that must fail it.
+TOWER_MODES = [("bfloat16", torch.bfloat16), ("mixed", torch.float32)]
+
+
+def _held_bf16_tower(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        gf, wf = g.float(), w.float()
+        d, scale = (gf - wf).abs(), float(wf.abs().max())
+        if g.dtype == torch.float32:
+            assert float(d.max()) <= 1e-4 * scale, (float(d.max()), scale)
+            continue
+        atol = 1e-5 + BF16_ULP * max(1.0, scale)
+        assert float((d - BF16_ULP * wf.abs()).max()) <= atol
+        mag = torch.maximum(gf.abs(), wf.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        assert float((d > ulp + 1e-5).float().mean()) <= 1e-3
+
+
+def _tower_block_args(transform, sizes, modes, c, n_ds, seed, dev):
+    spec = tb.make_tower_spec(transform, sizes, modes, c, n_ds=n_ds)
+    x = _t(sizes + (c,), seed, dev)
+    ops = [_t((c, c), seed + 1 + i, dev, 1 / np.sqrt(c))
+           for i in range(1 if transform == "Hartley" else 2)]
+    with torch.no_grad():
+        s = tbs.spectrum_mix_s(tbs.entry_spectrum_s(x, spec), ops,
+                               spec).contiguous()
+        z = tb.d_stage_inverse(s, spec).contiguous()
+    w_cat = _t((2 * c + n_ds, c), seed + 3, dev, 1 / np.sqrt(c))
+    w_cc_t = _t((c, c), seed + 4, dev, 1 / np.sqrt(c))
+    b_cat = _t((2 * c,), seed + 5, dev, 0.1)
+    ds_prev = _t(sizes + (n_ds,), seed + 6, dev) if n_ds else None
+    return spec, x, s, z, w_cat, w_cc_t, b_cat, ds_prev
+
+
+TOWER_BF16_CASES = [
+    ("Hartley", (20, 18, 21), (3, 4, 5), 8, 4),   # short last W tile, ds
+    ("Fourier", (13, 40, 17), (3, 6, 5), 8, 0),   # odd KW, two H chunks
+    ("Hartley", (24, 33, 26), (10, 14, 12), 24, 0),
+    ("Fourier", (22, 30, 29), (10, 14, 14), 24, 3)]
+TOWER_BF16_IDS = [f"{t[0]}-c{c}-ds{n}" for t, _, _, c, n in TOWER_BF16_CASES]
+
+
+@pytest.mark.parametrize("mode,wdtype", TOWER_MODES,
+                         ids=[m for m, _ in TOWER_MODES])
+@pytest.mark.parametrize("transform,sizes,modes,c,n_ds", TOWER_BF16_CASES,
+                         ids=TOWER_BF16_IDS)
+def test_tower_block_bf16_instances_match_twins(dev, transform, sizes,
+                                                modes, c, n_ds, mode,
+                                                wdtype):
+    spec, x, s, z, w_cat, w_cc_t, b_cat, ds_prev = _tower_block_args(
+        transform, sizes, modes, c, n_ds, 130, dev)
+    suffix = "_bf16" if mode == "bfloat16" else "_mixed"
+    for fused, plain, spectrum, name in (
+            (kernels.fused_tower_block, kernels.tower_block_plain, z,
+             "tower_block"),
+            (kernels.fused_tower_block_s, kernels.tower_block_s_plain, s,
+             "tower_block_s")):
+        args = (x.bfloat16(), spectrum, w_cat.to(wdtype), w_cc_t.to(wdtype),
+                b_cat, spec, ds_prev)
+        with torch.no_grad():
+            got = _launched(name + suffix, lambda: fused(*args))
+            want = plain(*args)
+            again = fused(*args)
+        assert got[0].dtype == torch.bfloat16
+        assert got[1].dtype == (wdtype if name == "tower_block"
+                                else torch.float32)
+        _held_bf16_tower(got, want)
+        for a, b in zip(again, got):  # a fixed order: the same bits
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode,wdtype", TOWER_MODES,
+                         ids=[m for m, _ in TOWER_MODES])
+@pytest.mark.parametrize("transform", ["Hartley", "Fourier"])
+def test_tower_resident_bf16_instances_match_twins(dev, transform, mode,
+                                                   wdtype):
+    """One block element by element; six blocks by the whole-model rule:
+    the largest distance from a float64 evaluation of the same tower (bf16
+    volume and weights, nothing rounded) at most 2x the twin's (the
+    kernel's operator mix sums in another fp32 order than the twin's, and
+    the next block's bf16 rounding of the spectrum spreads a flip through
+    every voxel)."""
+    sizes, modes, c = (20, 30, 22), (3, 5, 4), 8
+    spec = tb.make_tower_spec(transform, sizes, modes, c)
+    pr, nb = (1 if transform == "Hartley" else 2), 6
+    x = _t(sizes + (c,), 140, dev, 0.5).bfloat16()
+    w = (_t((nb, pr, c, c), 141, dev, 0.3),
+         _t((nb, 2 * c, c), 142, dev, 0.3).to(wdtype),
+         _t((nb, c, c), 143, dev, 0.3).to(wdtype),
+         _t((nb, 2 * c), 144, dev, 0.1))
+    name = "tower_resident" + ("_bf16" if mode == "bfloat16" else "_mixed")
+    with torch.no_grad():
+        w1 = tuple(t[:1] for t in w)
+        got = _launched(name, lambda: kernels.resident_tower(x, *w1, spec))
+        _held_bf16_tower((got,), (kernels.resident_tower_plain(x, *w1,
+                                                               spec),))
+        got = kernels.resident_tower(x, *w, spec)
+        twin = kernels.resident_tower_plain(x, *w, spec)
+        ref = kernels.resident_tower_plain(x.double(),
+                                           *(t.double() for t in w), spec)
+    assert got.dtype == torch.bfloat16
+    k64 = float((got.double() - ref).abs().max())
+    assert k64 <= 2 * float((twin.double() - ref).abs().max()) + 1e-6
+
+
+def test_tower_bf16_instances_refuse_what_they_do_not_take(dev):
+    spec, x, s, z, w_cat, w_cc_t, b_cat, _ = _tower_block_args(
+        "Hartley", (20, 18, 21), (3, 4, 5), 8, 0, 150, dev)
+    xb, wb = x.bfloat16(), w_cat.bfloat16()
+    with pytest.raises(TypeError):  # fp32 x with bf16 weights
+        kernels.fused_tower_block(x, z, wb, w_cc_t.bfloat16(), b_cat, spec)
+    with pytest.raises(TypeError):  # a bf16 z
+        kernels.fused_tower_block(xb, z.bfloat16(), wb, w_cc_t.bfloat16(),
+                                  b_cat, spec)
+    with pytest.raises(TypeError):  # a bf16 resident spectrum
+        kernels.fused_tower_block_s(xb, s.bfloat16(), w_cat, w_cc_t, b_cat,
+                                    spec)
+    with pytest.raises(TypeError):  # a bf16 bias
+        kernels.fused_tower_block_s(xb, s, w_cat, w_cc_t, b_cat.bfloat16(),
+                                    spec)
+    ops = _t((1, 1, 8, 8), 151, dev)
+    with pytest.raises(TypeError):  # bf16 operator weights
+        kernels.resident_tower(xb, ops.bfloat16(), wb[None, :16],
+                               w_cc_t.bfloat16()[None], b_cat[None], spec)
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "mixed"])
+@pytest.mark.parametrize("family,tower_kernel", [
+    ("HartleyMHASeg", "block"), ("HNOSeg", "block"), ("HNOSeg", "block_s"),
+    ("HNOSeg", "resident"), ("FNOSeg", "block")])
+def test_tower_families_launch_the_bf16_instances(dev, family, tower_kernel,
+                                                  compute_dtype):
+    from multimodal_3d_image_segmentation_tpu_torch.models import (
+        HartleyMHASeg, NeuralOperatorSeg)
+    kw = dict(in_channels=4, out_channels=4, filters=8,
+              num_transform_blocks=3, compute_dtype=compute_dtype)
+    if family == "HartleyMHASeg":
+        cls, kw = HartleyMHASeg, dict(kw, num_heads=2, num_modes=(2, 3, 3),
+                                      patch_size=None)
+    else:
+        cls, kw = NeuralOperatorSeg, dict(
+            kw, num_modes=(3, 4, 4),
+            transform_type="Hartley" if family == "HNOSeg" else "Fourier")
+    plain = cls(**kw, device=dev)
+    fast = cls(**kw, use_kernels=True, tower_kernel=tower_kernel, device=dev)
+    fast.load_state_dict(plain.state_dict())
+    x = _t((1, 4, 16, 18, 13), 160, dev)
+    before = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        got, want = fast(x), plain(x)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+             if v != before[k]}
+    tower = {"block": "tower_block", "block_s": "tower_block_s",
+             "resident": "tower_resident"}[tower_kernel]
+    suffix = "_bf16" if compute_dtype == "bfloat16" else "_mixed"
+    assert moved == {"conv_in_bf16": 1, "tail_resize_bf16": 1,
+                     tower + suffix: 1 if tower_kernel == "resident" else 3}
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    # two bf16 paths that round at other places: the probabilities agree
+    # to bf16's class, not fp32's
+    assert float((got - want).abs().mean()) < 1e-2

@@ -317,7 +317,7 @@ def test_kernel_path_refuses_batch_2():
 @pytest.mark.parametrize("opts,exc", [
     (dict(weights_type="individual"), NotImplementedError),
     (dict(ndim=4), NotImplementedError),
-    (dict(compute_dtype="bfloat16"), NotImplementedError),
+    (dict(compute_dtype="float16"), ValueError),
     (dict(use_kernels=True, activation="elu"), ValueError),
     (dict(use_kernels=True, use_block_concat=False), ValueError),
     (dict(use_kernels=True, use_bias_conv_branch=True), ValueError),
@@ -325,7 +325,7 @@ def test_kernel_path_refuses_batch_2():
     (dict(tower_kernel="block_v3"), ValueError),
     (dict(transform_type="Cosine"), ValueError),
     (dict(tower_kernel="resident", use_deep_supervision=True), ValueError),
-], ids=["individual", "2d", "bf16", "elu", "add-skip", "branch-bias",
+], ids=["individual", "2d", "fp16", "elu", "add-skip", "branch-bias",
         "channels-last", "tower-kernel", "transform", "resident-ds"])
 def test_unported_options_raise(opts, exc):
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
