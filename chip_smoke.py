@@ -7,7 +7,8 @@ Drives the port's serving paths once at full width on 4-modality
 240x240x155 volumes, batch 1, fp32, random weights from a seed: HNOSeg-XS
 (filters 24, blocks [3]*8, modes (10,14,14); also with ``[model]
 compute_dtype`` 'bfloat16' and 'mixed'), V-Net-DS (base 24, blocks
-[1,2,3,3,3], right leg [0..4], 22,547,764 parameters), HartleyMHASeg
+[1,2,3,3,3], right leg [0..4], 22,547,764 parameters; also in 'bfloat16'
+and 'mixed'), HartleyMHASeg
 (filters 24, 16 blocks, 4 heads, modes (8,12,12), patch 2, deep
 supervision, 178,532 parameters; also in 'bfloat16' and 'mixed'), and
 HNOSeg and FNOSeg (NeuralOperatorSeg: filters 24, 24 blocks, modes
@@ -81,9 +82,27 @@ training size. It checks them:
               kernel's, the plain version's and ``F.conv3d``'s times and
               the bound, and the kernel's registers and spills from the
               build log; the kernel's total must be below ``F.conv3d``'s;
+  6b. conv3 bf16  every conv3 call of one V-Net-DS forward in 'bfloat16'
+              and in 'mixed' (recorded with its real inputs) against its
+              plain twin (one bf16 ulp, at most 1e-3 of the elements more
+              than one ulp of their own magnitude apart, the fp32 moments
+              1e-5 of the sums of |y| and y^2; the stride-2 calls' moments,
+              of the rounded outputs, against float64 sums of the kernel's
+              own output), a second run bit-identical, and the twin with
+              the prologue output unrounded (and in 'bfloat16' the fp32
+              weights) as controls that must fail; each call's time beside
+              the fp32 instance's on the same call, the plain twin's,
+              cuDNN's bf16 ``F.conv3d`` + bias and the bound, and the bf16
+              instances' registers and spills from the build log;
   7. serve    run_inference serves the same cases through
               ``configs/config_vnet-ds.ini``; launches (reset just before)
-              must be conv_in 3, conv3 87, tail_resize 3;
+              must be conv_in 3, conv3 87, tail_resize 3; then with
+              ``compute_dtype`` 'bfloat16' (conv_in_bf16 3, conv3_bf16 87,
+              tail_resize_bf16 3) and 'mixed' (conv3_mixed 87), each with
+              its wall, device and peak beside fp32's; then the precision
+              gate of a trained V-Net-DS (4b's rule; the control's 4-bit
+              weights the conv3 weights, the probe the prologue output
+              unrounded);
   8. model    the V-Net-DS kernel path against its plain path and float64,
               on a served volume and on a small volume against the CPU; a
               control with conv3's operands in TF32 must fail the bars;
@@ -197,6 +216,11 @@ GRID = (121, 121, 78)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # H100 SXM data sheet, CUDA cores
 BF16_FLOPS = 989e12         # H100 SXM data sheet, bf16 tensor cores, dense
+# The bound of every instance with a bf16 volume, 'mixed' too, takes its
+# operations at BF16_FLOPS: the TPU kernels compute a bf16 activation times
+# an fp32-class weight as bf16 matrix passes (the weight split hi/lo), work
+# the card's bf16 tensor cores can do. Counted as two passes, the
+# operations' time would double.
 N_CASES = 3
 N_TIMED = 25
 # (kernel, source, the TPU kernel's pallas_call it replaces)
@@ -249,6 +273,11 @@ KERNELS = [
     ("tower_resident_mixed",
      "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_resident.cu",
      "multimodal_3d_image_segmentation_tpu/kernels/tower_resident.py:244"),
+    # conv3's 'bfloat16' and 'mixed' instances
+    ("conv3_bf16", "multimodal_3d_image_segmentation_tpu_torch/csrc/conv3.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/conv3d_flat.py:305"),
+    ("conv3_mixed", "multimodal_3d_image_segmentation_tpu_torch/csrc/conv3.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/conv3d_flat.py:305"),
 ]
 
 
@@ -266,6 +295,10 @@ PER_VOLUME_HNOSEG_BF16 = per_volume(conv_in_bf16=1, freq_chain_bf16=8,
 PER_VOLUME_HNOSEG_MIXED = per_volume(conv_in_bf16=1, freq_chain=8,
                                      tail_resize_bf16=1)
 PER_VOLUME_VNET = per_volume(conv_in=1, tail_resize=1, conv3=29)
+PER_VOLUME_VNET_BF16 = per_volume(conv_in_bf16=1, tail_resize_bf16=1,
+                                  conv3_bf16=29)
+PER_VOLUME_VNET_MIXED = per_volume(conv_in_bf16=1, tail_resize_bf16=1,
+                                   conv3_mixed=29)
 PER_VOLUME_MHA = per_volume(conv_in=1, tail_resize=1, tower_block=16)
 PER_VOLUME_NOSEG = per_volume(conv_in=1, tail_resize=1, tower_block=24)
 PER_VOLUME_NOSEG_BLOCK_S = per_volume(conv_in=1, tail_resize=1,
@@ -1055,8 +1088,7 @@ def phase_towers_bf16(torch, kernels, dev):
                     else:
                         work = tower_block_s_work(spec, ks, vb)
                     record(name, label, err, ms, fp32_ms, plain_ms,
-                           bound(*work, BF16_FLOPS if wd == bf16
-                                 else FP32_FLOPS), share)
+                           bound(*work, BF16_FLOPS), share)
                     del got, want
             del x, s, z, xb
 
@@ -1137,7 +1169,7 @@ def phase_towers_bf16(torch, kernels, dev):
                 record(name, label, err1, ms, fp32_ms, plain_ms,
                        bound(*tower_resident_work(
                            spec, ks, nb, 2, 2 if mode == "bfloat16" else 4),
-                           BF16_FLOPS if mode == "bfloat16" else FP32_FLOPS),
+                           BF16_FLOPS),
                        share)
         del model, x, xb
         torch.cuda.empty_cache()
@@ -1247,6 +1279,28 @@ def phase_serve(torch, kernels, work: Path, list_paths, label, config,
           f"peak allocated {stats['peak_mib']:.1f} MiB, peak reserved "
           f"{stats['peak_reserved_mib']:.1f} MiB")
     return launches
+
+
+def served_bf16(torch, kernels, work: Path, list_paths, launches, label,
+                config, model, n_params, per_volume_bf16, per_volume_mixed):
+    """``label``'s model served in 'bfloat16' and 'mixed' through
+    ``run_inference`` (``[model] compute_dtype`` set on the loaded config)
+    with each mode's launches a volume; its wall, device and peak printed
+    beside the fp32 path's (``label``, served before)."""
+    for mode, per_vol in (("bfloat16", per_volume_bf16),
+                          ("mixed", per_volume_mixed)):
+        name = f"{label}-{mode}"
+        got = phase_serve(torch, kernels, work, list_paths, name, config,
+                          model, n_params, per_vol, {"compute_dtype": mode})
+        for k, v in got.items():
+            launches[k] += v
+        a, f = SERVED[name], SERVED[label]
+        print(f"serving {name} against fp32: wall "
+              f"{a['avg_time_s'] * 1e3:.3f} against "
+              f"{f['avg_time_s'] * 1e3:.3f} ms/volume, device "
+              f"{a['avg_device_ms']:.3f} against {f['avg_device_ms']:.3f} "
+              f"ms, peak allocated {a['peak_mib']:.1f} against "
+              f"{f['peak_mib']:.1f} MiB")
 
 
 def served_mode(torch, kernels, work: Path, list_paths, launches, label,
@@ -1595,6 +1649,176 @@ def phase_conv3(torch, kernels, calls):
             "library_ms": tot["library_ms"]}
 
 
+# conv3's bf16 instances by compute_dtype: the launch counter
+CONV3_MODES = {"bfloat16": "conv3_bf16", "mixed": "conv3_mixed"}
+MOMENTS_REL = 1e-5
+
+
+def _as_tuple(t):
+    return t if isinstance(t, tuple) else (t,)
+
+
+def _conv3_bf16_held(torch, got, want, kw):
+    """(passed, largest error, largest share, largest moment error): a
+    conv3 bf16 instance's outputs (or a control's) against its twin's: the
+    bf16 outputs by ``held_to`` at one ulp plus 1e-5; the fp32 moments
+    within ``MOMENTS_REL`` of the sums of |y| and y^2, against the twin's
+    (the sums of the fp32 values before the rounding) or, for the moments
+    of the rounded outputs (the stride-2 conv's), against float64 sums of
+    ``got``'s own outputs (a one-ulp flip between the two moves those)."""
+    n_out = 2 if kw.get("residual") is not None else 1
+    ok, err, share, mom = True, 0.0, 0.0, 0.0
+    for g, w in zip(got[:n_out], want[:n_out]):
+        check(g.shape == w.shape and g.dtype == w.dtype == torch.bfloat16,
+              f"{tuple(g.shape)} {g.dtype} against {tuple(w.shape)} "
+              f"{w.dtype}")
+        o, e, _, sh = held_to(torch, g, w, (BF16_ULP, 1e-5))
+        ok, err, share = ok and o, max(err, e), max(share, sh)
+    for y, st, sw in zip(got[:n_out], got[n_out:], want[n_out:]):
+        y64 = y.double().reshape(-1, y.shape[-1])
+        scale = torch.stack([y64.abs().sum(0), (y64 * y64).sum(0)])
+        ref = (torch.stack([y64.sum(0), (y64 * y64).sum(0)])
+               if kw.get("stride", 1) == 2 else sw.double())
+        rel = float(((st.double() - ref).abs() / scale).max())
+        ok, mom = ok and rel <= MOMENTS_REL, max(mom, rel)
+    return ok, err, share, mom
+
+
+def phase_conv3_bf16(torch, kernels, calls):
+    """conv3's 'bfloat16' and 'mixed' instances against their plain twins
+    at every call of one V-Net-DS forward in that mode (``calls``: mode ->
+    the recorded calls), in the working type (``_conv3_bf16_held``); a
+    second run bit-identical; the twin with the prologue output unrounded
+    (the calls with a prologue) and, in 'bfloat16', the twin given the
+    call's fp32 weights (the same call of the 'mixed' forward) are controls
+    that must fail on every call. Times of back-to-back calls
+    (``stream_ms``): the instance, the fp32 instance on the same call (its
+    operands widened), the twin and cuDNN's bf16 ``F.conv3d`` (or
+    ``F.conv_transpose3d``) + bias; the bound at the bytes the call moves
+    and its operations at ``BF16_FLOPS``."""
+    header("== conv3 bf16 instances (the calls of one V-Net-DS forward in "
+           "'bfloat16' and 'mixed')")
+    import torch.nn.functional as F
+    from multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep import \
+        stream_ms
+    log = kernels.library().build_log.splitlines()
+    for i, line in enumerate(log):
+        if ("Compiling entry function" in line and "conv3" in line
+                and "bfloat16" in line):
+            props = [ln.strip() for ln in log[i + 1:i + 4]
+                     if "spill" in ln or "Used" in ln]
+            print(f"conv3 bf16 build: {line.split(chr(39))[1]}: "
+                  f"{'; '.join(props)}")
+    bf16 = torch.bfloat16
+    out = {}
+    with torch.inference_mode():
+        for mode, mcalls in calls.items():
+            name = CONV3_MODES[mode]
+            tot = {"ms": 0.0, "fp32_ms": 0.0, "plain_ms": 0.0,
+                   "library_ms": 0.0, "flops": 0, "bytes": 0,
+                   "max_abs_err": 0.0, "share": 0.0, "moments": 0.0}
+            n_ctl, shown = 0, set()
+            for i, (args, kw) in enumerate(mcalls):
+                def kern():
+                    return kernels.conv3(*args, **kw)
+
+                def plain(**extra):
+                    return kernels.conv3_plain(*args, **kw, **extra)
+                before = kernels.LAUNCHES[name]
+                got = _as_tuple(kern())
+                torch.cuda.synchronize()
+                check(kernels.LAUNCHES[name] == before + 1,
+                      f"{name} call {i}: launch count did not move")
+                ok, err, share, mom = _conv3_bf16_held(
+                    torch, got, _as_tuple(plain()), kw)
+                check(ok, f"{name} call {i}: max abs err {err}, share "
+                          f"{share}, moments {mom}")
+                check(all(bool(torch.equal(a, g)) for a, g in
+                          zip(_as_tuple(kern()), got)),
+                      f"{name} call {i}: a second run differs")
+                controls = []
+                if kw.get("prologue") is not None:
+                    controls.append(("prologue unrounded", plain(
+                        unrounded={"prologue"})))
+                if mode == "bfloat16":
+                    # the same call of the 'mixed' forward holds the fp32
+                    # weights these were rounded from
+                    margs, mkw = calls["mixed"][i]
+                    wkw = dict(kw)
+                    if kw.get("residual") is not None:
+                        wkw["residual"] = (mkw["residual"][0],
+                                           kw["residual"][1])
+                    controls.append(("weights unrounded", kernels.conv3_plain(
+                        args[0], margs[1], margs[2], **wkw)))
+                for label, ctl in controls:
+                    bad, e_c, sh_c, m_c = _conv3_bf16_held(
+                        torch, got, _as_tuple(ctl), kw)
+                    check(not bad, f"{name} call {i}: control ({label}) "
+                                   f"passed")
+                    n_ctl += 1
+                    if label not in shown:
+                        shown.add(label)
+                        print(f"{name} call {i} control, {label}: max abs "
+                              f"err {e_c:.3e}, share {sh_c:.3e}, moments "
+                              f"{m_c:.3e}")
+                a32 = tuple(t.float() if torch.is_tensor(t) else t
+                            for t in args)
+                kw32 = {k: (tuple(t.float() for t in v) if isinstance(v, tuple)
+                            else v.float() if torch.is_tensor(v) else v)
+                        for k, v in kw.items()}
+                xin = args[0] if kw.get("x2") is None else torch.cat(
+                    [args[0], kw["x2"]], -1)
+                xcf = xin.permute(0, 4, 1, 2, 3)
+                w16, b16 = args[1].to(bf16), args[2].to(bf16)
+                if kw.get("dilation", 1) == 2:
+                    wt16 = w16.flip(2, 3, 4).transpose(0, 1).contiguous()
+
+                    def lib():
+                        return F.conv_transpose3d(xcf, wt16, b16, stride=2,
+                                                  padding=1,
+                                                  output_padding=1)
+                else:
+                    def lib():
+                        return F.conv3d(xcf, w16, b16,
+                                        stride=kw.get("stride", 1),
+                                        padding=1)
+                ms = stream_ms(kern)
+                fp32_ms = stream_ms(lambda: kernels.conv3(*a32, **kw32))
+                plain_ms, lib_ms = stream_ms(plain), stream_ms(lib)
+                flops, moved = conv3_work(args, kw, got[0])
+                b_ms, b_by = bound(flops, moved, BF16_FLOPS)
+                for k, v in (("ms", ms), ("fp32_ms", fp32_ms),
+                             ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                             ("flops", flops), ("bytes", moved)):
+                    tot[k] += v
+                for k, v in (("max_abs_err", err), ("share", share),
+                             ("moments", mom)):
+                    tot[k] = max(tot[k], v)
+                print(f"{name}[{i}] {_describe(args, kw)}: err {err:.2e} "
+                      f"share {share:.1e} moments {mom:.1e} kernel "
+                      f"{ms:.4f} (fp32 instance {fp32_ms:.4f}) plain "
+                      f"{plain_ms:.4f} cuDNN bf16 {lib_ms:.4f} bound "
+                      f"{b_ms:.4f} ms ({b_by})")
+            b_ms, b_by = bound(tot["flops"], tot["bytes"], BF16_FLOPS)
+            print(f"{name}, the {len(mcalls)} calls of one forward: kernel "
+                  f"{tot['ms']:.4f} ms (fp32 instance {tot['fp32_ms']:.4f} "
+                  f"ms, {tot['ms'] / tot['fp32_ms']:.3f}x), plain "
+                  f"{tot['plain_ms']:.4f} ms, cuDNN bf16 F.conv3d + bias "
+                  f"{tot['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by};"
+                  f" {tot['flops'] / 1e12:.4f} TFLOP, "
+                  f"{tot['bytes'] / 1e9:.4f} GB); largest error "
+                  f"{tot['max_abs_err']:.3e}, share {tot['share']:.2e}, "
+                  f"moments {tot['moments']:.2e}; {n_ctl} controls failed "
+                  "as they must (sums of medians of 5 CUDA-event runs of 20 "
+                  "back-to-back calls)")
+            out[name] = {"max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
+                         "plain_ms": tot["plain_ms"], "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": tot["library_ms"],
+                         "fp32_ms": tot["fp32_ms"],
+                         "share_beyond_ulp": tot["share"]}
+    return out
+
+
 def phase_model_mha(torch, state, case_dir: Path, dev):
     """HartleyMHASeg: kernel path against plain path and float64 on a
     served volume (with both tower kernels: tower_block_s covers the ds
@@ -1827,10 +2051,6 @@ PLANTED = 0.05
 N_TRAIN_TIMED = 20
 N_CONV3_BWD_TIMED = 10
 MIB = 1024 ** 2
-
-
-def _as_tuple(t):
-    return t if isinstance(t, tuple) else (t,)
 
 
 def _backward_case(torch, fused, plain, args, g, n_timed=N_TIMED):
@@ -2414,22 +2634,9 @@ def main():
             PER_VOLUME_HNOSEG)
         phase_model_hnoseg(torch, hnoseg.state_dict(), case0, dev)
         states["HNOSeg-XS"] = hnoseg.state_dict()
-        for mode, per_vol in (("bfloat16", PER_VOLUME_HNOSEG_BF16),
-                              ("mixed", PER_VOLUME_HNOSEG_MIXED)):
-            label = f"HNOSeg-XS-{mode}"
-            launches_b = phase_serve(
-                torch, kernels, work, list_paths, label,
-                "config_inference_hnoseg_xs.ini", hnoseg, 28248, per_vol,
-                {"compute_dtype": mode})
-            for k, v in launches_b.items():
-                launches[k] += v
-            a, f = SERVED[label], SERVED["HNOSeg-XS"]
-            print(f"serving {label} against fp32: wall "
-                  f"{a['avg_time_s'] * 1e3:.3f} against "
-                  f"{f['avg_time_s'] * 1e3:.3f} ms/volume, device "
-                  f"{a['avg_device_ms']:.3f} against "
-                  f"{f['avg_device_ms']:.3f} ms, peak allocated "
-                  f"{a['peak_mib']:.1f} against {f['peak_mib']:.1f} MiB")
+        served_bf16(torch, kernels, work, list_paths, launches, "HNOSeg-XS",
+                    "config_inference_hnoseg_xs.ini", hnoseg, 28248,
+                    PER_VOLUME_HNOSEG_BF16, PER_VOLUME_HNOSEG_MIXED)
         phase_gate(torch, dev)
 
         vnet = VNetDS(**VNET, generator=torch.Generator().manual_seed(SEED))
@@ -2441,12 +2648,27 @@ def main():
               f"{len(calls)} conv3 calls per forward")
         results["conv3"] = phase_conv3(torch, kernels, calls)
         del calls, fast
+        calls = {}
+        for mode in CONV3_MODES:
+            fast = VNetDS(**VNET, use_kernels=True, compute_dtype=mode,
+                          device=dev)
+            fast.load_state_dict(vnet.state_dict())
+            calls[mode] = record_conv3_calls(
+                torch, fast, served_volume(torch, case0, dev))
+            check(len(calls[mode]) == PER_VOLUME_VNET["conv3"],
+                  f"{mode}: {len(calls[mode])} conv3 calls per forward")
+        results.update(phase_conv3_bf16(torch, kernels, calls))
+        del calls, fast
         torch.cuda.empty_cache()
         launches_v = phase_serve(
             torch, kernels, work, list_paths, "V-Net-DS",
             "config_vnet-ds.ini", vnet, 22547764, PER_VOLUME_VNET)
         for k, v in launches_v.items():
             launches[k] += v
+        served_bf16(torch, kernels, work, list_paths, launches, "V-Net-DS",
+                    "config_vnet-ds.ini", vnet, 22547764,
+                    PER_VOLUME_VNET_BF16, PER_VOLUME_VNET_MIXED)
+        phase_gate(torch, dev, "vnetds")
         phase_model_vnet(torch, vnet.state_dict(), case0, dev)
         states["V-Net-DS"] = vnet.state_dict()
         del vnet

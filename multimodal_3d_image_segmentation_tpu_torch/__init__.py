@@ -17,11 +17,11 @@ softmax output tail (``kernels/tail_resize.py``), the k=3 conv
 runs its plain PyTorch version for CPU tensors and launches its CUDA kernel
 for CUDA tensors. Every kernel is differentiable: its backward pass is the
 reference's, in PyTorch ops (a closed form, or a replay of the plain
-version under autograd). conv_in, the chain, the tail and the three tower
-kernels also have bf16 instances (the towers a 'mixed' one too), which
-HNOSeg-XS, HartleyMHASeg, HNOSeg and FNOSeg serve with ``compute_dtype``
-'bfloat16' or 'mixed'; ``utils/precision_gate.py`` judges those modes on
-a trained network of each family. V-Net-DS serves in fp32 only.
+version under autograd). Every kernel also has bf16 instances (conv3 and
+the towers a 'mixed' one too), with which every family serves in
+``compute_dtype`` 'bfloat16' or 'mixed'; ``utils/precision_gate.py`` judges
+those modes on a trained network of each family. The bf16 instances serve
+only: their backward passes are not ported.
 """
 
 __version__ = "0.1.0"

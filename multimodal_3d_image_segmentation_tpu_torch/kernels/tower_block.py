@@ -57,6 +57,7 @@ import torch
 from .. import device as _device  # noqa: F401  (fp32 policy)
 from ..ops.spectral import _dft_mats_np, _rfft_mats_np
 from . import _build
+from ._common import instance
 
 __all__ = ["TowerSpec", "make_tower_spec", "fused_tower_block",
            "tower_block_plain", "entry_forward_hw", "d_stage_forward",
@@ -75,20 +76,6 @@ _MAX_SMEM_BYTES = 227 * 1024
 INSTANCES = {"float32": (0, ""), "bfloat16": (1, "_bf16"),
              "mixed": (2, "_mixed")}
 _BF16 = torch.bfloat16
-
-
-def instance(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The tower kernels' instance of a volume ``x`` and channel-mix
-    weights ``w``: 'float32' (both fp32, or float64 on the CPU),
-    'bfloat16' (both bf16) or 'mixed' (x bf16, w fp32)."""
-    wide = (torch.float32, torch.float64)
-    if x.dtype in wide and w.dtype in wide:
-        return "float32"
-    if x.dtype == _BF16 and w.dtype in (_BF16, torch.float32):
-        return "bfloat16" if w.dtype == _BF16 else "mixed"
-    raise TypeError(f"the tower kernels take x and the weights float32, "
-                    f"both bfloat16, or x bfloat16 with float32 weights; got "
-                    f"{x.dtype} and {w.dtype}")
 
 
 class TowerSpec(NamedTuple):

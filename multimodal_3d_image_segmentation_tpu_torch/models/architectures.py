@@ -26,6 +26,17 @@ channels-last. Two execution paths share one module tree, whose
     conv reads (up, skip) as a virtual concat. Batch 1, channel-first IO
     and k=3 only; CPU tensors run each kernel's plain version.
 
+V-Net-DS's ``compute_dtype`` is the reference's too. On the module path
+each conv runs at its input's dtype (bf16 until the first GroupNorm, whose
+output is fp32 as flax's is; the self-normalizing variant stays bf16) with
+the 1x1 convs at the island dtype. On the kernel path the volumes stay bf16
+between kernels, as the reference's ``_flat_forward`` keeps them: conv_in's
+and the tail's bf16 instances, and conv3's 'bfloat16' instance (bf16
+weights and biases) or 'mixed' one (fp32 weights and biases); the residual
+taps' biases stay fp32, the GroupNorm moments are the kernels' fp32 sums
+(the down convs' and the head's of their bf16 outputs), and each
+GroupNorm's scale and shift are rounded to bf16 and applied in bf16.
+
 HartleyMHASeg and NeuralOperatorSeg (FNOSeg / HNOSeg), the ports of
 ``HartleyMHASeg`` and ``NeuralOperatorSeg`` (reference
 ``nets/architectures.py:356-508``): conv_in -> conv1 -> a tower of
@@ -49,8 +60,8 @@ transform-matrix contraction; the reference's 'bfloat16' under
 ``set_bf16_exact``). On the kernel path both take the tower kernels' bf16
 instances ('bfloat16': bf16 weights; 'mixed': fp32 weights), conv_in's and
 the tail's, with the spectra between kernels and the deep-supervision sum
-in fp32, as the reference keeps them. Serving only: a forward that
-autograd would record raises (ROADMAP item 12).
+in fp32, as the reference keeps them. Serving only, in every family: a
+bf16 forward that autograd would record raises (ROADMAP item 12).
 """
 from __future__ import annotations
 
@@ -155,10 +166,12 @@ class VNetDS(nn.Module):
     decoding path mirrors it without the last entry. ``right_leg_indexes``
     selects the section outputs for deep supervision (default [0]).
     ``generator`` seeds the init (default: seeded with 0); ``device``
-    places the parameters. The model computes in its parameters' dtype
-    (fp32, or float64 after ``.double()`` as a reference, which runs
-    ``use_kernels=False`` on the card). Options the port does not cover
-    yet raise ``NotImplementedError`` naming their ROADMAP item.
+    places the parameters. With ``compute_dtype`` 'float32' the model
+    computes in its parameters' dtype (fp32, or float64 after ``.double()``
+    as a reference, which runs ``use_kernels=False`` on the card);
+    'bfloat16' and 'mixed' serve in bf16 (module docstring). Options the
+    port does not cover yet raise ``NotImplementedError`` naming their
+    ROADMAP item.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -176,8 +189,7 @@ class VNetDS(nn.Module):
         super().__init__()
         if ndim != 5:
             not_ported("VNetDS ndim=4 (2D)", 11)
-        if compute_dtype != "float32":
-            not_ported(f"compute_dtype={compute_dtype!r}", 12)
+        compute_dtypes(compute_dtype)  # a known name
         if spatial_shard is not None:
             not_ported("VNetDS spatial_shard (depth-sharded flat path)", 15)
         if use_kernels and (kernel_size != 3 or not channel_first_io):
@@ -199,9 +211,12 @@ class VNetDS(nn.Module):
         self.use_residual = use_residual
         self.channel_first_io = channel_first_io
         self.use_kernels = use_kernels
-        self._up_weights = {}  # id(parameter) -> (version key, conv3 layout)
+        self.compute_dtype = compute_dtype
+        # (id(parameter), dtype) -> (version key, conv3 layout)
+        self._up_weights = {}
         g = dict(generator=generator)
-        na = dict(activation=activation, use_snn=use_snn)
+        na = dict(activation=activation, use_snn=use_snn,
+                  compute_dtype=compute_dtype)
         k = kernel_size
         ns = len(self.num_blocks)
 
@@ -239,9 +254,15 @@ class VNetDS(nn.Module):
                         if len(legs) > 1 else None)
         self.conv_out = _SplitKernelConv1x1(
             out_channels if self.conv_ds is not None else cur, out_channels,
-            use_bias=False, snn_init=use_snn and is_selu(activation), **g)
+            use_bias=False, snn_init=use_snn and is_selu(activation),
+            compute_dtype=compute_dtype, **g)
         if device is not None:
             self.to(device)
+
+    def _dtypes(self):
+        """(activation dtype, island dtype) of ``compute_dtype`` for the
+        parameters' dtype (fp32, or float64 after ``.double()``)."""
+        return compute_dtypes(self.compute_dtype, self.conv_out.weight.dtype)
 
     def _section(self, side, i):
         """(chain convs, residual conv or None, last conv or None): the
@@ -263,6 +284,10 @@ class VNetDS(nn.Module):
         if x.dim() != 5:
             raise ValueError(f"expected (B, C, D, H, W), got "
                              f"{tuple(x.shape)}")
+        if (self._dtypes()[0] == torch.bfloat16 and torch.is_grad_enabled()
+                and self.conv_out.weight.requires_grad):
+            not_ported(f"training with compute_dtype={self.compute_dtype!r} "
+                       "(serve under torch.no_grad or inference_mode)", 12)
         if self.use_kernels:
             return self._kernel_forward(x)
         return self._module_forward(x)
@@ -273,7 +298,7 @@ class VNetDS(nn.Module):
         if self.channel_first_io:
             x = x.permute(0, 2, 3, 4, 1)
         in_dtype = x.dtype
-        x = x.to(self.conv_out.weight.dtype)
+        x = x.to(self._dtypes()[0])
         image_size = tuple(x.shape[1:-1])
         if self.use_resize:
             x = self.conv_in(x)
@@ -306,10 +331,14 @@ class VNetDS(nn.Module):
 
     def _head(self, x, legs, image_size, in_dtype):
         """Deep-supervision head (project, then nearest-upsample, to
-        section 0's size), conv_out and the output tail."""
+        section 0's size; the kernel path's GroupNorm from the moments of
+        its output, as the reference's ``_FlatDSHead``), conv_out and the
+        output tail."""
         if self.conv_ds is not None:
-            x = self.conv_ds(tuple(legs.values()),
-                             upsample_to=legs[0].shape[1:-1])
+            y = self.conv_ds.op(tuple(legs.values()),
+                                upsample_to=legs[0].shape[1:-1])
+            x = (self._finish(self.conv_ds, y, None) if self.use_kernels
+                 else self.conv_ds._norm_act(y))
         else:
             x = legs[0]
         x = _channel_first_tail(self.conv_out(x), image_size,
@@ -339,15 +368,30 @@ class VNetDS(nn.Module):
             y = y * scale.to(y.dtype) + shift.to(y.dtype)
         return module.act(y) if module.act is not None else y
 
+    def _at_island(self, *params):
+        """``params`` at the island dtype, kept between forwards
+        (``_cached``): a weight is rounded once per version, not per
+        call."""
+        isl = self._dtypes()[1]
+        return tuple(p if p.dtype == isl else _cached(
+            self, f"island_{id(p)}_{isl}", [p], lambda p=p: p.to(isl))
+            for p in params)
+
     def _deferred(self, module, y, stats):
-        """(scale, shift, act) that the next conv's prologue applies."""
-        if module.normalization is not None:
-            scale, shift = _gn_affine(stats, y[0, ..., 0].numel(),
-                                      module.normalization)
-        else:  # self-normalizing: the activation alone
-            scale = torch.ones(y.shape[-1], dtype=y.dtype, device=y.device)
-            shift = torch.zeros_like(scale)
-        return scale.to(y.dtype), shift.to(y.dtype), self._kernel_act()
+        """(scale, shift, act) that the next conv's prologue applies: fp32
+        vectors holding values of y's dtype (the reference's ``_flat_gn_eff``
+        returns them in y's dtype; conv3 reads them as fp32)."""
+        if module.normalization is None:  # self-normalizing: the activation
+            ones = torch.ones(y.shape[-1], device=y.device,
+                              dtype=torch.promote_types(y.dtype,
+                                                        torch.float32))
+            return ones, torch.zeros_like(ones), self._kernel_act()
+        scale, shift = _gn_affine(stats, y[0, ..., 0].numel(),
+                                  module.normalization)
+        if y.dtype != scale.dtype:  # one rounding of both
+            scale, shift = torch.stack([scale, shift]).to(y.dtype).to(
+                scale.dtype)
+        return scale, shift, self._kernel_act()
 
     def _chain(self, x0, convs, res):
         """k=3 conv chain of one section; returns (output, residual output
@@ -368,10 +412,13 @@ class VNetDS(nn.Module):
             if pend is not None:
                 kw.update(prologue=pend[:2], prologue_act=pend[2])
             tap = idx == 0 and res is not None
-            if tap:
-                kw["residual"] = (res.op.weight.reshape(res.op.weight.shape[:2]),
-                                  res.op.bias)
-            out = conv3(xc, conv.op.weight, conv.op.bias, **kw)
+            if tap:  # the tap's bias stays fp32, as the reference's
+                w, isl = res.op.weight, self._dtypes()[1]
+                wr = _cached(self, f"tap_{id(w)}_{isl}", [w],
+                             lambda: w.reshape(w.shape[:2]).to(isl))
+                kw["residual"] = (wr, res.op.bias)
+            out = conv3(xc, *self._at_island(conv.op.weight, conv.op.bias),
+                        **kw)
             out = out if isinstance(out, tuple) else (out,)
             y = out[0]
             st = out[-2 if tap else -1] if stats_on else None
@@ -384,26 +431,28 @@ class VNetDS(nn.Module):
                 xc, pend = self._finish(conv, y, st), None
         return xc, r_out
 
-    def _up_weight(self, p):
-        """The transposed conv's weight ``p`` as conv3 takes it: torch's
-        transposed conv is a conv over the 2x-dilated input with the
-        flipped kernel in conv layout. Kept between forwards and made again
-        when ``p``'s storage or version changes, so the kernel path flips
-        (and conv3 packs) each weight once per version, not per forward.
-        Where autograd would track ``p``, the flip is made anew on every
-        forward, so that conv3's Function passes its gradient back to
-        ``p``; parameters made under inference mode carry no version
-        counter and are flipped on every forward too."""
+    def _up_weight(self, p, dtype):
+        """The transposed conv's weight ``p`` as conv3 takes it, in
+        ``dtype`` (the island's): torch's transposed conv is a conv over the
+        2x-dilated input with the flipped kernel in conv layout. Kept
+        between forwards and made again when ``p``'s storage or version
+        changes, so the kernel path flips (and conv3 packs) each weight
+        once per version and dtype, not per forward. Where autograd would
+        track ``p``, the flip is made anew on every forward, so that
+        conv3's Function passes its gradient back to ``p``; parameters made
+        under inference mode carry no version counter and are flipped on
+        every forward too."""
         if (torch.is_grad_enabled() and p.requires_grad) or p.is_inference():
-            return p.flip(2, 3, 4).transpose(0, 1).contiguous()
+            return p.flip(2, 3, 4).transpose(0, 1).to(dtype).contiguous()
         key = (p.data_ptr(), p._version, p.device, p.dtype)
-        cached = self._up_weights.get(id(p))
+        cached = self._up_weights.get((id(p), dtype))
         if cached is None or cached[0] != key:
             # a normal tensor, also under inference mode, so that conv3
             # can keep its packed copy
             with torch.inference_mode(False), torch.no_grad():
-                w = p.detach().flip(2, 3, 4).transpose(0, 1).contiguous()
-            cached = self._up_weights[id(p)] = (key, w)
+                w = p.detach().flip(2, 3, 4).transpose(0, 1).to(
+                    dtype).contiguous()
+            cached = self._up_weights[(id(p), dtype)] = (key, w)
         return cached[1]
 
     def _kernel_forward(self, x):
@@ -411,14 +460,23 @@ class VNetDS(nn.Module):
             raise ValueError(f"VNetDS's kernel path serves batch 1, got "
                              f"{x.shape[0]}")
         in_dtype = x.dtype
-        dtype = self.conv_out.weight.dtype
+        dtype, isl = self._dtypes()
         image_size = tuple(x.shape[2:])
         x = x.to(dtype).contiguous()
         if self.use_resize:
-            op = self.conv_in.op
-            snn = self.use_snn and is_selu(self.activation)
-            y = conv_in_s2d(x, op.weight, op.bias, apply_selu=snn)
-            x = y if snn else self._finish(self.conv_in, y, None)
+            w, b = self.conv_in.op.weight, self.conv_in.op.bias
+            if dtype == torch.bfloat16:
+                # the bf16 instance with fp32 weights holding the island's
+                # values, then the GroupNorm or SELU on its bf16 output, as
+                # the reference's flat entry
+                w, b = _cached(self, f"conv_in_{isl}", [w, b], lambda: (
+                    w.to(isl).to(w.dtype), b.to(isl).to(b.dtype)))
+                x = self._finish(self.conv_in,
+                                 conv_in_s2d(x, w, b, apply_selu=False), None)
+            else:
+                snn = self.use_snn and is_selu(self.activation)
+                y = conv_in_s2d(x, w, b, apply_selu=snn)
+                x = y if snn else self._finish(self.conv_in, y, None)
         else:
             x = x.permute(0, 2, 3, 4, 1).contiguous()
         stats_on = not self.use_snn
@@ -431,16 +489,20 @@ class VNetDS(nn.Module):
                 x = x + r
             if down is not None:
                 encode[i] = x
-                out = conv3(x, down.op.weight, down.op.bias, stride=2,
-                            emit_stats=stats_on)
+                # the reference's GroupNorm reads the decimated output: in
+                # bf16 the stride-2 conv3 emits the moments of its rounded
+                # values
+                out = conv3(x, *self._at_island(down.op.weight, down.op.bias),
+                            stride=2, emit_stats=stats_on)
                 x = self._finish(down, *(out if stats_on else (out, None)))
             elif i in self.right_leg_indexes:
                 legs[i] = x
         for i in reversed(range(ns - 1)):
             convs, res, up = self._section("decode", i)
-            w = self._up_weight(up.op.weight)
+            w = self._up_weight(up.op.weight, isl)
             stats_up = up.normalization is not None
-            out = conv3(x, w, up.op.bias, dilation=2, emit_stats=stats_up)
+            out = conv3(x, w, *self._at_island(up.op.bias), dilation=2,
+                        emit_stats=stats_up)
             y, st = out if stats_up else (out, None)
             # GroupNorm over the whole 2n output, applied after the crop to
             # the encoder's size

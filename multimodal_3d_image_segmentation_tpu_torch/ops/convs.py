@@ -13,9 +13,14 @@ default init), as V-Net-DS uses.
 
 bf16 activations (``compute_dtype`` 'bfloat16' or 'mixed', see
 ``spectral.compute_dtypes``) follow the reference's ``ops/convs.py``: a
-1x1 conv runs at the island dtype (bf16 operands widened into an fp32
-product in 'mixed') and returns the activation dtype; any other conv runs
-at the input's dtype; the bias is added in the output's dtype.
+1x1 conv runs at the island dtype of its input (for a bf16 input the
+mode's: bf16, or fp32 in 'mixed' with the bf16 operand widened into an
+fp32 product; for a wider input its own dtype, as the reference's
+``_isl``) and returns the input's dtype; any other conv, the transposed
+one included, runs at the input's dtype; the bias is added in the
+output's dtype. GroupNorm takes its moments in fp32 at least and returns
+the dtype its input and affine promote to, as flax's ``nn.GroupNorm`` does:
+a bf16 input with fp32 parameters comes out fp32.
 """
 from __future__ import annotations
 
@@ -53,6 +58,15 @@ def _bias_init(fan_in: int, snn_init: bool):
     return inits.snn_bias() if snn_init else inits.torch_conv_bias(fan_in)
 
 
+def _island(x: torch.Tensor, compute_dtype: str,
+            param_dtype: torch.dtype) -> torch.dtype:
+    """The dtype a 1x1 conv of ``x`` runs at (the reference's ``_isl``):
+    for a bf16 ``x`` the island of ``compute_dtype``, else x's own."""
+    if x.dtype == torch.bfloat16:
+        return compute_dtypes(compute_dtype, param_dtype)[1]
+    return x.dtype
+
+
 class Conv(nn.Module):
     """Plain 3D convolution on channels-last tensors with torch-parity
     padding and init: a 1x1 stride-1 conv as a matrix product, else
@@ -83,7 +97,7 @@ class Conv(nn.Module):
         w, b = self.weight, self.bias
         if self.pointwise:
             w = w.reshape(w.shape[:2])
-            isl = compute_dtypes(self.compute_dtype, w.dtype)[1]
+            isl = _island(x, self.compute_dtype, w.dtype)
             if x.dtype == w.dtype == isl:
                 return F.linear(x, w, b)
             y = F.linear(x.to(isl), w.to(isl)).to(x.dtype)
@@ -117,12 +131,15 @@ class ConvTranspose(nn.Module):
             (features,), generator)) if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), self.weight,
-                               self.bias, stride=2,
+        w, b = self.weight, self.bias
+        sep = x.dtype != w.dtype  # bf16: weights at x's dtype, bias after
+        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype),
+                               None if sep else b, stride=2,
                                padding=tuple(k // 2 for k in
                                              self.kernel_size),
                                output_padding=1)
-        return y.permute(0, 2, 3, 4, 1)
+        y = y.permute(0, 2, 3, 4, 1)
+        return y + b.to(y.dtype) if sep and b is not None else y
 
 
 class GroupNorm1(nn.Module):
@@ -138,6 +155,7 @@ class GroupNorm1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dims = tuple(range(1, x.dim()))
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         var, mean = torch.var_mean(x, dim=dims, unbiased=False, keepdim=True)
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
             + self.bias
@@ -175,11 +193,11 @@ class _SplitKernelConv1x1(nn.Module):
             raise ValueError(f"input channels {cins} do not sum to "
                              f"{self.in_features}")
         w = self.weight.reshape(self.weight.shape[:2])
-        isl = compute_dtypes(self.compute_dtype, w.dtype)[1]
         y = None
         off = 0
         for x, c in zip(inputs, cins):
             # at the island dtype, each part back in the activation dtype
+            isl = _island(x, self.compute_dtype, w.dtype)
             part = F.linear(x.to(isl), w[:, off:off + c].to(isl)).to(x.dtype)
             if (upsample_to is not None
                     and tuple(part.shape[1:-1]) != upsample_to):

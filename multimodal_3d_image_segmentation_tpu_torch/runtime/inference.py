@@ -9,8 +9,7 @@ project's own weights-only format), or else ``model.msgpack``, the JAX
 package's export (``utils/msgpack_params.py`` reads it and
 ``utils/jax_compat.py`` converts it), so a run directory that the JAX
 package wrote serves here too. ``[model] compute_dtype = 'bfloat16'`` or
-``'mixed'`` serves in that mode (HNOSeg-XS, HartleyMHASeg, HNOSeg and
-FNOSeg). The model is shape-polymorphic, so a model trained at one size
+``'mixed'`` serves in that mode (every family). The model is shape-polymorphic, so a model trained at one size
 serves at another (zero-shot super-resolution).
 """
 from __future__ import annotations

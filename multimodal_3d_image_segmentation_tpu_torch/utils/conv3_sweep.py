@@ -4,7 +4,7 @@ a GPU.
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
     python -m multimodal_3d_image_segmentation_tpu_torch.utils.conv3_sweep \\
-        [--search] [--json conv3_sweep.json]
+        [--search] [--json conv3_sweep.json] [--save DIR] [--compare DIR]
 
 Builds V-Net-DS (base 24, blocks [1,2,3,3,3], right leg [0..4]) with
 seeded random weights, records every conv3 call of one kernel-path forward
@@ -15,12 +15,15 @@ after 3 warm-up calls, the median of 5 such runs. With ``--search`` it
 also searches each distinct call's plan field by field (W run and runs
 along W, brick depth and height, channel tile, chunk, split; two rounds),
 holding every candidate to the plain version, and prints the best plan
-beside the planner's. Prints the card's name and power limit first.
+beside the planner's. ``--save DIR`` writes every call's outputs there
+(``torch.save``); ``--compare DIR`` loads another run's and checks them bit
+for bit. Prints the card's name and power limit first.
 
 The same file copied into another checkout of the port (for example the
 parent commit's, unpacked with ``git archive``) times that checkout's
 conv3 at the same 29 calls; without a launch planner there, the rows have
-no plan. ``chip_smoke.py`` times ``F.conv3d`` and the plain version beside
+no plan. Its ``--save`` and this checkout's ``--compare`` show whether the
+two checkouts' kernels give the same bits. ``chip_smoke.py`` times ``F.conv3d`` and the plain version beside
 the kernel at the same calls.
 """
 from __future__ import annotations
@@ -114,7 +117,7 @@ def gpu_ms(fn):
 
 def held(args, kw, choice=None):
     """The kernel's outputs against the plain version's; raises beyond
-    1e-4 of the largest magnitude."""
+    1e-4 of the largest magnitude. Returns the kernel's outputs."""
     def kern():
         return kernels.conv3(*args, **kw)
     got = kern() if choice is None else with_choice(choice, kern)
@@ -127,6 +130,7 @@ def held(args, kw, choice=None):
         tol = 1e-4 * max(1.0, float(wt.abs().max()))
         if not (np.isfinite(err) and err <= tol):
             raise RuntimeError(f"conv3 plan {choice}: err {err} > {tol}")
+    return got
 
 
 def timed(args, kw, choice=None):
@@ -197,6 +201,9 @@ def main(argv=None):
     ap.add_argument("--search", action="store_true",
                     help="search each distinct call's plan")
     ap.add_argument("--json", default=None, help="write the rows here")
+    ap.add_argument("--save", type=Path, help="write the outputs here")
+    ap.add_argument("--compare", type=Path,
+                    help="compare with the outputs saved there")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("conv3_sweep: needs a CUDA device")
@@ -210,11 +217,12 @@ def main(argv=None):
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (1, 4) + SHAPE, dtype=np.float32)).to(dev)
     calls = record_calls(model, x)
-    rows, searched = [], {}
+    rows, searched, outputs = [], {}, {}
     t0 = time.perf_counter()
     with torch.inference_mode():
         for i, (args, kw) in enumerate(calls):
-            held(args, kw)
+            for j, t in enumerate(held(args, kw)):
+                outputs[f"call{i}_{j}"] = t.cpu()
             ms = timed(args, kw)
             p = plan_fields(args, kw)
             row = {"call": i, "what": describe(args, kw), "ms": ms}
@@ -238,6 +246,17 @@ def main(argv=None):
     if opts.json:
         Path(opts.json).parent.mkdir(parents=True, exist_ok=True)
         Path(opts.json).write_text(json.dumps(rows, indent=1))
+    if opts.save:
+        opts.save.mkdir(parents=True, exist_ok=True)
+        torch.save(outputs, opts.save / "conv3_outputs.pt")
+    if opts.compare:
+        other = torch.load(opts.compare / "conv3_outputs.pt")
+        same = [k for k in outputs
+                if k in other and torch.equal(outputs[k], other[k])]
+        print(f"conv3 outputs against {opts.compare}: {len(same)} of "
+              f"{len(outputs)} bit for bit the same")
+        if len(same) != len(outputs) or set(other) != set(outputs):
+            sys.exit("conv3_sweep: the outputs differ")
 
 
 if __name__ == "__main__":

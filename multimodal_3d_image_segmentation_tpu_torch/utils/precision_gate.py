@@ -1,16 +1,19 @@
 """The trained-network precision gate of the serving modes, the port of
-``tools/bench_precision.py``, for HNOSeg-XS and the tower families.
+``tools/bench_precision.py``, for HNOSeg-XS, V-Net-DS and the tower
+families.
 
 Usage::
 
     python -m multimodal_3d_image_segmentation_tpu_torch.utils.precision_gate \\
-        [--family hnosegxs|hartleymha|hnoseg|fnoseg] [--cpu] [--out FILE] \\
-        [--steps N] [--seed N] [--train-size D H W] [--eval-size D H W]
+        [--family hnosegxs|vnetds|hartleymha|hnoseg|fnoseg] [--cpu] \\
+        [--out FILE] [--steps N] [--seed N] [--train-size D H W] \\
+        [--eval-size D H W]
 
 The protocol is the reference's: train a family at its full width (by
 default the flagship HNOSeg-XS: filters 24, blocks [3]*8, modes
-(10,14,14); ``--family`` takes HartleyMHASeg, HNOSeg or FNOSeg at the
-widths of ``configs/config_hartleymha.ini``, ``config_hnoseg.ini`` and
+(10,14,14); ``--family`` takes V-Net-DS, HartleyMHASeg, HNOSeg or FNOSeg
+at the widths of ``configs/config_vnet-ds.ini``,
+``config_hartleymha.ini``, ``config_hnoseg.ini`` and
 ``config_fnoseg.ini``) for 400 steps of Adamax (lr 5e-3, cosine warm
 restarts to 1e-3, PCC loss) on 6 synthetic blob volumes at 1x4x120x120x78,
 then evaluate the same weights zero-shot on 3 held-out volumes at
@@ -42,9 +45,9 @@ What fails the gate (``failures`` in the result, exit code 1):
     moves the argmax of a share of voxels above the fp32 rule's
     1 - ``AGREE`` (PERF.md, section 6);
   * the control, the 'bfloat16' kernel path (a tower's on ``block``) with
-    conv_in's and the chains' or the tower blocks' channel-mix weights
-    rounded to 4 mantissa bits (16 times bf16's rounding), passes that
-    rule.
+    conv_in's and the chains', the tower blocks' channel-mix or V-Net-DS's
+    k=3 conv weights rounded to 4 mantissa bits (16 times bf16's
+    rounding), passes that rule.
 Reported, met or missed: the fp32 kernel path's whole-model rule taken
 literally against the mode's plain path (``use_kernels=False``, which
 rounds at other places): largest distance from float64 at most ``RATIO``
@@ -52,11 +55,12 @@ times the plain path's, argmax agreement at least ``AGREE``, for the
 kernel and the twins paths; and the probe, the twins path with the
 per-stage rounding of its kernel's twin left out (HNOSeg-XS: the chain
 rounded once at its end; the towers: the tower blocks' z, y, t and F
-operands unrounded), against the rule (``chip_smoke.py`` checks the
-roundings at the kernel).
+operands unrounded; V-Net-DS: conv3's prologue output unrounded), against
+the rule (``chip_smoke.py`` checks the roundings at the kernel).
 
 It also reports, for the trained network, the largest activation magnitude
-after conv_in, conv1 and each block (fp32 plain path, first volume), and
+after conv_in, conv1 and each block (V-Net-DS: after conv_in and in each
+encoder and decoder section; fp32 plain path, first volume), and
 the fp32 kernel path's distances from the plain path and from float64,
 with whether an absolute 1e-4 bar on the kernel path against the plain
 path would hold. It runs on the card unless ``--cpu`` is given (without
@@ -80,7 +84,7 @@ import torch.nn.functional as F
 from .. import kernels
 from ..device import resolve_device
 from ..losses import pcc_loss
-from ..models import (HartleyMHASeg, HNOSegXS, NeuralOperatorSeg,
+from ..models import (HartleyMHASeg, HNOSegXS, NeuralOperatorSeg, VNetDS,
                       architectures, hnosegxs)
 from ..runtime.optim import build_optimizer, build_schedule
 from ..runtime.steps import make_train_step
@@ -103,10 +107,14 @@ MHA = dict(in_channels=4, out_channels=4, filters=24, num_transform_blocks=16,
            num_heads=4, num_modes=(8, 12, 12), patch_size=2)
 NOSEG = dict(in_channels=4, out_channels=4, filters=24,
              num_transform_blocks=24, num_modes=(10, 14, 14))
+# configs/config_vnet-ds.ini's widths (22,547,764 parameters)
+VNET = dict(in_channels=4, out_channels=4, base_num_filters=24,
+            num_blocks=[1, 2, 3, 3, 3], right_leg_indexes=[0, 1, 2, 3, 4])
 # family: (model class, its widths, the tower kernels its kernel paths run
-# on, None for HNOSeg-XS)
+# on, None for HNOSeg-XS and V-Net-DS)
 FAMILIES = {
     "hnosegxs": (HNOSegXS, FLAGSHIP, None),
+    "vnetds": (VNetDS, VNET, None),
     "hartleymha": (HartleyMHASeg, MHA, ("block",)),
     "hnoseg": (NeuralOperatorSeg, dict(NOSEG, transform_type="Hartley"),
                ("block", "block_s", "resident")),
@@ -136,6 +144,7 @@ CONTROL_BITS = 4
 # reported
 PROBE = "probe_chain_rounded_once"
 PROBE_TOWER = "probe_operands_unrounded"
+PROBE_VNET = "probe_prologue_unrounded"
 DICE_BAR = 1e-3
 LEARNED = 0.2
 RATIO = 2.0
@@ -206,7 +215,13 @@ def modes_of(family: str) -> Dict[str, tuple]:
 
 
 def _probe(family: str) -> str:
-    return PROBE if FAMILIES[family][2] is None else PROBE_TOWER
+    return _TWINS_OF[_kind(family)][3]
+
+
+def _kind(family: str) -> str:
+    """Which twins a family's kernel paths take: "hnosegxs", "vnetds" or
+    "tower"."""
+    return family if family in ("hnosegxs", "vnetds") else "tower"
 
 
 def train(device: torch.device, steps: int = STEPS,
@@ -252,16 +267,21 @@ def _model(state, use_kernels: bool, compute_dtype: str,
     return m.eval()
 
 
-def _rounded(state, bits: int = CONTROL_BITS):
-    """``state`` with conv_in's weight and the chains' (HNOSeg-XS) or the
-    tower blocks' channel-mix weights (conv_branch, conv_concat) rounded to
-    ``bits`` mantissa bits (nearest, ties away)."""
+def _rounded(state, bits: int = CONTROL_BITS, family: str = "hnosegxs"):
+    """``state`` with conv_in's weight and the chains' (HNOSeg-XS), the
+    tower blocks' channel-mix weights (conv_branch, conv_concat) or
+    V-Net-DS's k=3 conv weights (conv3's: the chains', the down and the up
+    convs') rounded to ``bits`` mantissa bits (nearest, ties away)."""
     drop = 23 - bits
     out = dict(state)
     for k, v in state.items():
-        if k == "conv_in.op.weight" or ".conv_blocks." in k or (
+        if family == "vnetds":
+            pick = v.dim() == 5 and tuple(v.shape[2:]) == (3, 3, 3)
+        else:
+            pick = k == "conv_in.op.weight" or ".conv_blocks." in k or (
                 k.startswith("layers.") and k.endswith(".weight")
-                and (".conv_branch." in k or ".conv_concat." in k)):
+                and (".conv_branch." in k or ".conv_concat." in k))
+        if pick:
             b = v.contiguous().view(torch.int32)
             out[k] = ((b + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(
                 torch.float32)
@@ -315,33 +335,53 @@ _TOWER_TWINS64 = {
                                         **_F64)}
 # the probe's: the tower blocks' intermediate operands unrounded
 _UNROUNDED = frozenset({"sy", "z", "y", "t", "F"})
+# V-Net-DS's wrappers (models/architectures.py) and their twins
+_VNET_TWINS = {"conv_in_s2d": kernels.conv_in_plain,
+               "fused_tail_softmax": kernels.tail_plain,
+               "conv3": kernels.conv3_plain}
+_VNET_TWINS64 = {"conv_in_s2d": _conv_in64, "fused_tail_softmax": _tail64,
+                 "conv3": functools.partial(kernels.conv3_plain, **_F64)}
+# kind: (the module whose wrappers the twins replace, twins, twins64, the
+# probe's name, its twins)
+_TWINS_OF = {
+    "hnosegxs": (hnosegxs, _TWINS, _TWINS64, PROBE,
+                 dict(_TWINS, fused_freq_chain=_chain_rounded_once)),
+    "tower": (architectures, _TOWER_TWINS, _TOWER_TWINS64, PROBE_TOWER,
+              dict(_TOWER_TWINS, **{
+                  name: functools.partial(_TOWER_TWINS[name],
+                                          unrounded=_UNROUNDED)
+                  for name in ("fused_tower_block", "fused_tower_block_s")})),
+    "vnetds": (architectures, _VNET_TWINS, _VNET_TWINS64, PROBE_VNET,
+               dict(_VNET_TWINS, conv3=functools.partial(
+                   kernels.conv3_plain, unrounded={"prologue"}))),
+}
 
 
 def plain_twins(twins=None, family: str = "hnosegxs"):
     """``family``'s model calls each kernel wrapper's plain twin instead
     (``twins``, name -> function, default the family's)."""
-    if FAMILIES[family][2] is None:
-        return train_bars.plain_twins(hnosegxs, twins or _TWINS)
-    return train_bars.plain_twins(architectures, twins or _TOWER_TWINS)
-
-
-def _probe_twins(family: str):
-    if FAMILIES[family][2] is None:
-        return dict(_TWINS, fused_freq_chain=_chain_rounded_once)
-    return dict(_TOWER_TWINS, **{
-        name: functools.partial(_TOWER_TWINS[name], unrounded=_UNROUNDED)
-        for name in ("fused_tower_block", "fused_tower_block_s")})
+    module, default = _TWINS_OF[_kind(family)][:2]
+    return train_bars.plain_twins(module, twins or default)
 
 
 def _activations(model, x: torch.Tensor) -> Dict[str, float]:
-    """The largest magnitude after conv_in, conv1 and each block."""
+    """The largest magnitude after conv_in, conv1 and each block
+    (V-Net-DS: after conv_in and any conv of each encoder and decoder
+    section)."""
     seen, hooks = {}, []
-    named = [("conv_in", model.conv_in), ("conv1", model.conv1)] + [
-        (f"layers_{i}", b) for i, b in enumerate(model.layers)]
+    if isinstance(model, VNetDS):
+        named = [("conv_in", model.conv_in)] + [
+            (f"{side}_{i}", m)
+            for side, layers in (("encode", model.encode_layers),
+                                 ("decode", model.decode_layers))
+            for i, sec in enumerate(layers) for m in sec]
+    else:
+        named = [("conv_in", model.conv_in), ("conv1", model.conv1)] + [
+            (f"layers_{i}", b) for i, b in enumerate(model.layers)]
     for name, mod in named:
         hooks.append(mod.register_forward_hook(
             lambda _m, _a, out, name=name: seen.__setitem__(
-                name, float(out.abs().max()))))
+                name, max(seen.get(name, 0.0), float(out.abs().max())))))
     try:
         model(x)
     finally:
@@ -359,7 +399,7 @@ def _parts(name: str):
     """(mode, kind, tower kernel or None) of a path name: "bf16_kernels" or
     "bf16_kernels_block" -> ("bf16", "kernels", None or "block"); the
     control and the probes are 'bfloat16' paths."""
-    if name in (CONTROL, PROBE, PROBE_TOWER):
+    if name in (CONTROL, PROBE, PROBE_TOWER, PROBE_VNET):
         return "bf16", name, None
     parts = name.split("_", 2)
     return parts[0], parts[1], parts[2] if len(parts) > 2 else None
@@ -376,7 +416,7 @@ def references(name: str, family: str = "hnosegxs") -> Dict[str, str]:
     """The paths ``name`` is compared with, by role: "plain" (the mode's
     plain path) and "twins" (the mode's twins path on the same tower
     kernel)."""
-    if name in (CONTROL, PROBE, PROBE_TOWER):
+    if name in (CONTROL, PROBE, PROBE_TOWER, PROBE_VNET):
         return {"twins": f"bf16_twins{_default_suffix(family)}"}
     mode, kind, kernel = _parts(name)
     sfx = "" if kernel is None else f"_{kernel}"
@@ -395,9 +435,7 @@ def evaluate(state, device: torch.device, shape: Sequence[int] = EVAL_SHAPE,
     """Every path on the held-out volumes: per-volume Dice and argmax,
     distances from float64, and the readings against ``references``."""
     xs, ys = make_dataset(99, n_eval, shape)  # held-out geometry
-    towers = FAMILIES[family][2] is not None
-    tw, tw64 = ((_TOWER_TWINS, _TOWER_TWINS64) if towers
-                else (_TWINS, _TWINS64))
+    _, tw, tw64, probe, probe_twins = _TWINS_OF[_kind(family)]
     twins = {None: contextlib.nullcontext,
              "fp32": lambda: plain_twins(tw, family),
              "fp64": lambda: plain_twins(tw64, family)}
@@ -406,12 +444,12 @@ def evaluate(state, device: torch.device, shape: Sequence[int] = EVAL_SHAPE,
                            tower_kernel=tk), twins[t])
              for name, (k, cd, t, tk) in modes_of(family).items()}
     sfx = _default_suffix(family)
-    paths[CONTROL] = (_model(_rounded(state), True, "bfloat16", device,
-                             family=family, tower_kernel=sfx[1:] or None),
+    paths[CONTROL] = (_model(_rounded(state, family=family), True,
+                             "bfloat16", device, family=family,
+                             tower_kernel=sfx[1:] or None),
                       contextlib.nullcontext)
-    paths[_probe(family)] = (paths[f"bf16_twins{sfx}"][0],
-                             lambda: plain_twins(_probe_twins(family),
-                                                 family))
+    paths[probe] = (paths[f"bf16_twins{sfx}"][0],
+                    lambda: plain_twins(probe_twins, family))
     ref_model = _model(state, False, "float32", device, torch.float64,
                        family=family)
     out = {name: {"dice": [], "vs_fp64": [], "agree_oracle": [],

@@ -210,8 +210,9 @@ def test_wrapper_refuses_what_it_does_not_take(kwargs, exc, match):
 
 def test_wrapper_refuses_mismatched_shapes_and_bf16():
     x, _, w, b = _case((4, 4, 4), 8, 8, 70)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        kernels.conv3(_t(x).bfloat16(), _t(w), _t(b))
+    # bf16 volumes take the 'bfloat16' and 'mixed' instances; float16 none
+    with pytest.raises(TypeError, match="float16"):
+        kernels.conv3(_t(x).half(), _t(w), _t(b))
     with pytest.raises(ValueError, match="1, D, H, W"):
         kernels.conv3(_t(np.concatenate([x, x])), _t(w), _t(b))  # batch 2
     with pytest.raises(ValueError, match="do not fit"):

@@ -476,8 +476,8 @@ def test_conv3_refuses_what_it_does_not_take(dev):
     x = _t((1, 6, 6, 6, 24), 30, dev)
     w = _t((24, 24, 3, 3, 3), 31, dev, 0.05)
     b = _t((24,), 32, dev)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        kernels.conv3(x.bfloat16(), w, b)
+    with pytest.raises(TypeError, match="float16"):
+        kernels.conv3(x.half(), w, b)
     with pytest.raises(NotImplementedError, match="item 15"):
         kernels.conv3(x, w, b, halo=True)
     with pytest.raises(ValueError, match="contiguous"):
@@ -1554,3 +1554,147 @@ def test_tower_families_launch_the_bf16_instances(dev, family, tower_kernel,
     # two bf16 paths that round at other places: the probabilities agree
     # to bf16's class, not fp32's
     assert float((got - want).abs().mean()) < 1e-2
+
+
+# conv3's 'bfloat16' and 'mixed' instances against their twins
+# (``conv3_plain`` on the bf16 volume): bf16 outputs one ulp (2^-7 of the
+# value) plus 1e-5, at most 1e-3 of the elements more than one ulp of their
+# own magnitude apart, and the fp32 moments 1e-5 of the sums of |y| and
+# y^2 (the twin's fp32 values differ from the kernel's by the order of the
+# sums only; a rounding of the operands left out moves the outputs by a
+# tenth of an ulp, which the moments and the share show).
+CONV3_MODES = [("bfloat16", torch.bfloat16), ("mixed", torch.float32)]
+
+
+def _held_bf16_conv3(got, want, n_out):
+    """(passes, what it read) of a bf16 instance's outputs against its
+    twin's."""
+    ok, read = True, []
+    for g, w in zip(got[:n_out], want[:n_out]):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        gf, wf = g.float(), w.float()
+        d = (gf - wf).abs()
+        mag = torch.maximum(gf.abs(), wf.abs()).clamp_min(2.0 ** -126)
+        share = float((d > torch.exp2(torch.floor(torch.log2(mag)) - 7))
+                      .float().mean())
+        ok &= bool((d <= 2.0 ** -7 * wf.abs() + 1e-5).all()) and share <= 1e-3
+        read.append((float(d.max()), share))
+    for y, st, sw in zip(got[:n_out], got[n_out:], want[n_out:]):
+        assert st.dtype == torch.float32
+        _, scale = _moments64(y)
+        rel = float(((st.double() - sw.double()).abs() / scale).max())
+        ok &= rel <= 1e-5
+        read.append(rel)
+    return ok, read
+
+
+def _bf16_conv3_case(dev, sizes, ci, co, option, wdtype):
+    """A ``_conv3_case`` in a bf16 instance: the volumes and the prologue
+    bf16, the weights and biases ``wdtype`` (the tap's bias fp32); the
+    stride-2 conv's moments those of its rounded output."""
+    x, w, b, kw = _conv3_case(dev, sizes, ci, co, option)
+    kw = dict(kw)
+    if kw.get("x2") is not None:
+        kw["x2"] = kw["x2"].bfloat16()
+    if "prologue" in kw:
+        kw["prologue"] = tuple(t.bfloat16() for t in kw["prologue"])
+    if "residual" in kw:
+        kw["residual"] = (kw["residual"][0].to(wdtype), kw["residual"][1])
+    return x.bfloat16(), w.to(wdtype), b.to(wdtype), kw
+
+
+@pytest.mark.parametrize("mode,wdtype", CONV3_MODES,
+                         ids=[m for m, _ in CONV3_MODES])
+@pytest.mark.parametrize("sizes,ci,co", [((9, 8, 7), 24, 24),
+                                         ((8, 6, 10), 48, 96),
+                                         ((13, 11, 9), 24, 24)])
+@pytest.mark.parametrize("option", CONV3_OPTIONS)
+def test_conv3_bf16_instances_match_twins(dev, option, sizes, ci, co, mode,
+                                          wdtype):
+    x, w, b, kw = _bf16_conv3_case(dev, sizes, ci, co, option, wdtype)
+    name = "conv3" + ("_bf16" if mode == "bfloat16" else "_mixed")
+    with torch.no_grad():
+        got = _launched(name, lambda: kernels.conv3(x, w, b, **kw))
+        want = kernels.conv3_plain(x, w, b, **kw)
+        again = kernels.conv3(x, w, b, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    again = again if isinstance(again, tuple) else (again,)
+    n_out = 2 if kw.get("residual") is not None else 1
+    ok, read = _held_bf16_conv3(got, want, n_out)
+    assert ok, read
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_conv3_bf16_controls_fail(dev):
+    """The twins with a rounding left out miss the bar the kernel meets:
+    the prologue output unrounded (both instances), and in 'bfloat16' the
+    weights unrounded (the fp32 weights of the same call)."""
+    for mode, wdtype in CONV3_MODES:
+        x, w, b, kw = _bf16_conv3_case(dev, (9, 8, 7), 48, 48,
+                                       "prologue_elu", wdtype)
+        with torch.no_grad():
+            got = kernels.conv3(x, w, b, **kw)
+            ok, _ = _held_bf16_conv3(got, kernels.conv3_plain(x, w, b, **kw),
+                                     1)
+            bad, read = _held_bf16_conv3(got, kernels.conv3_plain(
+                x, w, b, **kw, unrounded={"prologue"}), 1)
+        assert ok and not bad, (mode, read)
+    x, w, b, kw = _conv3_case(dev, (9, 8, 7), 48, 48, "x2_residual_stats")
+    kw = dict(kw, x2=kw["x2"].bfloat16())
+    rw, rb = kw["residual"]
+    with torch.no_grad():
+        got = kernels.conv3(x.bfloat16(), w.bfloat16(), b.bfloat16(),
+                            **dict(kw, residual=(rw.bfloat16(), rb)))
+        bad, read = _held_bf16_conv3(got, kernels.conv3_plain(
+            x.bfloat16(), w, b, **kw), 2)
+    assert not bad, read
+
+
+def test_conv3_bf16_instances_refuse_what_they_do_not_take(dev):
+    x, w, b, kw = _bf16_conv3_case(dev, (6, 6, 6), 24, 24, "bare",
+                                   torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 weight"):
+        kernels.conv3(x, w.double(), b)
+    with pytest.raises(TypeError, match="x2"):
+        kernels.conv3(x, torch.cat([w, w], 1), b, x2=x.float())
+    with pytest.raises(TypeError, match="bias"):
+        kernels.conv3(x, w, b.double())
+    with pytest.raises(ValueError, match="does not fit"):
+        kernels.conv3(x, w, b, precision="mixed")
+    n = x.numel()
+    unaligned = torch.empty(n + 1, dtype=x.dtype, device=dev)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.conv3(unaligned.view(x.shape).copy_(x), w, b)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        kernels.conv3(x, w.clone().requires_grad_(), b)
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "mixed"])
+def test_vnetds_launches_the_bf16_instances(dev, compute_dtype):
+    """V-Net-DS at the serving width in a bf16 mode: one forward launches
+    conv_in_bf16 1, conv3's instance 29 and tail_resize_bf16 1, and comes
+    within bf16's class of its twins path (each wrapper replaced by its
+    plain twin), which launches nothing."""
+    from multimodal_3d_image_segmentation_tpu_torch.models import VNetDS
+    from multimodal_3d_image_segmentation_tpu_torch.utils.precision_gate \
+        import plain_twins
+    model = VNetDS(4, 4, 24, [1, 2, 3, 3, 3],
+                   right_leg_indexes=[0, 1, 2, 3, 4], use_kernels=True,
+                   compute_dtype=compute_dtype, device=dev)
+    x = _t((1, 4, 40, 36, 30), 170, dev)
+    before = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        got = model(x)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+             if v != before[k]}
+    suffix = "_bf16" if compute_dtype == "bfloat16" else "_mixed"
+    assert moved == {"conv_in_bf16": 1, "tail_resize_bf16": 1,
+                     "conv3" + suffix: 29}
+    before = dict(kernels.LAUNCHES)
+    with torch.no_grad(), plain_twins(family="vnetds"):
+        twins = model(x)
+    assert kernels.LAUNCHES == before
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert float((got - twins).abs().mean()) < 1e-2

@@ -186,6 +186,8 @@ def test_precision_gate_runs_on_the_cpu(tmp_path):
     out = tmp_path / "gate.json"
     code = (
         "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)  # one core, beside the other workers\n"
         "from multimodal_3d_image_segmentation_tpu_torch.utils import "
         "precision_gate\n"
         "rc = precision_gate.main(['--cpu', '--steps', '6', '--train-size',"

@@ -145,8 +145,7 @@ def test_float64_model_is_a_reference_for_the_fp32_model():
 
 @pytest.mark.parametrize("opts,exc", [
     (dict(ndim=4), NotImplementedError),
-    (dict(compute_dtype="bfloat16"), NotImplementedError),
-    (dict(compute_dtype="mixed"), NotImplementedError),
+    (dict(compute_dtype="float16"), ValueError),
     (dict(spatial_shard=("spatial", 2)), NotImplementedError),
     (dict(use_kernels=True, kernel_size=5), ValueError),
     (dict(use_kernels=True, channel_first_io=False), ValueError),
