@@ -8,7 +8,7 @@ Drives the port's serving paths once at full width on 4-modality
 (filters 24, blocks [3]*8, modes (10,14,14); also with ``[model]
 compute_dtype`` 'bfloat16' and 'mixed'), V-Net-DS (base 24, blocks
 [1,2,3,3,3], right leg [0..4], 22,547,764 parameters; also in 'bfloat16'
-and 'mixed'), HartleyMHASeg
+and 'mixed', and depth-sharded over 2 ranks on the card), HartleyMHASeg
 (filters 24, 16 blocks, 4 heads, modes (8,12,12), patch 2, deep
 supervision, 178,532 parameters; also in 'bfloat16' and 'mixed'), and
 HNOSeg and FNOSeg (NeuralOperatorSeg: filters 24, 24 blocks, modes
@@ -94,12 +94,42 @@ training size. It checks them:
               the fp32 instance's on the same call, the plain twin's,
               cuDNN's bf16 ``F.conv3d`` + bias and the bound, and the bf16
               instances' registers and spills from the build log;
+  6c. conv3 halo  conv3's halo mode (depth-sharded slabs) in all three
+              instances at every level-0 and level-1 call of V-Net-DS in
+              the orientation a sharded forward runs it (image axis 2 as
+              depth: 78 and 39 planes), each on a first, a middle and a
+              last slab (keep flags (0, 1), (1, 1), (1, 0)): stride 1 with
+              the prologue, virtual concat, residual tap and moments,
+              stride 2 and dilation 2, against the plain twin at 6's bar
+              (the bf16 instances at 6b's, with its controls); the twin
+              with the read halo planes zeroed, and where a prologue meets
+              a global end the twin with that keep flag forced to 1, are
+              controls that must fail; the first rank's calls of a sharded
+              forward timed beside ``F.conv3d`` + bias over the halo'd slab
+              and the bound; the depth-dilated mode (``dilated_depth``) on
+              the last up conv's source against its twin, timed beside
+              ``F.conv3d`` over the dilated volume;
   7. serve    run_inference serves the same cases through
               ``configs/config_vnet-ds.ini``; launches (reset just before)
               must be conv_in 3, conv3 87, tail_resize 3; then with
               ``compute_dtype`` 'bfloat16' (conv_in_bf16 3, conv3_bf16 87,
               tail_resize_bf16 3) and 'mixed' (conv3_mixed 87), each with
-              its wall, device and peak beside fp32's; then the precision
+              its wall, device and peak beside fp32's; then V-Net-DS
+              depth-sharded over 2 ranks through the real entry point,
+              ``python -m torch.distributed.run --standalone
+              --nproc-per-node 2 -m ...runtime.inference`` on the INI with
+              ``[parallel] n_data = 1, n_spatial = 2`` (the two ranks share
+              the card over gloo; NCCL across cards is not exercised):
+              each rank's launches (conv_in 1, conv3 27, conv3_halo 2,
+              tail_resize 1 a forward) and peak memory, the labels against
+              the unsharded serve's (at most 1e-5 of the voxels apart);
+              beside it a direct forward over 2 ranks spawned from the
+              script: its probabilities within 1e-4 of the unsharded kernel
+              path and at most 2x its distance from the float64 model,
+              which the forward with its halo exchange replaced by zeros
+              must fail (both run in the background during the gate and
+              the model phase below, which time nothing, and are checked
+              after them); the precision
               gate of a trained V-Net-DS (4b's rule; the control's 4-bit
               weights the conv3 weights, the probe the prologue output
               unrounded);
@@ -168,10 +198,10 @@ training size. It checks them:
               (conv_in's, conv3's or tower_block's operands rounded); each
               path's step time (forward, backward, Adamax) and peak
               memory;
- 15. run      ``runtime/run.py::run`` on ``configs/config_hnoseg_xs.ini``
-              (2 epochs) and on ``config_vnet-ds.ini``,
-              ``config_hartleymha.ini``, ``config_hnoseg.ini`` and
-              ``config_fnoseg.ini`` (1 epoch each) on 4 train and 2 valid
+ 15. run      ``runtime/run.py::run`` on ``configs/config_hnoseg_xs.ini``,
+              ``config_vnet-ds.ini``, ``config_hartleymha.ini``,
+              ``config_hnoseg.ini`` and ``config_fnoseg.ini`` (1 epoch
+              each) on 4 train and 2 valid
               synthetic cases at 120x120x78, then test and statistics on
               2; the launches of each run (reset just before); its
               artifacts and finite losses; run_inference on each run
@@ -179,8 +209,9 @@ training size. It checks them:
 
 Every failed check raises, so the exit code is not 0. The script refuses
 to run without CUDA. The line before the last is a JSON object with the
-kernels' numbers (``launches`` summed over the serving runs and the
-runs; the bf16 instances carry ``fp32_ms``, the fp32 instance's time in
+kernels' numbers (``launches`` summed over the serving runs, both ranks
+of the sharded one, and the runs; conv3_halo's times are of the first
+rank's calls of a sharded forward; the bf16 instances carry ``fp32_ms``, the fp32 instance's time in
 the same run, and conv_in_bf16 the odd shape's numbers (``odd_*``),
 tail_resize_bf16 the bf16 output's (``out_*``); ``backward_ms`` and
 ``backward_plain_ms`` from phase 13; times are
@@ -222,7 +253,9 @@ BF16_FLOPS = 989e12         # H100 SXM data sheet, bf16 tensor cores, dense
 # the card's bf16 tensor cores can do. Counted as two passes, the
 # operations' time would double.
 N_CASES = 3
-N_TIMED = 25
+# CUDA-event runs each kernel time is the median of: few enough that the
+# whole script stays near 900 s
+N_TIMED = 10
 # (kernel, source, the TPU kernel's pallas_call it replaces)
 KERNELS = [
     ("conv_in", "multimodal_3d_image_segmentation_tpu_torch/csrc/conv_in.cu",
@@ -278,6 +311,16 @@ KERNELS = [
      "multimodal_3d_image_segmentation_tpu/kernels/conv3d_flat.py:305"),
     ("conv3_mixed", "multimodal_3d_image_segmentation_tpu_torch/csrc/conv3.cu",
      "multimodal_3d_image_segmentation_tpu/kernels/conv3d_flat.py:305"),
+    # conv3's halo mode (depth-sharded volumes): the Pallas kernel body
+    # with halo=True, in each instance
+    ("conv3_halo", "multimodal_3d_image_segmentation_tpu_torch/csrc/conv3.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/conv3d_flat.py:105"),
+    ("conv3_halo_bf16",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/conv3.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/conv3d_flat.py:105"),
+    ("conv3_halo_mixed",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/conv3.cu",
+     "multimodal_3d_image_segmentation_tpu/kernels/conv3d_flat.py:105"),
 ]
 
 
@@ -1275,7 +1318,8 @@ def phase_serve(torch, kernels, work: Path, list_paths, label, config,
     print(f"serving {label}: {N_CASES} predictions of {SHAPE}; average "
           f"prediction time {stats['avg_time_s'] * 1e3:.3f} ms/volume (wall "
           f"clock with readback, mean of the {N_CASES - 1} volumes after the "
-          f"first), device {stats['avg_device_ms']:.3f} ms (CUDA events); "
+          f"first), device {stats['device_ms']:.3f} ms a predict step "
+          f"(CUDA events, the last volume, readers idle); "
           f"peak allocated {stats['peak_mib']:.1f} MiB, peak reserved "
           f"{stats['peak_reserved_mib']:.1f} MiB")
     return launches
@@ -1298,7 +1342,7 @@ def served_bf16(torch, kernels, work: Path, list_paths, launches, label,
         print(f"serving {name} against fp32: wall "
               f"{a['avg_time_s'] * 1e3:.3f} against "
               f"{f['avg_time_s'] * 1e3:.3f} ms/volume, device "
-              f"{a['avg_device_ms']:.3f} against {f['avg_device_ms']:.3f} "
+              f"{a['device_ms']:.3f} against {f['device_ms']:.3f} "
               f"ms, peak allocated {a['peak_mib']:.1f} against "
               f"{f['peak_mib']:.1f} MiB")
 
@@ -1323,8 +1367,8 @@ def served_mode(torch, kernels, work: Path, list_paths, launches, label,
     a, f = SERVED[name], SERVED.get(fp32, SERVED[label])
     print(f"serving {name} against fp32 ({fp32}): wall "
           f"{a['avg_time_s'] * 1e3:.3f} against {f['avg_time_s'] * 1e3:.3f} "
-          f"ms/volume, device {a['avg_device_ms']:.3f} against "
-          f"{f['avg_device_ms']:.3f} ms, peak allocated {a['peak_mib']:.1f} "
+          f"ms/volume, device {a['device_ms']:.3f} against "
+          f"{f['device_ms']:.3f} ms, peak allocated {a['peak_mib']:.1f} "
           f"against {f['peak_mib']:.1f} MiB")
 
 
@@ -2027,11 +2071,559 @@ def phase_model_vnet(torch, state, case_dir: Path, dev):
                 "vs CPU", fast, plain, ref, bars)
 
 
+# ---------------------------------------------------------------- sharded
+# conv3's halo mode: the launch counter of each instance
+HALO_NAMES = {"float32": "conv3_halo", "bfloat16": "conv3_halo_bf16",
+              "mixed": "conv3_halo_mixed"}
+# a first, a middle and a last depth slab
+HALO_KEEPS = ((0, 1), (1, 1), (1, 0))
+
+
+def record_sharded_calls(torch, state, x, dev):
+    """instance -> every conv3 call of one V-Net-DS kernel-path forward of
+    ``x`` (1, C, D, H, W) in the orientation a depth-sharded forward runs
+    it: the image axis it splits (``flat_vnet_shardable``; 155 -> 78
+    planes after conv_in at 240x240x155) as depth."""
+    from multimodal_3d_image_segmentation_tpu_torch.models import VNetDS
+    from multimodal_3d_image_segmentation_tpu_torch.parallel import \
+        flat_vnet_shardable
+    dim = flat_vnet_shardable(tuple(x.shape[2:]), VNET["num_blocks"], True,
+                              N_SHARDED)
+    order = (dim,) + tuple(k for k in range(3) if k != dim)
+    xp = x.permute(0, 1, *(2 + k for k in order)).contiguous()
+    calls = {}
+    for mode in ("float32", "bfloat16", "mixed"):
+        fast = VNetDS(**VNET, use_kernels=True, compute_dtype=mode,
+                      device=dev)
+        fast.load_state_dict(state)
+        calls[mode] = record_conv3_calls(torch, fast, xp)
+        check(len(calls[mode]) == PER_VOLUME_VNET["conv3"],
+              f"{mode}: {len(calls[mode])} conv3 calls per forward")
+    return calls
+
+
+def _level01_calls(calls):
+    """The recorded calls of one V-Net-DS forward that read a level-0 or
+    level-1 volume, as (index, args, kw): the stride-1 and stride-2 convs
+    at the first two levels' depths, the up convs from levels 1 and 2."""
+    d0 = calls[0][0][0].shape[1]
+    d1 = (d0 - 1) // 2 + 1
+    d2 = (d1 - 1) // 2 + 1
+    return [(i, a, kw) for i, (a, kw) in enumerate(calls)
+            if a[0].shape[1] in ((d1, d2) if kw.get("dilation", 1) == 2
+                                 else (d0, d1))]
+
+
+def _halo_slab(torch, t, keep, stride):
+    """A depth slab of ``t`` (1, D, H, W, C) with one halo plane at each
+    end, as a rank of a depth-sharded forward holds it: D // 2 planes (an
+    even count at stride 2, as the schedule guarantees), the first slab
+    for keep (0, 1), a middle one for (1, 1), the last for (1, 0); the
+    halo planes at the volume's ends are zeros."""
+    import torch.nn.functional as F
+    D = t.shape[1]
+    d = D // 2 // 2 * 2 if stride == 2 else D // 2
+    r0 = {(0, 1): 0, (1, 1): (D - d) // 4 * 2, (1, 0): D - d}[keep]
+    return F.pad(t, (0, 0, 0, 0, 0, 0, 1, 1))[:, r0:r0 + d + 2].contiguous()
+
+
+def _halo_call(torch, args, kw, keep):
+    """A recorded call as the halo-mode call of one slab (``_halo_slab``)."""
+    s = kw.get("stride", 1)
+    kw = dict(kw, halo=True, halo_keep=keep)
+    if kw.get("x2") is not None:
+        kw["x2"] = _halo_slab(torch, kw["x2"], keep, s)
+    return (_halo_slab(torch, args[0], keep, s),) + tuple(args[1:]), kw
+
+
+def _zero_halos(torch, args, kw):
+    """The same call with its halo planes zeroed (a control)."""
+    def z(t):
+        t = t.clone()
+        t[:, 0] = 0
+        t[:, -1] = 0
+        return t
+    kw = dict(kw)
+    if kw.get("x2") is not None:
+        kw["x2"] = z(kw["x2"])
+    return (z(args[0]),) + tuple(args[1:]), kw
+
+
+def _fp32_held(torch, got, want, kw):
+    """(passed, largest error): the fp32 bar of ``phase_conv3`` (1e-4 of
+    the output's largest magnitude, at least 1; the moment sums within
+    1e-5 of float64 sums of the kernel's own output)."""
+    n_out = 2 if kw.get("residual") is not None else 1
+    ok, err = True, 0.0
+    for g, w in zip(got[:n_out], want[:n_out]):
+        check(g.shape == w.shape, f"{tuple(g.shape)} != {tuple(w.shape)}")
+        e = float((g - w).abs().max())
+        ok = ok and np.isfinite(e) and e <= 1e-4 * max(1.0, float(
+            w.abs().max()))
+        err = max(err, e)
+    for y, st in zip(got[:n_out], got[n_out:]):
+        y64 = y.double().reshape(-1, y.shape[-1])
+        exact = torch.stack([y64.sum(0), (y64 * y64).sum(0)])
+        scale = torch.stack([y64.abs().sum(0), (y64 * y64).sum(0)])
+        ok = ok and bool(((st.double() - exact).abs() <= 1e-5 * scale).all())
+    return ok, err
+
+
+def _halo_work(args, kw, y):
+    """(flops, bytes) of a halo call: the taps that read a kept plane or
+    the interior, each input read and each output written once."""
+    x, w = args[0], args[1]
+    keep = kw["halo_keep"]
+    d = x.shape[1] - 2
+    stride, dil = kw.get("stride", 1), kw.get("dilation", 1)
+    if dil == 2:
+        depth = _taps(d + keep[1], y.shape[1], 1, 2)
+    else:
+        depth = sum(-keep[0] <= o * stride + k - 1 < d + keep[1]
+                    for o in range(y.shape[1]) for k in range(3))
+    ci, co = w.shape[1], w.shape[0]
+    macs = ci * co * depth * int(np.prod([
+        _taps(n, m, stride, dil) for n, m in zip(x.shape[2:4],
+                                                 y.shape[2:4])]))
+    res = kw.get("residual")
+    moved = nbytes(x, kw.get("x2"), w, args[2], *(kw.get("prologue") or ()),
+                   y)
+    if res is not None:
+        macs += ci * co * int(np.prod(y.shape[1:4]))
+        moved += nbytes(*res) + nbytes(y)
+    if kw.get("emit_stats"):
+        moved += 2 * co * 4 * (2 if res is not None else 1)
+    return 2 * macs, moved
+
+
+def _halo_library(torch, args, kw):
+    """One PyTorch call of the same conv: ``F.conv3d`` + bias over the
+    halo'd slab with no depth padding (``F.conv_transpose3d`` over the
+    source planes and the next halo for dilation 2)."""
+    import torch.nn.functional as F
+    xin = args[0] if kw.get("x2") is None else torch.cat(
+        [args[0], kw["x2"]], -1)
+    xcf = xin.permute(0, 4, 1, 2, 3)
+    w, b = args[1], args[2]
+    if xin.dtype == torch.bfloat16:
+        w, b = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    if kw.get("dilation", 1) == 2:
+        wt = w.flip(2, 3, 4).transpose(0, 1).contiguous()
+        src = xcf[:, :, 1:]
+        return lambda: F.conv_transpose3d(src, wt, b, stride=2, padding=1,
+                                          output_padding=1)
+    return lambda: F.conv3d(xcf, w, b, stride=kw.get("stride", 1),
+                            padding=(0, 1, 1))
+
+
+def phase_conv3_halo(torch, kernels, calls):
+    """conv3's halo mode (depth-sharded volumes) and depth-dilated mode on
+    the card. ``calls``: instance -> the recorded calls of one V-Net-DS
+    forward in it, in the sharded orientation (``record_sharded_calls``).
+    Each level-0 and level-1 call (stride 1 with its
+    prologue, virtual concat, residual tap and moments, stride 2, dilation
+    2) runs on a first, a middle and a last slab (``_halo_slab``) against
+    its plain twin: fp32 at ``phase_conv3``'s bar, the bf16 instances at
+    ``phase_conv3_bf16``'s with its controls. Two controls must fail on
+    every call they apply to: the twin with the kept halo planes zeroed,
+    and, where a prologue meets a global end, the twin with that end's
+    keep flag forced to 1. The calls of a depth-sharded forward on its
+    first rank (the level-0 stride-1 calls on the first slab) are timed
+    against the twin, ``F.conv3d`` + bias over the halo'd slab and the
+    bound; so is the depth-dilated mode on the up conv's source."""
+    header("== conv3 halo mode (the level-0 and level-1 calls of V-Net-DS "
+           "in the sharded orientation, on three slabs each) and "
+           "dilated_depth")
+    from multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep import \
+        stream_ms
+    out = {}
+    with torch.inference_mode():
+        for inst, icalls in calls.items():
+            name = HALO_NAMES[inst]
+            bf16 = inst != "float32"
+            tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
+                   "bytes": 0, "max_abs_err": 0.0}
+            n_cases = n_ctl = 0
+            for i, args0, kw0 in _level01_calls(icalls):
+                for keep in HALO_KEEPS:
+                    args, kw = _halo_call(torch, args0, kw0, keep)
+
+                    def kern():
+                        return kernels.conv3(*args, **kw)
+
+                    def plain(**extra):
+                        return kernels.conv3_plain(*args, **{**kw, **extra})
+                    before = kernels.LAUNCHES[name]
+                    got = _as_tuple(kern())
+                    torch.cuda.synchronize()
+                    check(kernels.LAUNCHES[name] == before + 1,
+                          f"{name} call {i} keep {keep}: launch count did "
+                          "not move")
+                    want = _as_tuple(plain())
+                    if bf16:
+                        ok, err, share, mom = _conv3_bf16_held(
+                            torch, got, want, kw)
+                    else:
+                        ok, err = _fp32_held(torch, got, want, kw)
+                    check(ok, f"{name} call {i} keep {keep}: max abs err "
+                              f"{err}")
+                    tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                    n_cases += 1
+                    # the halo planes the call reads: stride 2 reads only
+                    # the first, dilation 2 only the last
+                    read = ((True, False) if kw.get("stride", 1) == 2 else
+                            (False, True) if kw.get("dilation", 1) == 2
+                            else (True, True))
+                    controls = []
+                    if any(r and k for r, k in zip(read, keep)):
+                        za, zk = _zero_halos(torch, args, kw)
+                        controls.append(("halo planes zero", _as_tuple(
+                            kernels.conv3_plain(*za, **zk))))
+                    if kw.get("prologue") is not None and any(
+                            r and not k for r, k in zip(read, keep)):
+                        controls.append(("keep forced to 1", _as_tuple(
+                            plain(halo_keep=(1, 1)))))
+                    if bf16 and kw.get("prologue") is not None:
+                        controls.append(("prologue unrounded", _as_tuple(
+                            plain(unrounded={"prologue"}))))
+                    if inst == "bfloat16":
+                        # the same call of the 'mixed' forward holds the
+                        # fp32 weights these were rounded from
+                        _, ma, mk = _level01_calls(calls["mixed"])[
+                            [j for j, _, _ in _level01_calls(icalls)].index(i)]
+                        wkw = dict(kw)
+                        if kw.get("residual") is not None:
+                            wkw["residual"] = (mk["residual"][0],
+                                               kw["residual"][1])
+                        controls.append(("weights unrounded", _as_tuple(
+                            kernels.conv3_plain(args[0], ma[1], ma[2],
+                                                **wkw))))
+                    for label, ctl in controls:
+                        bad = (_conv3_bf16_held(torch, got, ctl, kw)[0]
+                               if bf16 else
+                               _fp32_held(torch, got, ctl, kw)[0])
+                        check(not bad, f"{name} call {i} keep {keep}: "
+                                       f"control ({label}) passed")
+                        n_ctl += 1
+                    main_path = (keep == (0, 1) and kw.get("stride", 1) == 1
+                                 and kw.get("dilation", 1) == 1
+                                 and args0[0].shape[1]
+                                 == icalls[0][0][0].shape[1])
+                    if not main_path:
+                        continue
+                    lib = _halo_library(torch, args, kw)
+                    ms, plain_ms = stream_ms(kern), stream_ms(plain)
+                    lib_ms = stream_ms(lib)
+                    flops, moved = _halo_work(args, kw, got[0])
+                    b_ms, b_by = bound(flops, moved,
+                                       BF16_FLOPS if bf16 else FP32_FLOPS)
+                    for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("library_ms", lib_ms), ("flops", flops),
+                                 ("bytes", moved)):
+                        tot[k] += v
+                    print(f"{name}[{i}] {_describe(args, kw)} keep {keep} "
+                          f"(a sharded forward's first rank): err "
+                          f"{err:.2e} kernel {ms:.4f} plain {plain_ms:.4f} "
+                          f"F.conv3d+bias (slab, depth padding 0) "
+                          f"{lib_ms:.4f} bound {b_ms:.4f} ms ({b_by})")
+            b_ms, b_by = bound(tot["flops"], tot["bytes"],
+                               BF16_FLOPS if bf16 else FP32_FLOPS)
+            print(f"{name}: {n_cases} calls (the level-0 and level-1 calls "
+                  f"on three slabs) held to the twin, largest error "
+                  f"{tot['max_abs_err']:.3e}; {n_ctl} controls failed as "
+                  f"they must; the first rank's calls of a sharded forward: "
+                  f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} "
+                  f"ms, F.conv3d + bias {tot['library_ms']:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}) (sums of medians of 5 CUDA-event "
+                  "runs of 20 back-to-back calls)")
+            out[name] = {"max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
+                         "plain_ms": tot["plain_ms"], "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": tot["library_ms"]}
+            _dilated_depth_case(torch, kernels, inst, icalls)
+    return out
+
+
+def _dilated_depth_case(torch, kernels, inst, icalls):
+    """conv3's depth-dilated mode on the first up conv's source volume and
+    weights (with and without an ELU prologue) against its twin, timed
+    beside ``F.conv3d`` over the materialized dilated volume."""
+    import torch.nn.functional as F
+    from multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep import \
+        stream_ms
+    name = "conv3" + INSTANCES_SUFFIX[inst]
+    bf16 = inst != "float32"
+    # the last up conv: level 1's volume into level 0
+    args, kw = [(a, k) for a, k in icalls if k.get("dilation", 1) == 2][-1]
+    x, w, b = args
+    n = x.shape[1]
+    rng = np.random.default_rng(SEED + 5)
+    ci = x.shape[-1]
+    pro = tuple(torch.from_numpy(v.astype(np.float32)).to(x.device)
+                for v in (rng.standard_normal(ci) * 0.3 + 1,
+                          rng.standard_normal(ci) * 0.5))
+    for opts in ({}, {"prologue": pro, "prologue_act": "elu"}):
+        def kern():
+            return kernels.conv3(x, w, b, dilated_depth=n, **opts)
+
+        def plain():
+            return kernels.conv3_plain(x, w, b, dilated_depth=n, **opts)
+        before = kernels.LAUNCHES[name]
+        got = kern()
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES[name] == before + 1,
+              f"{name} dilated_depth: launch count did not move")
+        want = plain()
+        check(got.shape == (1, 2 * n) + tuple(x.shape[2:4]) + (w.shape[0],),
+              f"dilated_depth output {tuple(got.shape)}")
+        if bf16:
+            ok, err, _, _ = _conv3_bf16_held(torch, (got,), (want,), {})
+        else:
+            ok, err = _fp32_held(torch, (got,), (want,), {})
+        check(ok, f"{name} dilated_depth {sorted(opts)}: max abs err {err}")
+        dil = torch.stack([x, torch.zeros_like(x)], 2).reshape(
+            (1, 2 * n) + tuple(x.shape[2:]))
+        wl, bl = (w, b) if not bf16 else (w.to(torch.bfloat16),
+                                          b.to(torch.bfloat16))
+        dcf = dil.permute(0, 4, 1, 2, 3)
+        ms, plain_ms = stream_ms(kern), stream_ms(plain)
+        lib_ms = stream_ms(lambda: F.conv3d(dcf, wl, bl, padding=1))
+        macs = w.shape[0] * w.shape[1] * _taps(n, 2 * n, 1, 2) * int(
+            np.prod([_taps(m, m, 1, 1) for m in x.shape[2:4]]))
+        b_ms, b_by = bound(2 * macs, nbytes(x, w, b, got, *(
+            opts.get("prologue") or ())), BF16_FLOPS if bf16 else FP32_FLOPS)
+        print(f"{name} dilated_depth={n} {_describe(args, opts)} -> "
+              f"{tuple(got.shape[1:4])}: err {err:.2e} kernel {ms:.4f} plain "
+              f"{plain_ms:.4f} F.conv3d over the dilated volume "
+              f"{lib_ms:.4f} bound {b_ms:.4f} ms ({b_by})")
+
+
+INSTANCES_SUFFIX = {"float32": "", "bfloat16": "_bf16", "mixed": "_mixed"}
+# the launches of one rank of V-Net-DS depth-sharded over 2 ranks at
+# 240x240x155: image axis 2 (78 planes after conv_in) is split, level 0
+# is sharded (39 planes a rank) and its two chain convs run the halo mode
+PER_VOLUME_VNET_SHARDED = per_volume(conv_in=1, tail_resize=1, conv3=27,
+                                     conv3_halo=2)
+N_SHARDED = 2
+
+
+def _sharded_forward(state_path, x_path, out_dir):
+    """One rank of a direct depth-sharded V-Net-DS forward on the card
+    (``parallel/ranks.py::run_ranks`` starts it): the served volume, then
+    the same with every halo exchange replaced by zeros (a control); rank
+    0 saves both outputs. Returns the rank's launches, peak memory and
+    wall time."""
+    import torch
+    import torch.distributed as dist
+    from multimodal_3d_image_segmentation_tpu_torch import kernels
+    from multimodal_3d_image_segmentation_tpu_torch.models import VNetDS
+    from multimodal_3d_image_segmentation_tpu_torch.parallel import (
+        flat_vnet_shardable, halo)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    dim = flat_vnet_shardable(SHAPE, VNET["num_blocks"], True, n)
+    model = VNetDS(**VNET, use_kernels=True, spatial_shard=(None, n, dim),
+                   device=dev)
+    model.load_state_dict(torch.load(state_path, map_location=dev))
+    x = torch.from_numpy(np.load(x_path)).to(dev)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls = []
+    with torch.inference_mode():
+        for _ in range(2):
+            dist.barrier()
+            t0 = time.perf_counter()
+            y = model(x)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = {k: v // 2 for k, v in kernels.LAUNCHES.items() if v}
+        real = halo.halo_exchange
+
+        def zero_halos(x_local, group=None):
+            z = torch.zeros_like(x_local[:, :1])
+            return torch.cat([z, x_local, z], 1)
+        halo.halo_exchange = zero_halos
+        try:
+            y_ctl = model(x)
+        finally:
+            halo.halo_exchange = real
+    if rank == 0:
+        np.save(Path(out_dir) / "sharded.npy", y.cpu().numpy())
+        np.save(Path(out_dir) / "zero_halos.npy", y_ctl.cpu().numpy())
+    return {"rank": rank, "dim": dim, "launches": launches,
+            "peak_mib": torch.cuda.max_memory_allocated(dev) / MIB,
+            "wall_s": walls}
+
+
+def _sharded_config(work: Path, label: str, list_paths):
+    """configs/config_vnet-ds.ini as a file with the run directory, the
+    data, the list files, one reader process a rank (the two ranks share
+    the host) and ``[parallel] n_data = 1, n_spatial = 2`` set; everything
+    else as the file sets it."""
+    import re
+    text = (REPO / "configs" / "config_vnet-ds.ini").read_text()
+    lists = work / f"{label}_lists"
+    lists.mkdir()
+    for p in map(Path, list_paths):  # <mod>_test.txt -> <mod>_test-0.3.txt
+        shutil.copy(p, lists / p.name.replace("_test.txt", "_test-0.3.txt"))
+    subs = {"output_dir": repr(str(work / label)),
+            "data_dir": repr(str(work / "data") + "/"),
+            "list_dir": repr(str(lists)), "num_workers": "1"}
+    for key, val in subs.items():
+        text, n = re.subn(rf"(?m)^{key} = .*$", f"{key} = {val}", text)
+        check(n == 1, f"config_vnet-ds.ini: {key}")
+    text += f"\n[parallel]\nn_data = 1\nn_spatial = {N_SHARDED}\n"
+    path = work / f"{label}.ini"
+    path.write_text(text)
+    return path
+
+
+def start_serve_sharded(torch, work: Path, list_paths, vnet, case_dir: Path,
+                        dev):
+    """Start V-Net-DS served depth-sharded over 2 ranks on the one card:
+    the real entry point, ``torch.distributed.run --standalone
+    --nproc-per-node 2 -m ...runtime.inference`` on config_vnet-ds.ini
+    with ``[parallel] n_spatial = 2``, fp32, full width, on the served
+    cases, and beside it a direct forward over 2 spawned ranks
+    (``parallel/ranks.py::run_ranks``) with its zero-halo control. The two
+    ranks of each share the card over gloo (NCCL takes one card a rank, so
+    NCCL across cards is not exercised here). Both run in the background
+    while the script goes on with phases that time nothing;
+    ``finish_serve_sharded`` checks them. Returns what it started."""
+    header(f"== serve V-Net-DS depth-sharded over {N_SHARDED} ranks "
+           "(torch.distributed.run, gloo, one card): started")
+    from concurrent.futures import ThreadPoolExecutor
+    from multimodal_3d_image_segmentation_tpu_torch.parallel.ranks import \
+        run_ranks
+    label = "V-Net-DS-sharded"
+    (work / label / "model").mkdir(parents=True)
+    torch.save(vnet.state_dict(), work / label / "model" / "model.pt")
+    ini = _sharded_config(work, label, list_paths)
+    torch.cuda.empty_cache()
+    log = open(work / f"{label}.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(N_SHARDED), "-m",
+         "multimodal_3d_image_segmentation_tpu_torch.runtime.inference",
+         str(ini)], cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+        text=True)
+    log.close()
+    x = served_volume(torch, case_dir, dev)
+    np.save(work / "x.npy", x.cpu().numpy())
+    torch.save(vnet.state_dict(), work / "state.pt")
+    pool = ThreadPoolExecutor(1)
+    direct = pool.submit(run_ranks, _sharded_forward, N_SHARDED,
+                         work / "ranks", str(work / "state.pt"),
+                         str(work / "x.npy"), str(work))
+    pool.shutdown(wait=False)
+    return {"proc": proc, "direct": direct, "t0": time.perf_counter(),
+            "label": label, "x": x}
+
+
+def stop_serve_sharded(started):
+    """Kill the sharded serve if it still runs (a phase between start and
+    finish failed); the direct ranks end on their own."""
+    if started and started["proc"].poll() is None:
+        started["proc"].kill()
+        started["proc"].wait()
+
+
+def finish_serve_sharded(torch, kernels, work: Path, vnet, started):
+    """Wait for what ``start_serve_sharded`` started and check it: each
+    serving rank's launches (conv3_halo among them), the labels against
+    the unsharded serve's (``work / "V-Net-DS"``); the direct forward's
+    probabilities within 1e-4 of the unsharded kernel path's and at most
+    2x its distance from the float64 model, and the forward with its halo
+    exchange replaced by zeros must fail that. Returns the serving ranks'
+    summed launches."""
+    header(f"== serve V-Net-DS depth-sharded over {N_SHARDED} ranks: "
+           "checked")
+    from multimodal_3d_image_segmentation_tpu_torch.data import read_img
+    from multimodal_3d_image_segmentation_tpu_torch.models import VNetDS
+    label, proc = started["label"], started["proc"]
+    try:
+        proc.wait(timeout=600)
+    finally:
+        stop_serve_sharded(started)
+    wall = time.perf_counter() - started["t0"]
+    lines = (work / f"{label}.log").read_text().splitlines()
+    for ln in lines:
+        if ln.startswith(("torch.distributed:", "rank ")):
+            print(ln)
+    check(proc.returncode == 0, f"sharded serving exited {proc.returncode}:"
+          f"\n" + "\n".join(lines[-40:]))
+    ranks = [json.loads(ln.split(": ", 1)[1]) for ln in lines
+             if ln.startswith("rank ") and ": {" in ln]
+    check(len(ranks) == N_SHARDED, f"{len(ranks)} rank lines in:\n"
+          + "\n".join(lines[-40:]))
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    want = {k: v * N_CASES for k, v in PER_VOLUME_VNET_SHARDED.items() if v}
+    for r in ranks:
+        check(r["launches"] == want, f"rank {r['rank']} launches "
+              f"{r['launches']} != {want}")
+        check(r["launches"]["conv3_halo"] > 0, "no conv3_halo launch")
+        for k, v in r["launches"].items():
+            launches[k] += v
+    print(f"sharded serving: {N_SHARDED} ranks, {N_CASES} volumes each; "
+          f"done {wall:.2f} s after the direct forward started (two ranks "
+          "sharing one card with the direct forward's two and the phases "
+          "between: not a speed figure)")
+    diff = 0
+    for i in range(N_CASES):
+        a = read_img(str(work / label / "test" / "images"
+                         / f"case_{i}_pred.nii.gz"))
+        b = read_img(str(work / "V-Net-DS" / "test" / "images"
+                         / f"case_{i}_pred.nii.gz"))
+        check(a.shape == SHAPE, f"sharded prediction shape {a.shape}")
+        diff += int((a != b).sum())
+    share = diff / (N_CASES * int(np.prod(SHAPE)))
+    print(f"sharded labels against the unsharded serve's: {diff} of "
+          f"{N_CASES * int(np.prod(SHAPE))} voxels differ ({share:.3e}, bar "
+          "1e-5)")
+    check(share <= 1e-5, f"sharded labels differ on {share:.3e} of voxels")
+
+    # the direct forward, with the zero-halo control
+    res = started["direct"].result(timeout=600)
+    for r in res:
+        print(f"rank {r['rank']} (split image axis {r['dim']}): launches a "
+              f"forward {r['launches']}, peak allocated "
+              f"{r['peak_mib']:.1f} MiB, forward wall "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in r['wall_s'])} ms (two "
+              "ranks sharing one card over gloo: not a speed figure)")
+        check(r["launches"].get("conv3_halo", 0) == 2,
+              f"rank {r['rank']}: conv3_halo launches {r['launches']}")
+    sharded = torch.from_numpy(np.load(work / "sharded.npy"))
+    control = torch.from_numpy(np.load(work / "zero_halos.npy"))
+    x = started["x"]
+
+    def build(use_kernels, dtype=torch.float32):
+        m = VNetDS(**VNET, use_kernels=use_kernels).to(x.device, dtype)
+        m.load_state_dict(vnet.state_dict())
+        return m
+    with torch.inference_mode():
+        fast = build(True)(x).cpu()
+        ref = build(False, torch.float64)(x.double()).cpu()
+    d_fast = float((fast.double() - ref).abs().max())
+    for name, y, ctl in (("sharded", sharded, False),
+                         ("control: halo exchange replaced by zeros",
+                          control, True)):
+        vs = float((y - fast).abs().max())
+        d = float((y.double() - ref).abs().max())
+        ok = vs <= 1e-4 and d <= 2 * d_fast + 1e-6 and bool(
+            torch.isfinite(y).all())
+        print(f"{name} forward: max abs err against the unsharded kernel "
+              f"path {vs:.3e} (bar 1e-4), from float64 {d:.3e} against the "
+              f"unsharded kernel path's {d_fast:.3e} (ratio "
+              f"{d / d_fast:.3f}, bar 2)")
+        check(ok != ctl, f"{name}: {'passed' if ctl else 'failed'} the bars")
+    return launches
+
+
 # ---------------------------------------------------------------- train
 TRAIN_SHAPE = (120, 120, 78)   # the configs' training size
 TRAIN_GRID = (61, 61, 40)      # its grid after conv_in
 TRAIN_CASES = {"train": 4, "valid": 2, "test": 2}
-TRAIN_EPOCHS = 2               # HNOSeg-XS's run; the other families' run 1
+RUN_EPOCHS = 1                 # each family's run
 # a Function's gradients against autograd through its plain twin on the
 # card: fp32 sums over up to 148,840 voxels in another order (conv_in's
 # weight, the tail's transposed interpolation), so 1e-5 of each gradient's
@@ -2048,7 +2640,7 @@ GRAD_RTOL = 1e-5
 # gradient of a passing tower step, a block's w_cc_t columns scaled by
 # 1 + PLANTED, must fail.
 PLANTED = 0.05
-N_TRAIN_TIMED = 20
+N_TRAIN_TIMED = 10
 N_CONV3_BWD_TIMED = 10
 MIB = 1024 ** 2
 
@@ -2512,8 +3104,8 @@ def _write_training_cases(root: Path):
     return paths
 
 
-def phase_run(torch, kernels, work: Path, lists, label, config, epochs,
-              per_volume):
+def phase_run(torch, kernels, work: Path, lists, label, config,
+              per_volume, epochs=RUN_EPOCHS):
     """A main path of training: ``runtime/run.py::run`` on ``config``
     (train, test, statistics) on the synthetic training cases, its launch
     counts set to 0 just before and read just after; then run_inference
@@ -2544,15 +3136,16 @@ def phase_run(torch, kernels, work: Path, lists, label, config, epochs,
     run(cfg)
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    tested = TRAIN_CASES["test"]
     forwards = (epochs * (TRAIN_CASES["train"] + TRAIN_CASES["valid"])
-                + TRAIN_CASES["test"])
+                + tested)
     want = {k: v * forwards for k, v in per_volume.items()}
     check(launches == want, f"{label} run launches {launches} != {want} "
           f"({forwards} forwards)")
     print(f"run {label}: {seconds:.2f} s; launches ({forwards} forwards: "
           f"{epochs} epochs of {TRAIN_CASES['train']} train and "
-          f"{TRAIN_CASES['valid']} valid cases, {TRAIN_CASES['test']} test "
-          f"cases): {launches}")
+          f"{TRAIN_CASES['valid']} valid cases and {TRAIN_CASES['test']} "
+          f"test cases): {launches}")
 
     test_dir = out_dir / cfg["test"]["output_folder"]
     ids = [f"test_{i}" for i in range(TRAIN_CASES["test"])]
@@ -2573,7 +3166,7 @@ def phase_run(torch, kernels, work: Path, lists, label, config, epochs,
     kernels.reset_launch_counts()
     run_inference(cfg)
     served = dict(kernels.LAUNCHES)
-    want = {k: v * TRAIN_CASES["test"] for k, v in per_volume.items()}
+    want = {k: v * tested for k, v in per_volume.items()}
     check(served == want, f"{label} run_inference launches {served} != "
           f"{want}")
     for i in ids:
@@ -2590,12 +3183,12 @@ def phase_run(torch, kernels, work: Path, lists, label, config, epochs,
     return launches
 
 
-RUNS = [  # label, config, epochs, launches per forward
-    ("HNOSeg-XS", "config_hnoseg_xs.ini", TRAIN_EPOCHS, PER_VOLUME_HNOSEG),
-    ("V-Net-DS", "config_vnet-ds.ini", 1, PER_VOLUME_VNET),
-    ("HartleyMHASeg", "config_hartleymha.ini", 1, PER_VOLUME_MHA),
-    ("HNOSeg", "config_hnoseg.ini", 1, PER_VOLUME_NOSEG),
-    ("FNOSeg", "config_fnoseg.ini", 1, PER_VOLUME_NOSEG),
+RUNS = [  # label, config, launches per forward
+    ("HNOSeg-XS", "config_hnoseg_xs.ini", PER_VOLUME_HNOSEG),
+    ("V-Net-DS", "config_vnet-ds.ini", PER_VOLUME_VNET),
+    ("HartleyMHASeg", "config_hartleymha.ini", PER_VOLUME_MHA),
+    ("HNOSeg", "config_hnoseg.ini", PER_VOLUME_NOSEG),
+    ("FNOSeg", "config_fnoseg.ini", PER_VOLUME_NOSEG),
 ]
 
 
@@ -2620,7 +3213,7 @@ def main():
     results.update(phase_towers_bf16(torch, kernels, dev))
     (REPO / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="smoke_", dir=REPO / "build"))
-    states = {}
+    states, sharded = {}, None
     try:
         t0 = time.perf_counter()
         list_paths = _write_cases(work / "data")
@@ -2659,6 +3252,10 @@ def main():
                   f"{mode}: {len(calls[mode])} conv3 calls per forward")
         results.update(phase_conv3_bf16(torch, kernels, calls))
         del calls, fast
+        calls = record_sharded_calls(torch, vnet.state_dict(),
+                                     served_volume(torch, case0, dev), dev)
+        results.update(phase_conv3_halo(torch, kernels, calls))
+        del calls
         torch.cuda.empty_cache()
         launches_v = phase_serve(
             torch, kernels, work, list_paths, "V-Net-DS",
@@ -2668,8 +3265,16 @@ def main():
         served_bf16(torch, kernels, work, list_paths, launches, "V-Net-DS",
                     "config_vnet-ds.ini", vnet, 22547764,
                     PER_VOLUME_VNET_BF16, PER_VOLUME_VNET_MIXED)
+        # the sharded serve runs beside the two phases after it, which
+        # time nothing and do not read the launch counts
+        sharded = start_serve_sharded(torch, work, list_paths, vnet, case0,
+                                      dev)
         phase_gate(torch, dev, "vnetds")
         phase_model_vnet(torch, vnet.state_dict(), case0, dev)
+        launches_s = finish_serve_sharded(torch, kernels, work, vnet,
+                                          sharded)
+        for k, v in launches_s.items():
+            launches[k] += v
         states["V-Net-DS"] = vnet.state_dict()
         del vnet
         torch.cuda.empty_cache()
@@ -2738,13 +3343,14 @@ def main():
         lists = _write_training_cases(work / "train_data")
         print(f"set-up (synthetic training cases, {TRAIN_CASES}): "
               f"{time.perf_counter() - t0:.2f} s")
-        for label, config, epochs, per_volume in RUNS:
+        for label, config, per_volume in RUNS:
             launches_t = phase_run(torch, kernels, work, lists, label, config,
-                                   epochs, per_volume)
+                                   per_volume)
             for k, v in launches_t.items():
                 launches[k] += v
         print(f"train phase: {time.perf_counter() - t_train:.2f} s")
     finally:
+        stop_serve_sharded(sharded)
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
     # the redesigned conv3 must beat cuDNN over one V-Net-DS forward

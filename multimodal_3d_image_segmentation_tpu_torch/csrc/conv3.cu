@@ -13,7 +13,18 @@
 //   in: an output stride of 2 (the down convs; the reference convolves at
 //   stride 1 and decimates after), and an input dilation of 2 (the
 //   transposed up convs, which the reference runs over a zero-interleaved
-//   volume with the flipped kernel).
+//   volume with the flipped kernel). The TPU kernel's two depth modes are
+//   flags of the same body, both in the input slots' voxel mapping:
+//   halo (``_conv3_kernel(halo=True)``, conv3d_flat.py:105-171): the input
+//   holds D + 2 planes, the first and the last a neighbouring depth shard's
+//   planes; they are read as data (prologue included) where their keep
+//   flag is set and as zero padding where it is not (the global volume
+//   ends), so logical plane -1 and D read storage planes 0 and D + 1. The
+//   output, the residual tap and the moment sums cover the D interior
+//   planes only. Stride 2 reads only the previous halo, dilation 2 only
+//   the next one. dilated_depth (conv3d_flat.py:159-163, :221-227): a
+//   stride-1 conv over the depth-dilated grid of D = 2 dsrc planes, whose
+//   even plane 2j reads source plane j and whose odd planes are zero.
 //
 // What bounds it on an H100: operations. V-Net-DS at base width 24 runs
 // 0.305 TFLOP of k=3 convs per 240x240x155 volume (29 launches) and moves
@@ -111,6 +122,9 @@ struct Conv3Args {
   int Do, Ho, Wo;     // output volume
   int Gd, Gh, Gw;     // iteration grid (the source grid in mode 2)
   int mode;           // 0: stride 1; 1: stride 2; 2: input dilation 2
+  int halo;           // 1: the input holds planes -1..D (halo mode)
+  int keep_lo, keep_hi;  // halo mode: planes -1 and D are data, not padding
+  int dsrc;           // > 0: dilated depth, the input's dsrc source planes
   int pro_act;        // 0 none, 1 elu, 2 selu, 3 relu
   int stats_rounded;  // bf16 at stride 2: the moments of the rounded outputs
   // the plan
@@ -197,15 +211,26 @@ conv3_brick(const Conv3Args a) {
   const int ow = MODE >= 2 ? gw0 : S * gw0 - 1;
 
   // the volume voxel of each input slot: -1 outside the volume (padding,
-  // zero-filled), -2 a pitch pad slot (never read)
+  // zero-filled), -2 a pitch pad slot (never read). Depth plane iz of the
+  // iteration's input reads storage plane sz: iz + 1 in halo mode (planes
+  // -1 and D are the halos, data where kept), iz / 2 of a dilated depth
+  // (even planes only)
+  const int zlo = a.halo && a.keep_lo ? -1 : 0;
+  const int zhi = a.halo && a.keep_hi ? a.D + 1 : a.D;
   for (int s = tid; s < a.nslot; s += a.threads) {
     const int z = s / a.pl, rem = s % a.pl;
     const int yy = rem / a.pw, ww = rem % a.pw;
     int g = -2;
     if (yy < a.ey && ww < a.ew) {
       const int iz = oz + z, iy = oy + yy, iw = ow + ww;
-      g = (iz >= 0 && iz < a.D && iy >= 0 && iy < a.H && iw >= 0 &&
-           iw < a.W) ? (iz * a.H + iy) * a.W + iw : -1;
+      bool zok = iz >= zlo && iz < zhi;
+      int sz = iz + a.halo;
+      if (a.dsrc > 0) {
+        zok = zok && iz % 2 == 0 && iz / 2 < a.dsrc;
+        sz = iz / 2;
+      }
+      g = (zok && iy >= 0 && iy < a.H && iw >= 0 && iw < a.W)
+              ? (sz * a.H + iy) * a.W + iw : -1;
     }
     gvox[s] = g;
   }
@@ -756,17 +781,24 @@ int entry(const void* x1, const void* x2, const float* w, const float* bias,
           const float* scale, const float* shift, int pro_act,
           const float* wr, const float* br, void* y, void* r, float* part,
           float* rpart, float* ws, int D, int H, int W, int c1, int c2,
-          int co, int mode, const int* plan, int stats_rounded,
-          void* stream) {
+          int co, int mode, const int* plan, int halo_keep, int dsrc,
+          int stats_rounded, void* stream) {
   if (D <= 0 || H <= 0 || W <= 0 || c1 <= 0 || c2 < 0 || co <= 0 ||
       c1 % 4 || c2 % 4 || co % 4 || mode < 0 || mode > 2 || pro_act < 0 ||
       pro_act > 3 || (c2 > 0) != (x2 != nullptr) || plan == nullptr ||
       plan[P_RW] == 0 || (scale == nullptr) != (shift == nullptr) ||
       (r != nullptr && (mode != 0 || scale != nullptr || wr == nullptr)) ||
-      (rpart != nullptr && (r == nullptr || part == nullptr)))
+      (rpart != nullptr && (r == nullptr || part == nullptr)) ||
+      halo_keep < -1 || halo_keep > 3 || dsrc < 0 ||
+      (dsrc > 0 && (halo_keep >= 0 || mode != 0 || r != nullptr ||
+                    D != 2 * dsrc)))
     return (int)cudaErrorInvalidValue;
   Conv3Args a = geometry(D, H, W, c1 + c2, co, mode);
   if (!planned(a, plan)) return (int)cudaErrorInvalidValue;
+  a.halo = halo_keep >= 0;
+  a.keep_lo = halo_keep >= 0 && (halo_keep & 1);
+  a.keep_hi = halo_keep >= 0 && (halo_keep & 2);
+  a.dsrc = dsrc;
   a.x1 = x1; a.x2 = x2; a.w = w; a.bias = bias; a.scale = scale;
   a.shift = shift; a.wr = wr;
   a.br = br; a.y = y; a.r = r; a.part = part; a.rpart = rpart; a.ws = ws;
@@ -818,17 +850,22 @@ M3SEG_API int m3seg_conv3_plan(int D, int H, int W, int ci, int co,
 // plan's workspace (null when its split is 1); plan: m3seg_conv3_plan's
 // filled array. All fp32, contiguous, 16-byte aligned; c1, c2 and co
 // multiples of 4. Output (Do, Ho, Wo, co): mode 0 (D, H, W), mode 1
-// ((D-1)/2+1, ...), mode 2 (2D, 2H, 2W).
+// ((D-1)/2+1, ...), mode 2 (2D, 2H, 2W). halo_keep -1: no halo; 0-3: halo
+// mode, x1 and x2 hold D + 2 planes, bit 0 keeps the first halo plane and
+// bit 1 the last (a plane not kept reads as zero padding). dsrc > 0:
+// dilated depth (mode 0, no residual, no halo), x1 and x2 hold at least
+// dsrc planes and D is 2 * dsrc. The plan is the one of (D, H, W).
 M3SEG_API int m3seg_conv3(const float* x1, const float* x2, const float* w,
                           const float* bias, const float* scale,
                           const float* shift, int pro_act,
                           const float* wr, const float* br, float* y,
                           float* r, float* part, float* rpart, float* ws,
                           int D, int H, int W, int c1, int c2, int co,
-                          int mode, const int* plan, void* stream) {
+                          int mode, const int* plan, int halo_keep, int dsrc,
+                          void* stream) {
   return entry<float>(x1, x2, w, bias, scale, shift, pro_act, wr, br, y, r,
-                      part, rpart, ws, D, H, W, c1, c2, co, mode, plan, 0,
-                      stream);
+                      part, rpart, ws, D, H, W, c1, c2, co, mode, plan,
+                      halo_keep, dsrc, 0, stream);
 }
 
 // The bf16 instance: x1, x2, y and r bf16 (2-byte aligned; y and r 8-byte
@@ -843,8 +880,9 @@ M3SEG_API int m3seg_conv3_bf16(const void* x1, const void* x2,
                                void* y, void* r, float* part, float* rpart,
                                float* ws, int D, int H, int W, int c1,
                                int c2, int co, int mode, const int* plan,
-                               void* stream) {
+                               int halo_keep, int dsrc, void* stream) {
   return entry<__nv_bfloat16>(x1, x2, w, bias, scale, shift, pro_act, wr,
                               br, y, r, part, rpart, ws, D, H, W, c1, c2,
-                              co, mode, plan, mode == 1, stream);
+                              co, mode, plan, halo_keep, dsrc, mode == 1,
+                              stream);
 }

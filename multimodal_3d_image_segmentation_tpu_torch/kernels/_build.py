@@ -47,10 +47,11 @@ _SIGNATURES = {
     "m3seg_tail_resize_softmax_bf16": [_P, _P, _I, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _I, _P],
     "m3seg_conv3": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                    _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _P],
+                    _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
+                    _I, _P],
     "m3seg_conv3_bf16": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I),
-                         _P],
+                         _I, _I, _P],
     "m3seg_conv3_plan": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "m3seg_tower_block": [_P] * 11 + [_I] * 8 + [_P],
     "m3seg_tower_block_s": [_P] * 11 + [_I] * 9 + [_P],
@@ -65,14 +66,16 @@ _SIGNATURES = {
 }
 
 # the bf16 instances (and the towers' and conv3's 'mixed' ones) count apart
-# from the fp32 ones
+# from the fp32 ones, and conv3's halo mode (depth-sharded volumes) apart
+# from its other modes
 LAUNCHES = {"conv_in": 0, "freq_chain": 0, "tail_resize": 0, "conv3": 0,
             "tower_block": 0, "tower_block_s": 0, "tower_resident": 0,
             "conv_in_bf16": 0, "freq_chain_bf16": 0, "tail_resize_bf16": 0,
             "tower_block_bf16": 0, "tower_block_mixed": 0,
             "tower_block_s_bf16": 0, "tower_block_s_mixed": 0,
             "tower_resident_bf16": 0, "tower_resident_mixed": 0,
-            "conv3_bf16": 0, "conv3_mixed": 0}
+            "conv3_bf16": 0, "conv3_mixed": 0, "conv3_halo": 0,
+            "conv3_halo_bf16": 0, "conv3_halo_mixed": 0}
 
 _lock = threading.Lock()
 _library = None

@@ -21,7 +21,23 @@ Options, each a flag of the one CUDA kernel (``csrc/conv3.cu``):
   * ``stride=2``: the down conv, output ``(n - 1) // 2 + 1`` per axis;
   * ``dilation=2``: the transposed up conv (torch's stride 2, padding 1,
     output_padding 1), given as a conv over the input dilated by 2 with
-    the flipped kernel in conv layout, output ``2n`` per axis.
+    the flipped kernel in conv layout, output ``2n`` per axis;
+  * ``halo=True`` with ``halo_keep`` = (keep_first, keep_last), each 0 or
+    1: the depth-sharded conv (the reference's ``halo`` mode, used by
+    ``parallel/halo.py``). x (and x2) hold d + 2 planes: the d planes of
+    this shard and, first and last, one plane of each neighbouring shard.
+    A halo plane goes through the prologue like any plane and is then
+    multiplied by its keep flag: 0 at a global end of the volume, where it
+    stands for the zero padding. H and W are zero-padded, depth is not.
+    The output, the residual tap and the moment sums cover the d interior
+    planes only; with ``stride=2`` the output has (d - 1) // 2 + 1 planes
+    (only the first halo is read), with ``dilation=2`` 2d (only the last
+    halo is read);
+  * ``dilated_depth=n``: a stride-1 conv over the volume dilated along
+    depth only (the reference's ``dilated_depth``): source plane j of x's
+    first n planes at plane 2j of a 2n-plane grid, the odd planes zero
+    (after the prologue), output 2n planes. Not with ``halo``, ``stride``,
+    ``dilation`` or ``residual``.
 
 ``conv3_plain`` computes the same with ``F.conv3d`` /
 ``F.conv_transpose3d`` (cuDNN on the GPU, TF32 off) and torch ops: the
@@ -73,11 +89,26 @@ _BF16 = torch.bfloat16
 # under)
 INSTANCES = {"float32": ("highest", ""), "bfloat16": ("native", "_bf16"),
              "mixed": ("mixed", "_mixed")}
+# the halo mode's launches count under a name of their own
+HALO_KERNEL = "conv3_halo"
+
+
+def _keep_flags(halo_keep) -> Tuple[int, int]:
+    """``halo_keep`` (a pair of 0/1 numbers, or None for (1, 1)) as two
+    ints."""
+    if halo_keep is None:
+        return 1, 1
+    flags = tuple(float(k) for k in halo_keep)
+    if len(flags) != 2 or any(k not in (0.0, 1.0) for k in flags):
+        raise ValueError(f"halo_keep must be two flags of 0 or 1, got "
+                         f"{halo_keep!r}")
+    return int(flags[0]), int(flags[1])
 
 
 def conv3_out_size(sizes: Sequence[int], stride: int = 1,
                    dilation: int = 1) -> Tuple[int, ...]:
-    """Output (D, H, W) of a conv3 call on input ``sizes``."""
+    """Output (D, H, W) of a conv3 call on input ``sizes`` (a halo
+    call's interior planes, a dilated depth's 2n)."""
     if dilation == 2:
         return tuple(2 * int(n) for n in sizes)
     if stride == 2:
@@ -92,15 +123,42 @@ def _moments(t: torch.Tensor) -> torch.Tensor:
     return torch.stack([t.sum(0), (t * t).sum(0)])
 
 
-def _conv(xp, weight, bias, stride, dilation):
-    """The k=3 conv of a channels-last ``xp`` (channels-last out)."""
+def _conv(xp, weight, bias, stride, dilation, halo=False):
+    """The k=3 conv of a channels-last ``xp`` (channels-last out); with
+    ``halo`` xp holds a halo plane at each end of its depth, which is not
+    padded."""
     xcf = xp.permute(0, 4, 1, 2, 3)
     if dilation == 2:
+        if halo:  # output 2j + 1 reads source j + 1: the last halo only
+            xcf = xcf[:, :, 1:]
         y = F.conv_transpose3d(xcf, weight.flip(2, 3, 4).transpose(0, 1),
                                bias, stride=2, padding=1, output_padding=1)
+        if halo:
+            y = y[:, :, :2 * (xcf.shape[2] - 1)]
     else:
-        y = F.conv3d(xcf, weight, bias, stride=stride, padding=1)
+        y = F.conv3d(xcf, weight, bias, stride=stride,
+                     padding=(0, 1, 1) if halo else 1)
     return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _dilate_depth(x, n):
+    """x's first ``n`` planes at the even planes of a 2n-plane volume,
+    the odd planes zero (the reference's ``_dilate_d_flat``)."""
+    src = x[:, :n]
+    return torch.stack([src, torch.zeros_like(src)], dim=2).reshape(
+        (x.shape[0], 2 * n) + tuple(x.shape[2:]))
+
+
+def _depth_mode(xp, halo, keep, dilated_depth):
+    """The prologue's output ``xp`` as the conv reads it: the halo planes
+    times their keep flags, or the depth-dilated volume."""
+    if halo:
+        dmask = torch.ones(xp.shape[1], dtype=xp.dtype, device=xp.device)
+        dmask[0], dmask[-1] = keep
+        return xp * dmask[:, None, None, None]
+    if dilated_depth is not None:
+        return _dilate_depth(xp, dilated_depth)
+    return xp
 
 
 def _prologue(xin, prologue, prologue_act):
@@ -109,8 +167,14 @@ def _prologue(xin, prologue, prologue_act):
     return act(xp) if act is not None else xp
 
 
+def _interior(xin, halo):
+    """The residual tap's input: the interior planes of a halo call."""
+    return xin[:, 1:-1] if halo else xin
+
+
 def _conv3_plain_bf16(x, weight, bias, x2, prologue, prologue_act, residual,
-                      emit_stats, stride, dilation, acc, unrounded):
+                      emit_stats, stride, dilation, acc, unrounded, halo,
+                      keep, dilated_depth):
     """The 'bfloat16' or 'mixed' instance (by the weight's dtype) in torch
     ops: sums in ``acc`` from the operands' values, the prologue output
     rounded to bf16 unless "prologue" is in ``unrounded`` (a control); y
@@ -121,9 +185,11 @@ def _conv3_plain_bf16(x, weight, bias, x2, prologue, prologue_act, residual,
         xp = _prologue(xin, tuple(t.to(acc) for t in prologue), prologue_act)
         if "prologue" not in unrounded:
             xp = xp.to(_BF16).to(acc)
-    outs = [_conv(xp, weight.to(acc), bias.to(acc), stride, dilation)]
+    xp = _depth_mode(xp, halo, keep, dilated_depth)
+    outs = [_conv(xp, weight.to(acc), bias.to(acc), stride, dilation, halo)]
     if residual is not None:
-        outs.append(F.linear(xin, residual[0].to(acc), residual[1].to(acc)))
+        outs.append(F.linear(_interior(xin, halo), residual[0].to(acc),
+                             residual[1].to(acc)))
     rounded = [t.to(_BF16) for t in outs]
     if emit_stats:
         outs = rounded + [_moments(r.to(acc) if stride == 2 else t).float()
@@ -135,33 +201,34 @@ def _conv3_plain_bf16(x, weight, bias, x2, prologue, prologue_act, residual,
 
 def conv3_plain(x, weight, bias, *, x2=None, prologue=None,
                 prologue_act=None, residual=None, emit_stats=False,
-                stride=1, dilation=1, acc: torch.dtype = torch.float32, unrounded=frozenset()):
+                stride=1, dilation=1, halo=False, halo_keep=None,
+                dilated_depth=None, acc: torch.dtype = torch.float32,
+                unrounded=frozenset()):
     """The conv and its options as plain tensor ops (``conv3``'s
     arguments and returns). A bf16 x runs the twin of its instance (module
     docstring), summing in ``acc``; ``unrounded={"prologue"}`` leaves the
     rounding of the prologue's output out (a control)."""
+    keep = _keep_flags(halo_keep) if halo else None
     if x.dtype == _BF16:
         return _conv3_plain_bf16(x, weight, bias, x2, prologue, prologue_act,
                                  residual, emit_stats, stride, dilation, acc,
-                                 frozenset(unrounded))
+                                 frozenset(unrounded), halo, keep,
+                                 dilated_depth)
     xin = x if x2 is None else torch.cat([x, x2], dim=-1)
     xp = xin
     if prologue is not None:
         xp = _prologue(xin, prologue, prologue_act)
-    outs = [_conv(xp, weight, bias, stride, dilation)]
+    xp = _depth_mode(xp, halo, keep, dilated_depth)
+    outs = [_conv(xp, weight, bias, stride, dilation, halo)]
     if residual is not None:
-        outs.append(F.linear(xin, residual[0], residual[1]))
+        outs.append(F.linear(_interior(xin, halo), residual[0], residual[1]))
     if emit_stats:
         outs += [_moments(t) for t in outs[:]]
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 def _check_args(x, weight, bias, x2, prologue, prologue_act, residual,
-                stride, dilation, precision, dilated_depth, halo):
-    if dilated_depth is not None:
-        not_ported("conv3 dilated_depth (depth-only dilation)", 17)
-    if halo:
-        not_ported("conv3 halo (depth-sharded volumes)", 15)
+                stride, dilation, precision, dilated_depth, halo, halo_keep):
     inst = instance(x, weight)
     if inst == "float32":
         if precision in ("native", "mixed"):
@@ -209,6 +276,25 @@ def _check_args(x, weight, bias, x2, prologue, prologue_act, residual,
                 or tuple(residual[1].shape) != (co,)):
             raise ValueError(f"residual weight must be ({co}, {ci}) and its "
                              f"bias ({co},)")
+    if halo:
+        if dilated_depth is not None:
+            # the reference's conv3_flat refuses it too: a transposed conv
+            # exchanges its source planes before the dilation
+            raise ValueError("conv3(halo=True) does not compose with "
+                             "dilated_depth")
+        if x.shape[1] < 3:
+            raise ValueError(f"a halo call needs one interior plane and "
+                             f"two halo planes, got depth {x.shape[1]}")
+        _keep_flags(halo_keep)
+    elif halo_keep is not None:
+        raise ValueError("halo_keep is given without halo=True")
+    if dilated_depth is not None:
+        if stride != 1 or dilation != 1 or residual is not None:
+            raise ValueError("conv3(dilated_depth=...) takes stride 1, "
+                             "dilation 1 and no residual")
+        if not 1 <= int(dilated_depth) <= x.shape[1]:
+            raise ValueError(f"dilated_depth={dilated_depth} outside 1.."
+                             f"{x.shape[1]} (x's planes)")
 
 
 # fields of the kernel's launch plan (``csrc/conv3.cu``, ``PlanField``)
@@ -277,14 +363,18 @@ def _widened(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def _conv3_plain_flat(x, x2, weight, bias, scale, shift, res_weight,
-                      res_bias, prologue_act, emit_stats, stride, dilation):
-    """``conv3_plain`` over ``_Conv3``'s flat argument list."""
+                      res_bias, prologue_act, emit_stats, stride, dilation,
+                      halo_keep, dilated_depth):
+    """``conv3_plain`` over ``_Conv3``'s flat argument list
+    (``halo_keep`` None: no halo)."""
     return conv3_plain(
         x, weight, bias, x2=x2,
         prologue=None if scale is None else (scale, shift),
         prologue_act=prologue_act,
         residual=None if res_weight is None else (res_weight, res_bias),
-        emit_stats=emit_stats, stride=stride, dilation=dilation)
+        emit_stats=emit_stats, stride=stride, dilation=dilation,
+        halo=halo_keep is not None, halo_keep=halo_keep,
+        dilated_depth=dilated_depth)
 
 
 def flat_call(x, weight, bias, *, x2=None, prologue=None, residual=None,
@@ -312,13 +402,16 @@ def flat_call(x, weight, bias, *, x2=None, prologue=None, residual=None,
 
 
 def _conv3_forward(x, x2, weight, bias, scale, shift, res_weight, res_bias,
-                   prologue_act, emit_stats, stride, dilation):
+                   prologue_act, emit_stats, stride, dilation, halo_keep,
+                   dilated_depth):
     """The kernel on CUDA tensors, ``conv3_plain`` on CPU ones (the
-    arguments already checked), over ``_Conv3``'s flat argument list."""
+    arguments already checked), over ``_Conv3``'s flat argument list;
+    ``halo_keep`` is the halo mode's (keep_first, keep_last) or None."""
     if x.device.type == "cpu":
         return _conv3_plain_flat(x, x2, weight, bias, scale, shift,
                                  res_weight, res_bias, prologue_act,
-                                 emit_stats, stride, dilation)
+                                 emit_stats, stride, dilation, halo_keep,
+                                 dilated_depth)
     dev = x.device
     inst = instance(x, weight)
     bf16 = inst != "float32"
@@ -348,6 +441,12 @@ def _conv3_forward(x, x2, weight, bias, scale, shift, res_weight, res_bias,
         raise ValueError("conv3 kernel needs 16-byte aligned inputs")
 
     d, h, w = x.shape[1:4]
+    halo = halo_keep is not None
+    if halo:  # the kernel's depth is the interior's
+        d -= 2
+    dsrc = 0 if dilated_depth is None else int(dilated_depth)
+    if dsrc:  # the iteration grid is the dilated one
+        d = 2 * dsrc
     out_sz = conv3_out_size((d, h, w), stride, dilation)
     y = torch.empty((1,) + out_sz + (co,), dtype=x.dtype, device=dev)
     r = torch.empty_like(y) if res_weight is not None else None
@@ -371,12 +470,11 @@ def _conv3_forward(x, x2, weight, bias, scale, shift, res_weight, res_bias,
     args = (x.data_ptr(), ptr(x2), w_packed.data_ptr(), bias.data_ptr(),
             ptr(scale), ptr(shift), KERNEL_ACTS[prologue_act],
             ptr(res_weight), ptr(res_bias), y.data_ptr(), ptr(r), ptr(part),
-            ptr(rpart), ptr(ws), d, h, w, c1, c2, co, mode, plan)
-    if bf16:
-        _build.launch("conv3" + INSTANCES[inst][1], "m3seg_conv3_bf16", dev,
-                      *args)
-    else:
-        _build.launch("conv3", "m3seg_conv3", dev, *args)
+            ptr(rpart), ptr(ws), d, h, w, c1, c2, co, mode, plan,
+            halo_keep[0] | 2 * halo_keep[1] if halo else -1, dsrc)
+    name = (HALO_KERNEL if halo else "conv3") + INSTANCES[inst][1]
+    _build.launch(name, "m3seg_conv3_bf16" if bf16 else "m3seg_conv3", dev,
+                  *args)
     outs = [y] + ([r] if r is not None else [])
     if emit_stats:
         # the per-block partials, summed in float64 in a fixed order
@@ -395,8 +493,10 @@ class _Conv3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, x2, weight, bias, scale, shift, res_weight, res_bias,
-                prologue_act, emit_stats, stride, dilation):
-        ctx.opts = (prologue_act, emit_stats, stride, dilation)
+                prologue_act, emit_stats, stride, dilation, halo_keep,
+                dilated_depth):
+        ctx.opts = (prologue_act, emit_stats, stride, dilation, halo_keep,
+                    dilated_depth)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, x2, weight, bias, scale, shift, res_weight,
                               res_bias)
@@ -408,7 +508,7 @@ class _Conv3(torch.autograd.Function):
         got = _build.replay_grads(
             lambda *a: _conv3_plain_flat(*a, *ctx.opts), ctx.saved_tensors,
             ctx.needs_input_grad[:8], grads)
-        return (*got, None, None, None, None)
+        return (*got, None, None, None, None, None, None)
 
 
 def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
@@ -418,7 +518,8 @@ def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
           residual: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
           emit_stats: bool = False, stride: int = 1, dilation: int = 1,
           precision: Optional[str] = None,
-          dilated_depth: Optional[int] = None, halo: bool = False):
+          dilated_depth: Optional[int] = None, halo: bool = False,
+          halo_keep=None):
     """k=3 conv + bias of a channels-last volume (options and instances in
     the module docstring).
 
@@ -432,6 +533,10 @@ def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
             the dtypes: 'highest' or 'bf16x3' (fp32 volumes; both run exact
             fp32), 'native' ('bfloat16') or 'mixed'; None (default) or
             'bf16x3' take the dtypes' instance.
+        halo, halo_keep: the depth-sharded mode (module docstring); its
+            launches count under ``conv3_halo`` (and the instance's
+            suffix).
+        dilated_depth: the depth-dilated mode (module docstring).
 
     Returns:
         y (1, Do, Ho, Wo, co) in x's dtype; with ``residual`` also r (1,
@@ -440,17 +545,18 @@ def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
         CPU tensor runs ``conv3_plain``; a CUDA tensor launches the
         kernel's instance (contiguous, channel counts multiples of 4) or
         raises. Differentiable in every tensor argument in fp32, the
-        moments included: the backward replays ``conv3_plain``. The
-        reference's ``dilated_depth``, ``halo`` and a bf16 pass on fp32
-        volumes, and a bf16 instance that autograd would record, raise
-        ``NotImplementedError`` naming their ROADMAP item.
+        moments included: the backward replays ``conv3_plain``. A bf16
+        pass on fp32 volumes and a bf16 instance that autograd would
+        record raise ``NotImplementedError`` naming their ROADMAP item.
     """
     _check_args(x, weight, bias, x2, prologue, prologue_act, residual,
-                stride, dilation, precision, dilated_depth, halo)
+                stride, dilation, precision, dilated_depth, halo, halo_keep)
     scale, shift = prologue if prologue is not None else (None, None)
     res_weight, res_bias = residual if residual is not None else (None, None)
     args = (x, x2, weight, bias, scale, shift, res_weight, res_bias,
-            prologue_act, bool(emit_stats), stride, dilation)
+            prologue_act, bool(emit_stats), stride, dilation,
+            _keep_flags(halo_keep) if halo else None,
+            None if dilated_depth is None else int(dilated_depth))
     if _build.needs_grad(*(t for t in args[:8] if t is not None)):
         if x.dtype == _BF16:
             not_ported(f"training conv3's {instance(x, weight)!r} instance "

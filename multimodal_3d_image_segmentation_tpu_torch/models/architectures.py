@@ -26,6 +26,23 @@ channels-last. Two execution paths share one module tree, whose
     conv reads (up, skip) as a virtual concat. Batch 1, channel-first IO
     and k=3 only; CPU tensors run each kernel's plain version.
 
+The kernel path also runs depth-sharded over the ranks of a process group
+(``spatial_shard=(group, n, dim)``, fp32 serving), the counterpart of the
+reference's ``_flat_forward`` under ``spatial_shard``
+(``parallel/flat_sharded.py`` has the plan). The input and the weights
+are replicated; image axis ``dim`` becomes depth (the volume and the conv
+weights permuted along); conv_in runs on every rank, then each rank keeps
+its slab of the levels that ``shard_schedule`` shards. There the chain
+convs run conv3's halo mode on halo'd slabs (both inputs of the virtual
+concat), with GroupNorm from all-reduced moments over the global voxel
+count; a down conv into a sharded level is the halo mode at stride 2, one
+into a replicated level gathers its input and runs replicated; an up conv
+from a sharded level is the halo mode at dilation 2, one from a replicated
+level into a sharded one runs replicated and keeps the slab. The
+deep-supervision head projects each sharded leg on its slab and gathers
+the ``out_channels`` result; the head and the tail run replicated, and
+every rank returns the whole output.
+
 V-Net-DS's ``compute_dtype`` is the reference's too. On the module path
 each conv runs at its input's dtype (bf16 until the first GroupNorm, whose
 output is fp32 as flax's is; the self-normalizing variant stays bf16) with
@@ -91,6 +108,8 @@ from ..ops.operators import FourierOperator, HartleyOperator
 from ..ops.padcrop import spatial_padcrop
 from ..ops.resize import resize_linear
 from ..ops.spectral import clip_modes, compute_dtypes, normalize_modes
+from ..parallel.flat_sharded import ShardCtx, shard_schedule
+from ..parallel.halo import conv3_sharded
 
 __all__ = ["VNetDS", "HartleyMHASeg", "HartleyMHABlock", "NeuralOperatorSeg",
            "NeuralOperatorBlock"]
@@ -191,7 +210,17 @@ class VNetDS(nn.Module):
             not_ported("VNetDS ndim=4 (2D)", 11)
         compute_dtypes(compute_dtype)  # a known name
         if spatial_shard is not None:
-            not_ported("VNetDS spatial_shard (depth-sharded flat path)", 15)
+            if not use_kernels:
+                not_ported("VNetDS spatial_shard on the module path (the "
+                           "sharded forward is the kernel path's)", 15)
+            if compute_dtype != "float32":
+                not_ported(f"VNetDS spatial_shard with compute_dtype="
+                           f"{compute_dtype!r}", 15)
+            if any(int(n) < 1 for n in num_blocks):
+                not_ported("VNetDS spatial_shard with a 0-block section", 15)
+            group, n, dim = spatial_shard
+            spatial_shard = (group, int(n), int(dim))
+        self.spatial_shard = spatial_shard
         if use_kernels and (kernel_size != 3 or not channel_first_io):
             raise ValueError("VNetDS use_kernels takes kernel_size 3 and "
                              "channel-first IO only")
@@ -288,6 +317,10 @@ class VNetDS(nn.Module):
                 and self.conv_out.weight.requires_grad):
             not_ported(f"training with compute_dtype={self.compute_dtype!r} "
                        "(serve under torch.no_grad or inference_mode)", 12)
+        if (self.spatial_shard is not None and torch.is_grad_enabled()
+                and self.conv_out.weight.requires_grad):
+            not_ported("training V-Net-DS depth-sharded (serve under "
+                       "torch.no_grad or inference_mode)", 15)
         if self.use_kernels:
             return self._kernel_forward(x)
         return self._module_forward(x)
@@ -329,21 +362,34 @@ class VNetDS(nn.Module):
                 legs[i] = x
         return self._head(x, legs, image_size, in_dtype)
 
-    def _head(self, x, legs, image_size, in_dtype):
+    def _head(self, x, legs, image_size, in_dtype, lvl=None, shard=None):
         """Deep-supervision head (project, then nearest-upsample, to
         section 0's size; the kernel path's GroupNorm from the moments of
         its output, as the reference's ``_FlatDSHead``), conv_out and the
-        output tail."""
+        output tail. Sharded (``lvl``: each level's ShardCtx or None), a
+        leg's projection or conv_out's output is gathered where its level
+        is sharded, and the rest runs replicated."""
+        lvl = lvl or [None] * len(self.num_blocks)
+
+        def gathered(i, t):
+            return t if lvl[i] is None else lvl[i].gather_planes(t)
         if self.conv_ds is not None:
-            y = self.conv_ds.op(tuple(legs.values()),
-                                upsample_to=legs[0].shape[1:-1])
+            size0 = tuple(legs[0].shape[1:-1])
+            if lvl[0] is not None:
+                size0 = (size0[0] * lvl[0].n,) + size0[1:]
+            idx = list(legs)
+            y = self.conv_ds.op(tuple(legs.values()), upsample_to=size0,
+                                after_project=lambda k, t: gathered(idx[k],
+                                                                    t))
             x = (self._finish(self.conv_ds, y, None) if self.use_kernels
                  else self.conv_ds._norm_act(y))
+            x = self.conv_out(x)
         else:
-            x = legs[0]
-        x = _channel_first_tail(self.conv_out(x), image_size,
-                                self.use_resize, in_dtype,
+            x = gathered(0, self.conv_out(legs[0]))
+        x = _channel_first_tail(x, image_size, self.use_resize, in_dtype,
                                 self.output_activation, self.use_kernels)
+        if shard is not None:
+            x = shard.permute(x, inverse=True)
         if not self.channel_first_io:
             x = x.permute(0, 2, 3, 4, 1)
         return x
@@ -355,15 +401,19 @@ class VNetDS(nn.Module):
         act = "none" if self.activation is None else self.activation
         return act if act in KERNEL_ACTS else None
 
-    def _finish(self, module, y, stats, n_voxels=None):
+    def _finish(self, module, y, stats, n_voxels=None, ctx=None):
         """Materialize ``module``'s GroupNorm (from the kernel-emitted
         moments over ``n_voxels``, by default y's; computed here when
-        None) and activation on its raw conv output ``y``."""
+        None) and activation on its raw conv output ``y``. With ``ctx`` y
+        is a slab of a sharded volume: the default count and moments are
+        the whole volume's."""
         if module.normalization is not None:
             if stats is None:
                 stats = _moments(y)
+                if ctx is not None:
+                    stats = ctx.all_reduce(stats)
             if n_voxels is None:
-                n_voxels = y[0, ..., 0].numel()
+                n_voxels = _voxels(y, ctx)
             scale, shift = _gn_affine(stats, n_voxels, module.normalization)
             y = y * scale.to(y.dtype) + shift.to(y.dtype)
         return module.act(y) if module.act is not None else y
@@ -377,25 +427,35 @@ class VNetDS(nn.Module):
             self, f"island_{id(p)}_{isl}", [p], lambda p=p: p.to(isl))
             for p in params)
 
-    def _deferred(self, module, y, stats):
+    def _deferred(self, module, y, stats, ctx=None):
         """(scale, shift, act) that the next conv's prologue applies: fp32
         vectors holding values of y's dtype (the reference's ``_flat_gn_eff``
-        returns them in y's dtype; conv3 reads them as fp32)."""
+        returns them in y's dtype; conv3 reads them as fp32); ``stats`` are
+        the whole volume's when y is a slab (``ctx``)."""
         if module.normalization is None:  # self-normalizing: the activation
             ones = torch.ones(y.shape[-1], device=y.device,
                               dtype=torch.promote_types(y.dtype,
                                                         torch.float32))
             return ones, torch.zeros_like(ones), self._kernel_act()
-        scale, shift = _gn_affine(stats, y[0, ..., 0].numel(),
+        scale, shift = _gn_affine(stats, _voxels(y, ctx),
                                   module.normalization)
         if y.dtype != scale.dtype:  # one rounding of both
             scale, shift = torch.stack([scale, shift]).to(y.dtype).to(
                 scale.dtype)
         return scale, shift, self._kernel_act()
 
-    def _chain(self, x0, convs, res):
+    def _conv3(self, x, w, b, ctx, **kw):
+        """conv3, or on a sharded level (``ctx``) its halo mode on this
+        rank's slab with the moments all-reduced."""
+        if ctx is None:
+            return conv3(x, w, b, **kw)
+        return conv3_sharded(x, w, b, group=ctx.group, **kw)
+
+    def _chain(self, x0, convs, res, ctx=None, shard=None):
         """k=3 conv chain of one section; returns (output, residual output
-        or None). ``x0`` is a tensor or an (up, skip) pair."""
+        or None). ``x0`` is a tensor or an (up, skip) pair; ``ctx``: the
+        level's ShardCtx where it is sharded; ``shard``: the forward's
+        (for the weights' permutation)."""
         parts = x0 if isinstance(x0, tuple) else (x0,)
         stats_on = not self.use_snn
         if not convs:
@@ -417,19 +477,30 @@ class VNetDS(nn.Module):
                 wr = _cached(self, f"tap_{id(w)}_{isl}", [w],
                              lambda: w.reshape(w.shape[:2]).to(isl))
                 kw["residual"] = (wr, res.op.bias)
-            out = conv3(xc, *self._at_island(conv.op.weight, conv.op.bias),
-                        **kw)
+            out = self._conv3(xc, *self._params(conv, shard), ctx, **kw)
             out = out if isinstance(out, tuple) else (out,)
             y = out[0]
             st = out[-2 if tap else -1] if stats_on else None
             if tap:
                 r_out = self._finish(res, out[1],
-                                     out[-1] if stats_on else None)
+                                     out[-1] if stats_on else None, ctx=ctx)
             if defer_ok and idx != len(convs) - 1:
-                xc, pend = y, self._deferred(conv, y, st)
+                xc, pend = y, self._deferred(conv, y, st, ctx)
             else:
-                xc, pend = self._finish(conv, y, st), None
+                xc, pend = self._finish(conv, y, st, ctx=ctx), None
         return xc, r_out
+
+    def _params(self, module, shard, weight=None):
+        """(weight, bias) of a conv as conv3 takes them: at the island
+        dtype and, on a forward sharded along another image axis than
+        depth, with the weight's spatial axes permuted along (kept between
+        forwards, ``_cached``). ``weight``: the up conv's flipped one."""
+        w, b = self._at_island(module.op.weight if weight is None
+                               else weight, module.op.bias)
+        if shard is None or shard.sperm == (0, 1, 2):
+            return w, b
+        return _cached(self, f"perm_{id(module)}_{w.dtype}_{shard.sperm}",
+                       [w], lambda: shard.permute(w)), b
 
     def _up_weight(self, p, dtype):
         """The transposed conv's weight ``p`` as conv3 takes it, in
@@ -461,6 +532,10 @@ class VNetDS(nn.Module):
                              f"{x.shape[0]}")
         in_dtype = x.dtype
         dtype, isl = self._dtypes()
+        shard = None
+        if self.spatial_shard is not None:
+            shard = ShardCtx(*self.spatial_shard)
+            x = shard.permute(x)
         image_size = tuple(x.shape[2:])
         x = x.to(dtype).contiguous()
         if self.use_resize:
@@ -474,6 +549,9 @@ class VNetDS(nn.Module):
                 x = self._finish(self.conv_in,
                                  conv_in_s2d(x, w, b, apply_selu=False), None)
             else:
+                if shard is not None and shard.sperm != (0, 1, 2):
+                    w = _cached(self, f"conv_in_perm_{shard.sperm}", [w],
+                                lambda: shard.permute(w))
                 snn = self.use_snn and is_selu(self.activation)
                 y = conv_in_s2d(x, w, b, apply_selu=snn)
                 x = y if snn else self._finish(self.conv_in, y, None)
@@ -481,40 +559,68 @@ class VNetDS(nn.Module):
             x = x.permute(0, 2, 3, 4, 1).contiguous()
         stats_on = not self.use_snn
         ns = len(self.num_blocks)
+        lvl = [None] * ns
+        if shard is not None:
+            sched = shard_schedule(x.shape[1], ns, shard.n)
+            if not sched[0]:
+                not_ported(f"V-Net-DS depth-sharded over {shard.n} ranks "
+                           f"with an entry depth of {x.shape[1]} planes "
+                           f"(image axis {shard.dim}; see "
+                           "flat_vnet_shardable)", 15)
+            lvl = [shard if on else None for on in sched]
+            x = shard.local_slab(x)
         encode, legs = {}, {}
         for i in range(ns):
             convs, res, down = self._section("encode", i)
-            x, r = self._chain(x, convs, res)
+            x, r = self._chain(x, convs, res, lvl[i], shard)
             if r is not None:
                 x = x + r
             if down is not None:
                 encode[i] = x
+                ctx, nxt = lvl[i], lvl[i + 1]
+                if ctx is not None and nxt is None:
+                    # into a replicated level: gather, then run replicated
+                    x, ctx = ctx.gather_planes(x), None
                 # the reference's GroupNorm reads the decimated output: in
                 # bf16 the stride-2 conv3 emits the moments of its rounded
                 # values
-                out = conv3(x, *self._at_island(down.op.weight, down.op.bias),
-                            stride=2, emit_stats=stats_on)
-                x = self._finish(down, *(out if stats_on else (out, None)))
+                out = self._conv3(x, *self._params(down, shard), ctx,
+                                  stride=2, emit_stats=stats_on)
+                x = self._finish(down, *(out if stats_on else (out, None)),
+                                 ctx=ctx)
             elif i in self.right_leg_indexes:
                 legs[i] = x
         for i in reversed(range(ns - 1)):
             convs, res, up = self._section("decode", i)
+            src, dst = lvl[i + 1], lvl[i]
             w = self._up_weight(up.op.weight, isl)
             stats_up = up.normalization is not None
-            out = conv3(x, w, *self._at_island(up.op.bias), dilation=2,
-                        emit_stats=stats_up)
+            out = self._conv3(x, *self._params(up, shard, weight=w), src,
+                              dilation=2, emit_stats=stats_up)
             y, st = out if stats_up else (out, None)
             # GroupNorm over the whole 2n output, applied after the crop to
-            # the encoder's size
-            n_full = y[0, ..., 0].numel()
-            y = spatial_padcrop(y, encode[i].shape[1:-1])
-            x = self._finish(up, y, st, n_full).contiguous()
-            x, r = self._chain((x, encode[i]), convs, res)
+            # the encoder's size (the whole volume's, where the up conv
+            # runs replicated into a sharded level, which keeps its slab)
+            n_full = _voxels(y, src)
+            size = tuple(encode[i].shape[1:-1])
+            if dst is not None and src is None:
+                size = (size[0] * dst.n,) + size[1:]
+            y = spatial_padcrop(y, size)
+            x = self._finish(up, y, st, n_full, ctx=src).contiguous()
+            if dst is not None and src is None:
+                x = dst.local_slab(x)
+            x, r = self._chain((x, encode[i]), convs, res, dst, shard)
             if r is not None:
                 x = x + r
             if i in self.right_leg_indexes:
                 legs[i] = x
-        return self._head(x, legs, image_size, in_dtype)
+        return self._head(x, legs, image_size, in_dtype, lvl, shard)
+
+
+def _voxels(y, ctx=None):
+    """The voxel count of ``y`` (1, D, H, W, C), of the whole volume where
+    y is a slab of a sharded one (``ctx``)."""
+    return y[0, ..., 0].numel() * (1 if ctx is None else ctx.n)
 
 
 # ---- the spectral towers ------------------------------------------------

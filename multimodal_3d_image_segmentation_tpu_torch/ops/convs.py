@@ -24,7 +24,7 @@ a bf16 input with fp32 parameters comes out fp32.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -167,7 +167,10 @@ class _SplitKernelConv1x1(nn.Module):
     as ``sum_i x_i @ W_i^T`` so the concatenated tensor is never
     materialized. ``upsample_to`` (call argument): parts may arrive at
     coarser sizes; each is nearest-upsampled to this spatial size after its
-    projection (exact: the gather commutes with the per-voxel product)."""
+    projection (exact: the gather commutes with the per-voxel product).
+    ``after_project`` (call argument): a function of (part index,
+    projection) applied to each projection before its upsample (the
+    depth-sharded V-Net-DS gathers a sharded leg's there)."""
 
     def __init__(self, in_features: int, features: int,
                  use_bias: bool = True, snn_init: bool = False,
@@ -182,8 +185,8 @@ class _SplitKernelConv1x1(nn.Module):
         self.bias = (nn.Parameter(_bias_init(fan_in, snn_init)(
             (features,), generator)) if use_bias else None)
 
-    def forward(self, inputs, upsample_to: Optional[Sequence[int]] = None
-                ) -> torch.Tensor:
+    def forward(self, inputs, upsample_to: Optional[Sequence[int]] = None,
+                after_project: Optional[Callable] = None) -> torch.Tensor:
         if isinstance(inputs, torch.Tensor):
             inputs = (inputs,)
         if upsample_to is not None:
@@ -195,10 +198,12 @@ class _SplitKernelConv1x1(nn.Module):
         w = self.weight.reshape(self.weight.shape[:2])
         y = None
         off = 0
-        for x, c in zip(inputs, cins):
+        for k, (x, c) in enumerate(zip(inputs, cins)):
             # at the island dtype, each part back in the activation dtype
             isl = _island(x, self.compute_dtype, w.dtype)
             part = F.linear(x.to(isl), w[:, off:off + c].to(isl)).to(x.dtype)
+            if after_project is not None:
+                part = after_project(k, part)
             if (upsample_to is not None
                     and tuple(part.shape[1:-1]) != upsample_to):
                 part = resize_nearest(part, upsample_to)

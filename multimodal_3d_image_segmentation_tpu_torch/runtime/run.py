@@ -8,6 +8,12 @@ run artifacts of the upstream ``experiments/run.py:29-197``. The run is on
 the card named by ``[main] visible_devices``, or on the CPU where it says
 ``'cpu'``. Every family trains: HNOSeg-XS, V-Net-DS, HartleyMHASeg and
 NeuralOperatorSeg (HNOSeg, FNOSeg).
+
+``[parallel] n_spatial = N`` (with ``n_data = 1``) serves V-Net-DS's kernel
+path depth-sharded over N ranks (``parallel/``), each started by
+``python -m torch.distributed.run --nproc-per-node N``; rank 0 writes the
+outputs. Training under ``[parallel]``, a data axis above 1 and the other
+families under ``n_spatial > 1`` raise (ROADMAP item 15).
 """
 from __future__ import annotations
 
@@ -27,12 +33,14 @@ from ..device import check_transform_precision, resolve_device
 from ..losses import get_loss
 from ..metrics import statistics_regional
 from ..models import HartleyMHASeg, HNOSegXS, NeuralOperatorSeg, VNetDS
+from ..parallel import flat_vnet_shardable, make_mesh, multihost
 from .checkpoint import load_weights
 from .config import get_config, save_config
 from .optim import build_optimizer, build_schedule
 from .train_test import testing, training
 
-__all__ = ["run", "get_data_lists", "warn_autocast", "main"]
+__all__ = ["run", "get_data_lists", "warn_autocast", "serving_layout",
+           "main"]
 
 _MODELS = {"HartleyMHASeg": HartleyMHASeg, "HNOSegXS": HNOSegXS,
            "NeuralOperatorSeg": NeuralOperatorSeg, "VNetDS": VNetDS}
@@ -60,12 +68,43 @@ def get_data_lists(data_lists_paths, data_dir=None):
     return data_lists
 
 
+def serving_layout(config_args):
+    """(device, n_spatial) of a run: without ``[parallel]`` (or with one
+    rank in it) the device ``[main] visible_devices`` names and None; with
+    ``n_spatial > 1`` this rank's device and that rank count, after
+    joining the process group (``parallel/multihost.py``). A data axis
+    above 1, and a model other than V-Net-DS's kernel path under
+    ``n_spatial > 1``, raise (ROADMAP item 15)."""
+    visible = config_args["main"].get("visible_devices")
+    par = config_args.get("parallel")
+    if par is None:
+        return resolve_device(visible), None
+    n_data = par.get("n_data")
+    if n_data is not None and int(n_data) != 1:
+        not_ported(f"[parallel] n_data = {n_data} (data parallelism)", 15)
+    n = int(par.get("n_spatial", 1))
+    if n == 1:
+        return resolve_device(visible), None
+    model_cfg = config_args["model"]
+    if model_cfg["model_name"] != "VNetDS":
+        not_ported(f"{model_cfg['model_name']} depth-sharded ([parallel] "
+                   f"n_spatial = {n})", 15)
+    if not model_cfg.get("use_pallas", False):
+        not_ported("V-Net-DS's module path depth-sharded ([parallel] needs "
+                   "[model] use_pallas = True)", 15)
+    device = multihost.initialize(visible)[2]
+    return device, make_mesh(1, n)
+
+
 def _build_model(config_args, input_data, image_size_getter,
                  device: Optional[torch.device] = None,
-                 generator: Optional[torch.Generator] = None
-                 ) -> torch.nn.Module:
+                 generator: Optional[torch.Generator] = None,
+                 n_spatial: Optional[int] = None) -> torch.nn.Module:
     """``[model]`` section -> the port's model on ``device``, initialized
-    from ``generator`` (default: seeded with 0).
+    from ``generator`` (default: seeded with 0). With ``n_spatial > 1``
+    ranks (``serving_layout``), V-Net-DS's kernel path depth-sharded over
+    the default process group (``parallel/flat_sharded.py``); an image size
+    that does not shard raises (ROADMAP item 15).
 
     ``use_pallas`` maps to ``use_kernels``; ``transform_precision`` 'high'
     and 'highest' both mean exact fp32 (``device.py``); ``compute_dtype``
@@ -88,6 +127,16 @@ def _build_model(config_args, input_data, image_size_getter,
     for key in ("num_modes", "patch_size"):
         if isinstance(model_args.get(key), list):
             model_args[key] = tuple(model_args[key])
+    if n_spatial is not None:
+        n = n_spatial
+        image_size = tuple(image_size_getter())
+        dim = flat_vnet_shardable(image_size, model_args["num_blocks"],
+                                  model_args.get("use_resize", True), n)
+        if dim is None:
+            not_ported(f"V-Net-DS depth-sharded over {n} ranks at image "
+                       f"size {image_size} (no image axis shards its first "
+                       "level)", 15)
+        model_args["spatial_shard"] = (None, n, dim)
     return _MODELS[model_name](**model_args, generator=generator,
                                device=device)
 
@@ -125,12 +174,14 @@ def _statistics(config_args, data_lists_test, test_dir, is_print):
 def run(config_args):
     """Run an experiment: train and/or test and/or statistics. Returns
     the model (None when only statistics ran)."""
-    if "parallel" in config_args:
-        not_ported("[parallel] sharded runs", 15)
     main_args = config_args["main"]
     is_train, is_test = main_args["is_train"], main_args["is_test"]
+    if "parallel" in config_args and is_train:
+        not_ported("training under [parallel] (sharded or data-parallel "
+                   "training)", 15)
     output_dir = os.path.expanduser(main_args["output_dir"])
-    device = resolve_device(main_args.get("visible_devices"))
+    device, n_spatial = serving_layout(config_args)
+    writer = multihost.process_index() == 0
 
     input_lists = copy.deepcopy(config_args["input_lists"])
     data_dir = input_lists.get("data_dir")  # None = lists hold full paths
@@ -189,7 +240,8 @@ def run(config_args):
                          **train_args)
     elif is_test:
         model = _build_model(config_args, input_data,
-                             input_data.get_test_image_size, device)
+                             input_data.get_test_image_size, device,
+                             n_spatial=n_spatial)
         model.load_state_dict(load_weights(os.path.join(output_dir, "model"),
                                            model), strict=True)
 
@@ -208,8 +260,8 @@ def run(config_args):
         warn_autocast("test")
     if is_test:
         testing(model=model, input_data=input_data, output_dir=test_dir,
-                is_print=is_print, **test_args)
-    if main_args["is_statistics"]:
+                is_print=is_print and writer, writer=writer, **test_args)
+    if main_args["is_statistics"] and writer:
         _statistics(config_args, data_lists["test"], test_dir, is_print)
     return model
 

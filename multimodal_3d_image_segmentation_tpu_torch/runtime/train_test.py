@@ -20,8 +20,15 @@ Per-volume prediction on the test split with the upstream protocol
 volume excluded from the average time, ``{pid}_true/_pred.nii.gz`` outputs
 and ``prediction_time_memory.txt``. A volume's time is the wall clock from
 the host batch to the label volume read back on the host (the readback
-marks completion); CUDA events beside it give the device-side time of the
-forward + argmax. Peak memory comes from PyTorch's caching allocator.
+marks completion). The device time of a predict step (forward + argmax) is
+the span of CUDA events around the last volume's predict step: by then the
+test flow has delivered every volume, so the reader processes are idle
+and their work does not stall the host between launches inside the span
+(the earlier volumes' spans overlap the reads of the later ones). It still
+counts any gap where the host launches more slowly than the card
+computes. Peak memory comes from PyTorch's caching
+allocator. A depth-sharded model serves on every rank of its group, each
+rank reading the same volumes; rank 0 alone writes the outputs.
 """
 from __future__ import annotations
 
@@ -338,19 +345,22 @@ def _memory_mib(device: torch.device) -> Dict[str, float]:
 def testing(model: torch.nn.Module, input_data, output_dir: str,
             label_mapping: Optional[Dict[int, int]] = None,
             output_origin=None, is_print: bool = True,
-            save_npz: bool = False) -> Dict[str, float]:
+            save_npz: bool = False, writer: bool = True) -> Dict[str, float]:
     """Predict every test volume, write the label maps and the timing and
     memory file; with ``save_npz`` also ``y_true_pred.npz``, the
     reference's bulk output: ``y_pred`` (the label maps stacked) and, where
-    every volume has one, ``y_true``. Returns the numbers as a dict:
-    ``avg_time_s`` (wall clock with readback, first volume excluded),
-    ``avg_device_ms`` (CUDA events, first volume excluded; nan off CUDA),
-    ``peak_mib``, ``peak_reserved_mib``, ``in_use_mib`` and
-    ``n_volumes``."""
+    every volume has one, ``y_true``. ``writer`` False (a depth-sharded
+    model's ranks but the first) predicts and writes nothing. Returns the
+    numbers as a dict: ``avg_time_s`` (wall clock with readback, first
+    volume excluded), ``device_ms`` (the device time of the last volume's
+    predict step, module docstring; nan off CUDA or for one volume),
+    ``peak_mib``,
+    ``peak_reserved_mib``, ``in_use_mib`` and ``n_volumes``."""
     if input_data.batch_size != 1:
         raise ValueError("testing() follows the per-volume protocol: set "
                          "[input_args] batch_size = 1")
-    os.makedirs(output_dir, exist_ok=True)
+    if writer:
+        os.makedirs(output_dir, exist_ok=True)
     device = next(model.parameters()).device
     cuda = device.type == "cuda"
     data_lists_test = input_data.data_lists_test
@@ -367,9 +377,9 @@ def testing(model: torch.nn.Module, input_data, output_dir: str,
         torch.cuda.reset_peak_memory_stats(device)
     test_flow = input_data.get_test_flow()
     start_time = time.time()
-    predict_times, device_ms = [], []
+    predict_times = []
     npz_true, npz_pred = [], []
-    n = 0
+    n, events = 0, None
     try:
         for i, xy in enumerate(test_flow):
             s_time = time.time()
@@ -381,14 +391,19 @@ def testing(model: torch.nn.Module, input_data, output_dir: str,
                 x = xy
             x = torch.from_numpy(np.asarray(x, np.float32)).to(device)
             if cuda:
-                ev0 = torch.cuda.Event(enable_timing=True)
-                ev1 = torch.cuda.Event(enable_timing=True)
-                ev0.record()
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
             y_dev = predict_step(x)
             if cuda:
-                ev1.record()
+                events[1].record()
             y_pred = y_dev.cpu().numpy()  # readback = completion
             e_time = time.time()
+            if i != 0:  # the first volume includes one-time set-up
+                predict_times.append(e_time - s_time)
+            n += 1
+            if not writer:
+                continue
 
             if y_true is not None:
                 save_output(y_true, data_lists_test, i,
@@ -403,37 +418,37 @@ def testing(model: torch.nn.Module, input_data, output_dir: str,
             if save_npz:
                 npz_true.append(y_true)
                 npz_pred.append(y_pred)
-            if i != 0:  # the first volume includes one-time set-up
-                predict_times.append(e_time - s_time)
-                if cuda:
-                    device_ms.append(ev0.elapsed_time(ev1))
-            n += 1
     finally:
         if hasattr(test_flow, "close"):
             test_flow.close()
     end_time = time.time()
+    # the last volume's span (module docstring); the first includes set-up
+    device_ms = (events[0].elapsed_time(events[1]) if cuda and n > 1
+                 else math.nan)
 
+    mem = _memory_mib(device)
+    avg_time = float(np.mean(predict_times)) if predict_times else math.nan
+    lines = [f"Average prediction time: {avg_time}",
+             f"peak_device_memory: {mem['peak']:.2f} MiB",
+             f"device_memory_in_use: {mem['in_use']:.2f} MiB",
+             f"peak_device_memory_reserved: {mem['peak_reserved']:.2f} MiB",
+             f"device_time_of_a_predict_step: {device_ms} ms (CUDA events, "
+             f"the last volume, readers idle)"]
+    if is_print:
+        print(f"\nTime used: {end_time - start_time:.2f} seconds.")
+        print("\n".join(lines))
+    out = {"avg_time_s": avg_time, "device_ms": device_ms,
+           "peak_mib": mem["peak"], "peak_reserved_mib": mem["peak_reserved"],
+           "in_use_mib": mem["in_use"], "n_volumes": n}
+    if not writer:
+        return out
     if save_npz:
         arrays = {"y_pred": np.stack(npz_pred)}
         if all(t is not None for t in npz_true):
             arrays["y_true"] = np.stack(npz_true)
         np.savez_compressed(os.path.join(output_dir, "y_true_pred.npz"),
                             **arrays)
-    mem = _memory_mib(device)
-    avg_time = float(np.mean(predict_times)) if predict_times else math.nan
-    avg_dev = float(np.mean(device_ms)) if device_ms else math.nan
-
-    lines = [f"Average prediction time: {avg_time}",
-             f"peak_device_memory: {mem['peak']:.2f} MiB",
-             f"device_memory_in_use: {mem['in_use']:.2f} MiB",
-             f"peak_device_memory_reserved: {mem['peak_reserved']:.2f} MiB"]
-    if is_print:
-        print(f"\nTime used: {end_time - start_time:.2f} seconds.")
-        print("\n".join(lines))
-        print(f"Average device time (CUDA events): {avg_dev} ms")
     with open(os.path.join(output_dir, "prediction_time_memory.txt"),
               "w") as f:
         print("\n".join(lines), file=f)
-    return {"avg_time_s": avg_time, "avg_device_ms": avg_dev,
-            "peak_mib": mem["peak"], "peak_reserved_mib": mem["peak_reserved"],
-            "in_use_mib": mem["in_use"], "n_volumes": n}
+    return out

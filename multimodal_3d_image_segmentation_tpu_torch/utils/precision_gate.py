@@ -73,6 +73,7 @@ import argparse
 import contextlib
 import functools
 import json
+import os
 import sys
 import time
 from typing import Dict, Optional, Sequence
@@ -121,6 +122,11 @@ FAMILIES = {
     "fnoseg": (NeuralOperatorSeg, dict(NOSEG, transform_type="Fourier"),
                ("block",)),
 }
+# the families whose gate trains deterministically (``train``): V-Net-DS,
+# whose 'mixed' argmax ratio is nearest its bar. The towers' deterministic
+# backward passes take about twice as long, more than chip_smoke.py's time
+# limit carries.
+DETERMINISTIC_TRAINING = frozenset({"vnetds"})
 # HNOSeg-XS's paths, name: (use_kernels, compute_dtype, twins: None, "fp32"
 # or "fp64"); the first is the oracle (a tower family's: ``modes_of``)
 MODES = {
@@ -224,12 +230,41 @@ def _kind(family: str) -> str:
     return family if family in ("hnosegxs", "vnetds") else "tower"
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms, restored on exit: without them
+    the backward passes of cuDNN's convs and of accumulating index ops sum
+    in an order that changes from run to run. An op with no deterministic
+    implementation warns (``warn_only``). cuBLAS on one stream gives the
+    same bits whatever its workspace setting, so the setting PyTorch asks
+    for (``CUBLAS_WORKSPACE_CONFIG``) is supplied while it is missing."""
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.benchmark)
+    added = "CUBLAS_WORKSPACE_CONFIG" not in os.environ
+    if added:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+        torch.backends.cudnn.benchmark = flags[2]
+        if added:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+
+
 def train(device: torch.device, steps: int = STEPS,
           shape: Sequence[int] = TRAIN_SHAPE, n_train: int = N_TRAIN,
           seed: int = 0, family: str = "hnosegxs"):
     """Train ``family`` at its full width, fp32, on its kernel path (the
     port's training path; the towers on ``block``); returns (state dict,
-    loss history every 50 steps, seconds)."""
+    loss history every 50 steps, seconds). A family of
+    ``DETERMINISTIC_TRAINING`` trains under PyTorch's deterministic
+    algorithms, so a second run trains the same weights to the bit and the
+    gate's verdict is the code's, not a draw of the order of the backward
+    passes' sums."""
     xs, ys = make_dataset(1, n_train, shape)
     fracs = [float(np.mean(ys == c)) for c in range(4)]
     if not all(f > 1e-4 for f in fracs):
@@ -248,11 +283,13 @@ def train(device: torch.device, steps: int = STEPS,
     y = torch.from_numpy(ys[:, None]).to(device)
     history = []
     t0 = time.perf_counter()
-    for i in range(steps):
-        j = i % n_train
-        loss = step(x[j:j + 1], y[j:j + 1])
-        if i % 50 == 0 or i == steps - 1:
-            history.append(float(loss))
+    with (_deterministic() if family in DETERMINISTIC_TRAINING
+          else contextlib.nullcontext()):
+        for i in range(steps):
+            j = i % n_train
+            loss = step(x[j:j + 1], y[j:j + 1])
+            if i % 50 == 0 or i == steps - 1:
+                history.append(float(loss))
     return model.state_dict(), history, time.perf_counter() - t0
 
 

@@ -185,9 +185,31 @@ def test_cpu_wrapper_runs_the_plain_version_without_counting():
     assert kernels.LAUNCHES == before
 
 
+@pytest.mark.parametrize("mode", ["dilated_depth", "halo"])
+def test_wrapper_takes_the_reference_depth_modes(mode):
+    """The reference's two depth modes, which the wrapper refused until
+    they were ported (ROADMAP items 17 and 15), against the Pallas kernel
+    at the refusal test's shapes; ``tests/test_torch_conv3_halo.py`` holds
+    their options."""
+    x, _, w, b = _case((4, 4, 4), 8, 8, 60)
+    xf, g = _flat(x)
+    if mode == "dilated_depth":
+        g_out = flat_geom(6, 4, 4)
+        want = _unflat(conv3_flat(xf, _dhwio(w), jnp.asarray(b), g_out,
+                                  dilated_depth=3, precision="highest",
+                                  interpret=True), g_out)
+        got = kernels.conv3(_t(x), _t(w), _t(b), dilated_depth=3)
+    else:  # planes 0 and 3 are the halos; the interior is planes 1-2
+        g_in = flat_geom(2, 4, 4)
+        want = _unflat(conv3_flat(xf[1:-1], _dhwio(w), jnp.asarray(b), g_in,
+                                  halo=True, precision="highest",
+                                  interpret=True), g_in)
+        got = kernels.conv3(_t(x), _t(w), _t(b), halo=True)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
 @pytest.mark.parametrize("kwargs,exc,match", [
-    (dict(dilated_depth=3), NotImplementedError, "item 17"),
-    (dict(halo=True), NotImplementedError, "item 15"),
     (dict(precision="native"), NotImplementedError, "item 12"),
     (dict(precision="mixed"), NotImplementedError, "item 12"),
     (dict(stride=2, dilation=2), ValueError, "stride"),

@@ -392,11 +392,11 @@ def _conv3_case(dev, sizes, ci, co, option, c2=None):
     return x, w, b, kw
 
 
-def _conv3_held(kern, want, kw):
-    """One launch of ``kern`` against the plain outputs ``want``; returns
-    the kernel's outputs."""
+def _conv3_held(kern, want, kw, name="conv3"):
+    """One launch of ``kern`` (counted under ``name``) against the plain
+    outputs ``want``; returns the kernel's outputs."""
     with torch.no_grad():
-        got = _launched("conv3", kern)
+        got = _launched(name, kern)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     assert len(got) == len(want)
@@ -415,6 +415,35 @@ def _conv3_held(kern, want, kw):
 CONV3_PLANS = [(8, 2, 2, 1, 24, 16, 1), (5, 1, 4, 2, 24, 8, 2),
                (8, 4, 2, 2, 24, 4, 3), (5, 2, 1, 1, 8, 16, 1),
                (8, 1, 1, 1, 16, 4, 5)]
+
+
+@pytest.mark.parametrize("keep", [(0, 1), (1, 1), (1, 0)])
+@pytest.mark.parametrize("sizes,ci,co", [((9, 8, 7), 24, 24),
+                                         ((8, 6, 10), 48, 96),
+                                         ((42, 40, 30), 24, 24),
+                                         ((13, 11, 9), 8, 12)])
+@pytest.mark.parametrize("option", CONV3_OPTIONS)
+def test_conv3_halo_matches_plain(dev, option, sizes, ci, co, keep):
+    """The halo mode (the first and last of the depth's planes are a
+    neighbouring shard's) at every option, stride 2 and dilation 2
+    included, and each keep pair: a first, middle and last slab."""
+    x, w, b, kw = _conv3_case(dev, sizes, ci, co, option)
+    kw.update(halo=True, halo_keep=keep)
+    _conv3_held(lambda: kernels.conv3(x, w, b, **kw),
+                kernels.conv3_plain(x, w, b, **kw), kw, "conv3_halo")
+
+
+@pytest.mark.parametrize("option", ["bare", "x2", "prologue_elu"])
+@pytest.mark.parametrize("sizes", [(5, 8, 7), (10, 9, 13)])
+def test_conv3_dilated_depth_matches_plain(dev, option, sizes):
+    """The depth-dilated mode: the volume's planes at the even planes of a
+    grid twice as deep (the prologue never reaching the odd ones), counted
+    as a conv3 launch."""
+    x, w, b, kw = _conv3_case(dev, sizes, 24, 24, option)
+    kw["dilated_depth"] = sizes[0]
+    got = _conv3_held(lambda: kernels.conv3(x, w, b, **kw),
+                      kernels.conv3_plain(x, w, b, **kw), kw)
+    assert got[0].shape[1] == 2 * sizes[0]
 
 
 @pytest.mark.parametrize("choice", CONV3_PLANS)
@@ -478,8 +507,11 @@ def test_conv3_refuses_what_it_does_not_take(dev):
     b = _t((24,), 32, dev)
     with pytest.raises(TypeError, match="float16"):
         kernels.conv3(x.half(), w, b)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        kernels.conv3(x, w, b, halo=True)
+    # the halo mode (ROADMAP item 15, ported) runs: one conv3_halo launch
+    # held to the plain twin (test_conv3_halo_matches_plain has its cases)
+    _conv3_held(lambda: kernels.conv3(x, w, b, halo=True, halo_keep=(1, 0)),
+                kernels.conv3_plain(x, w, b, halo=True, halo_keep=(1, 0)),
+                {}, "conv3_halo")
     with pytest.raises(ValueError, match="contiguous"):
         kernels.conv3(x.transpose(1, 2), w, b)
     with pytest.raises(ValueError, match="cpu"):
@@ -1624,6 +1656,32 @@ def test_conv3_bf16_instances_match_twins(dev, option, sizes, ci, co, mode,
     ok, read = _held_bf16_conv3(got, want, n_out)
     assert ok, read
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("mode,wdtype", CONV3_MODES,
+                         ids=[m for m, _ in CONV3_MODES])
+@pytest.mark.parametrize("keep", [(0, 1), (1, 0)])
+@pytest.mark.parametrize("option", CONV3_OPTIONS)
+def test_conv3_halo_bf16_instances_match_twins(dev, option, keep, mode,
+                                               wdtype):
+    """The halo mode of the 'bfloat16' and 'mixed' instances, counted under
+    conv3_halo_bf16 and conv3_halo_mixed, at the bf16 bar. The stride-2
+    conv's moments are those of its rounded outputs, so they are held to
+    float64 sums of the kernel's own output (a one-ulp flip against the
+    twin moves them), as ``chip_smoke.py`` holds them."""
+    x, w, b, kw = _bf16_conv3_case(dev, (10, 8, 7), 48, 48, option, wdtype)
+    kw.update(halo=True, halo_keep=keep)
+    name = "conv3_halo" + ("_bf16" if mode == "bfloat16" else "_mixed")
+    with torch.no_grad():
+        got = _launched(name, lambda: kernels.conv3(x, w, b, **kw))
+        want = kernels.conv3_plain(x, w, b, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if kw.get("stride", 1) == 2:
+        want = (want[0], _moments64(got[0])[0].float())
+    ok, read = _held_bf16_conv3(got, want,
+                                2 if kw.get("residual") is not None else 1)
+    assert ok, read
 
 
 def test_conv3_bf16_controls_fail(dev):

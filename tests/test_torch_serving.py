@@ -171,6 +171,7 @@ def test_port_never_imports_jax(tmp_path):
         "jax_compat, labels, precision_gate\n"
         "import multimodal_3d_image_segmentation_tpu_torch.data\n"
         "import multimodal_3d_image_segmentation_tpu_torch.kernels\n"
+        "import multimodal_3d_image_segmentation_tpu_torch.parallel.ranks\n"
         "torch.set_num_threads(1)\n"
         "m = HNOSegXS(2, 3, 8, [2, 2], (3, 4, 4), use_kernels=True)\n"
         "with torch.no_grad():\n"

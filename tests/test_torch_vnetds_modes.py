@@ -164,3 +164,30 @@ def test_precision_gate_of_vnetds_runs_on_the_cpu(tmp_path):
     assert "rule_broken_vs_twins_on" in res["probe_prologue_unrounded"]
     assert set(res["activations_fp32"]) >= {"conv_in", "encode_0",
                                             "decode_0"}
+
+
+def test_precision_gate_trains_deterministically():
+    """The V-Net-DS gate trains under PyTorch's deterministic algorithms
+    (its verdict must not hang on the order of the backward passes'
+    sums): two trainings give the same weights to the bit, and the global
+    settings are on inside the context and restored after it."""
+    from multimodal_3d_image_segmentation_tpu_torch.utils import \
+        precision_gate
+    assert "vnetds" in precision_gate.DETERMINISTIC_TRAINING
+
+    def settings():
+        return (torch.are_deterministic_algorithms_enabled(),
+                torch.backends.cudnn.benchmark,
+                os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+
+    before = settings()
+    with precision_gate._deterministic():
+        inside = settings()
+    assert inside[0] and not inside[1] and inside[2] is not None
+    assert settings() == before
+    runs = [precision_gate.train(torch.device("cpu"), 2, (16, 16, 12), 2,
+                                 family="vnetds") for _ in range(2)]
+    assert settings() == before
+    (s1, h1, _), (s2, h2, _) = runs
+    assert h1 == h2 and s1.keys() == s2.keys()
+    assert all(torch.equal(s1[k], s2[k]) for k in s1)
