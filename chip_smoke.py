@@ -83,17 +83,21 @@ training size. It checks them:
               the bound, and the kernel's registers and spills from the
               build log; the kernel's total must be below ``F.conv3d``'s;
   6b. conv3 bf16  every conv3 call of one V-Net-DS forward in 'bfloat16'
-              and in 'mixed' (recorded with its real inputs) against its
-              plain twin (one bf16 ulp, at most 1e-3 of the elements more
-              than one ulp of their own magnitude apart, the fp32 moments
-              1e-5 of the sums of |y| and y^2; the stride-2 calls' moments,
-              of the rounded outputs, against float64 sums of the kernel's
-              own output), a second run bit-identical, and the twin with
-              the prologue output unrounded (and in 'bfloat16' the fp32
-              weights) as controls that must fail; each call's time beside
-              the fp32 instance's on the same call, the plain twin's,
-              cuDNN's bf16 ``F.conv3d`` + bias and the bound, and the bf16
-              instances' registers and spills from the build log;
+              and in 'mixed' (recorded with its real inputs) on the
+              tensor-core body (``csrc/conv3_mma.cu``) against its plain
+              twin (one bf16 ulp, at most 1e-3 of the elements more than one
+              ulp of their own magnitude apart, the fp32 moments 1e-5 of the
+              sums of |y| and y^2; the stride-2 calls' moments, of the
+              rounded outputs, against float64 sums of the kernel's own
+              output), a second run bit-identical, and the twin with the
+              prologue output unrounded (and in 'bfloat16' the fp32
+              weights) as controls that must fail; each call's launch plan
+              (M tiles a warp, brick, warps along N, chunk, split) and time
+              beside the fp32 instance's on the same call, the plain
+              twin's, cuDNN's bf16 ``F.conv3d`` + bias and the bound, and
+              the tensor-core body's registers and spills from the build
+              log; each instance's total is printed beside cuDNN's bf16
+              total at the end of the run;
   6c. conv3 halo  conv3's halo mode (depth-sharded slabs) in all three
               instances at every level-0 and level-1 call of V-Net-DS in
               the orientation a sharded forward runs it (image axis 2 as
@@ -1644,11 +1648,9 @@ def phase_conv3(torch, kernels, calls):
             check(all(bool(torch.equal(a, b)) for a, b in zip(inputs, ins)),
                   f"conv3 call {i}: an input was written")
             del again, inputs
-            mode = (1 if kw.get("stride", 1) == 2 else
-                    2 if kw.get("dilation", 1) == 2 else 0)
             plan = dict(zip(conv3_mod.PLAN_FIELDS, conv3_mod.conv3_plan(
                 tuple(args[0].shape[1:4]), args[1].shape[1],
-                args[1].shape[0], mode)))
+                args[1].shape[0], _conv3_mode(kw))))
             # the library yardstick: the conv + bias alone in one call
             xin = args[0] if kw.get("x2") is None else torch.cat(
                 [args[0], kw["x2"]], -1)
@@ -1728,6 +1730,13 @@ def _conv3_bf16_held(torch, got, want, kw):
     return ok, err, share, mom
 
 
+def _conv3_mode(kw):
+    """conv3's mode of a call's options: 0 stride 1, 1 stride 2, 2
+    dilation 2."""
+    return (1 if kw.get("stride", 1) == 2 else
+            2 if kw.get("dilation", 1) == 2 else 0)
+
+
 def phase_conv3_bf16(torch, kernels, calls):
     """conv3's 'bfloat16' and 'mixed' instances against their plain twins
     at every call of one V-Net-DS forward in that mode (``calls``: mode ->
@@ -1745,10 +1754,13 @@ def phase_conv3_bf16(torch, kernels, calls):
     import torch.nn.functional as F
     from multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep import \
         stream_ms
+    import importlib
+    conv3_mod = importlib.import_module(
+        "multimodal_3d_image_segmentation_tpu_torch.kernels.conv3")
+    # registers, shared memory and spills of each tensor-core instance
     log = kernels.library().build_log.splitlines()
     for i, line in enumerate(log):
-        if ("Compiling entry function" in line and "conv3" in line
-                and "bfloat16" in line):
+        if "Compiling entry function" in line and "conv3_mma" in line:
             props = [ln.strip() for ln in log[i + 1:i + 4]
                      if "spill" in ln or "Used" in ln]
             print(f"conv3 bf16 build: {line.split(chr(39))[1]}: "
@@ -1838,11 +1850,23 @@ def phase_conv3_bf16(torch, kernels, calls):
                 for k, v in (("max_abs_err", err), ("share", share),
                              ("moments", mom)):
                     tot[k] = max(tot[k], v)
-                print(f"{name}[{i}] {_describe(args, kw)}: err {err:.2e} "
-                      f"share {share:.1e} moments {mom:.1e} kernel "
+                plan = dict(zip(conv3_mod.MMA_PLAN_FIELDS,
+                                conv3_mod.conv3_mma_plan(
+                                    tuple(args[0].shape[1:4]),
+                                    args[1].shape[1], args[1].shape[0],
+                                    _conv3_mode(kw),
+                                    passes=1 if mode == "bfloat16" else 2)))
+                print(f"{name}[{i}] {_describe(args, kw)}: plan tm "
+                      f"{plan['tm']} brick {plan['bd']}x{plan['bh']}x"
+                      f"{plan['bw']} warps along N {plan['wn']} chunk "
+                      f"{plan['ck']} split {plan['split']} ({plan['blocks']} "
+                      f"blocks of {plan['threads']} threads, {plan['smem']} "
+                      f"B shared, conflict {plan['conflict']}); err "
+                      f"{err:.2e} share {share:.1e} moments {mom:.1e} kernel "
                       f"{ms:.4f} (fp32 instance {fp32_ms:.4f}) plain "
                       f"{plain_ms:.4f} cuDNN bf16 {lib_ms:.4f} bound "
-                      f"{b_ms:.4f} ms ({b_by})")
+                      f"{b_ms:.4f} ms ({b_by}), {flops / ms / 1e9:.2f} "
+                      "TFLOP/s")
             b_ms, b_by = bound(tot["flops"], tot["bytes"], BF16_FLOPS)
             print(f"{name}, the {len(mcalls)} calls of one forward: kernel "
                   f"{tot['ms']:.4f} ms (fp32 instance {tot['fp32_ms']:.4f} "
@@ -3353,10 +3377,18 @@ def main():
         stop_serve_sharded(sharded)
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
-    # the redesigned conv3 must beat cuDNN over one V-Net-DS forward
+    # the redesigned conv3 must beat cuDNN over one V-Net-DS forward; the
+    # bf16 instances' totals beside cuDNN's bf16 conv (ROADMAP queue 2: not
+    # yet below it)
     check(results["conv3"]["ms"] < results["conv3"]["library_ms"],
           f"conv3 {results['conv3']['ms']:.4f} ms is not below F.conv3d's "
           f"{results['conv3']['library_ms']:.4f} ms")
+    for name in CONV3_MODES.values():
+        r = results[name]
+        print(f"{name}: {r['ms']:.4f} ms over the 29 calls against cuDNN's "
+              f"bf16 F.conv3d + bias {r['library_ms']:.4f} ms "
+              f"({r['ms'] / r['library_ms']:.3f}x; "
+              f"{'below' if r['ms'] < r['library_ms'] else 'not below'} it)")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,5 +1,5 @@
 // k=3 convolution + bias with V-Net-DS's fused options, on channels-last
-// fp32 or bf16 volumes.
+// fp32 volumes (the fp32 instance; conv3_mma.cu holds the bf16 ones).
 //
 // Replaces: multimodal_3d_image_segmentation_tpu/kernels/conv3d_flat.py:305
 //   (_conv3_flat_impl, the pallas_call behind conv3_flat): a k=3 SAME conv
@@ -68,32 +68,15 @@
 // partials; the wrapper sums them in float64. No atomics: the result does
 // not change from run to run.
 //
-// The bf16 instance (the JAX kernel under compute_dtype 'bfloat16', its
-// precision 'native', and 'mixed'): x, x2, y and r bf16; the weights, the
-// biases and the prologue's scale and shift fp32 (in 'bfloat16' the caller
-// passes the bf16 weight and bias values widened, so both modes run this
-// one body and differ only in the weights' values). The input is loaded
-// with plain 2-byte loads and widened into the same fp32 shared-memory
-// brick the fp32 instance fills with cp.async (so the planner's shared
-// memory is the same), the prologue applied on the way in and its output
-// rounded to bf16, as the TPU kernel rounds each MXU operand; the products
-// of bf16 values and fp32 weights are summed in fp32 FMAs as in the fp32
-// instance. Each output is rounded once, to bf16, at the store; the moment
-// sums are taken from the fp32 values before that rounding (the TPU
-// kernel's ``done`` plane), or, at stride 2 (stats_rounded), from the
-// rounded outputs (the reference's stride-2 conv, whose GroupNorm reads the
-// decimated bf16 volume).
-#include <type_traits>
-
-#include "common.cuh"
+// The 'bfloat16' and 'mixed' instances run another body, on the bf16
+// tensor cores (conv3_mma.cu); this file holds the fp32 instance.
+#include "conv3.cuh"
 
 namespace {
 
 constexpr int TN = 8;              // output channels per thread
 constexpr int MAX_THREADS = 256;
 constexpr int MAX_SMEM = 232448;   // bytes a block may use on sm_90
-constexpr int REDUCE_ROWS = 16;    // voxels per block of the split-sum pass
-constexpr int NUM_SMS = 132;
 constexpr int CHUNK8_SMEM = 100000;  // bytes; deeper chunks measured slower
 
 // the launch plan, an int array shared with the wrapper: the first seven
@@ -105,16 +88,16 @@ enum PlanField {
 };
 
 struct Conv3Args {
-  const void* x1;     // (D, H, W, c1), the instance's type T
-  const void* x2;     // (D, H, W, c2) or null, T
+  const float* x1;    // (D, H, W, c1)
+  const float* x2;    // (D, H, W, c2) or null
   const float* w;     // (27, ci, co), row ((kz*3+ky)*3+kx)*ci + c
   const float* bias;  // (co,)
   const float* scale;  // (ci,) prologue scale, or null (no prologue)
   const float* shift;  // (ci,) prologue shift
   const float* wr;    // (co, ci) residual tap or null
   const float* br;    // (co,)
-  void* y;            // (Do, Ho, Wo, co), T
-  void* r;            // (Do, Ho, Wo, co) or null, T
+  float* y;           // (Do, Ho, Wo, co)
+  float* r;           // (Do, Ho, Wo, co) or null
   float* part;        // (n_part, 2, co) moment partials or null
   float* rpart;       // the same for r, or null
   float* ws;          // split > 1: ((1 or 2) x split, Do*Ho*Wo, co)
@@ -126,7 +109,6 @@ struct Conv3Args {
   int keep_lo, keep_hi;  // halo mode: planes -1 and D are data, not padding
   int dsrc;           // > 0: dilated depth, the input's dsrc source planes
   int pro_act;        // 0 none, 1 elu, 2 selu, 3 relu
-  int stats_rounded;  // bf16 at stride 2: the moments of the rounded outputs
   // the plan
   int rw, bd, bh, nrw, cot, ck, split;
   int nbd, nbh, nbw;  // bricks along each axis
@@ -137,36 +119,6 @@ struct Conv3Args {
   int nchunk;         // chunks of ck input channels
   int threads;
 };
-
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case 1: return v > 0.f ? v : expm1f(v);
-    case 2: return m3seg::selu(v);
-    case 3: return fmaxf(v, 0.f);
-    default: return v;
-  }
-}
-
-// cp.async: 4 bytes (through L1) or 16 bytes (L2 only); with ok false the
-// destination is zero-filled and nothing is read
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Along W, for output i of a thread's run and tap t: the run's input
 // register v[S*i + off(t)] and the weight tap kx(t). Modes 2 and 3 are the
@@ -184,7 +136,7 @@ template <int MODE> struct WTaps {
       MODE == 0 ? RW + 2 : MODE == 1 ? 2 * RW + 1 : RW + (MODE == 3);
 };
 
-template <int RW, int MODE, class T>
+template <int RW, int MODE>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
 conv3_brick(const Conv3Args a) {
   using WT = WTaps<MODE>;
@@ -210,29 +162,15 @@ conv3_brick(const Conv3Args a) {
   const int oy = MODE >= 2 ? gh0 : S * gh0 - 1;
   const int ow = MODE >= 2 ? gw0 : S * gw0 - 1;
 
-  // the volume voxel of each input slot: -1 outside the volume (padding,
-  // zero-filled), -2 a pitch pad slot (never read). Depth plane iz of the
-  // iteration's input reads storage plane sz: iz + 1 in halo mode (planes
-  // -1 and D are the halos, data where kept), iz / 2 of a dilated depth
-  // (even planes only)
-  const int zlo = a.halo && a.keep_lo ? -1 : 0;
-  const int zhi = a.halo && a.keep_hi ? a.D + 1 : a.D;
+  // the volume voxel of each input slot (input_voxel): -1 outside the
+  // volume (padding, zero-filled), -2 a pitch pad slot (never read)
   for (int s = tid; s < a.nslot; s += a.threads) {
     const int z = s / a.pl, rem = s % a.pl;
     const int yy = rem / a.pw, ww = rem % a.pw;
-    int g = -2;
-    if (yy < a.ey && ww < a.ew) {
-      const int iz = oz + z, iy = oy + yy, iw = ow + ww;
-      bool zok = iz >= zlo && iz < zhi;
-      int sz = iz + a.halo;
-      if (a.dsrc > 0) {
-        zok = zok && iz % 2 == 0 && iz / 2 < a.dsrc;
-        sz = iz / 2;
-      }
-      g = (zok && iy >= 0 && iy < a.H && iw >= 0 && iw < a.W)
-              ? (sz * a.H + iy) * a.W + iw : -1;
-    }
-    gvox[s] = g;
+    gvox[s] = yy < a.ey && ww < a.ew
+                  ? input_voxel(oz + z, oy + yy, ow + ww, a.D, a.H, a.W,
+                                a.halo, a.keep_lo, a.keep_hi, a.dsrc)
+                  : -2;
   }
   __syncthreads();
 
@@ -242,36 +180,17 @@ conv3_brick(const Conv3Args a) {
     float* in_s = smem + st * a.stage;
     float* w_s = in_s + a.ck * a.cpl;
     const int c0 = k * a.ck;
-    const T* x1 = static_cast<const T*>(a.x1);
-    const T* x2 = static_cast<const T*>(a.x2);
     for (int s = tid; s < a.nslot; s += a.threads) {
       const int g = gvox[s];
       if (g == -2) continue;
       for (int c = 0; c < a.ck; ++c) {
         const int cc = c0 + c;
         const bool ok = g >= 0 && cc < a.ci;
-        if constexpr (!std::is_same<T, float>::value) {
-          // widened on the way in; the prologue (main pass only) and the
-          // rounding of its output to bf16, inside the volume only
-          float v = 0.f;
-          if (ok) {
-            v = m3seg::to_float(cc < a.c1
-                                    ? x1[(long long)g * a.c1 + cc]
-                                    : x2[(long long)g * a.c2 + (cc - a.c1)]);
-            if (!res && a.scale != nullptr)
-              v = m3seg::round_to<T>(activate(
-                  __fadd_rn(__fmul_rn(v, __ldg(a.scale + cc)),
-                            __ldg(a.shift + cc)),
-                  a.pro_act));
-          }
-          in_s[c * a.cpl + s] = v;
-        } else {
-          const float* src = x1;
-          if (ok)
-            src = cc < a.c1 ? x1 + (long long)g * a.c1 + cc
-                            : x2 + (long long)g * a.c2 + (cc - a.c1);
-          cp_async4(in_s + c * a.cpl + s, src, ok);
-        }
+        const float* src = a.x1;
+        if (ok)
+          src = cc < a.c1 ? a.x1 + (long long)g * a.c1 + cc
+                          : a.x2 + (long long)g * a.c2 + (cc - a.c1);
+        cp_async4(in_s + c * a.cpl + s, src, ok);
       }
     }
     if (res) {  // (co, ci): one value a copy
@@ -406,8 +325,7 @@ conv3_brick(const Conv3Args a) {
     for (int k = k0; k < k1; ++k) {
       const int st = (k - k0) & 1;
       cp_async_wait_all();
-      if constexpr (std::is_same<T, float>::value)  // bf16: on the way in
-        if (!res && a.scale != nullptr) prologue(k, st);
+      if (!res && a.scale != nullptr) prologue(k, st);
       __syncthreads();  // chunk k is in; chunk k-1's stage is free
       if (k + 1 < k1) {
         load_chunk(k + 1, st ^ 1, res);
@@ -434,10 +352,8 @@ conv3_brick(const Conv3Args a) {
       return ((long long)gz * a.Ho + gy) * a.Wo + gw;
   };
 
-  // bias, store (rounded to T), and the block's moment partials in a
-  // fixed order
-  auto epilogue = [&](void* out_v, const float* b, float* part) {
-    T* out = static_cast<T*>(out_v);
+  // bias, store, and the block's moment partials in a fixed order
+  auto epilogue = [&](float* out, const float* b, float* part) {
     float s[TN], s2[TN], bn[TN];
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
@@ -449,7 +365,7 @@ conv3_brick(const Conv3Args a) {
     for (int i = 0; i < RW; ++i) {
       const int gw = gw0 + lr * RW + i;
       if (!row_ok || gw >= a.Gw) continue;
-      T* o = out + out_voxel(gw) * a.co + ncol;
+      float* o = out + out_voxel(gw) * a.co + ncol;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         if (ncol + 4 * q >= a.co) continue;
@@ -458,17 +374,7 @@ conv3_brick(const Conv3Args a) {
         v.y = acc[i][4 * q + 1] + bn[4 * q + 1];
         v.z = acc[i][4 * q + 2] + bn[4 * q + 2];
         v.w = acc[i][4 * q + 3] + bn[4 * q + 3];
-        if constexpr (!std::is_same<T, float>::value) {
-          *reinterpret_cast<uint2*>(o + 4 * q) = m3seg::float4_to_bf16x4(v);
-          if (a.stats_rounded) {
-            v.x = m3seg::round_to<T>(v.x);
-            v.y = m3seg::round_to<T>(v.y);
-            v.z = m3seg::round_to<T>(v.z);
-            v.w = m3seg::round_to<T>(v.w);
-          }
-        } else {
-          *reinterpret_cast<float4*>(o + 4 * q) = v;
-        }
+        *reinterpret_cast<float4*>(o + 4 * q) = v;
         s[4 * q + 0] += v.x; s2[4 * q + 0] += v.x * v.x;
         s[4 * q + 1] += v.y; s2[4 * q + 1] += v.y * v.y;
         s[4 * q + 2] += v.z; s2[4 * q + 2] += v.z * v.z;
@@ -525,73 +431,6 @@ conv3_brick(const Conv3Args a) {
     else
       store_partial(a.ws + (a.split + sp) * m_out);
   }
-}
-
-// out[m, n] = sum over k of ws[k, m, n] (in order) + bias[n], rounded to
-// T, with each block's moment partials over its REDUCE_ROWS voxels (of the
-// fp32 values, or of the rounded ones with stats_rounded). A block is 32
-// columns x 8 row lanes; the lanes' sums are added in a fixed order.
-template <class T>
-__global__ void __launch_bounds__(256)
-conv3_split_sum(const float* __restrict__ ws, int split, long long M,
-                int co, const float* __restrict__ bias,
-                T* __restrict__ out, float* __restrict__ part,
-                int stats_rounded) {
-  __shared__ float red[2][8][32];
-  const int ln = threadIdx.x % 32, lr = threadIdx.x / 32;
-  const long long m0 = (long long)blockIdx.x * REDUCE_ROWS;
-  const long long m1 = m0 + REDUCE_ROWS < M ? m0 + REDUCE_ROWS : M;
-  for (int nb = 0; nb < co; nb += 32) {
-    const int n = nb + ln;
-    float s = 0.f, s2 = 0.f;
-    if (n < co) {
-      for (long long m = m0 + lr; m < m1; m += 8) {
-        float v = 0.f;
-#pragma unroll 4
-        for (int k = 0; k < split; ++k)
-          v += ws[((long long)k * M + m) * co + n];
-        v += bias[n];
-        out[m * co + n] = m3seg::from_float<T>(v);
-        if constexpr (!std::is_same<T, float>::value)
-          if (stats_rounded) v = m3seg::round_to<T>(v);
-        s += v;
-        s2 += v * v;
-      }
-    }
-    red[0][lr][ln] = s;
-    red[1][lr][ln] = s2;
-    __syncthreads();
-    if (part != nullptr && threadIdx.x < 64 && nb + threadIdx.x % 32 < co) {
-      const int q = threadIdx.x / 32, nn = threadIdx.x % 32;
-      float sum = 0.f;
-      for (int r = 0; r < 8; ++r) sum += red[q][r][nn];
-      part[((long long)blockIdx.x * 2 + q) * co + nb + nn] = sum;
-    }
-    __syncthreads();
-  }
-}
-
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// the output volume and the iteration grid of a (D, H, W) input
-Conv3Args geometry(int D, int H, int W, int ci, int co, int mode) {
-  Conv3Args a{};
-  a.D = D; a.H = H; a.W = W; a.ci = ci; a.co = co; a.mode = mode;
-  if (mode == 1) {
-    a.Do = (D - 1) / 2 + 1; a.Ho = (H - 1) / 2 + 1; a.Wo = (W - 1) / 2 + 1;
-  } else if (mode == 2) {
-    a.Do = 2 * D; a.Ho = 2 * H; a.Wo = 2 * W;
-  } else {
-    a.Do = D; a.Ho = H; a.Wo = W;
-  }
-  if (mode == 2) { a.Gd = D; a.Gh = H; a.Gw = W; }
-  else { a.Gd = a.Do; a.Gh = a.Ho; a.Gw = a.Wo; }
-  return a;
-}
-
-// the input extent of b outputs along an axis
-int extent(int mode, int b) {
-  return mode == 2 ? b + 1 : mode == 1 ? 2 * (b - 1) + 3 : b + 2;
 }
 
 // The largest number of distinct words that one bank serves in one row
@@ -748,12 +587,12 @@ bool planned(Conv3Args& a, const int* plan) {
   return smem_bytes(a) <= MAX_SMEM;
 }
 
-template <int RW, int MODE, class T>
+template <int RW, int MODE>
 cudaError_t launch_brick(const Conv3Args& a, cudaStream_t stream) {
   static bool attr = false;  // raise the dynamic shared memory cap once
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        conv3_brick<RW, MODE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        conv3_brick<RW, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         MAX_SMEM);
     if (e != cudaSuccess) return e;
     attr = true;
@@ -761,65 +600,17 @@ cudaError_t launch_brick(const Conv3Args& a, cudaStream_t stream) {
   const dim3 grid((unsigned)(a.nbd * a.nbh * a.nbw),
                   (unsigned)ceil_div(a.co, a.cot),
                   (unsigned)((a.mode == 2 ? 4 : 1) * a.split));
-  conv3_brick<RW, MODE, T><<<grid, a.threads, smem_bytes(a), stream>>>(a);
+  conv3_brick<RW, MODE><<<grid, a.threads, smem_bytes(a), stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int RW, class T>
+template <int RW>
 cudaError_t launch_mode(const Conv3Args& a, cudaStream_t stream) {
-  if (a.mode == 0) return launch_brick<RW, 0, T>(a, stream);
-  if (a.mode == 1) return launch_brick<RW, 1, T>(a, stream);
-  const cudaError_t e = launch_brick<RW, 2, T>(a, stream);  // W parity 0
+  if (a.mode == 0) return launch_brick<RW, 0>(a, stream);
+  if (a.mode == 1) return launch_brick<RW, 1>(a, stream);
+  const cudaError_t e = launch_brick<RW, 2>(a, stream);  // W parity 0
   if (e != cudaSuccess) return e;
-  return launch_brick<RW, 3, T>(a, stream);                 // W parity 1
-}
-
-// The conv of the instance whose volumes are T (float or bf16); the C
-// entries below check their arguments' types.
-template <class T>
-int entry(const void* x1, const void* x2, const float* w, const float* bias,
-          const float* scale, const float* shift, int pro_act,
-          const float* wr, const float* br, void* y, void* r, float* part,
-          float* rpart, float* ws, int D, int H, int W, int c1, int c2,
-          int co, int mode, const int* plan, int halo_keep, int dsrc,
-          int stats_rounded, void* stream) {
-  if (D <= 0 || H <= 0 || W <= 0 || c1 <= 0 || c2 < 0 || co <= 0 ||
-      c1 % 4 || c2 % 4 || co % 4 || mode < 0 || mode > 2 || pro_act < 0 ||
-      pro_act > 3 || (c2 > 0) != (x2 != nullptr) || plan == nullptr ||
-      plan[P_RW] == 0 || (scale == nullptr) != (shift == nullptr) ||
-      (r != nullptr && (mode != 0 || scale != nullptr || wr == nullptr)) ||
-      (rpart != nullptr && (r == nullptr || part == nullptr)) ||
-      halo_keep < -1 || halo_keep > 3 || dsrc < 0 ||
-      (dsrc > 0 && (halo_keep >= 0 || mode != 0 || r != nullptr ||
-                    D != 2 * dsrc)))
-    return (int)cudaErrorInvalidValue;
-  Conv3Args a = geometry(D, H, W, c1 + c2, co, mode);
-  if (!planned(a, plan)) return (int)cudaErrorInvalidValue;
-  a.halo = halo_keep >= 0;
-  a.keep_lo = halo_keep >= 0 && (halo_keep & 1);
-  a.keep_hi = halo_keep >= 0 && (halo_keep & 2);
-  a.dsrc = dsrc;
-  a.x1 = x1; a.x2 = x2; a.w = w; a.bias = bias; a.scale = scale;
-  a.shift = shift; a.wr = wr;
-  a.br = br; a.y = y; a.r = r; a.part = part; a.rpart = rpart; a.ws = ws;
-  a.c1 = c1; a.c2 = c2; a.pro_act = pro_act;
-  a.stats_rounded = stats_rounded;
-  if (a.split > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      a.rw == 8 ? launch_mode<8, T>(a, s) : launch_mode<5, T>(a, s);
-  if (err != cudaSuccess || a.split == 1) return (int)err;
-  const long long m_out = (long long)a.Do * a.Ho * a.Wo;
-  const unsigned nb = (unsigned)((m_out + REDUCE_ROWS - 1) / REDUCE_ROWS);
-  conv3_split_sum<T><<<nb, 256, 0, s>>>(a.ws, a.split, m_out, a.co, a.bias,
-                                        static_cast<T*>(a.y), a.part,
-                                        stats_rounded);
-  if (a.r != nullptr)
-    conv3_split_sum<T><<<nb, 256, 0, s>>>(a.ws + a.split * m_out * a.co,
-                                          a.split, m_out, a.co, a.br,
-                                          static_cast<T*>(a.r), a.rpart,
-                                          stats_rounded);
-  return (int)cudaGetLastError();
+  return launch_brick<RW, 3>(a, stream);                 // W parity 1
 }
 
 }  // namespace
@@ -837,7 +628,7 @@ M3SEG_API int m3seg_conv3_plan(int D, int H, int W, int ci, int co,
   if (D <= 0 || H <= 0 || W <= 0 || ci <= 0 || co <= 0 || mode < 0 ||
       mode > 2 || plan == nullptr)
     return (int)cudaErrorInvalidValue;
-  Conv3Args a = geometry(D, H, W, ci, co, mode);
+  Conv3Args a = geometry<Conv3Args>(D, H, W, ci, co, mode);
   if (!planned(a, plan)) return (int)cudaErrorInvalidValue;
   fill_plan(a, plan);
   return 0;
@@ -863,26 +654,25 @@ M3SEG_API int m3seg_conv3(const float* x1, const float* x2, const float* w,
                           int D, int H, int W, int c1, int c2, int co,
                           int mode, const int* plan, int halo_keep, int dsrc,
                           void* stream) {
-  return entry<float>(x1, x2, w, bias, scale, shift, pro_act, wr, br, y, r,
-                      part, rpart, ws, D, H, W, c1, c2, co, mode, plan,
-                      halo_keep, dsrc, 0, stream);
-}
-
-// The bf16 instance: x1, x2, y and r bf16 (2-byte aligned; y and r 8-byte
-// aligned), everything else as above. Mode 1 (stride 2) takes the moment
-// partials of the rounded outputs instead of their fp32 values: the
-// reference's down conv reads its GroupNorm moments from its decimated
-// bf16 volume.
-M3SEG_API int m3seg_conv3_bf16(const void* x1, const void* x2,
-                               const float* w, const float* bias,
-                               const float* scale, const float* shift,
-                               int pro_act, const float* wr, const float* br,
-                               void* y, void* r, float* part, float* rpart,
-                               float* ws, int D, int H, int W, int c1,
-                               int c2, int co, int mode, const int* plan,
-                               int halo_keep, int dsrc, void* stream) {
-  return entry<__nv_bfloat16>(x1, x2, w, bias, scale, shift, pro_act, wr,
-                              br, y, r, part, rpart, ws, D, H, W, c1, c2,
-                              co, mode, plan, halo_keep, dsrc, mode == 1,
-                              stream);
+  if (!args_ok(x2, scale, shift, wr, r, part, rpart, D, H, W, c1, c2, co,
+               mode, pro_act, plan, halo_keep, dsrc))
+    return (int)cudaErrorInvalidValue;
+  Conv3Args a = geometry<Conv3Args>(D, H, W, c1 + c2, co, mode);
+  if (!planned(a, plan)) return (int)cudaErrorInvalidValue;
+  a.halo = halo_keep >= 0;
+  a.keep_lo = halo_keep >= 0 && (halo_keep & 1);
+  a.keep_hi = halo_keep >= 0 && (halo_keep & 2);
+  a.dsrc = dsrc;
+  a.x1 = x1; a.x2 = x2; a.w = w; a.bias = bias; a.scale = scale;
+  a.shift = shift; a.wr = wr;
+  a.br = br; a.y = y; a.r = r; a.part = part; a.rpart = rpart; a.ws = ws;
+  a.c1 = c1; a.c2 = c2; a.pro_act = pro_act;
+  if (a.split > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      a.rw == 8 ? launch_mode<8>(a, s) : launch_mode<5>(a, s);
+  if (err != cudaSuccess || a.split == 1) return (int)err;
+  return (int)launch_split_sum<float>(
+      a.ws, a.split, (long long)a.Do * a.Ho * a.Wo, a.co, REDUCE_ROWS,
+      a.bias, a.y, a.part, a.br, a.r, a.rpart, 0, s);
 }

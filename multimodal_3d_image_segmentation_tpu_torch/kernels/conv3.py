@@ -47,26 +47,33 @@ kernel's oracle and the CPU path. Under autograd ``conv3`` is a
 
 Instances (``instance``), chosen by the dtypes of the volume and the conv
 weight, as the reference's precision classes (``_dot_f32``): 'float32'
-(both fp32, its 'highest' and 'bf16x3', exact fp32 products); 'bfloat16'
-(x bf16, weight bf16: the reference's 'native', bf16 operands and fp32
-sums) and 'mixed' (x bf16, weight fp32: a bf16 activation times an fp32
-weight island, which the reference splits hi/lo for its MXU). In both bf16
-instances the input is widened to fp32, the prologue runs in fp32 and its
-output, the product's activation operand, is rounded to bf16; the products
-are summed in fp32 and the bias (bf16 values in 'bfloat16', or fp32) is
-added in fp32; y and r are written as bf16, and the moment sums are fp32
-sums of the fp32 values before that rounding; at stride 2 they are sums of
-the rounded outputs, as the reference's down conv takes its GroupNorm
-moments from its decimated bf16 volume. The weights, biases, scale and shift may come in bf16 or
-fp32; the kernel reads them widened to fp32. The plain twin of a bf16
-instance (``conv3_plain`` on a bf16 x) computes in fp32 from the bf16
-values and rounds where the kernel rounds; ``acc=float64`` sums in float64
-instead (the precision gate's twins64 path). The bf16 instances serve only:
-a forward that autograd would record raises (ROADMAP item 12).
+(both fp32, its 'highest' and 'bf16x3', exact fp32 products; the FMA body,
+``csrc/conv3.cu``); 'bfloat16' (x bf16, weight bf16: the reference's
+'native', one bf16 pass with fp32 sums) and 'mixed' (x bf16, weight fp32:
+the reference's 'mixed', the weight split into bf16 hi and lo parts,
+``hi_lo``, two passes summed in fp32). Both bf16 instances run the
+tensor-core body (``csrc/conv3_mma.cu``, plan ``conv3_mma_plan``) on the
+weights ``mma_weight`` packs once per weight version. In both the input is
+widened to fp32, the prologue runs in fp32 and its output, the product's
+activation operand, is rounded to bf16; the products are summed in fp32
+and the bias (bf16 values in 'bfloat16', or fp32) is added in fp32; y and
+r are written as bf16, and the moment sums are fp32 sums of the fp32
+values before that rounding; at stride 2 they are sums of the rounded
+outputs, as the reference's down conv takes its GroupNorm moments from its
+decimated bf16 volume. The residual tap's weight takes its own dtype's
+passes. The biases, scale and shift may come in bf16 or fp32; the kernel
+reads them widened to fp32. The plain twin of a bf16 instance
+(``conv3_plain`` on a bf16 x) computes in fp32 from the bf16 values (an
+fp32 weight exactly, where the kernel's hi + lo carries its first 16
+significant bits) and rounds where the kernel rounds; ``acc=float64``
+sums in float64 instead (the precision gate's twins64 path). The bf16
+instances serve only: a forward that autograd would record raises
+(ROADMAP item 12).
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -78,8 +85,9 @@ from . import _build
 from ._common import instance
 
 __all__ = ["conv3", "conv3_plain", "conv3_out_size", "conv3_plan",
-           "flat_call", "packed_weight", "instance", "INSTANCES",
-           "KERNEL_ACTS", "PLAN_FIELDS"]
+           "conv3_mma_plan", "flat_call", "hi_lo", "mma_weight",
+           "packed_weight", "instance", "INSTANCES", "KERNEL_ACTS",
+           "MMA_PLAN_FIELDS", "PLAN_FIELDS"]
 
 # prologue activation -> the kernel's code
 KERNEL_ACTS = {None: 0, "none": 0, "elu": 1, "selu": 2, "relu": 3}
@@ -297,35 +305,62 @@ def _check_args(x, weight, bias, x2, prologue, prologue_act, residual,
                              f"{x.shape[1]} (x's planes)")
 
 
-# fields of the kernel's launch plan (``csrc/conv3.cu``, ``PlanField``)
+# fields of the FMA body's launch plan (``csrc/conv3.cu``, ``PlanField``)
 PLAN_FIELDS = ("rw", "bd", "bh", "nrw", "cot", "ck", "split", "n_part",
                "threads", "smem", "pw", "pl", "blocks", "conflict")
+# the tensor-core body's (``csrc/conv3_mma.cu``): M tiles a warp, brick
+# depth, height and width, warps along N (24 channels each), chunk, split;
+# then as above (the split and the partials' rows at the same places)
+MMA_PLAN_FIELDS = ("tm", "bd", "bh", "bw", "wn", "ck", "split", "n_part",
+                   "threads", "smem", "pw", "pl", "blocks", "conflict")
 P_SPLIT, P_NPART = PLAN_FIELDS.index("split"), PLAN_FIELDS.index("n_part")
+assert (MMA_PLAN_FIELDS.index("split"), MMA_PLAN_FIELDS.index("n_part")) \
+    == (P_SPLIT, P_NPART)
 _PLANS = {}
+
+
+def _plan(entry, fields, shape, choice):
+    """``entry``'s launch plan for the int arguments ``shape``, cached."""
+    key = (entry, tuple(shape),
+           None if choice is None else tuple(int(c) for c in choice))
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = (ctypes.c_int * len(fields))()
+        if choice is not None:
+            plan[:len(choice)] = list(key[2])
+        rc = getattr(_build.library().cdll, entry)(
+            *(int(n) for n in key[1]), plan)
+        if rc != 0:
+            raise ValueError(f"conv3: no launch plan for {key[1]}, "
+                             f"choice={choice} ({entry})")
+        _PLANS[key] = plan
+    return plan
 
 
 def conv3_plan(sizes: Sequence[int], ci: int, co: int, mode: int,
                choice: Optional[Sequence[int]] = None):
-    """The kernel's launch plan for a ``sizes`` = (D, H, W) input with
-    ``ci`` channels, ``co`` outputs and ``mode`` (0 stride 1, 1 stride 2,
-    2 dilation 2): a ctypes int array of ``PLAN_FIELDS``. The planner
-    chooses it once per shape (cached); ``choice`` gives the first seven
-    fields instead (W run, brick depth and height, runs along W, channel
-    tile, chunk, split), as a sweep does. Raises where no plan fits."""
-    key = (tuple(int(n) for n in sizes), int(ci), int(co), int(mode),
-           None if choice is None else tuple(int(c) for c in choice))
-    plan = _PLANS.get(key)
-    if plan is None:
-        plan = (ctypes.c_int * len(PLAN_FIELDS))()
-        if choice is not None:
-            plan[:len(choice)] = list(key[4])
-        rc = _build.library().cdll.m3seg_conv3_plan(*key[0], ci, co, mode,
-                                                    plan)
-        if rc != 0:
-            raise ValueError(f"conv3: no launch plan for {key[0]}, ci={ci}, "
-                             f"co={co}, mode={mode}, choice={choice}")
-        _PLANS[key] = plan
-    return plan
+    """The FMA body's launch plan (the 'float32' instance) for a ``sizes``
+    = (D, H, W) input with ``ci`` channels, ``co`` outputs and ``mode`` (0
+    stride 1, 1 stride 2, 2 dilation 2): a ctypes int array of
+    ``PLAN_FIELDS``. The planner chooses it once per shape (cached);
+    ``choice`` gives the first seven fields instead (W run, brick depth and
+    height, runs along W, channel tile, chunk, split), as a sweep does.
+    Raises where no plan fits."""
+    return _plan("m3seg_conv3_plan", PLAN_FIELDS,
+                 (*sizes, ci, co, mode), choice)
+
+
+def conv3_mma_plan(sizes: Sequence[int], ci: int, co: int, mode: int,
+                   choice: Optional[Sequence[int]] = None, passes: int = 1):
+    """The tensor-core body's launch plan (the 'bfloat16' and 'mixed'
+    instances), as ``conv3_plan``: a ctypes int array of
+    ``MMA_PLAN_FIELDS``; ``choice`` gives M tiles a warp (2 or 4), brick
+    depth, height and width (a multiple of 8), warps along N, chunk (a
+    multiple of 16 up to 96, or all of ci up to 96) and split (the chunks:
+    each runs on blocks of its own); ``passes``: the weight's, 1 ('bfloat16')
+    or 2 ('mixed': hi and lo), by which the planner sizes its blocks."""
+    return _plan("m3seg_conv3_mma_plan", MMA_PLAN_FIELDS,
+                 (*sizes, ci, co, mode, passes), choice)
 
 
 def _kept(t: torch.Tensor, name: str, make) -> torch.Tensor:
@@ -345,9 +380,8 @@ def _kept(t: torch.Tensor, name: str, make) -> torch.Tensor:
 
 
 def packed_weight(weight: torch.Tensor) -> torch.Tensor:
-    """(co, ci, 3, 3, 3) -> the kernel's (27 * ci, co) fp32 layout, row
-    ((kz*3+ky)*3+kx)*ci + c (a bf16 weight widened: its values exactly),
-    kept per weight version and dtype (``_kept``)."""
+    """(co, ci, 3, 3, 3) -> the FMA body's (27 * ci, co) fp32 layout, row
+    ((kz*3+ky)*3+kx)*ci + c, kept per weight version (``_kept``)."""
     co, ci = weight.shape[:2]
     return _kept(weight, "_m3seg_conv3_packed",
                  lambda w: w.permute(2, 3, 4, 1, 0).reshape(27 * ci, co).to(
@@ -360,6 +394,52 @@ def _widened(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     if t is None or t.dtype == torch.float32:
         return t
     return _kept(t, "_m3seg_conv3_fp32", lambda v: v.float())
+
+
+def hi_lo(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 -> (bf16 hi, bf16 lo), the reference's mantissa split
+    (``kernels/_common.py::hi_lo``): hi + lo carries w's first 16
+    significant bits. A bf16 w gives lo = 0."""
+    hi = w.to(_BF16)
+    return hi, (w.float() - hi.float()).to(_BF16)
+
+
+def _fragments(b: torch.Tensor) -> torch.Tensor:
+    """(taps, K, N) bf16 B matrices -> mma.sync's B fragments, K padded to
+    16 and N to 24 (a warp's three n8 tiles) with zeros: (taps, K/16, N/8,
+    8, 4, 2, 2), element [tap, ks, nt, g, t, half, j] = b[tap, 16 ks + 8
+    half + 2 t + j, 8 nt + g], so lane 4g + t of a warp loads its two
+    registers of n8 tile nt, k16 step ks as 8 contiguous bytes."""
+    taps, k, n = b.shape
+    kp, np_ = -(-k // 16) * 16, -(-n // 24) * 24
+    b = F.pad(b, (0, np_ - n, 0, kp - k))
+    f = b.reshape(taps, kp // 16, 2, 4, 2, np_ // 8, 8)
+    return f.permute(0, 1, 5, 6, 3, 2, 4).contiguous()
+
+
+def _passes(b: torch.Tensor) -> torch.Tensor:
+    """(taps, K, N) -> the passes' fragments stacked: a bf16 b its values
+    (one pass), an fp32 b its hi and lo parts (two)."""
+    parts = (b,) if b.dtype == _BF16 else hi_lo(b.float())
+    return torch.stack([_fragments(p) for p in parts])
+
+
+def mma_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(co, ci, 3, 3, 3) -> the tensor-core body's packed weight: (passes,
+    27, ceil(ci/16), 3 ceil(co/24), 8, 4, 2, 2) bf16 (``_fragments`` of each
+    tap's (ci, co) matrix, tap (kz*3+ky)*3+kx); one pass of a bf16
+    weight's values, two of an fp32 weight's hi and lo parts; kept per
+    weight version and dtype (``_kept``)."""
+    co, ci = weight.shape[:2]
+    return _kept(weight, "_m3seg_conv3_mma", lambda w: _passes(
+        w.permute(2, 3, 4, 1, 0).reshape(27, ci, co)))
+
+
+def mma_res_weight(wr: torch.Tensor) -> torch.Tensor:
+    """The residual tap's (co, ci) weight packed as ``mma_weight``'s one
+    tap: (passes, 1, ceil(ci/16), 3 ceil(co/24), 8, 4, 2, 2)."""
+    return _kept(wr, "_m3seg_conv3_mma_res", lambda w: _passes(
+        w.t().unsqueeze(0)))
 
 
 def _conv3_plain_flat(x, x2, weight, bias, scale, shift, res_weight,
@@ -401,12 +481,21 @@ def flat_call(x, weight, bias, *, x2=None, prologue=None, residual=None,
     return [flat[i] for i in present], bind
 
 
+_MODES = {(1, 1): 0, (2, 1): 1, (1, 2): 2}  # (stride, dilation) -> mode
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _conv3_forward(x, x2, weight, bias, scale, shift, res_weight, res_bias,
                    prologue_act, emit_stats, stride, dilation, halo_keep,
-                   dilated_depth):
+                   dilated_depth, key=None):
     """The kernel on CUDA tensors, ``conv3_plain`` on CPU ones (the
     arguments already checked), over ``_Conv3``'s flat argument list;
-    ``halo_keep`` is the halo mode's (keep_first, keep_last) or None."""
+    ``halo_keep`` is the halo mode's (keep_first, keep_last) or None. A bf16
+    instance launches through its launch record (``_make_record``), kept
+    under ``key`` where one is given."""
     if x.device.type == "cpu":
         return _conv3_plain_flat(x, x2, weight, bias, scale, shift,
                                  res_weight, res_bias, prologue_act,
@@ -415,21 +504,17 @@ def _conv3_forward(x, x2, weight, bias, scale, shift, res_weight, res_bias,
     dev = x.device
     inst = instance(x, weight)
     bf16 = inst != "float32"
-    tensors = {"x": (x, 5), "weight": (weight, 5), "bias": (bias, 1)}
-    if x2 is not None:
-        tensors["x2"] = (x2, 5)
-    if scale is not None:
-        tensors.update(scale=(scale, 1), shift=(shift, 1))
-    if res_weight is not None:
-        tensors.update(res_weight=(res_weight, 2), res_bias=(res_bias, 1))
-    for name, (t, nd) in tensors.items():
-        # a bf16 instance takes its volumes bf16 and the rest bf16 or fp32
-        dtype = (_BF16 if name in ("x", "x2") or t.dtype == _BF16
-                 else torch.float32) if bf16 else torch.float32
-        _build.check_cuda_input(name, t, dev, nd, dtype)
-    if bf16:  # the kernel reads the weight-side vectors as fp32
-        bias, scale, shift, res_weight, res_bias = map(
-            _widened, (bias, scale, shift, res_weight, res_bias))
+    f32 = torch.float32
+    for name, t, nd in (("x", x, 5), ("weight", weight, 5), ("bias", bias, 1),
+                        ("x2", x2, 5), ("scale", scale, 1),
+                        ("shift", shift, 1), ("res_weight", res_weight, 2),
+                        ("res_bias", res_bias, 1)):
+        if t is not None:
+            # a bf16 instance takes its volumes bf16 and the rest bf16 or
+            # fp32
+            _build.check_cuda_input(name, t, dev, nd, (
+                _BF16 if name in ("x", "x2") or t.dtype == _BF16 else f32)
+                if bf16 else f32)
     c1, c2 = x.shape[-1], 0 if x2 is None else x2.shape[-1]
     ci, co = c1 + c2, weight.shape[0]
     if c1 % 4 or c2 % 4 or co % 4:
@@ -437,10 +522,20 @@ def _conv3_forward(x, x2, weight, bias, scale, shift, res_weight, res_bias,
                          f"multiples of 4 (c1={c1}, c2={c2}, co={co})")
     if x.numel() == 0:
         raise ValueError("empty input")
-    if any(t.data_ptr() % 16 for t in (x, x2) if t is not None):
+    x_ptr, x2_ptr = x.data_ptr(), _ptr(x2)
+    if x_ptr % 16 or (x2_ptr or 0) % 16:
         raise ValueError("conv3 kernel needs 16-byte aligned inputs")
 
-    d, h, w = x.shape[1:4]
+    if bf16:
+        rec = _make_record(x, x2, weight, bias, res_weight, res_bias,
+                           prologue_act, emit_stats, stride, dilation,
+                           halo_keep, dilated_depth)
+        if key is not None:
+            if len(_RECORDS) >= _MAX_RECORDS:
+                _RECORDS.clear()
+            _RECORDS[key] = rec
+        return rec(x, x2, scale, shift)
+    _, d, h, w = x.shape[:4]
     halo = halo_keep is not None
     if halo:  # the kernel's depth is the interior's
         d -= 2
@@ -449,38 +544,144 @@ def _conv3_forward(x, x2, weight, bias, scale, shift, res_weight, res_bias,
         d = 2 * dsrc
     out_sz = conv3_out_size((d, h, w), stride, dilation)
     y = torch.empty((1,) + out_sz + (co,), dtype=x.dtype, device=dev)
-    r = torch.empty_like(y) if res_weight is not None else None
-    w_packed = packed_weight(weight)
-    mode = {(1, 1): 0, (2, 1): 1, (1, 2): 2}[(stride, dilation)]
+    r = None if res_weight is None else torch.empty_like(y)
+    mode = _MODES[(stride, dilation)]
     plan = conv3_plan((d, h, w), ci, co, mode)
     part = rpart = ws = None
     if emit_stats:
         part = torch.empty((plan[P_NPART], 2, co), dtype=torch.float32,
                            device=dev)
-        if res_weight is not None:
+        if r is not None:
             rpart = torch.empty_like(part)
     if plan[P_SPLIT] > 1:  # the chunks split over blocks: partial sums
-        n_ws = plan[P_SPLIT] * (2 if res_weight is not None else 1)
-        ws = torch.empty((n_ws,) + y.shape[1:], dtype=torch.float32,
-                         device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    args = (x.data_ptr(), ptr(x2), w_packed.data_ptr(), bias.data_ptr(),
-            ptr(scale), ptr(shift), KERNEL_ACTS[prologue_act],
-            ptr(res_weight), ptr(res_bias), y.data_ptr(), ptr(r), ptr(part),
-            ptr(rpart), ptr(ws), d, h, w, c1, c2, co, mode, plan,
-            halo_keep[0] | 2 * halo_keep[1] if halo else -1, dsrc)
-    name = (HALO_KERNEL if halo else "conv3") + INSTANCES[inst][1]
-    _build.launch(name, "m3seg_conv3_bf16" if bf16 else "m3seg_conv3", dev,
-                  *args)
-    outs = [y] + ([r] if r is not None else [])
+        ws = torch.empty((plan[P_SPLIT] * (1 if r is None else 2),)
+                         + y.shape[1:], dtype=torch.float32, device=dev)
+    _build.launch(HALO_KERNEL if halo else "conv3", "m3seg_conv3", dev, x_ptr,
+                  x2_ptr, packed_weight(weight).data_ptr(), bias.data_ptr(),
+                  _ptr(scale), _ptr(shift), KERNEL_ACTS[prologue_act],
+                  _ptr(res_weight), _ptr(res_bias), y.data_ptr(), _ptr(r),
+                  _ptr(part), _ptr(rpart), _ptr(ws), d, h, w, c1, c2, co,
+                  mode, plan, halo_keep[0] | 2 * halo_keep[1] if halo else -1,
+                  dsrc)
+    outs = [y] if r is None else [y, r]
     if emit_stats:
         # the per-block partials, summed in float64 in a fixed order
         outs += [p.sum(0, dtype=torch.float64).float()
                  for p in (part, rpart) if p is not None]
     return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+# The bf16 instances' CUDA calls by signature (``_signature``): what a
+# call's launch derives from shapes, options and the weight-side tensors,
+# made once after the call has passed every check, so that a serving
+# forward's repeat calls spend their host time on the launch. A record
+# holds its weight-side tensors weakly and serves only while they are the
+# very tensors it was made from (an id and a storage can be reused once a
+# tensor is freed); their packed and widened forms stay kept on them
+# (``_kept``). Cleared past _MAX_RECORDS.
+_RECORDS = {}
+_MAX_RECORDS = 512
+
+
+def _weight_key(t):
+    """A weight-side tensor's identity (object, version, storage, dtype,
+    shape), or None where it cannot be kept: an inference tensor has no
+    version counter."""
+    if t is None:
+        return ()
+    if t.is_inference():
+        return None
+    return id(t), t._version, t.data_ptr(), t.dtype, t.shape
+
+
+def _signature(x, weight, bias, x2, prologue, prologue_act, residual,
+               emit_stats, stride, dilation, precision, dilated_depth, halo,
+               halo_keep):
+    """The key of a bf16 call's launch record, or None (not kept)."""
+    ws = [_weight_key(t) for t in (weight, bias) + (residual or (None,))]
+    if None in ws:
+        return None
+    return (x.shape, x.device, None if x2 is None else (x2.shape, x2.dtype),
+            None if prologue is None else tuple(
+                (t.shape, t.dtype) for t in prologue),
+            *ws, prologue_act, bool(emit_stats), stride, dilation, precision,
+            dilated_depth, halo, _keep_flags(halo_keep) if halo else None)
+
+
+def _make_record(x, x2, weight, bias, res_weight, res_bias, prologue_act,
+                 emit_stats, stride, dilation, halo_keep, dilated_depth):
+    """A checked bf16 call's launch record: a function of its input
+    tensors (x, x2, scale, shift) that checks where they lie, makes the
+    outputs and launches, as ``_conv3_forward`` does."""
+    dev = x.device
+    wp = mma_weight(weight)
+    rp = None if res_weight is None else mma_res_weight(res_weight)
+    bias32, res_bias32 = _widened(bias), _widened(res_bias)
+    c1, c2 = x.shape[-1], 0 if x2 is None else x2.shape[-1]
+    co = weight.shape[0]
+    _, d, h, w = x.shape[:4]
+    if halo_keep is not None:
+        d -= 2
+    dsrc = 0 if dilated_depth is None else dilated_depth
+    if dsrc:
+        d = 2 * dsrc
+    geom = (d, h, w, c1, c2, co, _MODES[(stride, dilation)])
+    out_shape = (1,) + conv3_out_size((d, h, w), stride, dilation) + (co,)
+    plan = conv3_mma_plan(geom[:3], c1 + c2, co, geom[6],
+                          passes=wp.shape[0])
+    n_out = 1 if rp is None else 2
+    n_part = plan[P_NPART] * 2 * co  # floats of one output's partials
+    ws_shape = ((plan[P_SPLIT] * n_out,) + out_shape[1:]
+                if plan[P_SPLIT] > 1 else None)
+    name = ((HALO_KERNEL if halo_keep is not None else "conv3")
+            + INSTANCES[instance(x, weight)][1])
+    head = (wp.data_ptr(), wp.shape[0], bias32.data_ptr())
+    act = KERNEL_ACTS[prologue_act]
+    res = (_ptr(rp), 0 if rp is None else rp.shape[0], _ptr(res_bias32))
+    tail = (*geom, plan,
+            -1 if halo_keep is None else halo_keep[0] | 2 * halo_keep[1],
+            dsrc)
+    f32 = torch.float32
+
+    def launch(x, x2, scale, shift):
+        for label, t in (("x", x), ("x2", x2), ("scale", scale),
+                         ("shift", shift)):
+            if t is not None and (t.device != dev or not t.is_contiguous()):
+                _build.check_cuda_input(label, t, dev, t.dim(), t.dtype)
+        x_ptr, x2_ptr = x.data_ptr(), _ptr(x2)
+        if x_ptr % 16 or (x2_ptr or 0) % 16:
+            raise ValueError("conv3 kernel needs 16-byte aligned inputs")
+        y = torch.empty(out_shape, dtype=_BF16, device=dev)
+        r = None if n_out == 1 else torch.empty_like(y)
+        part = rpart = mom = rmom = ws = scratch = None
+        if emit_stats:  # the scratch lives until the launch is issued
+            scratch = torch.empty(n_out * n_part, dtype=f32, device=dev)
+            part = scratch.data_ptr()
+            if n_out == 1:
+                mom = torch.empty((2, co), dtype=f32, device=dev)
+            else:
+                mom, rmom = torch.empty((2, 2, co), dtype=f32,
+                                        device=dev).unbind(0)
+                rpart = part + 4 * n_part
+        if ws_shape is not None:
+            ws = torch.empty(ws_shape, dtype=f32, device=dev)
+        _build.launch(name, "m3seg_conv3_bf16", dev, x_ptr, x2_ptr, *head,
+                      _ptr(_widened(scale)), _ptr(_widened(shift)), act,
+                      *res, y.data_ptr(), _ptr(r), part, rpart, _ptr(mom),
+                      _ptr(rmom), _ptr(ws), *tail)
+        outs = (y,) if r is None else (y, r)
+        if emit_stats:
+            outs += (mom,) if r is None else (mom, rmom)
+        return outs[0] if len(outs) == 1 else outs
+
+    refs = [weakref.ref(t) for t in (weight, bias, res_weight, res_bias)
+            if t is not None]
+
+    def owns(*ts):
+        return all(r() is t for r, t in zip(refs, ts))
+
+    launch.owns = owns
+    return launch
 
 
 class _Conv3(torch.autograd.Function):
@@ -549,10 +750,20 @@ def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
         pass on fp32 volumes and a bf16 instance that autograd would
         record raise ``NotImplementedError`` naming their ROADMAP item.
     """
-    _check_args(x, weight, bias, x2, prologue, prologue_act, residual,
-                stride, dilation, precision, dilated_depth, halo, halo_keep)
     scale, shift = prologue if prologue is not None else (None, None)
     res_weight, res_bias = residual if residual is not None else (None, None)
+    key = None
+    if x.dtype == _BF16 and x.is_cuda and not _build.needs_grad(
+            *(t for t in (x, x2, weight, bias, scale, shift, res_weight,
+                          res_bias) if t is not None)):
+        key = _signature(x, weight, bias, x2, prologue, prologue_act,
+                         residual, emit_stats, stride, dilation, precision,
+                         dilated_depth, halo, halo_keep)
+        rec = _RECORDS.get(key) if key is not None else None
+        if rec is not None and rec.owns(weight, bias, *(residual or ())):
+            return rec(x, x2, scale, shift)  # a call seen and checked before
+    _check_args(x, weight, bias, x2, prologue, prologue_act, residual,
+                stride, dilation, precision, dilated_depth, halo, halo_keep)
     args = (x, x2, weight, bias, scale, shift, res_weight, res_bias,
             prologue_act, bool(emit_stats), stride, dilation,
             _keep_flags(halo_keep) if halo else None,
@@ -562,4 +773,4 @@ def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
             not_ported(f"training conv3's {instance(x, weight)!r} instance "
                        "(serve under torch.no_grad or inference_mode)", 12)
         return _Conv3.apply(*args)
-    return _conv3_forward(*args)
+    return _conv3_forward(*args, key=key)

@@ -4,18 +4,30 @@ a GPU.
 Usage, from the root of a checkout, on a machine with a CUDA card::
 
     python -m multimodal_3d_image_segmentation_tpu_torch.utils.conv3_sweep \\
-        [--search] [--json conv3_sweep.json] [--save DIR] [--compare DIR]
+        [--instance float32|bfloat16|mixed] [--search] [--library] \\
+        [--json conv3_sweep.json] [--save DIR] [--compare DIR]
 
 Builds V-Net-DS (base 24, blocks [1,2,3,3,3], right leg [0..4]) with
-seeded random weights, records every conv3 call of one kernel-path forward
-of a seeded random 4x240x240x155 volume with its real inputs, and for each
-call holds the planner's plan to ``conv3_plain`` (1e-4 of the output's
-largest magnitude) and times it: CUDA events around 20 back-to-back calls,
-after 3 warm-up calls, the median of 5 such runs. With ``--search`` it
-also searches each distinct call's plan field by field (W run and runs
-along W, brick depth and height, channel tile, chunk, split; two rounds),
-holding every candidate to the plain version, and prints the best plan
-beside the planner's. ``--save DIR`` writes every call's outputs there
+seeded random weights in ``--instance``'s compute dtype (default
+'float32': the FMA body, ``csrc/conv3.cu``; 'bfloat16' and 'mixed': the
+tensor-core body, ``csrc/conv3_mma.cu``), records every conv3 call of one
+kernel-path forward of a seeded random 4x240x240x155 volume with its real
+inputs, and for each call holds the planner's plan to ``conv3_plain``
+(fp32: 1e-4 of the output's largest magnitude; bf16: one bf16 ulp plus
+1e-5, at most 1e-3 of the elements more than one ulp apart) and times it:
+CUDA events around 20 back-to-back calls, after 3 warm-up calls, the
+median of 5 such runs. With ``--search`` it also searches each distinct
+call's plan field by field (the FMA body: W run and runs along W, brick
+depth and height, channel tile, chunk, split; the tensor-core body: M
+tiles a warp, brick, warps along N, chunk and with it the split; two
+rounds), holding
+every candidate to the plain version, and prints the best plan beside the
+planner's. ``--library`` also times one PyTorch call of the same conv +
+bias (``F.conv3d`` or ``F.conv_transpose3d``, cuDNN, in the instance's
+weight dtype: bf16 in 'bfloat16' and 'mixed') the same way, and both as
+``torch.profiler`` device time a call (the kernels of 10 back-to-back
+calls), so that a call's host time shows beside its device time. ``--save
+DIR`` writes every call's outputs there
 (``torch.save``); ``--compare DIR`` loads another run's and checks them bit
 for bit. Prints the card's name and power limit first.
 
@@ -51,6 +63,12 @@ SHAPE = (240, 240, 155)
 N_INNER, N_RUNS = 20, 5
 
 
+# instance -> the plan function and fields of the body it runs
+PLAN_API = {"float32": ("conv3_plan", "PLAN_FIELDS"),
+            "bfloat16": ("conv3_mma_plan", "MMA_PLAN_FIELDS"),
+            "mixed": ("conv3_mma_plan", "MMA_PLAN_FIELDS")}
+
+
 def record_calls(model, x):
     """Every conv3 call of one kernel-path forward, with its real inputs."""
     calls, real = [], architectures.conv3
@@ -83,18 +101,28 @@ def describe(args, kw):
     return f"{sizes} ci {ci} co {co} {'+'.join(opts) or 'bare'}"
 
 
-def with_choice(choice, fn):
-    """Run ``fn`` with conv3's plan fields forced to ``choice``."""
-    real = conv3_mod.conv3_plan
+def _instance(args):
+    """The instance a recorded call runs (its volume's and weight's
+    dtypes)."""
+    if args[0].dtype == torch.float32:
+        return "float32"
+    return "bfloat16" if args[1].dtype == torch.bfloat16 else "mixed"
 
-    def forced(sizes, ci, co, mode, _=None):
-        return real(sizes, ci, co, mode, choice)
 
-    conv3_mod.conv3_plan = forced
+def with_choice(choice, fn, instance="float32"):
+    """Run ``fn`` with the plan fields of ``instance``'s body forced to
+    ``choice``."""
+    name = PLAN_API[instance][0]
+    real = getattr(conv3_mod, name)
+
+    def forced(sizes, ci, co, mode, _=None, **kw):
+        return real(sizes, ci, co, mode, choice, **kw)
+
+    setattr(conv3_mod, name, forced)
     try:
         return fn()
     finally:
-        conv3_mod.conv3_plan = real
+        setattr(conv3_mod, name, real)
 
 
 def gpu_ms(fn):
@@ -115,21 +143,35 @@ def gpu_ms(fn):
     return float(np.median(runs))
 
 
+def _within(got, want):
+    """Whether one output meets its instance's bar (module docstring)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if got.dtype != torch.bfloat16:
+        return np.isfinite(float(d.max())) and float(d.max()) <= 1e-4 * max(
+            1.0, float(w.abs().max()))
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    share = float((d > torch.exp2(torch.floor(torch.log2(mag)) - 7))
+                  .float().mean())
+    return bool((d <= 2.0 ** -7 * w.abs() + 1e-5).all()) and share <= 1e-3
+
+
 def held(args, kw, choice=None):
-    """The kernel's outputs against the plain version's; raises beyond
-    1e-4 of the largest magnitude. Returns the kernel's outputs."""
+    """The kernel's outputs against the plain version's; raises beyond the
+    instance's bar. Returns the kernel's outputs."""
     def kern():
         return kernels.conv3(*args, **kw)
-    got = kern() if choice is None else with_choice(choice, kern)
+    got = kern() if choice is None else with_choice(choice, kern,
+                                                    _instance(args))
     want = kernels.conv3_plain(*args, **kw)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     n_out = 2 if kw.get("residual") is not None else 1
     for g, wt in zip(got[:n_out], want[:n_out]):
-        err = float((g - wt).abs().max())
-        tol = 1e-4 * max(1.0, float(wt.abs().max()))
-        if not (np.isfinite(err) and err <= tol):
-            raise RuntimeError(f"conv3 plan {choice}: err {err} > {tol}")
+        if not _within(g, wt):
+            err = float((g.float() - wt.float()).abs().max())
+            raise RuntimeError(f"conv3 plan {choice}: err {err} beyond the "
+                               "bar")
     return got
 
 
@@ -138,20 +180,56 @@ def timed(args, kw, choice=None):
         return kernels.conv3(*args, **kw)
     if choice is None:
         return gpu_ms(kern)
-    return with_choice(choice, lambda: gpu_ms(kern))
+    return with_choice(choice, lambda: gpu_ms(kern), _instance(args))
 
 
 def plan_fields(args, kw, choice=None):
-    if not hasattr(conv3_mod, "conv3_plan"):  # a checkout without a planner
+    name, fields = PLAN_API[_instance(args)]
+    if not hasattr(conv3_mod, name):  # a checkout without that planner
         return {}
     sizes, ci, co, mode = call_key(args, kw)
-    plan = conv3_mod.conv3_plan(sizes, ci, co, mode, choice)
-    return dict(zip(conv3_mod.PLAN_FIELDS, plan))
+    extra = {}
+    if name == "conv3_mma_plan":  # its blocks follow the weight's passes
+        extra["passes"] = 1 if args[1].dtype == torch.bfloat16 else 2
+    plan = getattr(conv3_mod, name)(sizes, ci, co, mode, choice, **extra)
+    return dict(zip(getattr(conv3_mod, fields), plan))
+
+
+FIELDS = {"float32": ("run", "brick", "tile", "chunk", "split"),
+          "mma": ("tm", "brick", "tile", "chunk")}
+
+
+def library_call(args, kw):
+    """One PyTorch call of the same conv + bias on the call's operands."""
+    import torch.nn.functional as F
+    xin = args[0] if kw.get("x2") is None else torch.cat([args[0], kw["x2"]],
+                                                         -1)
+    xcf = xin.permute(0, 4, 1, 2, 3)
+    w, b = args[1].to(xin.dtype), args[2].to(xin.dtype)
+    if kw.get("dilation", 1) == 2:
+        wt = w.flip(2, 3, 4).transpose(0, 1).contiguous()
+        return lambda: F.conv_transpose3d(xcf, wt, b, stride=2, padding=1,
+                                          output_padding=1)
+    return lambda: F.conv3d(xcf, w, b, stride=kw.get("stride", 1), padding=1)
+
+
+def device_ms(fn, calls=10):
+    """``torch.profiler``'s device time a call of ``fn``: every kernel of
+    ``calls`` back-to-back calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / calls / 1e3
 
 
 def candidates(field, best, ci, co):
-    """Alternatives for one group of fields around ``best`` (a list of the
-    seven chosen fields)."""
+    """Alternatives for one group of the FMA body's fields around ``best``
+    (a list of the seven chosen fields)."""
     rw, bd, bh, nrw, cot, ck, split = best
     if field == "run":
         return [[r, bd, bh, n, cot, ck, split] for r in (8, 5)
@@ -171,17 +249,36 @@ def candidates(field, best, ci, co):
     return [[rw, bd, bh, nrw, cot, ck, s] for s in splits]
 
 
+def mma_candidates(field, best, ci, co):
+    """The same for the tensor-core body's fields."""
+    tm, bd, bh, bw, wn, ck, split = best
+    if field == "tm":
+        return [[t, bd, bh, bw, wn, ck, split] for t in (2, 4)]
+    if field == "brick":
+        return [[tm, d, h, w, wn, ck, split] for d in (1, 2, 4, 8)
+                for h in (1, 2, 4, 8, 16) for w in (8, 16)]
+    if field == "tile":
+        return [[tm, bd, bh, bw, n, ck, split]
+                for n in range(1, min(4, -(-co // 24)) + 1)]
+    # a chunk's blocks are its own: the split is the chunk count
+    ci8 = -(-ci // 8) * 8
+    return [[tm, bd, bh, bw, wn, c, -(-ci // c)]
+            for c in sorted({16, 32, 48, 64, 96, ci8}) if c <= 96]
+
+
 def search(args, kw):
     """Field-by-field search from the planner's plan; returns (best
     choice, its ms, trials)."""
     p = plan_fields(args, kw)
-    best = [p[k] for k in conv3_mod.PLAN_FIELDS[:7]]
+    best = [p[k] for k in list(p)[:7]]
     best_ms = timed(args, kw, best)
     _, ci, co, _ = call_key(args, kw)
+    fma = _instance(args) == "float32"
     trials = 0
     for _ in range(2):
-        for field in ("run", "brick", "tile", "chunk", "split"):
-            for cand in candidates(field, best, ci, co):
+        for field in FIELDS["float32" if fma else "mma"]:
+            for cand in (candidates if fma else mma_candidates)(
+                    field, best, ci, co):
                 if cand == best:
                     continue
                 try:
@@ -198,6 +295,10 @@ def search(args, kw):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--instance", default="float32", choices=PLAN_API,
+                    help="the compute dtype of the forward whose calls run")
+    ap.add_argument("--library", action="store_true",
+                    help="time cuDNN's conv + bias beside, and device times")
     ap.add_argument("--search", action="store_true",
                     help="search each distinct call's plan")
     ap.add_argument("--json", default=None, help="write the rows here")
@@ -214,6 +315,11 @@ def main(argv=None):
     print(smi[0] if smi else torch.cuda.get_device_name(0), flush=True)
     model = VNetDS(**VNET, use_kernels=True,
                    generator=torch.Generator().manual_seed(0)).to(dev)
+    if opts.instance != "float32":  # the same weights, another forward
+        state = model.state_dict()
+        model = VNetDS(**VNET, use_kernels=True,
+                       compute_dtype=opts.instance, device=dev)
+        model.load_state_dict(state)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (1, 4) + SHAPE, dtype=np.float32)).to(dev)
     calls = record_calls(model, x)
@@ -226,8 +332,14 @@ def main(argv=None):
             ms = timed(args, kw)
             p = plan_fields(args, kw)
             row = {"call": i, "what": describe(args, kw), "ms": ms}
+            if opts.library:
+                lib = library_call(args, kw)
+                row.update(device_ms=device_ms(lambda: kernels.conv3(*args,
+                                                                      **kw)),
+                           library_ms=gpu_ms(lib),
+                           library_device_ms=device_ms(lib))
             if p:
-                row.update(plan=[p[k] for k in conv3_mod.PLAN_FIELDS[:7]],
+                row.update(plan=[p[k] for k in list(p)[:7]],
                            threads=p["threads"], smem=p["smem"],
                            blocks=p["blocks"], conflict=p["conflict"])
             if opts.search:
@@ -239,7 +351,12 @@ def main(argv=None):
             rows.append(row)
             print(json.dumps(row), flush=True)
     total = sum(r["ms"] for r in rows)
-    line = f"conv3, {len(rows)} calls: planner {total:.4f} ms"
+    line = (f"conv3 ({opts.instance}), {len(rows)} calls: planner "
+            f"{total:.4f} ms")
+    if opts.library:
+        line += (", device {:.4f} ms; cuDNN {:.4f} ms, device {:.4f} ms"
+                 .format(*(sum(r[k] for r in rows) for k in (
+                     "device_ms", "library_ms", "library_device_ms"))))
     if opts.search:
         line += f", best found {sum(r['best_ms'] for r in rows):.4f} ms"
     print(f"{line} ({time.perf_counter() - t0:.0f} s)")

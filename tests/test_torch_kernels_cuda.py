@@ -1653,6 +1653,11 @@ def test_conv3_bf16_instances_match_twins(dev, option, sizes, ci, co, mode,
     want = want if isinstance(want, tuple) else (want,)
     again = again if isinstance(again, tuple) else (again,)
     n_out = 2 if kw.get("residual") is not None else 1
+    if kw.get("stride", 1) == 2:
+        # the moments of the rounded outputs: a one-ulp flip against the
+        # twin moves them, so they are held to the kernel's own output
+        want = want[:n_out] + tuple(_moments64(g)[0].float()
+                                    for g in got[:n_out])
     ok, read = _held_bf16_conv3(got, want, n_out)
     assert ok, read
     assert all(torch.equal(a, g) for a, g in zip(again, got))
@@ -1660,7 +1665,7 @@ def test_conv3_bf16_instances_match_twins(dev, option, sizes, ci, co, mode,
 
 @pytest.mark.parametrize("mode,wdtype", CONV3_MODES,
                          ids=[m for m, _ in CONV3_MODES])
-@pytest.mark.parametrize("keep", [(0, 1), (1, 0)])
+@pytest.mark.parametrize("keep", [(0, 1), (1, 0), (1, 1)])
 @pytest.mark.parametrize("option", CONV3_OPTIONS)
 def test_conv3_halo_bf16_instances_match_twins(dev, option, keep, mode,
                                                wdtype):
@@ -1682,6 +1687,167 @@ def test_conv3_halo_bf16_instances_match_twins(dev, option, keep, mode,
     ok, read = _held_bf16_conv3(got, want,
                                 2 if kw.get("residual") is not None else 1)
     assert ok, read
+
+
+def _mma_held(x, w, b, kw, name):
+    """One launch of the tensor-core body (counted under ``name``) against
+    the twin at the bf16 bar, the stride-2 conv's moments (of its rounded
+    outputs) against float64 sums of its own output; a second run must
+    give the same bits."""
+    with torch.no_grad():
+        got = _launched(name, lambda: kernels.conv3(x, w, b, **kw))
+        want = kernels.conv3_plain(x, w, b, **kw)
+        again = kernels.conv3(x, w, b, **kw)
+    got, want, again = (t if isinstance(t, tuple) else (t,)
+                        for t in (got, want, again))
+    n_out = 2 if kw.get("residual") is not None else 1
+    if kw.get("stride", 1) == 2 and kw.get("emit_stats"):
+        want = want[:n_out] + tuple(_moments64(g)[0].float()
+                                    for g in got[:n_out])
+    ok, read = _held_bf16_conv3(got, want, n_out)
+    assert ok, read
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    return got
+
+
+# the tensor-core body's channel counts: one 8-channel group, the k16 + k8
+# chunk of V-Net-DS's level 0, its concat, and a ci over one 64-channel
+# chunk; co a part of one n8 tile, one warp's 24 and two warps'
+MMA_CHANNELS = [(ci, co) for ci in (8, 24, 48, 72) for co in (4, 24, 48)]
+MMA_OPTIONS = ["bare", "x2", "prologue_relu", "residual_stats", "stride2",
+               "dilation2"]
+
+
+@pytest.mark.parametrize("mode,wdtype", CONV3_MODES,
+                         ids=[m for m, _ in CONV3_MODES])
+@pytest.mark.parametrize("ci,co", MMA_CHANNELS)
+@pytest.mark.parametrize("option", MMA_OPTIONS)
+def test_conv3_mma_channels_match_twins(dev, option, ci, co, mode, wdtype):
+    """The 'bfloat16' and 'mixed' instances (the tensor-core body) at each
+    channel count on a grid whose W (13) is no multiple of a brick's 8;
+    x2 splits ci in half (c2 a multiple of 4, so 8-byte copies where 8
+    channels cross the x1/x2 boundary)."""
+    c2 = ci // 2 if option.startswith("x2") else 0
+    if c2 % 4:
+        pytest.skip("x1/x2 need multiples of 4 channels")
+    x, w, b, kw = _bf16_conv3_case(dev, (6, 7, 13), ci - c2, co, option,
+                                   wdtype) if not c2 else \
+        _bf16_conv3_case_split(dev, (6, 7, 13), ci - c2, c2, co, option,
+                               wdtype)
+    name = "conv3" + ("_bf16" if mode == "bfloat16" else "_mixed")
+    _mma_held(x, w, b, kw, name)
+
+
+def _bf16_conv3_case_split(dev, sizes, c1, c2, co, option, wdtype):
+    """``_bf16_conv3_case`` with x2 of c2 channels."""
+    x, w, b, kw = _conv3_case(dev, sizes, c1, co, option, c2=c2)
+    kw = dict(kw, x2=kw["x2"].bfloat16())
+    return x.bfloat16(), w.to(wdtype), b.to(wdtype), kw
+
+
+@pytest.mark.parametrize("mode,wdtype", CONV3_MODES,
+                         ids=[m for m, _ in CONV3_MODES])
+@pytest.mark.parametrize("option", ["bare", "x2", "prologue_elu",
+                                    "prologue_selu"])
+def test_conv3_mma_dilated_depth_matches_twins(dev, option, mode, wdtype):
+    """The depth-dilated mode in both bf16 instances (its odd planes zero
+    after the prologue), counted as the instance's conv3 launch."""
+    x, w, b, kw = _bf16_conv3_case(dev, (5, 8, 11), 24, 24, option, wdtype)
+    kw["dilated_depth"] = 5
+    name = "conv3" + ("_bf16" if mode == "bfloat16" else "_mixed")
+    got = _mma_held(x, w, b, kw, name)
+    assert got[0].shape[1] == 10
+
+
+# forced plans of the tensor-core body (M tiles a warp, brick depth, height,
+# width, warps along N, chunk, split): each chunk of the 72 channels on
+# blocks of its own (summed by the reduce kernel), 16-wide bricks, 2 and 4
+# M tiles a warp, one warp along N for 48 channels, chunks of 16, 32, 48
+MMA_PLANS = [(2, 2, 2, 8, 1, 16, 5), (4, 2, 2, 16, 2, 32, 3),
+             (2, 1, 4, 16, 2, 16, 5), (4, 4, 2, 8, 1, 48, 2),
+             (2, 2, 4, 8, 2, 48, 2)]
+
+
+@pytest.mark.parametrize("mode,wdtype", CONV3_MODES,
+                         ids=[m for m, _ in CONV3_MODES])
+@pytest.mark.parametrize("choice", MMA_PLANS)
+@pytest.mark.parametrize("option", CONV3_OPTIONS)
+def test_conv3_mma_plans_match_twins(dev, option, choice, mode, wdtype):
+    import importlib
+    conv3_mod = importlib.import_module(
+        "multimodal_3d_image_segmentation_tpu_torch.kernels.conv3")
+    x, w, b, kw = _bf16_conv3_case(dev, (7, 9, 13), 72, 48, option, wdtype)
+    real = conv3_mod.conv3_mma_plan
+
+    def forced(sizes, ci, co, m, _=None, **kw):
+        # the split is the chunk count of this option's ci (x2 doubles it)
+        return real(sizes, ci, co, m, choice[:6] + (-(-ci // choice[5]),),
+                    **kw)
+
+    conv3_mod.conv3_mma_plan = forced
+    try:
+        _mma_held(x, w, b, kw,
+                  "conv3" + ("_bf16" if mode == "bfloat16" else "_mixed"))
+    finally:
+        conv3_mod.conv3_mma_plan = real
+
+
+def test_conv3_mma_plans_report_no_bank_conflict(dev):
+    """The planner's plans at V-Net-DS's calls (and forced ones) read 8
+    consecutive slots a matrix: no ldmatrix conflicts."""
+    import importlib
+    conv3_mod = importlib.import_module(
+        "multimodal_3d_image_segmentation_tpu_torch.kernels.conv3")
+    fields = conv3_mod.MMA_PLAN_FIELDS
+    for sizes, ci, co, mode in (((121, 121, 78), 24, 24, 0),
+                                ((121, 121, 78), 48, 24, 0),
+                                ((121, 121, 78), 24, 48, 1),
+                                ((61, 61, 39), 48, 24, 2),
+                                ((8, 8, 5), 384, 384, 0)):
+        plan = dict(zip(fields, conv3_mod.conv3_mma_plan(sizes, ci, co,
+                                                         mode)))
+        assert plan["conflict"] == 1, (sizes, ci, co, mode, plan)
+        assert plan["threads"] <= 256 and plan["smem"] <= 232448
+        assert plan["ck"] <= 96  # the accumulator chain's bound
+    for choice in MMA_PLANS:
+        plan = dict(zip(fields, conv3_mod.conv3_mma_plan((7, 9, 13), 72, 48,
+                                                         1, choice)))
+        assert plan["conflict"] == 1, (choice, plan)
+    for bad in ((2, 2, 2, 8, 1, 24, 3),    # chunks of 24 start off 16
+                (2, 2, 2, 8, 1, 16, 3),    # 5 chunks on 3 splits
+                (2, 2, 2, 8, 1, 112, 1)):  # a chunk over 96 channels
+        with pytest.raises(ValueError, match="no launch plan"):
+            conv3_mod.conv3_mma_plan((7, 9, 13), 144, 48, 0, bad)
+
+
+@pytest.mark.parametrize("mode,wdtype", CONV3_MODES,
+                         ids=[m for m, _ in CONV3_MODES])
+def test_conv3_bf16_launch_records_follow_their_weights(dev, mode, wdtype):
+    """A repeat call of a bf16 instance runs the launch record its first
+    call left; a weight updated in place, and a new weight tensor of the
+    same shape in its place, each launch with their own values."""
+    x, w, b, kw = _bf16_conv3_case(dev, (6, 7, 9), 24, 24, "residual_stats",
+                                   wdtype)
+    name = "conv3" + ("_bf16" if mode == "bfloat16" else "_mixed")
+
+    def held(w):
+        got = _launched(name, lambda: kernels.conv3(x, w, b, **kw))
+        ok, read = _held_bf16_conv3(got, kernels.conv3_plain(x, w, b, **kw),
+                                    2)
+        assert ok, read
+        return got
+
+    with torch.no_grad():
+        first = held(w)
+        again = held(w)
+        assert all(torch.equal(a, f) for a, f in zip(again, first))
+        w.mul_(-1.0)
+        flipped = held(w)
+        assert not torch.equal(flipped[0], first[0])
+        del w, first, again, flipped
+        for seed in (30, 31):
+            held(_t((24, 24, 3, 3, 3), seed, dev,
+                    1 / np.sqrt(27 * 24)).to(wdtype))
 
 
 def test_conv3_bf16_controls_fail(dev):
