@@ -1855,11 +1855,13 @@ def phase_conv3_bf16(torch, kernels, calls):
                                     tuple(args[0].shape[1:4]),
                                     args[1].shape[1], args[1].shape[0],
                                     _conv3_mode(kw),
-                                    passes=1 if mode == "bfloat16" else 2)))
+                                    passes=1 if mode == "bfloat16" else 2,
+                                    residual=kw.get("residual") is not None)))
                 print(f"{name}[{i}] {_describe(args, kw)}: plan tm "
                       f"{plan['tm']} brick {plan['bd']}x{plan['bh']}x"
                       f"{plan['bw']} warps along N {plan['wn']} chunk "
-                      f"{plan['ck']} split {plan['split']} ({plan['blocks']} "
+                      f"{plan['ck']} x {plan['chunks']} a block split "
+                      f"{plan['split']} ({plan['blocks']} "
                       f"blocks of {plan['threads']} threads, {plan['smem']} "
                       f"B shared, conflict {plan['conflict']}); err "
                       f"{err:.2e} share {share:.1e} moments {mom:.1e} kernel "

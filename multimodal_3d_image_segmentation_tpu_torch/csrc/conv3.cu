@@ -65,8 +65,8 @@
 // residual tap is a second pass over the chunks, centre tap only, into the
 // same registers after the main output is written. Moment sums are
 // reduced in a fixed order within a block and written as per-block
-// partials; the wrapper sums them in float64. No atomics: the result does
-// not change from run to run.
+// partials, which conv3.cuh's conv3_moment_sum adds in float64 in a fixed
+// order. No atomics: the result does not change from run to run.
 //
 // The 'bfloat16' and 'mixed' instances run another body, on the bf16
 // tensor cores (conv3_mma.cu); this file holds the fp32 instance.
@@ -551,14 +551,20 @@ void choose(Conv3Args& a) {
   best_pitch(a);
 }
 
+// rows of moment partials: the reduce kernel's blocks, or the bricks of
+// each parity class
+int n_part(const Conv3Args& a) {
+  const long long m_out = (long long)a.Do * a.Ho * a.Wo;
+  return a.split > 1 ? (int)((m_out + REDUCE_ROWS - 1) / REDUCE_ROWS)
+                     : a.nbd * a.nbh * a.nbw * (a.mode == 2 ? 8 : 1);
+}
+
 void fill_plan(const Conv3Args& a, int* plan) {
   plan[P_RW] = a.rw; plan[P_BD] = a.bd; plan[P_BH] = a.bh;
   plan[P_NRW] = a.nrw; plan[P_COT] = a.cot; plan[P_CK] = a.ck;
   plan[P_SPLIT] = a.split;
   const int nbricks = a.nbd * a.nbh * a.nbw;
-  const long long m_out = (long long)a.Do * a.Ho * a.Wo;
-  plan[P_NPART] = a.split > 1 ? (int)((m_out + REDUCE_ROWS - 1) / REDUCE_ROWS)
-                              : nbricks * (a.mode == 2 ? 8 : 1);
+  plan[P_NPART] = n_part(a);
   plan[P_THREADS] = a.threads;
   plan[P_SMEM] = (int)smem_bytes(a);
   plan[P_PW] = a.pw;
@@ -637,7 +643,7 @@ M3SEG_API int m3seg_conv3_plan(int D, int H, int W, int ci, int co,
 // x1: (D, H, W, c1), x2: (D, H, W, c2) or null (c2 = 0); w: (27*ci, co)
 // with ci = c1 + c2; scale, shift: (ci,) each, or both null; wr: (co, ci)
 // or null (mode 0 without prologue only); part/rpart: (n_part, 2, co) or
-// null; ws: the
+// null, each with its (2, co) sums mom, rmom; ws: the
 // plan's workspace (null when its split is 1); plan: m3seg_conv3_plan's
 // filled array. All fp32, contiguous, 16-byte aligned; c1, c2 and co
 // multiples of 4. Output (Do, Ho, Wo, co): mode 0 (D, H, W), mode 1
@@ -650,12 +656,14 @@ M3SEG_API int m3seg_conv3(const float* x1, const float* x2, const float* w,
                           const float* bias, const float* scale,
                           const float* shift, int pro_act,
                           const float* wr, const float* br, float* y,
-                          float* r, float* part, float* rpart, float* ws,
-                          int D, int H, int W, int c1, int c2, int co,
-                          int mode, const int* plan, int halo_keep, int dsrc,
-                          void* stream) {
+                          float* r, float* part, float* rpart, float* mom,
+                          float* rmom, float* ws, int D, int H, int W, int c1,
+                          int c2, int co, int mode, const int* plan,
+                          int halo_keep, int dsrc, void* stream) {
   if (!args_ok(x2, scale, shift, wr, r, part, rpart, D, H, W, c1, c2, co,
-               mode, pro_act, plan, halo_keep, dsrc))
+               mode, pro_act, plan, halo_keep, dsrc) ||
+      (part != nullptr) != (mom != nullptr) ||
+      (rpart != nullptr) != (rmom != nullptr))
     return (int)cudaErrorInvalidValue;
   Conv3Args a = geometry<Conv3Args>(D, H, W, c1 + c2, co, mode);
   if (!planned(a, plan)) return (int)cudaErrorInvalidValue;
@@ -669,10 +677,11 @@ M3SEG_API int m3seg_conv3(const float* x1, const float* x2, const float* w,
   a.c1 = c1; a.c2 = c2; a.pro_act = pro_act;
   if (a.split > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      a.rw == 8 ? launch_mode<8>(a, s) : launch_mode<5>(a, s);
-  if (err != cudaSuccess || a.split == 1) return (int)err;
-  return (int)launch_split_sum<float>(
-      a.ws, a.split, (long long)a.Do * a.Ho * a.Wo, a.co, REDUCE_ROWS,
-      a.bias, a.y, a.part, a.br, a.r, a.rpart, 0, s);
+  cudaError_t err = a.rw == 8 ? launch_mode<8>(a, s) : launch_mode<5>(a, s);
+  if (err == cudaSuccess && a.split > 1)
+    err = launch_split_sum<float>(
+        a.ws, a.split, (long long)a.Do * a.Ho * a.Wo, a.co, REDUCE_ROWS,
+        a.bias, a.y, a.part, a.br, a.r, a.rpart, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_moment_sum(part, rpart, n_part(a), co, mom, rmom, s);
 }

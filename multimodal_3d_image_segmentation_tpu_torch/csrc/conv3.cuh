@@ -1,8 +1,8 @@
 // What conv3's two bodies share: the fp32 FMA body (conv3.cu) and the bf16
 // tensor-core body (conv3_mma.cu). The prologue's activations, the cp.async
 // copies, the output geometry of each mode, the voxel an input slot reads
-// (the halo and dilated-depth mappings), and the fixed-order reduce of the
-// split-chunk partial sums.
+// (the halo and dilated-depth mappings), the fixed-order reduce of the
+// split-chunk partial sums and the moments' last sum.
 #pragma once
 
 #include <type_traits>
@@ -132,6 +132,43 @@ cudaError_t launch_split_sum(const float* ws, int split, long long m_out,
                                           m_out, co, rows, br,
                                           static_cast<T*>(r), rpart,
                                           stats_rounded);
+  return cudaGetLastError();
+}
+
+// mom[q][n]: the sum of the n_part moment partials part[i][q][n], in
+// double in a fixed order (thread t takes i = t, t + 256, ..., then a
+// tree), rounded to fp32; a block a (q, n), the residual's (rpart, rmom)
+// the blocks past 2 co
+__global__ void __launch_bounds__(256)
+conv3_moment_sum(const float* __restrict__ ypart,
+                 const float* __restrict__ rpart, int n_part, int co,
+                 float* __restrict__ ymom, float* __restrict__ rmom) {
+  __shared__ double red[256];
+  const bool res = blockIdx.x >= 2 * co;
+  const float* part = res ? rpart : ypart;
+  float* mom = res ? rmom : ymom;
+  const int qn = blockIdx.x % (2 * co);
+  const int q = qn / co, n = qn % co;
+  double s = 0.0;
+  for (int i = threadIdx.x; i < n_part; i += 256)
+    s += (double)part[((long long)i * 2 + q) * co + n];
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = 128; w > 0; w >>= 1) {
+    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) mom[qn] = (float)red[0];
+}
+
+// The moments' last sum (both bodies): the (2, co) sums mom (and rmom) of
+// the n_part rows of partials part (and rpart); nothing where part is null.
+inline cudaError_t launch_moment_sum(const float* part, const float* rpart,
+                                     int n_part, int co, float* mom,
+                                     float* rmom, cudaStream_t s) {
+  if (part == nullptr) return cudaSuccess;
+  conv3_moment_sum<<<(rpart != nullptr ? 4 : 2) * co, 256, 0, s>>>(
+      part, rpart, n_part, co, mom, rmom);
   return cudaGetLastError();
 }
 

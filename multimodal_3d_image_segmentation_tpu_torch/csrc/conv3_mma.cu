@@ -27,39 +27,47 @@
 //
 // Design: an implicit GEMM over conv3.cu's bricks. A block owns an output
 // brick of bd x bh x bw voxels of the iteration grid (M, the GEMM's rows,
-// W fastest), a tile of cot output channels (N) and one chunk of input
-// channels (K: the taps times the chunk, up to 96 channels, which bounds
-// the chain of mma into one accumulator; a larger ci runs in chunks of 16
-// to 96 on blocks of their own, whose fp32 partial sums conv3.cuh's
-// reduce kernel adds in order). Warps split M into tm tiles of 16 rows
-// each and N into tiles of 24 channels (three n8 tiles). The block
-// copies the brick's input with its halo into shared memory as bf16 with
-// 16-byte cp.async (8 channels a copy; 8 bytes where a channel count is
-// not a multiple of 8), zero-filled outside the volume, applies the
-// prologue in place inside the volume, and rounds. A slot (an input
-// voxel) holds the chunk's channels as 16-byte units; ldmatrix.x4 takes
-// one row address per lane, so each tap's A fragment is an address map
-// over the same brick: row slot + tap offset. The stride-2 brick lays each
-// row's even columns first, so its windows stay consecutive slots;
-// the dilated mode's parity class (one per grid z) picks its 1-8 taps
-// from a table the block builds once. A slot's unit count is odd, so 8
+// W fastest), a tile of cot output channels (N) and a range of the input
+// channels (K: the taps times the range), which it contracts in chunks of
+// ck channels. Warps split M into tm tiles of 16 rows each and N into
+// tiles of 24 channels (three n8 tiles).
+//
+// The input brick. A chunk's brick with its halo sits in shared memory as
+// bf16, copied with 16-byte cp.async (8 channels a copy; 8 bytes where a
+// channel count is not a multiple of 8), zero-filled outside the volume,
+// the prologue applied in place inside the volume, and rounded. A slot (an
+// input voxel) holds the chunk's channels as 16-byte units; ldmatrix.x4
+// takes one row address per lane, so each tap's A fragment is an address
+// map over the same brick: row slot + tap offset. The stride-2 brick lays
+// each row's even columns first, so its windows stay consecutive slots;
+// the dilated mode's parity class (one per grid z) picks its 1-8 taps from
+// a table the block builds once. A slot's unit count is odd, so 8
 // consecutive slots fall in 8 distinct bank groups and the 8 rows of a
-// matrix never conflict. The B fragments come from the packed weights in
-// device memory (fragment order, one 8-byte load a lane, co padded to 24
-// with zeros) through L1, each k step's loaded while the step before it
-// computes. mma.sync.m16n8k16 (m16n8k8 for a chunk's last 8 channels)
-// sums in fp32 accumulators, 'mixed''s lo pass in its own; the chunk
-// bounds the chain of mma into one accumulator (MAX_CK), since the tensor
-// cores sum with truncation and a long chain would bias the moment sums.
-// The residual tap (no prologue there) is a second pass over the same
-// brick after the output's epilogue: the centre tap against its own B
-// fragments, into the same accumulators. The epilogue adds the bias to the
-// accumulator fragments (rows g and g + 8, columns 2t and 2t + 1 of each
-// m16n8 tile),
-// stores bf16 pairs, and reduces the moments in a fixed order: over a
-// thread's rows, a butterfly over the 8 row lanes, then over the warps in
-// shared memory, one partial a block. Split chunks write fp32 partial sums
-// and conv3.cuh's reduce kernel adds them in order. No atomics: a second
+// matrix never conflict. A block of several chunks keeps two stages: the
+// copies of chunk c + 1 are issued a few a k step while chunk c computes,
+// and land in the other stage.
+//
+// The B fragments come from the packed weights in device memory (fragment
+// order, one 8-byte load a lane, co padded to 24 with zeros) through L1,
+// each k step's loaded while the step before it computes.
+//
+// The sums. mma.sync.m16n8k16 (m16n8k8 for a chunk's last 8 channels)
+// sums in fp32 accumulators, 'mixed''s lo pass in its own. The tensor
+// cores sum with truncation, so a chain of mma into one accumulator is
+// bounded (MAX_CK channels): the 4-tile instances contract at most MAX_CK
+// channels a block, the 2-tile ones start each chunk in fresh accumulators
+// and fold them into a running fp32 total (__fadd_rn), so one block takes
+// any ci. A longer K range on the 4-tile body, a call with the residual
+// tap, or a grid too small for the card splits K over blocks: their fp32
+// partial sums go to a workspace and conv3.cuh's reduce kernel adds them
+// in order. The residual tap (no
+// prologue there) is a second pass over the block's one chunk after the
+// output's epilogue: the centre tap against its own B fragments. The
+// epilogue adds the bias to the accumulator fragments (rows g and g + 8,
+// columns 2t and 2t + 1 of each m16n8 tile), stores bf16 pairs, and
+// reduces the moments in a fixed order: over a thread's rows, a butterfly
+// over the 8 row lanes, then over the warps in shared memory, one partial
+// a block, summed by conv3.cuh's conv3_moment_sum. No atomics: a second
 // run gives the same bits.
 #include "conv3.cuh"
 
@@ -70,24 +78,25 @@ constexpr int WARP_N = 8 * TN;        // output channels a warp
 constexpr int MAX_THREADS = 256;
 constexpr int MAX_SMEM = 232448;      // bytes a block may use on sm_90
 constexpr int SMEM_BUDGET = 100000;   // bytes the planner keeps to: 2 blocks
-// channels a chunk: a block's chain of mma into one accumulator is 27 taps
-// x ck / 16 k steps (the lo pass of 'mixed' sums into an accumulator of its
-// own); the tensor cores sum with truncation, about half an ulp an
-// instruction, and a chain of 216 still held the moment sums to 1e-5 on an
-// H100 where 270 did not, so 6 k steps a tap: 162
+// channels one accumulator chain may contract: 27 taps x ck / 16 k steps
+// (the lo pass of 'mixed' sums into an accumulator of its own); the tensor
+// cores sum with truncation, about half an ulp an instruction, and a chain
+// of 216 still held the moment sums to 1e-5 on an H100 where 270 did not,
+// so 6 k steps a tap: 162
 constexpr int MAX_CK = 96;
 // 'mixed''s hi + lo carries its fp32 weight to 2^-17, an error the moment
-// sums show beside the truncation's: at 96-channel chunks they read up to
+// sums show beside the truncation's: at 96-channel chains they read up to
 // 9.8e-6 of their bar's 1e-5 on V-Net-DS's calls, at 48 at most 5.9e-6, so
-// its planner keeps to 48
+// its planner keeps its chains to 48
 constexpr int MIXED_CK = 48;
 constexpr int MIN_BLOCKS = NUM_SMS / 2;  // the planner's least blocks
+constexpr int PIECE = 2;              // next-chunk copies a thread a step
 
 // the launch plan, an int array shared with the wrapper: the first seven
 // fields choose (0 in P_TM: the planner chooses), the rest follow
 enum PlanField {
   P_TM, P_BD, P_BH, P_BW, P_WN, P_CK, P_SPLIT,
-  P_NPART, P_THREADS, P_SMEM, P_PW, P_PL, P_BLOCKS, P_CONFLICT,
+  P_NPART, P_THREADS, P_SMEM, P_PW, P_PL, P_BLOCKS, P_CONFLICT, P_CHUNKS,
   P_COUNT
 };
 
@@ -113,6 +122,7 @@ struct MmaArgs {
   int pro_act;        // 0 none, 1 elu, 2 selu, 3 relu
   int stats_rounded;  // stride 2: the moments of the rounded outputs
   int w_pass, r_pass;  // 1 (bf16 weights) or 2 (hi and lo)
+  int res;            // the plan's calls take the residual tap
   int nks, nnt;       // k16 steps of ci, n8 tiles of co padded to 24
   int unit;           // channels a copy: 8 (16 bytes) or 4
   // the plan
@@ -124,8 +134,8 @@ struct MmaArgs {
   int half;           // stride 2: the even columns of a brick row
   int pp;             // 16-byte units a slot: odd, so 8 consecutive slots
                       // fall in 8 distinct bank groups
-  int nchunk;         // chunks of ck input channels
-  int a_stage;        // bytes of the input brick
+  int nchunk, cps;    // chunks of ck input channels; chunks a block
+  int a_stage;        // bytes of one stage of the input brick
   int taps_off, red_off, smem;  // where the taps' table and the moment
                                 // scratch start; bytes in all
 };
@@ -167,32 +177,46 @@ __device__ __forceinline__ void mma_k8(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
-// TM M tiles a warp, MODE, NP passes of the weights
+// The threads a block and blocks an SM each instance is built for:
+// 'mixed''s 4-tile instance holds its hi and lo sums in registers, so it
+// keeps to 4 warps a block at 3 blocks an SM (168 registers a thread).
+constexpr int max_threads(int tm, int np) {
+  return tm == 4 && np == 2 ? 128 : MAX_THREADS;
+}
+constexpr int min_blocks(int tm, int np) { return tm == 4 && np == 2 ? 3 : 1; }
+
+// TM M tiles a warp (2: a running total over the chunks), MODE, NP passes
+// of the weights
 template <int TM, int MODE, int NP>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(max_threads(TM, NP), min_blocks(TM, NP))
 conv3_mma(const MmaArgs a) {
   constexpr int S = MODE == 1 ? 2 : 1;
+  constexpr bool FOLD = TM == 2;
   extern __shared__ __align__(16) unsigned char smem[];
-  // the input brick, the taps' table, each slot's voxel
+  // the input brick's stages, the taps' table, each slot's voxel, the
+  // moment scratch
   int2* tap_tab = reinterpret_cast<int2*>(smem + a.taps_off);
   int* gvox = reinterpret_cast<int*>(tap_tab + 27);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wmi = warp % a.wm, wni = warp / a.wm;
   const int brick = blockIdx.x;
-  const int bw_ = brick % a.nbw, bh_ = (brick / a.nbw) % a.nbh,
-            bd_ = brick / (a.nbw * a.nbh);
   const int cls = blockIdx.z / a.split, sp = blockIdx.z % a.split;
+  // this block's chunks, k0 + it for it < nit
+  const int k0 = sp * a.cps, nit = min(a.nchunk, k0 + a.cps) - k0;
+  const int nbricks = a.nbd * a.nbh * a.nbw;
   // the dilated mode's parity class: one per grid z, W parity included
   const int pz = MODE == 2 ? cls >> 2 : 0;
   const int py = MODE == 2 ? (cls >> 1) & 1 : 0;
   const int px = MODE == 2 ? cls & 1 : 0;
-  const int gd0 = bd_ * a.bd, gh0 = bh_ * a.bh, gw0 = bw_ * a.bw;
+  const int nb0 = blockIdx.y * a.cot;         // the block's first channel
+  const int nt0 = (nb0 + wni * WARP_N) / 8;   // the warp's first n8 tile
+
+  const int gd0 = brick / (a.nbw * a.nbh) * a.bd;
+  const int gh0 = brick / a.nbw % a.nbh * a.bh, gw0 = brick % a.nbw * a.bw;
   const int oz = MODE == 2 ? gd0 : S * gd0 - 1;
   const int oy = MODE == 2 ? gh0 : S * gh0 - 1;
   const int ow = MODE == 2 ? gw0 : S * gw0 - 1;
-  const int nb0 = blockIdx.y * a.cot;         // the block's first channel
-  const int nt0 = (nb0 + wni * WARP_N) / 8;   // the warp's first n8 tile
 
   // the volume voxel of each input slot (input_voxel), -1 outside the
   // volume; at stride 2 a brick row holds its even columns first
@@ -234,13 +258,19 @@ conv3_mma(const MmaArgs a) {
   auto unit_off = [&](int s, int g) { return (s * a.pp + g) << 4; };
   // the 8-channel groups chunk k holds (the last one zero-padded)
   auto groups = [&](int k) { return (min(a.ck, a.ci - k * a.ck) + 7) >> 3; };
+  // the copies of chunk k a slot
+  auto per_slot = [&](int k) { return groups(k) * 8 / a.unit; };
 
-  // issue the copies of chunk k; copies outside the volume or past ci
+  // this thread's copies j0 <= j < j1 of chunk k0 + it (copy tid + j *
+  // threads) into stage it % 2; copies outside the volume or past ci
   // zero-fill
-  auto load_chunk = [&](int k) {
-    unsigned char* base = smem;
-    const int c0 = k * a.ck, per = groups(k) * 8 / a.unit;
-    for (int e = tid; e < a.nslot * per; e += a.threads) {
+  auto load = [&](int it, int j0, int j1) {
+    const int k = k0 + it;
+    const int c0 = k * a.ck, per = per_slot(k), n = a.nslot * per;
+    unsigned char* base = smem + (it & 1) * a.a_stage;
+    for (int j = j0; j < j1; ++j) {
+      const int e = tid + j * a.threads;
+      if (e >= n) break;
       const int s = e / per, cl = (e % per) * a.unit;
       const int g = gvox[s], cc = c0 + cl;
       const bool ok = g >= 0 && cc < a.ci;
@@ -255,13 +285,19 @@ conv3_mma(const MmaArgs a) {
         cp_async8(dst, src, ok);
     }
   };
+  // the k steps over which this thread issues chunk k0 + it's copies,
+  // PIECE a step
+  auto pieces = [&](int it) {
+    const int n = a.nslot * per_slot(k0 + it);
+    return ((n + a.threads - 1) / a.threads + PIECE - 1) / PIECE;
+  };
 
-  // the prologue on the copies this thread issued (its own cp.async writes
-  // are visible to it after the wait), inside the volume only, its output
-  // rounded to bf16
-  auto prologue = [&](int k) {
-    unsigned char* base = smem;
-    const int c0 = k * a.ck, per = groups(k) * 8 / a.unit;
+  // the prologue on chunk k0 + it's copies this thread issued (its own
+  // cp.async writes are visible to it after the wait), inside the volume
+  // only, its output rounded to bf16
+  auto prologue = [&](int it) {
+    unsigned char* base = smem + (it & 1) * a.a_stage;
+    const int c0 = (k0 + it) * a.ck, per = per_slot(k0 + it);
     for (int e = tid; e < a.nslot * per; e += a.threads) {
       const int s = e / per, cl = (e % per) * a.unit;
       const int cc = c0 + cl;
@@ -282,7 +318,7 @@ conv3_mma(const MmaArgs a) {
 
   // this lane's ldmatrix row address for each of its M tiles
   // (row lane % 16; lanes 16-31 the tile's second 8 channels), the tap at
-  // offset 0
+  // offset 0, in stage 0
   unsigned arow[TM];
 #pragma unroll
   for (int mt = 0; mt < TM; ++mt) {
@@ -298,10 +334,21 @@ conv3_mma(const MmaArgs a) {
   const int bpass = 27 * a.nks * bstep;
   const bool active = nt0 * 8 < a.co;
 
-  // the sums; 'mixed' sums its lo pass apart (lacc), so that each chain
-  // of mma into one accumulator stays within MAX_CK's bound
+  // the sums; 'mixed' sums its lo pass apart (lacc), so that each chain of
+  // mma into one accumulator stays within MAX_CK's bound; the 2-tile
+  // instances fold each chunk's into tot
   float acc[TM][TN][4];
   float lacc[NP == 2 ? TM : 1][TN][4];
+  float tot[FOLD ? TM : 1][TN][4];
+
+  auto zero = [&](auto& c) {
+#pragma unroll
+    for (int mt = 0; mt < TM; ++mt)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[mt][j][i] = 0.f;
+  };
 
   // c += af x b over this warp's tiles: k16 steps, or K8 the chunk's last
   // 8 channels
@@ -318,11 +365,11 @@ conv3_mma(const MmaArgs a) {
       }
   };
   // the B fragments at bp, each of NP passes (a pass apart)
-  auto load_b = [&](uint2 (&b)[NP][TN], const uint2* bp, int stride) {
+  auto load_b = [&](uint2 (&b)[NP][TN], const uint2* bp) {
 #pragma unroll
     for (int p = 0; p < NP; ++p)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[p][j] = __ldg(bp + p * stride + j * 32);
+      for (int j = 0; j < TN; ++j) b[p][j] = __ldg(bp + p * bpass + j * 32);
   };
   // A at byte offset ao + kk * 32 of each row, for this lane's M tiles
   auto load_a = [&](auto k8c, unsigned (&af)[TM][4], unsigned ao, int kk) {
@@ -334,7 +381,6 @@ conv3_mma(const MmaArgs a) {
         ldsm_x4(arow[mt] + ao + kk * 32, af[mt]);
     }
   };
-
   // one k step: A at ao + kk * 32 against the B fragments b, the lo pass
   // into lacc
   auto kstep = [&](auto k8c, int kk, unsigned ao, const uint2 (&b)[NP][TN]) {
@@ -344,63 +390,15 @@ conv3_mma(const MmaArgs a) {
     if constexpr (NP == 2) mma_tiles(k8c, lacc, af, b[1]);
   };
 
-  auto zero = [&](float (&c)[TM][TN][4]) {
-#pragma unroll
-    for (int mt = 0; mt < TM; ++mt)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) c[mt][j][i] = 0.f;
-  };
-
-  // acc = chunk k's products, a k step after the other over every tap,
-  // each step's B fragments loaded one step ahead
-  auto compute = [&](int k) {
-    zero(acc);
-    if constexpr (NP == 2) zero(lacc);
-    if (!active) return;
-    const int ng = groups(k), nk16 = ng >> 1, nkk = (ng + 1) >> 1;
-    const uint2* bk = bw + k * a.ck / 16 * bstep;  // chunks start at 16n
-    uint2 b[NP][TN], bn[NP][TN];
-    load_b(b, bk + tap_tab[0].y, bpass);
-    for (int t = 0; t < ntap; ++t) {
-      const unsigned ao = tap_tab[t].x;
-      const uint2* bp = bk + tap_tab[t].y;
-      for (int kk = 0; kk < nkk; ++kk) {
-        // the next step's fragments: this tap's next k step, or the next
-        // tap's first
-        if (kk + 1 < nkk)
-          load_b(bn, bp + (kk + 1) * bstep, bpass);
-        else if (t + 1 < ntap)
-          load_b(bn, bk + tap_tab[t + 1].y, bpass);
-        if (kk < nk16)
-          kstep(std::false_type{}, kk, ao, b);
-        else
-          kstep(std::true_type{}, kk, ao, b);
-#pragma unroll
-        for (int p = 0; p < NP; ++p)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) b[p][j] = bn[p][j];
-      }
-    }
-    if constexpr (NP == 2)
-#pragma unroll
-      for (int mt = 0; mt < TM; ++mt)
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[mt][j][i] = __fadd_rn(acc[mt][j][i], lacc[mt][j][i]);
-  };
-
-  // acc = the residual tap of chunk k: the centre tap's A (the input before
-  // any prologue: the residual takes none) against its own B fragments,
-  // each of its passes
-  auto compute_res = [&](int k) {
+  // acc = the residual tap of the block's one chunk k0: the centre tap's A
+  // (the input before any prologue: the residual takes none) against its
+  // own B fragments, each of its passes
+  auto compute_res = [&]() {
     zero(acc);
     if (!active) return;
+    const int k = k0;
     const int ng = groups(k), nk16 = ng >> 1, nkk = (ng + 1) >> 1;
-    const unsigned ao = tap_tab[13].x;
+    const unsigned ao = tap_tab[13].x;  // chunk k0's stage
     const uint2* bk = brw + k * a.ck / 16 * bstep;
     for (int kk = 0; kk < nkk; ++kk)
       for (int p = 0; p < a.r_pass; ++p) {
@@ -419,7 +417,6 @@ conv3_mma(const MmaArgs a) {
       }
   };
 
-  const int nbricks = a.nbd * a.nbh * a.nbw;
   // the output voxel of row h * 8 + (lane / 4) of M tile mt, or -1 past
   // the grid's ragged edge
   auto out_voxel = [&](int mt, int h) -> long long {
@@ -435,8 +432,8 @@ conv3_mma(const MmaArgs a) {
   };
 
   // bias, bf16 store, and the block's moment partials in a fixed order
-  auto epilogue = [&](float (&c)[TM][TN][4], const float* b,
-                      __nv_bfloat16* out, float* part) {
+  auto epilogue = [&](auto& c, const float* b, __nv_bfloat16* out,
+                      float* part) {
     float s[TN][2], s2[TN][2], bn[TN][2];
 #pragma unroll
     for (int j = 0; j < TN; ++j)
@@ -501,8 +498,8 @@ conv3_mma(const MmaArgs a) {
     __syncthreads();
   };
 
-  // split chunks: this block's raw partial sums
-  auto store_partial = [&](float (&c)[TM][TN][4], float* dst) {
+  // split K ranges: this block's raw partial sums
+  auto store_partial = [&](auto& c, float* dst) {
 #pragma unroll
     for (int mt = 0; mt < TM; ++mt)
 #pragma unroll
@@ -519,21 +516,96 @@ conv3_mma(const MmaArgs a) {
       }
   };
 
-  // this block's chunk of the input channels (split: one a block), then
-  // the residual tap on the same brick
-  load_chunk(sp);
-  cp_async_commit();
-  cp_async_wait_all();
-  if (a.scale != nullptr) prologue(sp);
-  __syncthreads();
   const long long m_out = (long long)a.Do * a.Ho * a.Wo * a.co;
-  compute(sp);
-  if (a.split == 1)
-    epilogue(acc, a.bias, a.y, a.part);
-  else
-    store_partial(acc, a.ws + sp * m_out);
-  if (a.r != nullptr) {
-    compute_res(sp);
+  auto finish = [&](auto& c) {
+    if (a.split == 1)
+      epilogue(c, a.bias, a.y, a.part);
+    else
+      store_partial(c, a.ws + sp * m_out);
+  };
+
+  // the chunks: chunk k0's copies before the loop; in the loop each k
+  // step's B fragments load one step ahead, and the first steps of a chunk
+  // each issue PIECE of this thread's copies of the next chunk into the
+  // other stage, waited for at the chunk's end
+  zero(acc);
+  if constexpr (NP == 2) zero(lacc);
+  if constexpr (FOLD) zero(tot);
+  load(0, 0, 1 << 30);
+  cp_async_wait_all();
+  if (a.scale != nullptr) prologue(0);
+  __syncthreads();
+
+  for (int it = 0; it < nit; ++it) {
+    const int k = k0 + it;
+    const int ng = groups(k), nk16 = ng >> 1, nkk = (ng + 1) >> 1;
+    const bool next = it + 1 < nit;
+    const int npiece = next ? pieces(it + 1) : 0;
+    int q = 0;  // the chunk's k steps so far
+    if (active) {
+      const unsigned sbase = (it & 1) * a.a_stage;
+      const uint2* bk = bw + k * a.ck / 16 * bstep;  // chunks start at 16n
+      uint2 b[NP][TN], bn[NP][TN];
+      load_b(b, bk + tap_tab[0].y);
+      for (int t = 0; t < ntap; ++t) {
+        const unsigned ao = sbase + tap_tab[t].x;
+        const uint2* bp = bk + tap_tab[t].y;
+        for (int kk = 0; kk < nkk; ++kk, ++q) {
+          // the next step's fragments: this tap's next k step, or the next
+          // tap's first
+          if (kk + 1 < nkk)
+            load_b(bn, bp + (kk + 1) * bstep);
+          else if (t + 1 < ntap)
+            load_b(bn, bk + tap_tab[t + 1].y);
+          if (q < npiece) load(it + 1, q * PIECE, (q + 1) * PIECE);
+          if (kk < nk16)
+            kstep(std::false_type{}, kk, ao, b);
+          else
+            kstep(std::true_type{}, kk, ao, b);
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+#pragma unroll
+            for (int j = 0; j < TN; ++j) b[p][j] = bn[p][j];
+        }
+      }
+    }
+    if (next) {  // the rest of the next chunk's copies, then its prologue
+      load(it + 1, (q < npiece ? q : npiece) * PIECE, 1 << 30);
+      cp_async_wait_all();
+      if (a.scale != nullptr) prologue(it + 1);
+    }
+    if constexpr (FOLD) {
+#pragma unroll
+      for (int mt = 0; mt < TM; ++mt)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float c = acc[mt][j][i];
+            if constexpr (NP == 2) c = __fadd_rn(c, lacc[mt][j][i]);
+            tot[mt][j][i] = __fadd_rn(tot[mt][j][i], c);
+          }
+      zero(acc);
+      if constexpr (NP == 2) zero(lacc);
+    }
+    __syncthreads();  // chunk it's stage is free, chunk it + 1's ready
+  }
+  if constexpr (FOLD) {
+    finish(tot);
+  } else {
+    if constexpr (NP == 2)
+#pragma unroll
+      for (int mt = 0; mt < TM; ++mt)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[mt][j][i] = __fadd_rn(acc[mt][j][i], lacc[mt][j][i]);
+    finish(acc);
+  }
+  if (a.r != nullptr) {  // the planner gives a residual call one chunk a
+                         // block
+    compute_res();
     if (a.split == 1)
       epilogue(acc, a.br, a.r, a.rpart);
     else
@@ -541,35 +613,16 @@ conv3_mma(const MmaArgs a) {
   }
 }
 
-// mom[q][n]: the sum of the n_part moment partials part[i][q][n], in
-// double in a fixed order (thread t takes i = t, t + 256, ..., then a
-// tree), rounded to fp32; a block a (q, n), the residual's (rpart, rmom)
-// the blocks past 2 co
-__global__ void __launch_bounds__(256)
-conv3_moment_sum(const float* __restrict__ ypart,
-                 const float* __restrict__ rpart, int n_part, int co,
-                 float* __restrict__ ymom, float* __restrict__ rmom) {
-  __shared__ double red[256];
-  const bool res = blockIdx.x >= 2 * co;
-  const float* part = res ? rpart : ypart;
-  float* mom = res ? rmom : ymom;
-  const int qn = blockIdx.x % (2 * co);
-  const int q = qn / co, n = qn % co;
-  double s = 0.0;
-  for (int i = threadIdx.x; i < n_part; i += 256)
-    s += (double)part[((long long)i * 2 + q) * co + n];
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = 128; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) mom[qn] = (float)red[0];
-}
-
 // The 16-byte units a slot for a chunk of ck channels: odd, so that 8
 // consecutive slots fall in 8 distinct 16-byte bank groups.
 int slot_units(int ck) { return ck / 8 | 1; }
+
+int n_classes(const MmaArgs& a) { return a.mode == 2 ? 8 : 1; }
+
+long long n_blocks(const MmaArgs& a) {
+  return (long long)a.nbd * a.nbh * a.nbw * ceil_div(a.co, a.cot) *
+         n_classes(a) * a.split;
+}
 
 // The brick, grid, chunk and shared-memory layout the chosen fields
 // imply; false where the plan cannot run.
@@ -584,7 +637,7 @@ bool shape(MmaArgs& a) {
   a.wm = m / (16 * a.tm);
   a.cot = WARP_N * a.wn;
   a.threads = 32 * a.wm * a.wn;
-  if (a.threads > MAX_THREADS) return false;
+  if (a.threads > max_threads(a.tm, a.w_pass)) return false;
   a.nbd = ceil_div(a.Gd, a.bd);
   a.nbh = ceil_div(a.Gh, a.bh);
   a.nbw = ceil_div(a.Gw, a.bw);
@@ -596,17 +649,23 @@ bool shape(MmaArgs& a) {
   a.pl = a.ey * a.ew;
   a.nslot = a.ez * a.pl;
   a.nchunk = ceil_div(a.ci, a.ck);
-  if (a.split != a.nchunk) return false;  // one chunk a block
+  if (a.split > a.nchunk) return false;
+  a.cps = ceil_div(a.nchunk, a.split);
+  if (ceil_div(a.nchunk, a.cps) != a.split) return false;  // a split empty
+  // without a running total a block's chunks are one accumulator chain;
+  // the residual pass reads the block's one chunk
+  if ((a.tm == 4 && a.cps * a.ck > MAX_CK) || (a.res && a.cps > 1))
+    return false;
   a.pp = slot_units(a.ck);
   a.a_stage = a.nslot * a.pp * 16;
-  a.taps_off = a.a_stage;  // then the taps, the slots' voxels, and the
-                           // epilogue's (2, wm, cot) moment scratch
+  // the stages (two where a block takes several chunks), then the taps,
+  // the slots' voxels, and the epilogue's (2, wm, cot) moment scratch
+  a.taps_off = (a.cps > 1 ? 2 : 1) * a.a_stage;
   a.red_off = (a.taps_off + 8 * 27 + 4 * a.nslot + 15) / 16 * 16;
   a.smem = a.red_off + 2 * a.wm * a.cot * 4;
   return a.smem <= MAX_SMEM;
 }
 
-int n_classes(const MmaArgs& a) { return a.mode == 2 ? 8 : 1; }
 
 // The largest number of distinct 16-byte units that one bank group serves
 // in one 8-row matrix of an ldmatrix, over every tap, M tile and unit pair
@@ -638,7 +697,7 @@ int conflict_degree(const MmaArgs& a) {
 }
 
 // The brick of a block of `warps` warps, wn of them along N: their M tiles
-// as bricks 8 wide along W with the (z, y) rows shared out as conv3.cu's
+// as bricks bw wide along W with the (z, y) rows shared out as conv3.cu's
 // planner does (H the larger share).
 void bricks(MmaArgs& a, int warps) {
   const int rows = (warps / a.wn > 0 ? warps / a.wn : 1) * a.tm * 16 / a.bw;
@@ -652,34 +711,58 @@ void bricks(MmaArgs& a, int warps) {
   }
 }
 
-// The planner, from searches over the plans of V-Net-DS's 29 calls on an
-// H100 (utils/conv3_sweep.py --instance bfloat16|mixed --search): 4 M tiles
-// a warp (2 at stride 2, whose bricks read about 8x their outputs); the
-// whole co up to 96 a block in warps of 24 channels (fewer where nothing
-// fits); 8 warps a block in 'bfloat16', else (and in 'mixed', whose lo
-// pass takes registers) 4, bricks as above, 16 wide where a row of 9 to 16
-// then fits in one; all of ci in one chunk where it fits (up to MAX_CK,
-// MIXED_CK in 'mixed'), else the deepest of 96, 64, 48, 32, 16; the first
-// of these that keeps the block within SMEM_BUDGET. A grid of fewer blocks
-// than half the SMs takes smaller chunks (each its own blocks) until it has
-// them.
+// The least split of K ranges, from `least` up, that gives the grid at
+// least MIN_BLOCKS blocks, or the most the chunks allow.
+void fill_card(MmaArgs& a, int least) {
+  a.split = least;
+  shape(a);
+  for (int s = least + 1; s <= a.nchunk && n_blocks(a) < MIN_BLOCKS; ++s) {
+    const int cps = ceil_div(a.nchunk, s);
+    if (ceil_div(a.nchunk, cps) != s) continue;
+    a.split = s;
+    shape(a);
+  }
+}
+
+// The K ranges of chunk ck: all of ci on one block where the body keeps a
+// running total (2 M tiles a warp), else as many chunks a block as one
+// accumulator chain holds (with the residual tap one).
+int least_split(const MmaArgs& a, int chain) {
+  const int nchunk = ceil_div(a.ci, a.ck);
+  if (a.res) return nchunk;
+  if (a.tm == 2) return 1;
+  const int cps = chain / a.ck > 0 ? chain / a.ck : 1;
+  return ceil_div(nchunk, cps);
+}
+
+// The planner. M tiles a warp: 4, or 2 at stride 2 (whose bricks read
+// about 8x their outputs), where the 2-tile body folds each chunk into a
+// running total; the whole co up to 96 a block in warps of 24 channels
+// (fewer where nothing fits); 8 warps a block in 'bfloat16', 4 in 'mixed'
+// (whose lo pass takes registers), bricks as above, 16 wide where a row of
+// 9 to 16 then fits in one; all of ci in one chunk where one accumulator
+// chain holds it (MAX_CK, MIXED_CK in 'mixed'), else the deepest of 96,
+// 64, 48, 32, 16 within that chain; the first of these that keeps the
+// block within SMEM_BUDGET. A block takes the chunks least_split gives
+// it; a grid of fewer than MIN_BLOCKS blocks splits its K ranges further,
+// then takes smaller chunks, until it has them.
 void choose(MmaArgs& a) {
+  const int chain = a.w_pass == 2 ? MIXED_CK : MAX_CK;
+  const int ci8 = ceil_div(a.ci, 8) * 8;
   a.tm = a.mode == 1 ? 2 : 4;
   a.bw = a.Gw > 8 && a.Gw <= 16 ? 16 : 8;  // a row of up to 16 in one brick
-  const int ci8 = ceil_div(a.ci, 8) * 8;
   const int chunks[6] = {ci8, 96, 64, 48, 32, 16};
   const int most = a.w_pass == 2 ? 4 : 8;  // warps a block
-  const int deepest = a.w_pass == 2 ? MIXED_CK : MAX_CK;
   bool found = false;
   for (int wn = ceil_div(a.co, WARP_N) < 4 ? ceil_div(a.co, WARP_N) : 4;
        wn >= 1 && !found; --wn)
     for (int ck : chunks) {  // whole ci first, at each block size
-      if (ck > deepest || (ck != ci8 && ck >= ci8) || found) continue;
+      if (ck > chain || (ck != ci8 && ck >= ci8) || found) continue;
       for (int warps = most; warps >= 4 && !found; warps /= 2) {
         a.wn = wn;
         bricks(a, warps);
         a.ck = ck;
-        a.split = ceil_div(a.ci, ck);
+        a.split = least_split(a, chain);
         found = shape(a) && a.smem <= SMEM_BUDGET;
       }
     }
@@ -687,15 +770,12 @@ void choose(MmaArgs& a) {
     a.wn = 1;
     bricks(a, 4);
     a.ck = ci8 < 16 ? ci8 : 16;
-    a.split = ceil_div(a.ci, a.ck);
+    a.split = least_split(a, chain);
   }
-  shape(a);
-  while (a.ck > 16 && a.ck % 16 == 0 &&
-         (long long)a.nbd * a.nbh * a.nbw * ceil_div(a.co, a.cot) *
-                 n_classes(a) * a.nchunk < MIN_BLOCKS) {
+  fill_card(a, a.split);
+  while (n_blocks(a) < MIN_BLOCKS && a.ck > 16 && a.ck % 16 == 0) {
     a.ck = a.ck > 32 ? a.ck - 16 * (a.ck / 48) : 16;
-    a.split = ceil_div(a.ci, a.ck);
-    shape(a);
+    fill_card(a, least_split(a, chain));
   }
 }
 
@@ -719,14 +799,14 @@ void fill_plan(const MmaArgs& a, int* plan) {
   plan[P_TM] = a.tm; plan[P_BD] = a.bd; plan[P_BH] = a.bh;
   plan[P_BW] = a.bw; plan[P_WN] = a.wn; plan[P_CK] = a.ck;
   plan[P_SPLIT] = a.split;
-  const int nbricks = a.nbd * a.nbh * a.nbw;
   plan[P_NPART] = n_part(a);
   plan[P_THREADS] = a.threads;
   plan[P_SMEM] = a.smem;
   plan[P_PW] = a.pw;
   plan[P_PL] = a.pl;
-  plan[P_BLOCKS] = nbricks * ceil_div(a.co, a.cot) * n_classes(a) * a.split;
+  plan[P_BLOCKS] = (int)n_blocks(a);
   plan[P_CONFLICT] = conflict_degree(a);
+  plan[P_CHUNKS] = a.cps;
 }
 
 // Take the plan's chosen fields, or choose them all where P_TM is 0.
@@ -774,23 +854,29 @@ cudaError_t launch_tm(const MmaArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // The launch plan of the tensor-core body for a (D, H, W) input with ci
-// channels, co outputs, a mode and the weight's passes (1 bf16, 2 hi and
-// lo; the planner sizes blocks by them): plan is an int array of P_COUNT
-// entries. With plan[0] == 0 the planner chooses; otherwise the first
-// seven entries (M tiles a warp 2 or 4, brick depth, height and width (a
-// multiple of 8), warps along N (24 channels each), chunk (a multiple of
-// 16 up to 96, or all of ci up to 96), split (the chunks: one a block))
-// are taken as given. The call fills the
-// rest: rows of moment partials, threads, shared memory bytes, slot
-// pitches, blocks and the bank-conflict degree. A split above 1 needs a
-// workspace of split (twice that with a residual) x Do*Ho*Wo x co floats.
+// channels, co outputs, a mode, the weight's passes (1 bf16, 2 hi and lo;
+// the planner sizes blocks by them) and res (1: the calls take the
+// residual tap, which reads a block's one chunk): plan is an int array of
+// P_COUNT entries. With plan[0] == 0 the planner chooses; otherwise the
+// first seven entries (M tiles a warp 2 or 4, brick depth, height and
+// width (a multiple of 8), warps along N (24 channels each), chunk (a
+// multiple of 16 up to 96, or all of ci up to 96), split (the K ranges,
+// each of ceil(chunks / split) chunks, on blocks of their own; with 4 M
+// tiles a warp a range holds at most 96 channels)) are taken as given. The
+// call fills the rest: rows of moment partials, threads, shared memory
+// bytes, slot pitches, blocks, the bank-conflict degree and the chunks a
+// block. A split above 1 needs a workspace of split (twice that with a
+// residual) x Do*Ho*Wo x co floats.
 M3SEG_API int m3seg_conv3_mma_plan(int D, int H, int W, int ci, int co,
-                                   int mode, int w_pass, int* plan) {
+                                   int mode, int w_pass, int res,
+                                   int* plan) {
   if (D <= 0 || H <= 0 || W <= 0 || ci <= 0 || co <= 0 || mode < 0 ||
-      mode > 2 || w_pass < 1 || w_pass > 2 || plan == nullptr)
+      mode > 2 || w_pass < 1 || w_pass > 2 || res < 0 || res > 1 ||
+      plan == nullptr)
     return (int)cudaErrorInvalidValue;
   MmaArgs a = geometry<MmaArgs>(D, H, W, ci, co, mode);
   a.w_pass = w_pass;
+  a.res = res;
   if (!planned(a, plan)) return (int)cudaErrorInvalidValue;
   fill_plan(a, plan);
   return 0;
@@ -803,9 +889,10 @@ M3SEG_API int m3seg_conv3_mma_plan(int D, int H, int W, int ci, int co,
 // part, rpart: the plan's (n_part, 2, co) moment partials, each with its
 // (2, co) sums mom, rmom (or all null).
 // Everything else as m3seg_conv3 (conv3.cu), with m3seg_conv3_mma_plan's
-// plan for w_pass. Mode 1 (stride 2) takes the moment partials of the rounded outputs
-// instead of their fp32 values: the reference's down conv reads its
-// GroupNorm moments from its decimated bf16 volume.
+// plan for w_pass and the residual. Mode 1 (stride 2) takes the moment
+// partials of the rounded outputs instead of their fp32 values: the
+// reference's down conv reads its GroupNorm moments from its decimated
+// bf16 volume.
 M3SEG_API int m3seg_conv3_bf16(const void* x1, const void* x2, const void* w,
                                int w_pass, const float* bias,
                                const float* scale, const float* shift,
@@ -825,6 +912,7 @@ M3SEG_API int m3seg_conv3_bf16(const void* x1, const void* x2, const void* w,
     return (int)cudaErrorInvalidValue;
   MmaArgs a = geometry<MmaArgs>(D, H, W, c1 + c2, co, mode);
   a.w_pass = w_pass;
+  a.res = r != nullptr;
   if (!planned(a, plan)) return (int)cudaErrorInvalidValue;
   a.halo = halo_keep >= 0;
   a.keep_lo = halo_keep >= 0 && (halo_keep & 1);
@@ -851,8 +939,6 @@ M3SEG_API int m3seg_conv3_bf16(const void* x1, const void* x2, const void* w,
     err = launch_split_sum<__nv_bfloat16>(
         a.ws, a.split, (long long)a.Do * a.Ho * a.Wo, a.co, reduce_rows(a),
         a.bias, a.y, a.part, a.br, a.r, a.rpart, a.stats_rounded, s);
-  if (err != cudaSuccess || part == nullptr) return (int)err;
-  conv3_moment_sum<<<(rpart != nullptr ? 4 : 2) * co, 256, 0, s>>>(
-      part, rpart, n_part(a), co, mom, rmom);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_moment_sum(part, rpart, n_part(a), co, mom, rmom, s);
 }

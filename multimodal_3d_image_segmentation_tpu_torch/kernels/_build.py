@@ -47,13 +47,13 @@ _SIGNATURES = {
     "m3seg_tail_resize_softmax_bf16": [_P, _P, _I, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _I, _P],
     "m3seg_conv3": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                    _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
-                    _I, _P],
+                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    ctypes.POINTER(_I), _I, _I, _P],
     "m3seg_conv3_bf16": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P,
                          _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.POINTER(_I), _I, _I, _P],
     "m3seg_conv3_plan": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
-    "m3seg_conv3_mma_plan": [_I] * 7 + [ctypes.POINTER(_I)],
+    "m3seg_conv3_mma_plan": [_I] * 8 + [ctypes.POINTER(_I)],
     "m3seg_tower_block": [_P] * 11 + [_I] * 8 + [_P],
     "m3seg_tower_block_s": [_P] * 11 + [_I] * 9 + [_P],
     "m3seg_tower_resident": [_P] * 11 + [_I] * 10 + [_P],

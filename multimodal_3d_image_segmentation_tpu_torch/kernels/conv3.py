@@ -73,7 +73,6 @@ instances serve only: a forward that autograd would record raises
 from __future__ import annotations
 
 import ctypes
-import weakref
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -312,7 +311,8 @@ PLAN_FIELDS = ("rw", "bd", "bh", "nrw", "cot", "ck", "split", "n_part",
 # depth, height and width, warps along N (24 channels each), chunk, split;
 # then as above (the split and the partials' rows at the same places)
 MMA_PLAN_FIELDS = ("tm", "bd", "bh", "bw", "wn", "ck", "split", "n_part",
-                   "threads", "smem", "pw", "pl", "blocks", "conflict")
+                   "threads", "smem", "pw", "pl", "blocks", "conflict",
+                   "chunks")
 P_SPLIT, P_NPART = PLAN_FIELDS.index("split"), PLAN_FIELDS.index("n_part")
 assert (MMA_PLAN_FIELDS.index("split"), MMA_PLAN_FIELDS.index("n_part")) \
     == (P_SPLIT, P_NPART)
@@ -351,16 +351,20 @@ def conv3_plan(sizes: Sequence[int], ci: int, co: int, mode: int,
 
 
 def conv3_mma_plan(sizes: Sequence[int], ci: int, co: int, mode: int,
-                   choice: Optional[Sequence[int]] = None, passes: int = 1):
+                   choice: Optional[Sequence[int]] = None, passes: int = 1,
+                   residual: bool = False):
     """The tensor-core body's launch plan (the 'bfloat16' and 'mixed'
     instances), as ``conv3_plan``: a ctypes int array of
     ``MMA_PLAN_FIELDS``; ``choice`` gives M tiles a warp (2 or 4), brick
     depth, height and width (a multiple of 8), warps along N, chunk (a
-    multiple of 16 up to 96, or all of ci up to 96) and split (the chunks:
-    each runs on blocks of its own); ``passes``: the weight's, 1 ('bfloat16')
-    or 2 ('mixed': hi and lo), by which the planner sizes its blocks."""
+    multiple of 16 up to 96, or all of ci up to 96) and split (the K
+    ranges, each of ceil(chunks / split) chunks, on blocks of their own;
+    with 4 M tiles a warp a range holds at most 96 channels);
+    ``passes``: the weight's, 1 ('bfloat16') or 2 ('mixed': hi and lo), by
+    which the planner sizes its blocks; ``residual``: the call takes the
+    residual tap, which reads a block's one chunk."""
     return _plan("m3seg_conv3_mma_plan", MMA_PLAN_FIELDS,
-                 (*sizes, ci, co, mode, passes), choice)
+                 (*sizes, ci, co, mode, passes, int(bool(residual))), choice)
 
 
 def _kept(t: torch.Tensor, name: str, make) -> torch.Tensor:
@@ -490,12 +494,13 @@ def _ptr(t):
 
 def _conv3_forward(x, x2, weight, bias, scale, shift, res_weight, res_bias,
                    prologue_act, emit_stats, stride, dilation, halo_keep,
-                   dilated_depth, key=None):
+                   dilated_depth):
     """The kernel on CUDA tensors, ``conv3_plain`` on CPU ones (the
     arguments already checked), over ``_Conv3``'s flat argument list;
-    ``halo_keep`` is the halo mode's (keep_first, keep_last) or None. A bf16
-    instance launches through its launch record (``_make_record``), kept
-    under ``key`` where one is given."""
+    ``halo_keep`` is the halo mode's (keep_first, keep_last) or None. The
+    'float32' instance launches the FMA body, the bf16 instances the
+    tensor-core body; both C entries finish the moments (a fixed-order
+    float64 sum of the per-block partials)."""
     if x.device.type == "cpu":
         return _conv3_plain_flat(x, x2, weight, bias, scale, shift,
                                  res_weight, res_bias, prologue_act,
@@ -526,15 +531,6 @@ def _conv3_forward(x, x2, weight, bias, scale, shift, res_weight, res_bias,
     if x_ptr % 16 or (x2_ptr or 0) % 16:
         raise ValueError("conv3 kernel needs 16-byte aligned inputs")
 
-    if bf16:
-        rec = _make_record(x, x2, weight, bias, res_weight, res_bias,
-                           prologue_act, emit_stats, stride, dilation,
-                           halo_keep, dilated_depth)
-        if key is not None:
-            if len(_RECORDS) >= _MAX_RECORDS:
-                _RECORDS.clear()
-            _RECORDS[key] = rec
-        return rec(x, x2, scale, shift)
     _, d, h, w = x.shape[:4]
     halo = halo_keep is not None
     if halo:  # the kernel's depth is the interior's
@@ -546,142 +542,51 @@ def _conv3_forward(x, x2, weight, bias, scale, shift, res_weight, res_bias,
     y = torch.empty((1,) + out_sz + (co,), dtype=x.dtype, device=dev)
     r = None if res_weight is None else torch.empty_like(y)
     mode = _MODES[(stride, dilation)]
-    plan = conv3_plan((d, h, w), ci, co, mode)
-    part = rpart = ws = None
-    if emit_stats:
-        part = torch.empty((plan[P_NPART], 2, co), dtype=torch.float32,
-                           device=dev)
-        if r is not None:
-            rpart = torch.empty_like(part)
-    if plan[P_SPLIT] > 1:  # the chunks split over blocks: partial sums
-        ws = torch.empty((plan[P_SPLIT] * (1 if r is None else 2),)
-                         + y.shape[1:], dtype=torch.float32, device=dev)
-    _build.launch(HALO_KERNEL if halo else "conv3", "m3seg_conv3", dev, x_ptr,
-                  x2_ptr, packed_weight(weight).data_ptr(), bias.data_ptr(),
-                  _ptr(scale), _ptr(shift), KERNEL_ACTS[prologue_act],
-                  _ptr(res_weight), _ptr(res_bias), y.data_ptr(), _ptr(r),
-                  _ptr(part), _ptr(rpart), _ptr(ws), d, h, w, c1, c2, co,
-                  mode, plan, halo_keep[0] | 2 * halo_keep[1] if halo else -1,
-                  dsrc)
-    outs = [y] if r is None else [y, r]
-    if emit_stats:
-        # the per-block partials, summed in float64 in a fixed order
-        outs += [p.sum(0, dtype=torch.float64).float()
-                 for p in (part, rpart) if p is not None]
-    return outs[0] if len(outs) == 1 else tuple(outs)
-
-
-# The bf16 instances' CUDA calls by signature (``_signature``): what a
-# call's launch derives from shapes, options and the weight-side tensors,
-# made once after the call has passed every check, so that a serving
-# forward's repeat calls spend their host time on the launch. A record
-# holds its weight-side tensors weakly and serves only while they are the
-# very tensors it was made from (an id and a storage can be reused once a
-# tensor is freed); their packed and widened forms stay kept on them
-# (``_kept``). Cleared past _MAX_RECORDS.
-_RECORDS = {}
-_MAX_RECORDS = 512
-
-
-def _weight_key(t):
-    """A weight-side tensor's identity (object, version, storage, dtype,
-    shape), or None where it cannot be kept: an inference tensor has no
-    version counter."""
-    if t is None:
-        return ()
-    if t.is_inference():
-        return None
-    return id(t), t._version, t.data_ptr(), t.dtype, t.shape
-
-
-def _signature(x, weight, bias, x2, prologue, prologue_act, residual,
-               emit_stats, stride, dilation, precision, dilated_depth, halo,
-               halo_keep):
-    """The key of a bf16 call's launch record, or None (not kept)."""
-    ws = [_weight_key(t) for t in (weight, bias) + (residual or (None,))]
-    if None in ws:
-        return None
-    return (x.shape, x.device, None if x2 is None else (x2.shape, x2.dtype),
-            None if prologue is None else tuple(
-                (t.shape, t.dtype) for t in prologue),
-            *ws, prologue_act, bool(emit_stats), stride, dilation, precision,
-            dilated_depth, halo, _keep_flags(halo_keep) if halo else None)
-
-
-def _make_record(x, x2, weight, bias, res_weight, res_bias, prologue_act,
-                 emit_stats, stride, dilation, halo_keep, dilated_depth):
-    """A checked bf16 call's launch record: a function of its input
-    tensors (x, x2, scale, shift) that checks where they lie, makes the
-    outputs and launches, as ``_conv3_forward`` does."""
-    dev = x.device
-    wp = mma_weight(weight)
-    rp = None if res_weight is None else mma_res_weight(res_weight)
-    bias32, res_bias32 = _widened(bias), _widened(res_bias)
-    c1, c2 = x.shape[-1], 0 if x2 is None else x2.shape[-1]
-    co = weight.shape[0]
-    _, d, h, w = x.shape[:4]
-    if halo_keep is not None:
-        d -= 2
-    dsrc = 0 if dilated_depth is None else dilated_depth
-    if dsrc:
-        d = 2 * dsrc
-    geom = (d, h, w, c1, c2, co, _MODES[(stride, dilation)])
-    out_shape = (1,) + conv3_out_size((d, h, w), stride, dilation) + (co,)
-    plan = conv3_mma_plan(geom[:3], c1 + c2, co, geom[6],
-                          passes=wp.shape[0])
-    n_out = 1 if rp is None else 2
-    n_part = plan[P_NPART] * 2 * co  # floats of one output's partials
-    ws_shape = ((plan[P_SPLIT] * n_out,) + out_shape[1:]
-                if plan[P_SPLIT] > 1 else None)
-    name = ((HALO_KERNEL if halo_keep is not None else "conv3")
-            + INSTANCES[instance(x, weight)][1])
-    head = (wp.data_ptr(), wp.shape[0], bias32.data_ptr())
     act = KERNEL_ACTS[prologue_act]
-    res = (_ptr(rp), 0 if rp is None else rp.shape[0], _ptr(res_bias32))
-    tail = (*geom, plan,
-            -1 if halo_keep is None else halo_keep[0] | 2 * halo_keep[1],
-            dsrc)
-    f32 = torch.float32
-
-    def launch(x, x2, scale, shift):
-        for label, t in (("x", x), ("x2", x2), ("scale", scale),
-                         ("shift", shift)):
-            if t is not None and (t.device != dev or not t.is_contiguous()):
-                _build.check_cuda_input(label, t, dev, t.dim(), t.dtype)
-        x_ptr, x2_ptr = x.data_ptr(), _ptr(x2)
-        if x_ptr % 16 or (x2_ptr or 0) % 16:
-            raise ValueError("conv3 kernel needs 16-byte aligned inputs")
-        y = torch.empty(out_shape, dtype=_BF16, device=dev)
-        r = None if n_out == 1 else torch.empty_like(y)
-        part = rpart = mom = rmom = ws = scratch = None
-        if emit_stats:  # the scratch lives until the launch is issued
-            scratch = torch.empty(n_out * n_part, dtype=f32, device=dev)
-            part = scratch.data_ptr()
-            if n_out == 1:
-                mom = torch.empty((2, co), dtype=f32, device=dev)
-            else:
-                mom, rmom = torch.empty((2, 2, co), dtype=f32,
-                                        device=dev).unbind(0)
-                rpart = part + 4 * n_part
-        if ws_shape is not None:
-            ws = torch.empty(ws_shape, dtype=f32, device=dev)
-        _build.launch(name, "m3seg_conv3_bf16", dev, x_ptr, x2_ptr, *head,
-                      _ptr(_widened(scale)), _ptr(_widened(shift)), act,
-                      *res, y.data_ptr(), _ptr(r), part, rpart, _ptr(mom),
-                      _ptr(rmom), _ptr(ws), *tail)
-        outs = (y,) if r is None else (y, r)
-        if emit_stats:
-            outs += (mom,) if r is None else (mom, rmom)
-        return outs[0] if len(outs) == 1 else outs
-
-    refs = [weakref.ref(t) for t in (weight, bias, res_weight, res_bias)
-            if t is not None]
-
-    def owns(*ts):
-        return all(r() is t for r, t in zip(refs, ts))
-
-    launch.owns = owns
-    return launch
+    # the kernel's forms of the weight-side tensors, packed and widened once
+    # per weight version (``_kept``; an inference tensor's anew each call),
+    # held here until the launch: the outputs allocated below may otherwise
+    # take the memory of a form made for this call
+    if bf16:
+        wp = mma_weight(weight)
+        rp = None if r is None else mma_res_weight(res_weight)
+        held = (wp, rp) + tuple(map(_widened, (bias, scale, shift,
+                                               res_bias)))
+        plan = conv3_mma_plan((d, h, w), ci, co, mode, passes=wp.shape[0],
+                              residual=r is not None)
+        entry, head = "m3seg_conv3_bf16", (
+            wp.data_ptr(), wp.shape[0], held[2].data_ptr(), _ptr(held[3]),
+            _ptr(held[4]), act, _ptr(rp), 0 if rp is None else rp.shape[0],
+            _ptr(held[5]))
+    else:
+        held = (packed_weight(weight),)
+        plan = conv3_plan((d, h, w), ci, co, mode)
+        entry, head = "m3seg_conv3", (
+            held[0].data_ptr(), bias.data_ptr(), _ptr(scale), _ptr(shift),
+            act, _ptr(res_weight), _ptr(res_bias))
+    n_out = 1 if r is None else 2
+    moms = []
+    part = rpart = ws = scratch = None
+    if emit_stats:  # the partials live until the launch is issued
+        n_part = plan[P_NPART] * 2 * co
+        scratch = torch.empty(n_out * n_part, dtype=f32, device=dev)
+        part = scratch.data_ptr()
+        rpart = None if r is None else part + 4 * n_part
+        moms = [torch.empty((2, co), dtype=f32, device=dev)
+                for _ in range(n_out)]
+    if plan[P_SPLIT] > 1:  # K ranges split over blocks: partial sums
+        ws = torch.empty((plan[P_SPLIT] * n_out,) + y.shape[1:], dtype=f32,
+                         device=dev)
+    name = (HALO_KERNEL if halo else "conv3") + INSTANCES[inst][1]
+    _build.launch(name, entry, dev, x_ptr, x2_ptr, *head, y.data_ptr(),
+                  _ptr(r), part, rpart, *(_ptr(m) for m in moms),
+                  *((None,) * (2 - len(moms))), _ptr(ws), d, h, w, c1, c2,
+                  co, mode, plan, halo_keep[0] | 2 * halo_keep[1] if halo
+                  else -1, dsrc)
+    del held, scratch  # launched: the stream orders any reuse of them
+    outs = [y] if r is None else [y, r]
+    outs += moms
+    return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 class _Conv3(torch.autograd.Function):
@@ -752,16 +657,6 @@ def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
     """
     scale, shift = prologue if prologue is not None else (None, None)
     res_weight, res_bias = residual if residual is not None else (None, None)
-    key = None
-    if x.dtype == _BF16 and x.is_cuda and not _build.needs_grad(
-            *(t for t in (x, x2, weight, bias, scale, shift, res_weight,
-                          res_bias) if t is not None)):
-        key = _signature(x, weight, bias, x2, prologue, prologue_act,
-                         residual, emit_stats, stride, dilation, precision,
-                         dilated_depth, halo, halo_keep)
-        rec = _RECORDS.get(key) if key is not None else None
-        if rec is not None and rec.owns(weight, bias, *(residual or ())):
-            return rec(x, x2, scale, shift)  # a call seen and checked before
     _check_args(x, weight, bias, x2, prologue, prologue_act, residual,
                 stride, dilation, precision, dilated_depth, halo, halo_keep)
     args = (x, x2, weight, bias, scale, shift, res_weight, res_bias,
@@ -773,4 +668,4 @@ def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
             not_ported(f"training conv3's {instance(x, weight)!r} instance "
                        "(serve under torch.no_grad or inference_mode)", 12)
         return _Conv3.apply(*args)
-    return _conv3_forward(*args, key=key)
+    return _conv3_forward(*args)

@@ -19,8 +19,9 @@ CUDA events around 20 back-to-back calls, after 3 warm-up calls, the
 median of 5 such runs. With ``--search`` it also searches each distinct
 call's plan field by field (the FMA body: W run and runs along W, brick
 depth and height, channel tile, chunk, split; the tensor-core body: M
-tiles a warp, brick, warps along N, chunk and with it the split; two
-rounds), holding
+tiles a warp, brick, warps along N, chunk and split (the K ranges over
+blocks: one, two, one chunk a block and halfway); two rounds, the
+tensor-core body's one), holding
 every candidate to the plain version, and prints the best plan beside the
 planner's. ``--library`` also times one PyTorch call of the same conv +
 bias (``F.conv3d`` or ``F.conv_transpose3d``, cuDNN, in the instance's
@@ -191,12 +192,13 @@ def plan_fields(args, kw, choice=None):
     extra = {}
     if name == "conv3_mma_plan":  # its blocks follow the weight's passes
         extra["passes"] = 1 if args[1].dtype == torch.bfloat16 else 2
+        extra["residual"] = kw.get("residual") is not None
     plan = getattr(conv3_mod, name)(sizes, ci, co, mode, choice, **extra)
     return dict(zip(getattr(conv3_mod, fields), plan))
 
 
 FIELDS = {"float32": ("run", "brick", "tile", "chunk", "split"),
-          "mma": ("tm", "brick", "tile", "chunk")}
+          "mma": ("chunk", "tm", "brick", "tile")}
 
 
 def library_call(args, kw):
@@ -260,10 +262,16 @@ def mma_candidates(field, best, ci, co):
     if field == "tile":
         return [[tm, bd, bh, bw, n, ck, split]
                 for n in range(1, min(4, -(-co // 24)) + 1)]
-    # a chunk's blocks are its own: the split is the chunk count
+    # each chunk with the K ranges it allows: one block's (1), one chunk a
+    # block's, and the halves and quarters between
     ci8 = -(-ci // 8) * 8
-    return [[tm, bd, bh, bw, wn, c, -(-ci // c)]
-            for c in sorted({16, 32, 48, 64, 96, ci8}) if c <= 96]
+    out = []
+    for c in sorted({16, 32, 48, 64, 96, ci8}):
+        n = -(-ci // c)
+        if c <= 96:
+            out += [[tm, bd, bh, bw, wn, c, s]
+                    for s in sorted({1, 2, -(-n // 2), n}) if s <= n]
+    return out
 
 
 def search(args, kw):
@@ -275,7 +283,7 @@ def search(args, kw):
     _, ci, co, _ = call_key(args, kw)
     fma = _instance(args) == "float32"
     trials = 0
-    for _ in range(2):
+    for _ in range(2 if fma else 1):
         for field in FIELDS["float32" if fma else "mma"]:
             for cand in (candidates if fma else mma_candidates)(
                     field, best, ci, co):

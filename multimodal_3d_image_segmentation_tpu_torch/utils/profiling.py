@@ -4,7 +4,7 @@ CUDA card.
     python -m multimodal_3d_image_segmentation_tpu_torch.utils.profiling \
         [--model hnosegxs|vnetds|hartleymha|hnoseg|fnoseg]
         [--tower-kernel block_s|block|resident] [--train]
-        [--trace trace.json]
+        [--compute-dtype float32|bfloat16|mixed] [--trace trace.json]
 
 At the width of the serving config (HNOSeg-XS: filters 24, blocks [3]*8;
 V-Net-DS: base 24, blocks [1,2,3,3,3], right leg [0..4]; HartleyMHASeg:
@@ -27,7 +27,8 @@ copy, the label readback), which ``runtime/train_test.py::testing``
 measures. ``--train`` times and profiles the model's train step instead
 (``runtime/steps.py::make_train_step``: forward, PCC loss, backward,
 Adamax) at the configs' training size 120x120x78, batch 1, on a seeded
-batch with seeded labels 0-3.
+batch with seeded labels 0-3. ``--compute-dtype`` serves in 'bfloat16'
+or 'mixed' (both paths; the kernel path on the bf16 instances).
 """
 from __future__ import annotations
 
@@ -140,6 +141,10 @@ def main(argv=None):
                          "model's)")
     ap.add_argument("--train", action="store_true",
                     help="the train step at 120x120x78")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=("float32", "bfloat16", "mixed"),
+                    help="the model's compute dtype (serving only in "
+                         "'bfloat16' and 'mixed')")
     ap.add_argument("--trace", help="write a Chrome trace here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -158,6 +163,8 @@ def main(argv=None):
     steps = {}
     if args.tower_kernel:
         kw = dict(kw, tower_kernel=args.tower_kernel)
+    if args.compute_dtype != "float32":
+        kw = dict(kw, compute_dtype=args.compute_dtype)
     for use_kernels in (False, True):
         model = cls(**kw, use_kernels=use_kernels, device=dev,
                     generator=torch.Generator().manual_seed(SEED))

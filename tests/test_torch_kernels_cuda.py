@@ -1620,6 +1620,43 @@ def _held_bf16_conv3(got, want, n_out):
     return ok, read
 
 
+def _rounded_moments_held(got, want, n_out):
+    """(passes, what it read) of the moments of a bf16 instance's rounded
+    outputs (the stride-2 conv's) against its twin's: the difference of
+    two moment sums is at most 1e-5 of the sums of |y| and y^2 (the order
+    of the sums) plus what the outputs' own one-ulp flips move them, the
+    sum of |g - w| over a channel's elements (first moment) and of
+    |g - w| (|g| + |w|) (second), each flip within the per-element bar
+    already held; beside it, the moments against float64 sums of the
+    kernel's own output at 1e-5."""
+    ok, read = True, []
+    for g, w, st, sw in zip(got[:n_out], want[:n_out], got[n_out:],
+                            want[n_out:]):
+        assert st.dtype == torch.float32
+        own, scale = _moments64(g)
+        gf = g.double().reshape(-1, g.shape[-1])
+        wf = w.double().reshape(-1, w.shape[-1])
+        d = (gf - wf).abs()
+        flips = torch.stack([d.sum(0), (d * (gf.abs() + wf.abs())).sum(0)])
+        gap = (st.double() - sw.double()).abs() - flips
+        rel = float((gap / scale).max())
+        ok &= rel <= 1e-5
+        self_rel = float(((st.double() - own).abs() / scale).max())
+        ok &= self_rel <= 1e-5
+        read.append((rel, self_rel, float(flips.max())))
+    return ok, read
+
+
+def _bf16_conv3_held(got, want, kw, n_out):
+    """``_held_bf16_conv3``, the stride-2 conv's moments (of its rounded
+    outputs) by ``_rounded_moments_held``."""
+    if kw.get("stride", 1) != 2 or len(got) == n_out:
+        return _held_bf16_conv3(got, want, n_out)
+    ok, read = _held_bf16_conv3(got[:n_out], want[:n_out], n_out)
+    ok_m, read_m = _rounded_moments_held(got, want, n_out)
+    return ok and ok_m, read + read_m
+
+
 def _bf16_conv3_case(dev, sizes, ci, co, option, wdtype):
     """A ``_conv3_case`` in a bf16 instance: the volumes and the prologue
     bf16, the weights and biases ``wdtype`` (the tap's bias fp32); the
@@ -1653,12 +1690,7 @@ def test_conv3_bf16_instances_match_twins(dev, option, sizes, ci, co, mode,
     want = want if isinstance(want, tuple) else (want,)
     again = again if isinstance(again, tuple) else (again,)
     n_out = 2 if kw.get("residual") is not None else 1
-    if kw.get("stride", 1) == 2:
-        # the moments of the rounded outputs: a one-ulp flip against the
-        # twin moves them, so they are held to the kernel's own output
-        want = want[:n_out] + tuple(_moments64(g)[0].float()
-                                    for g in got[:n_out])
-    ok, read = _held_bf16_conv3(got, want, n_out)
+    ok, read = _bf16_conv3_held(got, want, kw, n_out)
     assert ok, read
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
@@ -1671,9 +1703,8 @@ def test_conv3_halo_bf16_instances_match_twins(dev, option, keep, mode,
                                                wdtype):
     """The halo mode of the 'bfloat16' and 'mixed' instances, counted under
     conv3_halo_bf16 and conv3_halo_mixed, at the bf16 bar. The stride-2
-    conv's moments are those of its rounded outputs, so they are held to
-    float64 sums of the kernel's own output (a one-ulp flip against the
-    twin moves them), as ``chip_smoke.py`` holds them."""
+    conv's moments are those of its rounded outputs
+    (``_rounded_moments_held``)."""
     x, w, b, kw = _bf16_conv3_case(dev, (10, 8, 7), 48, 48, option, wdtype)
     kw.update(halo=True, halo_keep=keep)
     name = "conv3_halo" + ("_bf16" if mode == "bfloat16" else "_mixed")
@@ -1682,9 +1713,7 @@ def test_conv3_halo_bf16_instances_match_twins(dev, option, keep, mode,
         want = kernels.conv3_plain(x, w, b, **kw)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    if kw.get("stride", 1) == 2:
-        want = (want[0], _moments64(got[0])[0].float())
-    ok, read = _held_bf16_conv3(got, want,
+    ok, read = _bf16_conv3_held(got, want, kw,
                                 2 if kw.get("residual") is not None else 1)
     assert ok, read
 
@@ -1692,8 +1721,8 @@ def test_conv3_halo_bf16_instances_match_twins(dev, option, keep, mode,
 def _mma_held(x, w, b, kw, name):
     """One launch of the tensor-core body (counted under ``name``) against
     the twin at the bf16 bar, the stride-2 conv's moments (of its rounded
-    outputs) against float64 sums of its own output; a second run must
-    give the same bits."""
+    outputs) by ``_rounded_moments_held``; a second run must give the same
+    bits."""
     with torch.no_grad():
         got = _launched(name, lambda: kernels.conv3(x, w, b, **kw))
         want = kernels.conv3_plain(x, w, b, **kw)
@@ -1701,10 +1730,7 @@ def _mma_held(x, w, b, kw, name):
     got, want, again = (t if isinstance(t, tuple) else (t,)
                         for t in (got, want, again))
     n_out = 2 if kw.get("residual") is not None else 1
-    if kw.get("stride", 1) == 2 and kw.get("emit_stats"):
-        want = want[:n_out] + tuple(_moments64(g)[0].float()
-                                    for g in got[:n_out])
-    ok, read = _held_bf16_conv3(got, want, n_out)
+    ok, read = _bf16_conv3_held(got, want, kw, n_out)
     assert ok, read
     assert all(torch.equal(a, g) for a, g in zip(again, got))
     return got
@@ -1760,12 +1786,14 @@ def test_conv3_mma_dilated_depth_matches_twins(dev, option, mode, wdtype):
 
 
 # forced plans of the tensor-core body (M tiles a warp, brick depth, height,
-# width, warps along N, chunk, split): each chunk of the 72 channels on
-# blocks of its own (summed by the reduce kernel), 16-wide bricks, 2 and 4
-# M tiles a warp, one warp along N for 48 channels, chunks of 16, 32, 48
-MMA_PLANS = [(2, 2, 2, 8, 1, 16, 5), (4, 2, 2, 16, 2, 32, 3),
-             (2, 1, 4, 16, 2, 16, 5), (4, 4, 2, 8, 1, 48, 2),
-             (2, 2, 4, 8, 2, 48, 2)]
+# width, warps along N, chunk, split): the 2-tile body's running total over
+# all of ci's chunks in one block (chunks of 16 and 48), K ranges of 2-5
+# chunks split over two blocks each and summed by the reduce kernel (2 and
+# 4 M tiles a warp), 16-wide bricks, one warp along N for 48 channels; a
+# call with the residual tap takes one chunk a block (split = chunks)
+MMA_PLANS = [(2, 2, 2, 8, 1, 16, 1), (4, 2, 2, 16, 2, 32, 2),
+             (2, 1, 4, 16, 2, 16, 2), (4, 4, 2, 8, 1, 48, 2),
+             (2, 2, 4, 8, 2, 48, 1)]
 
 
 @pytest.mark.parametrize("mode,wdtype", CONV3_MODES,
@@ -1779,10 +1807,12 @@ def test_conv3_mma_plans_match_twins(dev, option, choice, mode, wdtype):
     x, w, b, kw = _bf16_conv3_case(dev, (7, 9, 13), 72, 48, option, wdtype)
     real = conv3_mod.conv3_mma_plan
 
-    def forced(sizes, ci, co, m, _=None, **kw):
-        # the split is the chunk count of this option's ci (x2 doubles it)
-        return real(sizes, ci, co, m, choice[:6] + (-(-ci // choice[5]),),
-                    **kw)
+    def forced(sizes, ci, co, m, _=None, passes=1, residual=False):
+        # x2 doubles ci (2-9 chunks); the residual tap reads a block's one
+        # chunk
+        split = -(-ci // choice[5]) if residual else choice[6]
+        return real(sizes, ci, co, m, choice[:6] + (split,), passes=passes,
+                    residual=residual)
 
     conv3_mod.conv3_mma_plan = forced
     try:
@@ -1804,28 +1834,39 @@ def test_conv3_mma_plans_report_no_bank_conflict(dev):
                                 ((121, 121, 78), 24, 48, 1),
                                 ((61, 61, 39), 48, 24, 2),
                                 ((8, 8, 5), 384, 384, 0)):
-        plan = dict(zip(fields, conv3_mod.conv3_mma_plan(sizes, ci, co,
-                                                         mode)))
-        assert plan["conflict"] == 1, (sizes, ci, co, mode, plan)
-        assert plan["threads"] <= 256 and plan["smem"] <= 232448
-        assert plan["ck"] <= 96  # the accumulator chain's bound
+        for passes in (1, 2):
+            plan = dict(zip(fields, conv3_mod.conv3_mma_plan(
+                sizes, ci, co, mode, passes=passes)))
+            assert plan["conflict"] == 1, (sizes, ci, co, mode, plan)
+            assert plan["threads"] <= 256 and plan["smem"] <= 232448
+            # the accumulator chain's bound: 4 M tiles a warp sum a K
+            # range in one chain, 2 fold each chunk into a running total
+            assert plan["ck"] <= 96
+            assert plan["tm"] == 2 or plan["ck"] * plan["chunks"] <= 96
     for choice in MMA_PLANS:
         plan = dict(zip(fields, conv3_mod.conv3_mma_plan((7, 9, 13), 72, 48,
                                                          1, choice)))
         assert plan["conflict"] == 1, (choice, plan)
     for bad in ((2, 2, 2, 8, 1, 24, 3),    # chunks of 24 start off 16
-                (2, 2, 2, 8, 1, 16, 3),    # 5 chunks on 3 splits
+                (2, 2, 2, 8, 1, 16, 6),    # 9 chunks on 6 splits: one empty
+                (2, 2, 2, 8, 1, 16, 10),   # more splits than chunks
+                (4, 2, 2, 8, 1, 48, 1),    # 144 channels in one chain
                 (2, 2, 2, 8, 1, 112, 1)):  # a chunk over 96 channels
         with pytest.raises(ValueError, match="no launch plan"):
             conv3_mod.conv3_mma_plan((7, 9, 13), 144, 48, 0, bad)
+    with pytest.raises(ValueError, match="no launch plan"):
+        # the residual tap reads a block's one chunk
+        conv3_mod.conv3_mma_plan((7, 9, 13), 48, 48, 0, (2, 2, 2, 8, 1, 16, 1),
+                                 residual=True)
 
 
 @pytest.mark.parametrize("mode,wdtype", CONV3_MODES,
                          ids=[m for m, _ in CONV3_MODES])
-def test_conv3_bf16_launch_records_follow_their_weights(dev, mode, wdtype):
-    """A repeat call of a bf16 instance runs the launch record its first
-    call left; a weight updated in place, and a new weight tensor of the
-    same shape in its place, each launch with their own values."""
+def test_conv3_bf16_packed_weights_follow_their_weights(dev, mode, wdtype):
+    """A repeat call of a bf16 instance gives the same bits; a weight
+    updated in place, and a new weight tensor of the same shape in its
+    place, each launch with their own values (the packed weights are kept
+    per weight version, ``_kept``)."""
     x, w, b, kw = _bf16_conv3_case(dev, (6, 7, 9), 24, 24, "residual_stats",
                                    wdtype)
     name = "conv3" + ("_bf16" if mode == "bfloat16" else "_mixed")
