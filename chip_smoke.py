@@ -55,7 +55,10 @@ training size. It checks them:
               and 24 blocks at most 2x the twin's distance from float64),
               with controls (the twin with one of its roundings left out)
               that must fail, each instance's time beside the fp32
-              instance's and its bound;
+              instance's and its bound; tower_block's instances (the
+              tensor-core body) with its plan, registers, spills, blocks
+              per SM and phase clock, and each below the fp32 instance's
+              time in the same run;
   4. serve    ``runtime/inference.py::run_inference`` on 3 synthetic NIfTI
               cases through ``configs/config_inference_hnoseg_xs.ini``; the
               launch counts (reset just before) must be 3 / 24 / 3; then
@@ -293,10 +296,10 @@ KERNELS = [
      "multimodal_3d_image_segmentation_tpu/kernels/tail_resize.py:149"),
     # the tower kernels' 'bfloat16' and 'mixed' instances
     ("tower_block_bf16",
-     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block.cu",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block_mma.cuh",
      "multimodal_3d_image_segmentation_tpu/kernels/tower_block.py:377"),
     ("tower_block_mixed",
-     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block.cu",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block_mma.cuh",
      "multimodal_3d_image_segmentation_tpu/kernels/tower_block.py:377"),
     ("tower_block_s_bf16",
      "multimodal_3d_image_segmentation_tpu_torch/csrc/tower_block_s.cu",
@@ -1059,7 +1062,15 @@ def phase_towers_bf16(torch, kernels, dev):
     its bound (operations at the bf16 rate for 'bfloat16', fp32 for
     'mixed', whose operands are fp32; bytes at each element's size). The
     kernels line reports tower_block at HartleyMHASeg's shape, the others
-    at HNOSeg's, with the largest error over the shapes."""
+    at HNOSeg's, with the largest error over the shapes. tower_block's
+    instances run the tensor-core body (``csrc/tower_block_mma.cuh``): at
+    each shape a line gives its plan (tile, threads, shared memory), its
+    registers and spills from the build log, its blocks per SM and its
+    phase clock, and each instance's time over the fp32 instance's in this
+    run, which must be below 1 (a loose guard that the tensor-core body is
+    what runs). The channel-mix weights are made outside inference mode,
+    as a model's are, so that their packed fragments are kept from call
+    to call."""
     header("== tower kernels, bf16 and mixed instances")
     from multimodal_3d_image_segmentation_tpu_torch.kernels import \
         tower_block as tb
@@ -1074,6 +1085,17 @@ def phase_towers_bf16(torch, kernels, dev):
     bf16 = torch.bfloat16
     dtypes = {"bfloat16": bf16, "float32": torch.float32}
     results = {}
+    # the tensor-core body's registers and spills (ptxas -v), by instance
+    log = kernels.library().build_log.splitlines()
+    mma_build = {}
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and "tower_block_mma" in line:
+            inst = "bfloat16" if "ILi24ELi1E" in line else (
+                "mixed" if "ILi24ELi3E" in line else None)
+            if inst:
+                mma_build[inst] = "; ".join(
+                    ln.split(":", 1)[-1].strip() for ln in log[i + 1:i + 4]
+                    if "spill" in ln or "Used" in ln)
 
     def record(name, label, err, ms, fp32_ms, plain_ms, bnd, share):
         b_ms, b_by = bnd
@@ -1104,8 +1126,9 @@ def phase_towers_bf16(torch, kernels, dev):
                     x, spectrum, w_cat, w_cc_t, b_cat, spec, ds_prev))
                 for mode, suffix, wname in TOWER_MODES:
                     wd = dtypes[wname]
-                    args = (xb, spectrum, w_cat.to(wd), w_cc_t.to(wd), b_cat,
-                            spec, ds_prev)
+                    with torch.inference_mode(False):  # kept packings
+                        wc, wcc = w_cat.clone().to(wd), w_cc_t.clone().to(wd)
+                    args = (xb, spectrum, wc, wcc, b_cat, spec, ds_prev)
                     name = kernel + suffix
                     before = kernels.LAUNCHES[name]
                     got = fused(*args)
@@ -1136,6 +1159,29 @@ def phase_towers_bf16(torch, kernels, dev):
                         work = tower_block_s_work(spec, ks, vb)
                     record(name, label, err, ms, fp32_ms, plain_ms,
                            bound(*work, BF16_FLOPS), share)
+                    if kernel == "tower_block":
+                        fused(*args)
+                        phases, span, _ = tb.mma_phase_us(spec)
+                        smem = tb.kernel_smem_bytes(spec, mode)
+                        print(f"{name} {label} plan: tiles of "
+                              f"{tb.MMA_TILE_W} columns, "
+                              f"{spec.sizes[0]} x "
+                              f"{tb.mma_geom(spec).n_tiles} blocks of "
+                              f"{tb.MMA_THREADS} threads, {smem} B of "
+                              f"shared memory; build: "
+                              f"{mma_build.get(mode, 'not built here')}; "
+                              f"occupancy (blocks per SM, registers) "
+                              f"{tb.occupancy(spec, mode)}; phase clock, us "
+                              f"a block: " + ", ".join(
+                                  f"{k} {v:.2f}" for k, v in phases.items())
+                              + f"; span {span:.1f} us")
+                        ratio = ms / fp32_ms
+                        results[name][label]["fp32_ratio"] = ratio
+                        print(f"{name} {label}: {ratio:.3f} of the fp32 "
+                              f"instance's time in this run")
+                        check(ratio < 1.0, f"{name} {label}: {ms:.4f} ms, "
+                                           f"not below the fp32 instance's "
+                                           f"{fp32_ms:.4f}")
                     del got, want
             del x, s, z, xb
 

@@ -1,8 +1,10 @@
-// The body of one fused tower block, shared by csrc/tower_block.cu (z read
-// from a tensor), csrc/tower_block_s.cu (z formed from the resident
-// spectrum once per plane by a pass of its own, then read like a tensor)
-// and csrc/tower_resident.cu (the same, in a phase of its own per tower
-// block).
+// The FMA body of one fused tower block, shared by csrc/tower_block.cu's
+// fp32 instance (z read from a tensor; its 'bfloat16' and 'mixed'
+// instances run tower_block_mma.cuh's tensor-core body),
+// csrc/tower_block_s.cu (z formed from the resident spectrum once per
+// plane by a pass of its own, then read like a tensor) and
+// csrc/tower_resident.cu (the same, in a phase of its own per tower
+// block), every instance of those two.
 //
 // Computes, for one depth plane d of the tower grid (D, H, W), C channels,
 // and one tile of kTW columns of W, x and out channels-last (D, H, W, C):
@@ -635,10 +637,11 @@ struct ZFromTensor {
 };
 
 // Sets the kernel's dynamic shared memory and reports its occupancy:
-// resident blocks per SM at that shared memory, and registers per thread.
+// resident blocks per SM of `threads` threads at that shared memory, and
+// registers per thread.
 template <class Kernel>
 cudaError_t kernel_occupancy(Kernel kernel, size_t smem, int* blocks,
-                             int* regs) {
+                             int* regs, int threads = kThreads) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -647,7 +650,7 @@ cudaError_t kernel_occupancy(Kernel kernel, size_t smem, int* blocks,
   if (err != cudaSuccess) return err;
   *regs = attr.numRegs;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
-                                                       kThreads, smem);
+                                                       threads, smem);
 }
 
 }  // namespace

@@ -41,28 +41,41 @@ t, out and the forward H stage's output are rounded to bf16 where the TPU
 kernel rounds them, the stage matrices are bf16-rounded, and f is written
 as bf16, the TPU kernel's f in the volume's dtype); 'mixed' (x bf16, the
 weights fp32: the reference's fp32 islands on a bf16 volume, f fp32).
-z, the biases, ds_prev and ds are fp32 in every instance. The plain twin
+z, the biases, ds_prev and ds are fp32 in every instance. The fp32
+instance runs the FMA body (``csrc/tower_block.cuh``); the two bf16
+instances run the tensor-core body (``csrc/tower_block_mma.cuh``: every
+product as ``mma.sync``, one pass of bf16 values in 'bfloat16'; in
+'mixed' each fp32 value as three bf16 parts, ``parts3``, and the six
+products of order up to 2^-16, fp32-class sums), on the stage matrices
+and weights packed once in fragment order (``mma_mats`` per spec,
+``mma_weights`` per weight version). The plain twin
 of a bf16 instance (``tower_block_plain`` on a bf16 x) computes in fp32
 from the bf16 values and rounds where the kernel rounds; ``acc=float64``
 sums in float64 instead (the precision gate's twins64 path).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import device as _device  # noqa: F401  (fp32 policy)
 from ..ops.spectral import _dft_mats_np, _rfft_mats_np
 from . import _build
 from ._common import instance
+from .conv3 import _kept
 
 __all__ = ["TowerSpec", "make_tower_spec", "fused_tower_block",
            "tower_block_plain", "entry_forward_hw", "d_stage_forward",
            "d_stage_inverse", "spectrum_mix", "block_spectrum_update",
            "spectrum_rows", "kernel_smem_bytes", "occupancy", "instance",
+           "mma_geom", "mma_mats", "mma_weights", "mma_phase_us",
+           "MMA_PHASES", "MMA_TILE_W", "MMA_THREADS", "MMA_MAX_KW",
+           "MMA_PARTS", "parts3",
            "INSTANCES", "SUPPORTED_CHANNELS", "MAX_DS_ROWS", "MAX_KH"]
 
 # template instances in the .cu: the configs' width 24, and 8 for tests
@@ -70,6 +83,10 @@ SUPPORTED_CHANNELS = (8, 24)
 MAX_DS_ROWS = 8           # per-thread register bound of the ds rows
 MAX_KH = 32               # csrc/tower_block.cuh kMaxKH: F's registers
 _TILE_W, _TILE_H = 8, 32  # csrc/tower_block.cuh kTW, kTH
+MMA_TILE_W = 16           # csrc/tower_block_mma.cuh kMmaTW
+MMA_THREADS = 512         # csrc/tower_block_mma.cuh kMmaThreads
+MMA_MAX_KW = 32           # csrc/tower_block_mma.cuh kMmaMaxKW
+MMA_PARTS = {"bfloat16": 1, "mixed": 3}  # bf16 parts of a matrix's value
 _MAX_SMEM_BYTES = 227 * 1024
 # instance -> (the C entries' mode, csrc/tower_block.cuh kFp32 / kBf16 /
 # kMixed; the suffix its launches count under)
@@ -192,6 +209,181 @@ def _kernel_mats(spec: TowerSpec, device: torch.device,
     m = _spec_mats(spec)
     return _buffer([np.concatenate(m["h_fwd"], axis=1), *m["w_inv"],
                     *m["h_inv"], *m["w_fwd"]], device, rounded)
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _pitch(n: int) -> int:
+    """A shared-memory row of at least n bf16 values in the tensor-core
+    body: a whole and odd number of 16-byte units (``mma_pitch``)."""
+    p = _up(n, 8)
+    return p if (p // 8) % 2 else p + 8
+
+
+class MmaGeom(NamedTuple):
+    """The tensor-core body's GEMM sizes and shared memory
+    (``csrc/tower_block_mma.cuh`` MmaGeom)."""
+    n_tiles: int   # W tiles of MMA_TILE_W columns
+    nht: int       # tiles of 16 H rows
+    kih: int       # K of the inverse H stage, 2KH rounded up to 8
+    kwp: int       # KW rounded up to 8
+    mth: int       # m tiles of the forward H stage (2KH rows)
+    smem: int      # bytes of shared memory a block
+
+
+@functools.lru_cache(maxsize=None)
+def mma_geom(spec: TowerSpec, passes: int = 1) -> MmaGeom:
+    """The tensor-core body's sizes at ``spec`` with ``passes`` parts a
+    matrix (1 'bfloat16', 3 'mixed'); its shared memory holds the
+    weights' B fragments (room for 2C + 8 rows of w_cat), the tile's
+    inverse and forward W fragments, the y tile (reused by the F tile, 2TW
+    values a row; bf16 values in 'bfloat16', fp32 in 'mixed') and the out
+    tile."""
+    _, h, w = spec.sizes
+    c, kh = spec.channels, spec.kh
+    nht, kih, kwp = -(-h // 16), _up(2 * kh, 8), _up(spec.kw, 8)
+    ksc, nc, tw = -(-c // 16), c // 8, MMA_TILE_W
+    frags = passes * (ksc * (2 * nc + 1) * 256 + ksc * nc * 256
+                      + 2 * tw // 16 * (2 * kwp // 16) * 512
+                      + 2 * tw // 16 * (2 * kwp // 8) * 256)
+    tiles = (2 if passes == 1 else 4) * max(tw * (c * _pitch(kih) + 8),
+                                            c * kh * 2 * tw)
+    out = max(2 * tw * c * _pitch(16 * nht), 4 * 16 * 16 * (2 * kwp + 8))
+    return MmaGeom(-(-w // tw), nht, kih, kwp, -(-2 * kh // 16),
+                   frags + tiles + out)
+
+
+def _a_fragments(a: torch.Tensor) -> torch.Tensor:
+    """(M, K) bf16 -> mma.sync's A fragments, M and K padded to 16 with
+    zeros: (M/16, K/16, 8, 4, 2, 2, 2), element [mt, ks, g, t, kh, rh, j] =
+    a[16 mt + 8 rh + g, 16 ks + 8 kh + 2 t + j], so lane 4g + t of a warp
+    loads its four registers of m tile mt, k step ks as 16 contiguous
+    bytes."""
+    m, k = a.shape
+    mp, kp = _up(m, 16), _up(k, 16)
+    f = F.pad(a, (0, kp - k, 0, mp - m)).reshape(mp // 16, 2, 8, kp // 16,
+                                                  2, 4, 2)
+    return f.permute(0, 3, 2, 5, 4, 1, 6).contiguous()
+
+
+def _b_fragments(b: torch.Tensor) -> torch.Tensor:
+    """(K, N) bf16 -> mma.sync's B fragments, K padded to 16 and N to 8
+    with zeros: (K/16, N/8, 8, 4, 2, 2), element [ks, nt, g, t, half, j] =
+    b[16 ks + 8 half + 2 t + j, 8 nt + g], so lane 4g + t loads its two
+    registers of k step ks, n tile nt as 8 contiguous bytes."""
+    k, n = b.shape
+    kp, np_ = _up(k, 16), _up(n, 8)
+    f = F.pad(b, (0, np_ - n, 0, kp - k)).reshape(kp // 16, 2, 4, 2,
+                                                  np_ // 8, 8)
+    return f.permute(0, 4, 5, 2, 1, 3).contiguous()
+
+
+def parts3(m: torch.Tensor):
+    """fp32 -> its three bf16 parts (hi, mid, lo), each the rounding of
+    what the parts before leave (each difference exact in fp32): hi + mid +
+    lo carries m to 2^-27; hi and mid are the reference's ``hi_lo``
+    (``kernels/_common.py``)."""
+    parts, rest = [], m.float()
+    for _ in range(3):
+        parts.append(rest.to(_BF16))
+        rest = rest - parts[-1].float()
+    return tuple(parts)
+
+
+def _mma_passes(m: torch.Tensor, passes: int):
+    """An fp32 matrix's parts: its bf16 values (1, 'bfloat16') or its three
+    parts (3, 'mixed'; ``parts3``)."""
+    return (m.to(_BF16),) if passes == 1 else parts3(m)
+
+
+def _mma_stage_parts(spec: TowerSpec, passes: int):
+    """The four stage-matrix parts of the tensor-core body, each with its
+    passes stacked (``csrc/tower_block_mma.cuh`` MmaMats): iw (n_tiles, NP,
+    2TW/16, 2kwp/16, ...) the tiles' inverse W matrices, rows [re w | im
+    w], columns [re j | im j]; ih (NP, nht, ceil(2KH/16), ...) [ha ; hb]^T;
+    fh (NP, mth, nht, ...) Mh^T; fw (n_tiles, NP, 2TW/16, 2kwp/8, ...) the
+    tiles' forward W matrices, rows [re w | im w], columns [re j | im j].
+    The fp32 matrices are the kernel's (``_kernel_mats``)."""
+    m = _spec_mats(spec)
+    g = mma_geom(spec)
+    _, _, w = spec.sizes
+    kw, tw = spec.kw, MMA_TILE_W
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+    cwi, swi = (f32(a) for a in m["w_inv"])            # (KW, W)
+    cw, sw = (f32(a) for a in m["w_fwd"])              # (W, KW)
+    ih = torch.cat([f32(a) for a in m["h_inv"]]).t()   # (H, 2KH)
+    fh = f32(np.concatenate(m["h_fwd"], axis=1)).t()   # (2KH, H)
+
+    def tile_pair(c, s, w0):
+        """The tile's columns w0 .. of (W, KW) matrices c, s as (TW, kwp)
+        blocks, zero past W and KW."""
+        cc, ss = torch.zeros(tw, g.kwp), torch.zeros(tw, g.kwp)
+        n = min(tw, w - w0)
+        cc[:n, :kw], ss[:n, :kw] = c[w0:w0 + n], s[w0:w0 + n]
+        return cc, ss
+    iw, fw = [], []
+    for t in range(g.n_tiles):
+        c, s = tile_pair(cwi.t(), swi.t(), t * tw)
+        a = torch.cat([torch.cat([c, -s], 1), torch.cat([s, c], 1)])
+        iw.append(torch.stack([_a_fragments(p)
+                               for p in _mma_passes(a, passes)]))
+        c, s = tile_pair(cw, sw, t * tw)
+        b = torch.cat([torch.cat([c, s], 1), torch.cat([-s, c], 1)])
+        fw.append(torch.stack([_b_fragments(p)
+                               for p in _mma_passes(b, passes)]))
+    return (torch.stack(iw),
+            torch.stack([_a_fragments(p) for p in _mma_passes(ih, passes)]),
+            torch.stack([_a_fragments(p) for p in _mma_passes(fh, passes)]),
+            torch.stack(fw))
+
+
+@functools.lru_cache(maxsize=None)
+def mma_mats(spec: TowerSpec, device: torch.device,
+             passes: int) -> torch.Tensor:
+    """The tensor-core body's stage matrices packed in fragment order, one
+    bf16 buffer of ``_mma_stage_parts`` in order, packed once per spec,
+    device and number of parts (1 'bfloat16', 3 'mixed')."""
+    flat = torch.cat([p.reshape(-1) for p in _mma_stage_parts(spec,
+                                                              passes)])
+    with torch.inference_mode(False):  # see ops/spectral.py::_stage_tensor
+        return flat.to(device)
+
+
+def mma_weights(w_cat: torch.Tensor, w_cc_t: torch.Tensor):
+    """The channel-mix weights as the tensor-core body's B fragments, kept
+    per weight version (``conv3._kept``): (NP, ceil(C/16), ceil((2C +
+    n_ds)/8), ...) of w_cat^T and (NP, ceil(C/16), C/8, ...) of w_cc_t^T;
+    one part of a bf16 weight's values, three of an fp32 weight's
+    (``parts3``)."""
+    def pack(t):
+        return torch.stack([_b_fragments(p) for p in (
+            (t.t(),) if t.dtype == _BF16 else parts3(t.float().t()))])
+    return (_kept(w_cat, "_m3seg_tower_mma", pack),
+            _kept(w_cc_t, "_m3seg_tower_mma", pack))
+
+
+# the tensor-core body's phases, in the order its phase clock reads them
+MMA_PHASES = ("inverse W", "inverse H and tail", "forward H", "forward W")
+
+
+def mma_phase_us(spec: TowerSpec):
+    """The tensor-core body's phase clock of its last launch at ``spec``
+    (thread 0 of each block reads the card's globaltimer at the block's
+    start and after each phase): ({phase: mean us a block}, the launch's
+    span in us from the first block's start to the last block's end, the
+    blocks' summed us). Waits for the device; launches nothing."""
+    n = spec.sizes[0] * mma_geom(spec).n_tiles
+    buf = (ctypes.c_longlong * (5 * n))()
+    _build.call("m3seg_tower_block_phase_ns",
+                ctypes.cast(buf, ctypes.c_void_p), n)
+    t = np.frombuffer(buf, np.int64).reshape(n, 5).astype(np.float64) / 1e3
+    phases = dict(zip(MMA_PHASES, np.diff(t, axis=1).mean(0).tolist()))
+    return phases, float(t[:, 4].max() - t[:, 0].min()), float(
+        (t[:, 4] - t[:, 0]).sum())
 
 
 def entry_forward_hw(x: torch.Tensor, spec: TowerSpec,
@@ -399,43 +591,59 @@ def _check_operands(spec: TowerSpec, x, w_cat, w_cc_t, b_cat, ds_prev,
     return want
 
 
-def kernel_smem_bytes(spec: TowerSpec) -> int:
-    """Shared memory of one block of the kernels (``csrc/tower_block.cuh``
-    smem_floats: the y tile, one chunk of voxels, the chunk's (A, B) and Mh
-    rows, the weights with room for MAX_DS_ROWS deep-supervision rows, and
-    the tile's W-stage columns); raises where it exceeds a block's
-    227 KB."""
+def kernel_smem_bytes(spec: TowerSpec, inst: str = "float32") -> int:
+    """Shared memory of one block of the kernels' instance ``inst``; raises
+    where it exceeds a block's 227 KB. 'float32' (tower_block's, and every
+    instance of tower_block_s and tower_resident): the FMA body's
+    (``csrc/tower_block.cuh`` smem_floats: the y tile, one chunk of
+    voxels, the chunk's (A, B) and Mh rows, the weights with room for
+    MAX_DS_ROWS deep-supervision rows, and the tile's W-stage columns).
+    tower_block's 'bfloat16' and 'mixed': the tensor-core body's
+    (``csrc/tower_block_mma.cuh`` mma_smem_bytes: the y tile, reused by the
+    F tile, each one bf16 buffer a pass, and the tile's out for all H
+    rows)."""
     c, kh, kw = spec.channels, spec.kh, spec.kw
-    smem = 4 * (2 * kh * _TILE_W * c + _TILE_H * _TILE_W * c
-                + 2 * kh * _TILE_H + _TILE_H * 2 * kh
-                + (2 * c + MAX_DS_ROWS) * c + c * c + 2 * c
-                + 4 * kw * _TILE_W)
+    if inst == "float32":
+        smem = 4 * (2 * kh * _TILE_W * c + _TILE_H * _TILE_W * c
+                    + 2 * kh * _TILE_H + _TILE_H * 2 * kh
+                    + (2 * c + MAX_DS_ROWS) * c + c * c + 2 * c
+                    + 4 * kw * _TILE_W)
+    else:
+        smem = mma_geom(spec, MMA_PARTS[inst]).smem
     if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"C={c}, KH={kh}, KW={kw} need {smem} bytes of "
-                         "shared memory per block")
+        raise ValueError(f"C={c}, KH={kh}, KW={kw}, H={spec.sizes[1]} need "
+                         f"{smem} bytes of shared memory per block "
+                         f"({inst})")
     return smem
 
 
-def check_kernel_spec(spec: TowerSpec, kernel: str) -> None:
-    """Raise where the tower kernels' body has no instance for ``spec``:
-    C outside ``SUPPORTED_CHANNELS``, KH above ``MAX_KH`` (the forward H
-    accumulators live in registers) or a block's shared memory above
-    227 KB."""
+@functools.lru_cache(maxsize=None)  # a spec that fails raises every call
+def check_kernel_spec(spec: TowerSpec, kernel: str,
+                      inst: str = "float32") -> None:
+    """Raise where the tower kernels' body for instance ``inst`` has no
+    instance for ``spec``: C outside ``SUPPORTED_CHANNELS``, KH above
+    ``MAX_KH`` (the FMA body's forward H accumulators and the tensor-core
+    body's inverse H fragments live in registers), KW above ``MMA_MAX_KW``
+    in the tensor-core body (its z loads), or a block's shared memory
+    above 227 KB."""
     if spec.channels not in SUPPORTED_CHANNELS:
         raise ValueError(f"{kernel} kernel has no instance for "
                          f"C={spec.channels} (supported: "
                          f"{SUPPORTED_CHANNELS})")
     if spec.kh > MAX_KH:
         raise ValueError(f"{kernel}: KH={spec.kh} > {MAX_KH}")
-    kernel_smem_bytes(spec)
+    if inst != "float32" and spec.kw > MMA_MAX_KW:
+        raise ValueError(f"{kernel} ({inst}): KW={spec.kw} > {MMA_MAX_KW}")
+    kernel_smem_bytes(spec, inst)
 
 
 def occupancy(spec: TowerSpec, inst: str = "float32"):
     """(blocks per SM, registers per thread) of the kernel's instance
-    ``inst`` at ``spec``'s channels, modes and ds rows, as the CUDA runtime
-    reports them."""
+    ``inst`` at ``spec``'s channels, H, modes and ds rows, as the CUDA
+    runtime reports them."""
     return _build.occupancy("m3seg_tower_block_occupancy", spec.channels,
-                            spec.kh, spec.kw, spec.n_ds, INSTANCES[inst][0])
+                            spec.sizes[1], spec.kh, spec.kw, spec.n_ds,
+                            INSTANCES[inst][0])
 
 
 def check_cuda_operands(x, named, inst: str) -> None:
@@ -466,24 +674,29 @@ def _tower_block_forward(x, z, w_cat, w_cc_t, b_cat, spec: TowerSpec,
     check_cuda_operands(x, (("x", x), ("z", z), ("w_cat", w_cat),
                             ("w_cc_t", w_cc_t), ("b_cat", b_cat),
                             ("ds_prev", ds_prev)), inst)
-    check_kernel_spec(spec, "tower_block")
+    check_kernel_spec(spec, "tower_block", inst)
     if n_ds > MAX_DS_ROWS:
         raise ValueError(f"n_ds={n_ds} > {MAX_DS_ROWS}")
-    n_tiles = -(-w // _TILE_W)
     out = torch.empty_like(x)
     # f in the weights' dtype: bf16 in 'bfloat16', fp32 otherwise
     f = torch.empty((d, 2, c, kh, kw), dtype=w_cat.dtype, device=x.device)
     ds = (torch.empty((d, h, w, n_ds), dtype=torch.float32, device=x.device)
           if n_ds else None)
+    if inst == "float32":
+        n_tiles = -(-w // _TILE_W)
+        mats, wcat, wcc = _kernel_mats(spec, x.device), w_cat, w_cc_t
+    else:  # the tensor-core body's packed matrices, alive until the launch
+        n_tiles = mma_geom(spec).n_tiles
+        mats = mma_mats(spec, x.device, MMA_PARTS[inst])
+        wcat, wcc = mma_weights(w_cat, w_cc_t)
     # per (plane, W-tile) partial spectra, summed in tile order by the
     # kernel's second pass (deterministic, no atomics)
     partial = torch.empty((d, n_tiles, 2, c, kh, kw), dtype=torch.float32,
                           device=x.device)
-    mats = _kernel_mats(spec, x.device, inst == "bfloat16")
     mode, suffix = INSTANCES[inst]
     _build.launch("tower_block" + suffix, "m3seg_tower_block", x.device,
-                  x.data_ptr(), z.data_ptr(), w_cat.data_ptr(),
-                  w_cc_t.data_ptr(), b_cat.data_ptr(), mats.data_ptr(),
+                  x.data_ptr(), z.data_ptr(), wcat.data_ptr(),
+                  wcc.data_ptr(), b_cat.data_ptr(), mats.data_ptr(),
                   ds_prev.data_ptr() if n_ds else None, out.data_ptr(),
                   f.data_ptr(), ds.data_ptr() if n_ds else None,
                   partial.data_ptr(), d, h, w, c, kh, kw, n_ds, mode)

@@ -69,6 +69,7 @@ SEED = 0
 N_TIMED = 20
 OWN_KERNELS = ("conv_in_kernel", "freq_chain_kernel", "tail_kernel",
                "conv3_brick", "conv3_split_sum", "tower_block_kernel",
+               "tower_block_mma_kernel",
                "tower_spectrum_tiles", "tower_block_s_kernel",
                "tower_spectrum_z", "tower_spectrum_depth",
                "tower_resident_kernel")

@@ -13,8 +13,13 @@ On seeded random inputs at the 121x121x78 tower grid with C 24, it times
   (Hartley, modes (8,12,12), 4 deep-supervision rows), HNOSeg's (Hartley,
   modes (10,14,14)) and FNOSeg's (Fourier, modes (10,14,14), KW 14);
 - ``fused_tower_block_s`` at the same three shapes;
-- ``resident_tower`` (24 blocks) at HNOSeg's and FNOSeg's shapes, with the
-  phase clock's mean per call where the checkout has one;
+- both again in their 'bfloat16' and 'mixed' instances on the bf16
+  volume (the weights made outside inference mode, as a model's are), also
+  back to back and as ``torch.profiler`` device time (every device event
+  of a call), with tower_block's phase clock where the checkout has one;
+- ``resident_tower`` (24 blocks) at HNOSeg's and FNOSeg's shapes, in all
+  three instances, with the phase clock's mean per call where the
+  checkout has one;
 - ``fused_tail_softmax`` at the serving shape, (1, 4, 121, 121, 78) logits
   to 240 x 240 x 155 probabilities, with its rate against 3.35 TB/s;
 - ``conv_in_s2d`` on a (1, 4, 240, 240, 155) volume with and without the
@@ -60,6 +65,9 @@ HBM_BYTES_PER_S = 3.35e12
 VOLUME, VOLUME_ODD = (1, 4, 240, 240, 155), (1, 4, 239, 239, 155)
 SPECTRUM = (1, 20, 28, 28, 24)  # HNOSeg-XS: modes (10,14,14) packed
 N_HOST = 50
+# the bf16 instances: (name, the channel-mix weights' dtype, launch suffix)
+BF16_MODES = (("bfloat16", torch.bfloat16, "_bf16"),
+              ("mixed", torch.float32, "_mixed"))
 # the shapes that serve tower_block (chip_smoke.py times the same):
 # (label, transform, modes, deep-supervision rows)
 BLOCK_SHAPES = [("HartleyMHASeg", "Hartley", (8, 12, 12), 4),
@@ -75,7 +83,7 @@ def median_ms(fn):
 
 
 TOWER_KINDS = ("tower_resident_kernel", "tower_block_s_kernel",
-               "tower_block_kernel")
+               "tower_block_kernel", "tower_block_mma_kernel")
 EDGE_KINDS = ("conv_in_kernel", "freq_chain_kernel")
 
 
@@ -95,9 +103,13 @@ def build_report(kinds=TOWER_KINDS + EDGE_KINDS):
         if kind is None:
             continue
         c = "24" if "ILi24E" in name else "8" if "ILi8E" in name else "?"
-        # the tower kernels' instances: <C, volume type, weight type>
-        inst = ("" if "__nv_bfloat16" not in name else
-                " mixed" if "__nv_bfloat16fE" in name else " bf16")
+        # the FMA body's instances: <C, volume type, weight type>; the
+        # tensor-core body's: <C, passes>
+        if kind == "tower_block_mma_kernel":
+            inst = " bf16" if "ELi1EE" in name else " mixed"
+        else:
+            inst = ("" if "__nv_bfloat16" not in name else
+                    " mixed" if "__nv_bfloat16fE" in name else " bf16")
         props = [ln.split(":", 1)[-1].strip() for ln in log[i + 1:i + 4]
                  if "spill" in ln or "Used" in ln]
         print(f"build: {kind.removesuffix('_kernel')}{inst} width {c}: "
@@ -202,6 +214,47 @@ def block_operands(transform, modes, n_ds, seed, dev):
     return spec, x, s, z, w_cat, w_cc_t, b_cat, ds_prev
 
 
+def kept_weights(dtype, *ws):
+    """``ws`` in ``dtype`` as normal tensors, made outside inference mode as
+    a model's parameters are, so that a kernel keeps its packed forms of
+    them from call to call."""
+    with torch.inference_mode(False):
+        return tuple(w.clone().to(dtype) for w in ws)
+
+
+def _bf16_block_calls(label, spec, x, s, z, w_cat, w_cc_t, b_cat, ds_prev,
+                      outputs):
+    """tower_block and tower_block_s in both bf16 instances at one shape:
+    each output saved, each timed a call, back to back and as device
+    time, tower_block's phase clock printed where the checkout has one."""
+    xb = x.to(torch.bfloat16)
+    for mode, wd, suffix in BF16_MODES:
+        wc, wcc = kept_weights(wd, w_cat, w_cc_t)
+        for name, fused, spectrum, outs in (
+                ("tower_block", kernels.fused_tower_block, z,
+                 ("out", "f", "ds")),
+                ("tower_block_s", kernels.fused_tower_block_s, s,
+                 ("out", "s_f", "ds"))):
+            call = (xb, spectrum, wc, wcc, b_cat, spec, ds_prev)
+
+            def run():
+                return fused(*call)
+            for oname, t in zip(outs, run()):
+                outputs[f"{name}{suffix} {label} {oname}"] = t
+            ms, s_ms = median_ms(run), stream_ms(run)
+            _, dev_ms = device_ms(run, name)
+            clock = ""
+            if name == "tower_block" and hasattr(tb, "mma_phase_us"):
+                run()
+                phases, span, _ = tb.mma_phase_us(spec)
+                clock = "; phase clock, us a block: " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in phases.items()) + (
+                    f"; span {span:.1f} us")
+            print(f"{name}{suffix} {label}: {ms:.4f} ms a call, "
+                  f"{s_ms:.4f} back to back, device {dev_ms:.4f}{clock}",
+                  flush=True)
+
+
 def resident_operands(transform, seed, dev):
     """x and the stacked weights of a 24-block tower (operator weights
     scaled as the SNN init, 1 / sqrt(C))."""
@@ -246,6 +299,8 @@ def main(argv=None):
                 outputs[f"tower_block_s {label} {name}"] = t
             ms = median_ms(lambda: kernels.fused_tower_block_s(*call_s))
             print(f"tower_block_s {label}: {ms:.4f} ms", flush=True)
+            _bf16_block_calls(label, spec, x, s, z, w_cat, w_cc_t, b_cat,
+                              ds_prev, outputs)
             del x, s, z, call, call_s, got
         for i, (label, transform) in enumerate((("HNOSeg", "Hartley"),
                                                 ("FNOSeg", "Fourier"))):
@@ -260,6 +315,14 @@ def main(argv=None):
                   f"(ms): " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in phases.items()),
                   flush=True)
+            xb = ops[0].to(torch.bfloat16)
+            for mode, wd, suffix in BF16_MODES:
+                wb = (ops[1],) + kept_weights(wd, ops[2], ops[3]) + (ops[4],)
+                outputs[f"tower_resident{suffix} {label} out"] = \
+                    kernels.resident_tower(xb, *wb, spec)
+                ms = median_ms(lambda: kernels.resident_tower(xb, *wb, spec))
+                print(f"tower_resident{suffix} {label}: {ms:.4f} ms",
+                      flush=True)
         logits = _t(np.random.default_rng(300), TAIL_IN, dev, 3.0)
         outputs["tail_resize out"] = kernels.fused_tail_softmax(logits,
                                                                 TAIL_OUT)

@@ -706,18 +706,23 @@ def test_tower_kernels_keep_two_blocks_per_sm(dev, modes):
         assert occ[0] >= 2 and occ[1] <= 128
 
 
+@pytest.mark.parametrize("inst", list(tb.INSTANCES))
 @pytest.mark.parametrize("label,transform,modes,n_ds", BLOCK_SHAPES)
 @pytest.mark.parametrize("c", [8, 24])
 def test_kernel_smem_bytes_follow_the_c_layout(dev, label, transform, modes,
-                                               n_ds, c):
+                                               n_ds, c, inst):
     """kernel_smem_bytes, which the wrappers check before a launch, equals
     the shared memory that the C side gives each block of the tower
-    kernels, at the shapes that serve tower_block."""
+    kernels' instance ``inst`` (the FMA body's for 'float32', the
+    tensor-core body's for 'bfloat16' and 'mixed'), at the shapes that
+    serve tower_block; each instance reports at least one block an SM."""
     spec = tb.make_tower_spec(transform, (121, 121, 78), modes, c, n_ds=n_ds)
     got = ctypes.c_int(0)
-    _build.call("m3seg_tower_smem_bytes", spec.channels, spec.kh, spec.kw,
-                ctypes.byref(got))
-    assert tb.kernel_smem_bytes(spec) == got.value
+    _build.call("m3seg_tower_smem_bytes", spec.channels, spec.sizes[1],
+                spec.kh, spec.kw, tb.INSTANCES[inst][0], ctypes.byref(got))
+    assert tb.kernel_smem_bytes(spec, inst) == got.value
+    blocks, regs = tb.occupancy(spec, inst)
+    assert blocks >= 1 and 0 < regs <= 255
 
 
 def test_tower_block_occupancy_is_reported(dev):
@@ -1493,6 +1498,83 @@ def test_tower_block_bf16_instances_match_twins(dev, transform, sizes,
         _held_bf16_tower(got, want)
         for a, b in zip(again, got):  # a fixed order: the same bits
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode,wdtype", TOWER_MODES,
+                         ids=[m for m, _ in TOWER_MODES])
+def test_tower_block_mma_ragged_tiles_match_twins(dev, mode, wdtype):
+    """The tensor-core body at C 24 with 4 ds rows, a short last H tile
+    (37 = 2 x 16 + 5 rows) and a short last W tile (41 = 2 x 16 + 9
+    columns), KH 28 (a k8 remainder in the inverse H stage): each output
+    against its twin, a second run bit-identical, the phase clock read.
+    An occupancy query at a smaller shared memory (a smaller KW) first
+    must not keep the launch from taking its own."""
+    spec, x, s, z, w_cat, w_cc_t, b_cat, ds_prev = _tower_block_args(
+        "Hartley", (5, 37, 41), (2, 14, 14), 24, 4, 150, dev)
+    small = tb.make_tower_spec("Hartley", (5, 37, 41), (2, 14, 3), 24,
+                               n_ds=4)
+    assert tb.kernel_smem_bytes(small, mode) < tb.kernel_smem_bytes(spec,
+                                                                    mode)
+    assert tb.occupancy(small, mode)[0] >= 1
+    args = (x.bfloat16(), z, w_cat.to(wdtype), w_cc_t.to(wdtype), b_cat,
+            spec, ds_prev)
+    suffix = "_bf16" if mode == "bfloat16" else "_mixed"
+    with torch.no_grad():
+        got = _launched("tower_block" + suffix,
+                        lambda: kernels.fused_tower_block(*args))
+        want = kernels.tower_block_plain(*args)
+        again = kernels.fused_tower_block(*args)
+        phases, span, busy = tb.mma_phase_us(spec)
+    _held_bf16_tower(got, want)
+    for a, b in zip(again, got):
+        assert torch.equal(a, b)
+    assert list(phases) == list(tb.MMA_PHASES)
+    assert all(v > 0 for v in phases.values()) and 0 < span <= busy
+
+
+def _mma_clock(spec):
+    """The tensor-core body's phase clock (raw globaltimer readings of its
+    last launch's blocks): a launch of that body rewrites it, a launch of
+    the FMA body leaves it."""
+    n = spec.sizes[0] * tb.mma_geom(spec).n_tiles
+    buf = (ctypes.c_longlong * (5 * n))()
+    _build.call("m3seg_tower_block_phase_ns",
+                ctypes.cast(buf, ctypes.c_void_p), n)
+    return list(buf)
+
+
+def test_tower_bodies_by_instance(dev):
+    """tower_block's 'bfloat16' and 'mixed' instances launch the
+    tensor-core body (its phase clock moves); its fp32 instance and every
+    instance of tower_block_s launch the FMA body (the clock stays); a KW
+    the tensor-core body does not take (above 32) raises before a launch
+    in the bf16 instances only."""
+    spec, x, s, z, w_cat, w_cc_t, b_cat, ds_prev = _tower_block_args(
+        "Fourier", (13, 40, 17), (3, 6, 5), 8, 0, 160, dev)
+    for wd, xd in ((torch.float32, torch.float32),
+                   (torch.bfloat16, torch.bfloat16),
+                   (torch.float32, torch.bfloat16)):
+        a = (x.to(xd), z, w_cat.to(wd), w_cc_t.to(wd), b_cat, spec, ds_prev)
+        with torch.no_grad():
+            before = _mma_clock(spec)
+            kernels.fused_tower_block(*a)
+            torch.cuda.synchronize()
+            after = _mma_clock(spec)
+            kernels.fused_tower_block_s(a[0], s, *a[2:])
+            torch.cuda.synchronize()
+            after_s = _mma_clock(spec)
+        assert (after != before) == (xd == torch.bfloat16)
+        assert after_s == after
+    wide, xw, sw, zw, wcw, wccw, bw, _ = _tower_block_args(
+        "Hartley", (6, 9, 40), (2, 3, 17), 8, 0, 161, dev)
+    with torch.no_grad():
+        kernels.fused_tower_block(xw, zw, wcw, wccw, bw, wide)  # fp32: KW 34
+        for wd in (torch.bfloat16, torch.float32):
+            before = dict(kernels.LAUNCHES)
+            with pytest.raises(ValueError, match="KW=34"):
+                kernels.fused_tower_block(xw.bfloat16(), zw, wcw.to(wd),
+                                          wccw.to(wd), bw, wide)
+            assert kernels.LAUNCHES == before
 
 
 @pytest.mark.parametrize("mode,wdtype", TOWER_MODES,
