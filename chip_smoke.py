@@ -1062,15 +1062,18 @@ def phase_towers_bf16(torch, kernels, dev):
     its bound (operations at the bf16 rate for 'bfloat16', fp32 for
     'mixed', whose operands are fp32; bytes at each element's size). The
     kernels line reports tower_block at HartleyMHASeg's shape, the others
-    at HNOSeg's, with the largest error over the shapes. tower_block's
-    instances run the tensor-core body (``csrc/tower_block_mma.cuh``): at
-    each shape a line gives its plan (tile, threads, shared memory), its
-    registers and spills from the build log, its blocks per SM and its
-    phase clock, and each instance's time over the fp32 instance's in this
-    run, which must be below 1 (a loose guard that the tensor-core body is
-    what runs). The channel-mix weights are made outside inference mode,
-    as a model's are, so that their packed fragments are kept from call
-    to call."""
+    at HNOSeg's, with the largest error over the shapes. The bf16
+    instances of all three kernels run the tensor-core body
+    (``csrc/tower_block_mma.cuh``): for each kernel and instance a line
+    gives its plan (tile, threads, shared memory; tower_resident's
+    persistent grid), its registers and spills from the build log, its
+    blocks per SM and its phase clock (the kernel's own: tower_block's and
+    tower_block_s's at each shape, tower_resident's five phases a tower and
+    its last block's body phases), and each instance's time over the fp32
+    instance's in this run, which must be below 1 (a loose guard that the
+    tensor-core body is what runs). The channel-mix weights are made
+    outside inference mode, as a model's are, so that their packed
+    fragments are kept from call to call."""
     header("== tower kernels, bf16 and mixed instances")
     from multimodal_3d_image_segmentation_tpu_torch.kernels import \
         tower_block as tb
@@ -1085,17 +1088,28 @@ def phase_towers_bf16(torch, kernels, dev):
     bf16 = torch.bfloat16
     dtypes = {"bfloat16": bf16, "float32": torch.float32}
     results = {}
-    # the tensor-core body's registers and spills (ptxas -v), by instance
+    # the tensor-core body's registers and spills (ptxas -v), by kernel
+    # and instance (the C 24 instances: <24, 1> 'bfloat16', <24, 3> 'mixed')
     log = kernels.library().build_log.splitlines()
     mma_build = {}
     for i, line in enumerate(log):
-        if "Compiling entry function" in line and "tower_block_mma" in line:
-            inst = "bfloat16" if "ILi24ELi1E" in line else (
-                "mixed" if "ILi24ELi3E" in line else None)
-            if inst:
-                mma_build[inst] = "; ".join(
-                    ln.split(":", 1)[-1].strip() for ln in log[i + 1:i + 4]
-                    if "spill" in ln or "Used" in ln)
+        if "Compiling entry function" not in line:
+            continue
+        for kernel in ("tower_block", "tower_block_s", "tower_resident"):
+            for inst, np_ in (("bfloat16", 1), ("mixed", 3)):
+                if f"{kernel}_mma_kernelILi24ELi{np_}E" in line:
+                    mma_build[kernel, inst] = "; ".join(
+                        ln.split(":", 1)[-1].strip()
+                        for ln in log[i + 1:i + 4]
+                        if "spill" in ln or "Used" in ln)
+
+    def guard(name, label, ms, fp32_ms):
+        ratio = ms / fp32_ms
+        results[name][label]["fp32_ratio"] = ratio
+        print(f"{name} {label}: {ratio:.3f} of the fp32 instance's time in "
+              f"this run")
+        check(ratio < 1.0, f"{name} {label}: {ms:.4f} ms, not below the "
+                           f"fp32 instance's {fp32_ms:.4f}")
 
     def record(name, label, err, ms, fp32_ms, plain_ms, bnd, share):
         b_ms, b_by = bnd
@@ -1159,29 +1173,22 @@ def phase_towers_bf16(torch, kernels, dev):
                         work = tower_block_s_work(spec, ks, vb)
                     record(name, label, err, ms, fp32_ms, plain_ms,
                            bound(*work, BF16_FLOPS), share)
-                    if kernel == "tower_block":
-                        fused(*args)
-                        phases, span, _ = tb.mma_phase_us(spec)
-                        smem = tb.kernel_smem_bytes(spec, mode)
-                        print(f"{name} {label} plan: tiles of "
-                              f"{tb.MMA_TILE_W} columns, "
-                              f"{spec.sizes[0]} x "
-                              f"{tb.mma_geom(spec).n_tiles} blocks of "
-                              f"{tb.MMA_THREADS} threads, {smem} B of "
-                              f"shared memory; build: "
-                              f"{mma_build.get(mode, 'not built here')}; "
-                              f"occupancy (blocks per SM, registers) "
-                              f"{tb.occupancy(spec, mode)}; phase clock, us "
-                              f"a block: " + ", ".join(
-                                  f"{k} {v:.2f}" for k, v in phases.items())
-                              + f"; span {span:.1f} us")
-                        ratio = ms / fp32_ms
-                        results[name][label]["fp32_ratio"] = ratio
-                        print(f"{name} {label}: {ratio:.3f} of the fp32 "
-                              f"instance's time in this run")
-                        check(ratio < 1.0, f"{name} {label}: {ms:.4f} ms, "
-                                           f"not below the fp32 instance's "
-                                           f"{fp32_ms:.4f}")
+                    fused(*args)
+                    mod = tb if kernel == "tower_block" else tbs
+                    phases, span, _ = mod.mma_phase_us(spec)
+                    smem = tb.kernel_smem_bytes(spec, mode)
+                    print(f"{name} {label} plan: tiles of {tb.MMA_TILE_W} "
+                          f"columns, {spec.sizes[0]} x "
+                          f"{tb.mma_geom(spec).n_tiles} blocks of "
+                          f"{tb.MMA_THREADS} threads, {smem} B of shared "
+                          f"memory; build: "
+                          f"{mma_build.get((kernel, mode), 'not built here')}"
+                          f"; occupancy (blocks per SM, registers) "
+                          f"{mod.occupancy(spec, mode)}; phase clock, us a "
+                          f"block: " + ", ".join(
+                              f"{k} {v:.2f}" for k, v in phases.items())
+                          + f"; span {span:.1f} us")
+                    guard(name, label, ms, fp32_ms)
                     del got, want
             del x, s, z, xb
 
@@ -1255,15 +1262,35 @@ def phase_towers_bf16(torch, kernels, dev):
                     xb, *w, spec))
                 plain_ms = median_ms(torch, lambda: kernels.resident_tower_plain(
                     xb, *w, spec), n=5)
-                (blocks, regs) = tr.occupancy(spec, mode)
-                print(f"{name} {label}: persistent grid "
-                      f"{tr.resident_grid(spec, mode)} blocks, {blocks} per "
-                      f"SM, {regs} registers per thread")
+                tr.phase_ms(reset=True)
+                kernels.resident_tower(xb, *w, spec)
+                per_tower = tr.phase_ms(reset=True)
+                body, _, _ = tr.mma_phase_us(spec)
+                # the volume streamed through device memory once each way a
+                # block (it fits neither L2 nor the SMs' shared memory)
+                streamed = 2 * nb * xb.numel() * 2 / HBM_BYTES_PER_S * 1e3
+                built = mma_build.get(("tower_resident", mode),
+                                      "not built here")
+                print(f"{name} {label} plan: {tb.MMA_THREADS} threads a "
+                      f"block, persistent grid {tr.resident_grid(spec, mode)}"
+                      f" blocks over {spec.sizes[0]} x "
+                      f"{tb.mma_geom(spec).n_tiles} items a tower block, "
+                      f"{tb.kernel_smem_bytes(spec, mode)} B of shared "
+                      f"memory; build: {built}; occupancy (blocks per SM, "
+                      f"registers) {tr.occupancy(spec, mode)}; phases, ms a "
+                      f"tower: "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in
+                                  per_tower.items())
+                      + "; the last block's body, us an item: " + ", ".join(
+                          f"{k} {v:.2f}" for k, v in body.items())
+                      + f"; streamed bound {streamed:.3f} ms ({nb} reads and "
+                        f"writes of the bf16 volume at 3.35 TB/s)")
                 record(name, label, err1, ms, fp32_ms, plain_ms,
                        bound(*tower_resident_work(
                            spec, ks, nb, 2, 2 if mode == "bfloat16" else 4),
                            BF16_FLOPS),
                        share)
+                guard(name, label, ms, fp32_ms)
         del model, x, xb
         torch.cuda.empty_cache()
     out = {}

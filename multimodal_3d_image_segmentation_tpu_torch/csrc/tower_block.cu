@@ -36,22 +36,23 @@
 
 namespace {
 
-template <int C, class T, class TW>
+template <int C>
 __global__ void __launch_bounds__(kThreads, 2)
-tower_block_kernel(const T* __restrict__ x, const float* __restrict__ z,
-                   const TW* __restrict__ wcat, const TW* __restrict__ wcc,
+tower_block_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                   const float* __restrict__ wcat,
+                   const float* __restrict__ wcc,
                    const float* __restrict__ bias, Mats m,
-                   const float* __restrict__ ds_prev, T* __restrict__ out,
+                   const float* __restrict__ ds_prev, float* __restrict__ out,
                    float* __restrict__ partial, float* __restrict__ ds_out,
                    int H, int W, int KH, int KW, int nds) {
-  const ZFromTensor<false, kRoundOps<TW>> zsrc{
-      z + (size_t)blockIdx.y * 2 * C * KH * KW, C, KH, KW};
-  tower_block_body<C, T, TW>(zsrc, blockIdx.y, blockIdx.x, gridDim.x, true,
-                            x, wcat, wcc, bias, m, ds_prev, out, partial,
-                            ds_out, H, W, KH, KW, nds);
+  const ZFromTensor<false> zsrc{z + (size_t)blockIdx.y * 2 * C * KH * KW, C,
+                                KH, KW};
+  tower_block_body<C>(zsrc, blockIdx.y, blockIdx.x, gridDim.x, true, x, wcat,
+                      wcc, bias, m, ds_prev, out, partial, ds_out, H, W, KH,
+                      KW, nds);
 }
 
-template <int C, class T, class TW>
+template <int C>
 cudaError_t launch(const void* x, const float* z, const void* wcat,
                    const void* wcc, const float* bias, Mats m,
                    const float* ds_prev, void* out, void* f, float* ds,
@@ -60,17 +61,16 @@ cudaError_t launch(const void* x, const float* z, const void* wcat,
   const int n_tiles = (W + kTW - 1) / kTW;
   const size_t smem = sizeof(float) * smem_floats(C, KH, KW);
   cudaError_t err = cudaFuncSetAttribute(
-      tower_block_kernel<C, T, TW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      tower_block_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
-  tower_block_kernel<C, T, TW><<<dim3(n_tiles, D), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), z, static_cast<const TW*>(wcat),
-      static_cast<const TW*>(wcc), bias, m, ds_prev, static_cast<T*>(out),
-      partial, ds, H, W, KH, KW, nds);
+  tower_block_kernel<C><<<dim3(n_tiles, D), kThreads, smem, stream>>>(
+      static_cast<const float*>(x), z, static_cast<const float*>(wcat),
+      static_cast<const float*>(wcc), bias, m, ds_prev,
+      static_cast<float*>(out), partial, ds, H, W, KH, KW, nds);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // f in the weights' type: bf16 in 'bfloat16', fp32 otherwise
-  return launch_tile_sum(partial, static_cast<TW*>(f), D, n_tiles,
+  return launch_tile_sum(partial, static_cast<float*>(f), D, n_tiles,
                          C * KH * KW, stream);
 }
 
@@ -78,10 +78,12 @@ cudaError_t launch(const void* x, const float* z, const void* wcat,
 // fragments; NP the parts of a matrix (1 'bfloat16', 3 'mixed').
 template <int C, int NP>
 __global__ void __launch_bounds__(kMmaThreads, 1)
-tower_block_mma_kernel(const float* __restrict__ z, const MmaArgs a) {
+tower_block_mma_kernel(const float* __restrict__ z, const MmaArgs a,
+                       const MmaIo io) {
   const ZTensorMma<false> zsrc{
       z + (size_t)blockIdx.y * 2 * C * a.KH * a.KW, C, a.KH, a.KW};
-  tower_block_mma_body<C, NP, false>(zsrc, blockIdx.y, blockIdx.x, true, a);
+  tower_block_mma_body<C, NP, false>(zsrc, blockIdx.y, blockIdx.x, true, a,
+                                     io);
 }
 
 // wcat, wcc: the packed B fragments (kernels/tower_block.py mma_weights);
@@ -96,22 +98,17 @@ cudaError_t launch_mma(const void* x, const float* z, const void* wcat,
   const MmaGeom g = mma_geom(C, H, W, KH, KW, NP);
   const size_t smem = (size_t)g.smem;
   if (smem > (size_t)kMmaMaxSmem) return cudaErrorInvalidValue;
-  const MmaArgs a{static_cast<const bf16*>(x),
-                  static_cast<const uint2*>(wcat),
-                  static_cast<const uint2*>(wcc),
-                  bias,
-                  mma_mats(mats, g, NP),
-                  ds_prev,
-                  static_cast<bf16*>(out),
-                  partial,
-                  ds,
-                  H, W, KH, KW, nds, g};
+  const MmaArgs a{mma_mats(mats, g, NP), ds_prev, partial, ds, H, W, KH, KW,
+                  nds, g};
+  const MmaIo io{static_cast<const bf16*>(x), static_cast<bf16*>(out),
+                 static_cast<const uint2*>(wcat),
+                 static_cast<const uint2*>(wcc), bias};
   cudaError_t err = cudaFuncSetAttribute(
       tower_block_mma_kernel<C, NP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   tower_block_mma_kernel<C, NP>
-      <<<dim3(g.n_tiles, D), kMmaThreads, smem, stream>>>(z, a);
+      <<<dim3(g.n_tiles, D), kMmaThreads, smem, stream>>>(z, a, io);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (NP == 1)
@@ -130,7 +127,7 @@ cudaError_t launch_mode(int mode, const void* x, const float* z,
                         int W, int KH, int KW, int nds, cudaStream_t stream) {
   switch (mode) {
     case kFp32:
-      return launch<C, float, float>(
+      return launch<C>(
           x, z, wcat, wcc, bias,
           unpack_mats(static_cast<const float*>(mats), H, W, KH, KW),
           ds_prev, out, f, ds, partial, D, H, W, KH, KW, nds, stream);
@@ -151,8 +148,7 @@ cudaError_t occupancy_mode(int mode, int H, int KH, int KW, int* blocks,
   const size_t smem = sizeof(float) * smem_floats(C, KH, KW);
   switch (mode) {
     case kFp32:
-      return kernel_occupancy(tower_block_kernel<C, float, float>, smem,
-                              blocks, regs);
+      return kernel_occupancy(tower_block_kernel<C>, smem, blocks, regs);
     case kBf16:
       return kernel_occupancy(tower_block_mma_kernel<C, 1>,
                               mma_smem_bytes(C, H, KH, KW, 1), blocks, regs,
@@ -220,9 +216,10 @@ M3SEG_API int m3seg_tower_block_occupancy(int c, int h, int kh, int kw,
 }
 
 // Dynamic shared memory of one block at (c, h, kh, kw), in bytes: mode
-// kFp32 the FMA body's, which tower_block, tower_block_s and
-// tower_resident share (smem_floats; h unused), kBf16 and kMixed the
-// tensor-core body's; launches nothing.
+// kFp32 the FMA body's, which the fp32 instances of tower_block,
+// tower_block_s and tower_resident share (smem_floats; h unused), kBf16
+// and kMixed the tensor-core body's, which their bf16 instances share;
+// launches nothing.
 M3SEG_API int m3seg_tower_smem_bytes(int c, int h, int kh, int kw, int mode,
                                      int* bytes) {
   if (mode == kFp32)
@@ -238,8 +235,5 @@ M3SEG_API int m3seg_tower_smem_bytes(int c, int h, int kh, int kw, int mode,
 // phase_clock): n_blocks x 5 global-timer readings, ns, into dst (host);
 // launches nothing.
 M3SEG_API int m3seg_tower_block_phase_ns(long long* dst, int n_blocks) {
-  if (n_blocks < 0 || n_blocks > kMmaClockBlocks)
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaMemcpyFromSymbol(dst, g_tower_mma_clock,
-                                   sizeof(long long) * 5 * n_blocks);
+  return (int)read_mma_clock(dst, n_blocks);
 }

@@ -1,10 +1,9 @@
-// The FMA body of one fused tower block, shared by csrc/tower_block.cu's
-// fp32 instance (z read from a tensor; its 'bfloat16' and 'mixed'
-// instances run tower_block_mma.cuh's tensor-core body),
-// csrc/tower_block_s.cu (z formed from the resident spectrum once per
-// plane by a pass of its own, then read like a tensor) and
-// csrc/tower_resident.cu (the same, in a phase of its own per tower
-// block), every instance of those two.
+// The FMA body of one fused tower block: the fp32 instance of
+// csrc/tower_block.cu (z read from a tensor), of csrc/tower_block_s.cu (z
+// formed from the resident spectrum once per plane by a pass of its own,
+// then read like a tensor) and of csrc/tower_resident.cu (the same, in a
+// phase of its own per tower block). Their 'bfloat16' and 'mixed'
+// instances run tower_block_mma.cuh's tensor-core body.
 //
 // Computes, for one depth plane d of the tower grid (D, H, W), C channels,
 // and one tile of kTW columns of W, x and out channels-last (D, H, W, C):
@@ -50,19 +49,6 @@
 // ascending), so the bits are the same. No atomics: the result is the same
 // from run to run. SELU keeps expm1f, as torch.selu does.
 //
-// Element types of an instance: T the volume's (x, out), TW the channel-
-// mix weights' (tower_block's f is TW too). fp32 <float, float>; 'bfloat16'
-// <bf16, bf16>: every product's operands are bf16 values, as each product
-// of the TPU kernel is one bf16 pass with fp32 accumulation: z, y, t, out
-// and F are rounded to bf16 where the TPU kernel rounds them (the stage
-// matrices come rounded from the wrapper), and the sums stay fp32 FMAs on
-// those values (a product of two bf16 values is exact in fp32); 'mixed'
-// <bf16, float>: a bf16 volume with fp32 weights, matrices and
-// intermediates (the reference's fp32 islands). ds and the partial spectra
-// stay fp32 in every instance. bf16 volumes move as 16-byte loads of 8
-// values and 8-byte stores of 4 (C is a multiple of 8, so every voxel's
-// channels start 16-byte aligned).
-//
 // Registers: two blocks an SM cap a thread at 128. At C 24 ptxas then
 // spills a dozen long-lived scalars (shared-memory offsets, loop bounds):
 // stored once at the start and reloaded mostly at the heads of the chunk
@@ -82,11 +68,8 @@ using bf16 = __nv_bfloat16;
 // The instances' modes, as the C entries take them.
 enum : int { kFp32 = 0, kBf16 = 1, kMixed = 2 };
 
-// Whether an instance with weights of type TW rounds its products'
-// operands to bf16 (the 'bfloat16' instance), and v rounded so where it
-// does.
-template <class TW>
-constexpr bool kRoundOps = std::is_same<TW, bf16>::value;
+// v rounded to bf16 where kRound (the 'bfloat16' instances' operands of
+// the depth stages, tower_spectrum.cuh).
 template <bool kRound>
 __device__ __forceinline__ float operand(float v) {
   if constexpr (kRound) return m3seg::round_to<bf16>(v);
@@ -192,54 +175,40 @@ __device__ __forceinline__ void stage_mh(const Mats& m, int h0, int H, int KH,
 }
 
 // Stages rows h0 .. h0 + kTH - 1 of the tile's columns of out (plane d),
-// [kTW][kTH][C] fp32, through L2 (the same block wrote them): fp32 with
-// cp.async.cg, bf16 as 16-byte ld.global.cg loads of 8 values widened on
-// their way to shared memory; voxels outside the volume are zero.
-template <int C, class T>
-__device__ __forceinline__ void stage_out(const T* out, int d, int h0,
+// [kTW][kTH][C], through L2 (the same block wrote them) with cp.async.cg;
+// voxels outside the volume are zero.
+template <int C>
+__device__ __forceinline__ void stage_out(const float* out, int d, int h0,
                                           int H, int W, int w0, int nw,
                                           float* o_s) {
-  constexpr int CV = std::is_same<T, float>::value ? C / 4 : C / 8;
-  constexpr int VW = C / CV;  // values per load
+  constexpr int CV = C / 4;
   for (int i = threadIdx.x; i < kTH * kTW * CV; i += kThreads) {
     const int q = i % CV, v = i / CV;
     const int wl = v % kTW, hl = v / kTW;  // W fastest: coalesced reads
     const bool ok = h0 + hl < H && wl < nw;
     const size_t g =
-        ok ? (((size_t)d * H + h0 + hl) * W + w0 + wl) * C + VW * q : 0;
-    float* dst = o_s + (wl * kTH + hl) * C + VW * q;
-    if constexpr (std::is_same<T, float>::value) {
-      cp_async16(dst, out + g, ok);
-    } else {
-      float4 f[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
-                     make_float4(0.f, 0.f, 0.f, 0.f)};
-      if (ok)
-        m3seg::bf16x8_to_float4x2(
-            __ldcg(reinterpret_cast<const uint4*>(out + g)), f);
-      reinterpret_cast<float4*>(dst)[0] = f[0];
-      reinterpret_cast<float4*>(dst)[1] = f[1];
-    }
+        ok ? (((size_t)d * H + h0 + hl) * W + w0 + wl) * C + 4 * q : 0;
+    cp_async16(o_s + (wl * kTH + hl) * C + 4 * q, out + g, ok);
   }
 }
 
 // One block of the kernel on plane d, W tile `tile` of n_tiles. zsrc
 // supplies the plane's z: zsrc.fill_y(y_s, ny, cwi_s, swi_s) writes the
 // inverse W stage of z over the tile's columns into the y tile,
-// [2][KH][kTW][C]; every thread of the block calls it. Without `forward` the block writes out (and ds) only,
-// no partial spectrum. x is read through L2 (ld.global.cg), so it may be
-// written by the same launch; x and out never alias. wcat (2C + nds, C),
-// wcc (C, C), bias (2C): the weights, rows = outputs, bias fp32. T, TW:
-// the instance's element types (above). KH <= kMaxKH (the wrappers check).
-template <int C, class T, class TW, class ZSrc>
+// [2][KH][kTW][C]; every thread of the block calls it. Without `forward`
+// the block writes out (and ds) only, no partial spectrum. x is read
+// through L2 (ld.global.cg), so it may be written by the same launch; x
+// and out never alias. wcat (2C + nds, C), wcc (C, C), bias (2C): the
+// weights, rows = outputs. KH <= kMaxKH (the wrappers check).
+template <int C, class ZSrc>
 __device__ __forceinline__ void tower_block_body(
     const ZSrc& zsrc, int d, int tile, int n_tiles, bool forward,
-    const T* __restrict__ x, const TW* __restrict__ wcat,
-    const TW* __restrict__ wcc, const float* __restrict__ bias,
-    const Mats& m, const float* __restrict__ ds_prev, T* __restrict__ out,
-    float* __restrict__ partial, float* __restrict__ ds_out, int H, int W,
-    int KH, int KW, int nds) {
+    const float* __restrict__ x, const float* __restrict__ wcat,
+    const float* __restrict__ wcc, const float* __restrict__ bias,
+    const Mats& m, const float* __restrict__ ds_prev,
+    float* __restrict__ out, float* __restrict__ partial,
+    float* __restrict__ ds_out, int H, int W, int KH, int KW, int nds) {
   constexpr int C4 = C / 4;
-  constexpr bool kRound = kRoundOps<TW>;
   // F tiles of 4 (of 2KH) x 4 (of C) per thread: a column has KH / 2 x
   // C4, over its kTH threads
   constexpr int kFJ = (kMaxKH / 2 * C4 + kTH - 1) / kTH;
@@ -266,9 +235,9 @@ __device__ __forceinline__ void tower_block_body(
   stage_ab(m, 0, H, KH, ab_s);
   cp_async_commit();
   for (int i = tid; i < (2 * C + nds) * C; i += kThreads)
-    wcat_s[i] = m3seg::to_float(wcat[i]);
+    wcat_s[i] = wcat[i];
   for (int i = tid; i < C * C; i += kThreads)
-    wcc_s[i] = m3seg::to_float(wcc[i]);
+    wcc_s[i] = wcc[i];
   for (int i = tid; i < 2 * C; i += kThreads) b_s[i] = bias[i];
   for (int i = tid; i < KW * kTW; i += kThreads) {
     const int j = i / kTW, wl = i % kTW;  // columns past W are zero
@@ -339,31 +308,14 @@ __device__ __forceinline__ void tower_block_body(
       if (h < H && wl < nw) {
         const size_t vox = ((size_t)d * H + h) * W + (w0 + wl);
         float xv[C], t[C];
-        if constexpr (std::is_same<T, float>::value) {
-          const float4* src = reinterpret_cast<const float4*>(x + vox * C);
+        const float4* src = reinterpret_cast<const float4*>(x + vox * C);
 #pragma unroll
-          for (int q = 0; q < C4; ++q) {
-            const float4 v = __ldcg(src + q);
-            xv[4 * q] = v.x;
-            xv[4 * q + 1] = v.y;
-            xv[4 * q + 2] = v.z;
-            xv[4 * q + 3] = v.w;
-          }
-        } else {  // 8 bf16 channels per 16-byte load
-          const uint4* src = reinterpret_cast<const uint4*>(x + vox * C);
-#pragma unroll
-          for (int q = 0; q < C / 8; ++q) {
-            float4 v[2];
-            m3seg::bf16x8_to_float4x2(__ldcg(src + q), v);
-            xv[8 * q] = v[0].x;
-            xv[8 * q + 1] = v[0].y;
-            xv[8 * q + 2] = v[0].z;
-            xv[8 * q + 3] = v[0].w;
-            xv[8 * q + 4] = v[1].x;
-            xv[8 * q + 5] = v[1].y;
-            xv[8 * q + 6] = v[1].z;
-            xv[8 * q + 7] = v[1].w;
-          }
+        for (int q = 0; q < C4; ++q) {
+          const float4 v = __ldcg(src + q);
+          xv[4 * q] = v.x;
+          xv[4 * q + 1] = v.y;
+          xv[4 * q + 2] = v.z;
+          xv[4 * q + 3] = v.w;
         }
 #pragma unroll
         for (int q = 0; q < C4; ++q) {
@@ -385,11 +337,10 @@ __device__ __forceinline__ void tower_block_body(
             p = fmaf(xv[4 * q + 2], wv.z, p);
             p = fmaf(xv[4 * q + 3], wv.w, p);
           }
-          // the operand of the W_cc_t product
-          t[c] = operand<kRound>(m3seg::selu(t[c] + (p + b_s[c])));
+          t[c] = m3seg::selu(t[c] + (p + b_s[c]));
         }
         // out = selu(W_cc_t t + W_cc_x x + b_cc), four channels at a time
-        T* dst = out + vox * C;
+        float4* dst = reinterpret_cast<float4*>(out + vox * C);
 #pragma unroll
         for (int q4 = 0; q4 < C4; ++q4) {
           float ov[4];
@@ -412,11 +363,7 @@ __device__ __forceinline__ void tower_block_body(
             }
             ov[u] = m3seg::selu(s + (q + b_s[C + c]));
           }
-          const float4 o4v = make_float4(ov[0], ov[1], ov[2], ov[3]);
-          if constexpr (std::is_same<T, float>::value)
-            reinterpret_cast<float4*>(dst)[q4] = o4v;
-          else
-            reinterpret_cast<uint2*>(dst)[q4] = m3seg::float4_to_bf16x4(o4v);
+          dst[q4] = make_float4(ov[0], ov[1], ov[2], ov[3]);
         }
         // deep supervision: ds = ds_prev + W_ds x (no bias); four rows (the
         // configs' out_channels) move as one 16-byte load and store
@@ -464,7 +411,7 @@ __device__ __forceinline__ void tower_block_body(
 #pragma unroll
     for (int u = 0; u < 4; ++u) acc_f[j][u] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int h0 = 0; h0 < H; h0 += kTH) {
-    stage_out<C, T>(out, d, h0, H, W, w0, nw, o_s);
+    stage_out<C>(out, d, h0, H, W, w0, nw, o_s);
     stage_mh(m, h0, H, KH, mh_s);
     cp_async_commit();
     cp_async_wait_all();
@@ -504,12 +451,8 @@ __device__ __forceinline__ void tower_block_body(
     if (e < n_ft) {
       const int q = e % C4, k4 = e / C4;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float4 a = acc_f[j][u];
-        f4w[(wl * k2n + 4 * k4 + u) * C4 + q] =
-            make_float4(operand<kRound>(a.x), operand<kRound>(a.y),
-                        operand<kRound>(a.z), operand<kRound>(a.w));
-      }
+      for (int u = 0; u < 4; ++u)
+        f4w[(wl * k2n + 4 * k4 + u) * C4 + q] = acc_f[j][u];
     }
   }
   __syncthreads();
@@ -569,9 +512,7 @@ __device__ __forceinline__ void w_inverse_add(float a, float b,
 // Plane d's z, read from a fp32 z tensor (D, 2, C, KH, KW): one z row
 // (c, k) per thread, all kTW columns at once. kL2: z was written by the
 // same launch (tower_resident's z phase), so it is read through L2.
-// kRound: z and the inverse W stage's output y, the operands of the two
-// inverse products, are rounded to bf16 (the 'bfloat16' instance).
-template <bool kL2, bool kRound>
+template <bool kL2>
 struct ZFromTensor {
   const float* zd;  // z[d]: (2, C, KH, KW)
   int C, KH, KW;
@@ -588,10 +529,8 @@ struct ZFromTensor {
             m3seg::ldg_or_cg<kL2>(reinterpret_cast<const float4*>(zr + j4));
         const float4 b4 =
             m3seg::ldg_or_cg<kL2>(reinterpret_cast<const float4*>(zi + j4));
-        const float av[4] = {operand<kRound>(a4.x), operand<kRound>(a4.y),
-                             operand<kRound>(a4.z), operand<kRound>(a4.w)};
-        const float bv[4] = {operand<kRound>(b4.x), operand<kRound>(b4.y),
-                             operand<kRound>(b4.z), operand<kRound>(b4.w)};
+        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
         for (int u = 0; u < 4; ++u)
           w_inverse_add(av[u], bv[u], cwi_s + (j4 + u) * kTW,
@@ -604,17 +543,16 @@ struct ZFromTensor {
             m3seg::ldg_or_cg<kL2>(reinterpret_cast<const float2*>(zr + j2));
         const float2 b2 =
             m3seg::ldg_or_cg<kL2>(reinterpret_cast<const float2*>(zi + j2));
-        w_inverse_add(operand<kRound>(a2.x), operand<kRound>(b2.x),
-                      cwi_s + j2 * kTW, swi_s + j2 * kTW, re, im);
-        w_inverse_add(operand<kRound>(a2.y), operand<kRound>(b2.y),
-                      cwi_s + (j2 + 1) * kTW, swi_s + (j2 + 1) * kTW, re,
+        w_inverse_add(a2.x, b2.x, cwi_s + j2 * kTW, swi_s + j2 * kTW, re,
                       im);
+        w_inverse_add(a2.y, b2.y, cwi_s + (j2 + 1) * kTW,
+                      swi_s + (j2 + 1) * kTW, re, im);
       }
     } else {  // odd KW: rows start at odd offsets
       for (int j = 0; j < KW; ++j)
-        w_inverse_add(operand<kRound>(m3seg::ldg_or_cg<kL2>(zr + j)),
-                      operand<kRound>(m3seg::ldg_or_cg<kL2>(zi + j)),
-                      cwi_s + j * kTW, swi_s + j * kTW, re, im);
+        w_inverse_add(m3seg::ldg_or_cg<kL2>(zr + j),
+                      m3seg::ldg_or_cg<kL2>(zi + j), cwi_s + j * kTW,
+                      swi_s + j * kTW, re, im);
     }
   }
 
@@ -629,8 +567,8 @@ struct ZFromTensor {
       row(c, k, cwi_s, swi_s, re, im);
 #pragma unroll
       for (int w = 0; w < kTW; ++w) {
-        y_s[(k * kTW + w) * C + c] = operand<kRound>(re[w]);
-        y_s[ny + (k * kTW + w) * C + c] = operand<kRound>(im[w]);
+        y_s[(k * kTW + w) * C + c] = re[w];
+        y_s[ny + (k * kTW + w) * C + c] = im[w];
       }
     }
   }

@@ -1,11 +1,15 @@
 // The body of one fused tower block on the bf16 tensor cores (mma.sync):
-// tower_block's 'bfloat16' and 'mixed' instances (csrc/tower_block.cu).
+// the 'bfloat16' and 'mixed' instances of all three tower kernels,
+// csrc/tower_block.cu (z read from a tensor), csrc/tower_block_s.cu (z
+// from its z pass) and csrc/tower_resident.cu (z from its z phase, x
+// and z read through L2).
 //
 // Replaces, in those instances: multimodal_3d_image_segmentation_tpu/
 //   kernels/tower_block.py fused_tower_block (pallas_call in
-//   _run_tower_kernel, tower_block.py:377, body _tower_kernel): every
-//   product of the TPU kernel's bf16 (one MXU pass) and packed bf16x3
-//   ('mixed') dots.
+//   _run_tower_kernel, tower_block.py:377, body _tower_kernel), and the
+//   same body in kernels/tower_block_s.py (_run_tower_kernel_s, :332) and
+//   kernels/tower_resident.py (_run_resident, :244): every product of the
+//   TPU kernels' bf16 (one MXU pass) and packed bf16x3 ('mixed') dots.
 //
 // Computes what tower_block.cuh's FMA body computes, for one depth plane d
 // of the tower grid (D, H, W), C channels, and one tile of kMmaTW columns
@@ -178,26 +182,45 @@ __host__ inline MmaMats mma_mats(const void* base, const MmaGeom& g,
   return m;
 }
 
+// What the blocks of a launch share.
 struct MmaArgs {
-  const bf16* x;          // (D, H, W, C)
-  const uint2* wcat;      // [NP][ceil(C/16)][ceil((2C + nds)/8)][32] B
-  const uint2* wcc;       // [NP][ceil(C/16)][C/8][32] B
-  const float* bias;      // (2C,) fp32
   MmaMats m;
   const float* ds_prev;   // (D, H, W, nds) fp32, or null
-  bf16* out;              // (D, H, W, C)
   float* partial;         // (D, n_tiles, 2, C, KH, KW) fp32
   float* ds_out;          // (D, H, W, nds) fp32, or null
   int H, W, KH, KW, nds;
   MmaGeom g;
 };
 
+// One tower block's volumes and weights: a launch's own, or in
+// tower_resident the block's of the tower.
+struct MmaIo {
+  const bf16* x;          // (D, H, W, C)
+  bf16* out;              // (D, H, W, C)
+  const uint2* wcat;      // [NP][ceil(C/16)][ceil((2C + nds)/8)][32] B
+  const uint2* wcc;       // [NP][ceil(C/16)][C/8][32] B
+  const float* bias;      // (2C,) fp32
+};
+
 // The phase clock: each block of the last launch writes the global timer
 // (ns) at its start and at the end of its four phases (inverse W with the
 // staging of its fragments, inverse H and tail, forward H, forward W), for
-// the first kMmaClockBlocks blocks; m3seg_tower_block_phase_ns reads it.
+// the first kMmaClockBlocks (plane, tile) items; a body without `forward`
+// writes the first three readings only (its start, the ends of inverse W
+// and of inverse H and tail). The array lives in an anonymous namespace,
+// so each .cu that includes this header keeps its own clock, which its C
+// entry reads with read_mma_clock (m3seg_tower_block_phase_ns,
+// m3seg_tower_block_s_phase_ns, m3seg_tower_resident_mma_phase_ns).
 constexpr int kMmaClockBlocks = 8192;
 __device__ long long g_tower_mma_clock[kMmaClockBlocks * 5];
+
+// This translation unit's phase clock: n_blocks x 5 readings into dst
+// (host); synchronous with the device.
+__host__ inline cudaError_t read_mma_clock(long long* dst, int n_blocks) {
+  if (n_blocks < 0 || n_blocks > kMmaClockBlocks) return cudaErrorInvalidValue;
+  return cudaMemcpyFromSymbol(dst, g_tower_mma_clock,
+                              sizeof(long long) * 5 * n_blocks);
+}
 
 __device__ __forceinline__ void phase_clock(size_t blk, int phase) {
   if (threadIdx.x == 0 && blk < kMmaClockBlocks) {
@@ -460,7 +483,8 @@ __device__ __forceinline__ void stage16(void* dst, const void* src, int n16) {
 template <int C, int NP, bool kL2, class ZSrc>
 __device__ __forceinline__ void tower_block_mma_body(const ZSrc& zsrc, int d,
                                                      int tile, bool forward,
-                                                     const MmaArgs& a) {
+                                                     const MmaArgs& a,
+                                                     const MmaIo& io) {
   constexpr int NC = C / 8;           // n8 tiles of C
   constexpr int KSC = (C + 15) / 16;  // k steps over C
   constexpr bool kC8 = C % 16 != 0;   // C's last k step is a k8
@@ -485,8 +509,8 @@ __device__ __forceinline__ void tower_block_mma_body(const ZSrc& zsrc, int d,
 
   // the block's small matrices: the weights' and the tile's W stages'
   // fragments
-  stage16(wcat_s, a.wcat, NP * KSC * n_cat * 32 / 2);
-  stage16(wcc_s, a.wcc, NP * KSC * NC * 32 / 2);
+  stage16(wcat_s, io.wcat, NP * KSC * n_cat * 32 / 2);
+  stage16(wcc_s, io.wcc, NP * KSC * NC * 32 / 2);
   stage16(iw_s, a.m.iw + (size_t)tile * NP * kMmaMTW * g.ksw * 32,
           NP * kMmaMTW * g.ksw * 32);
   stage16(fw_s, a.m.fw + (size_t)tile * NP * kMmaKSF * g.ntf * 32,
@@ -580,14 +604,14 @@ __device__ __forceinline__ void tower_block_mma_body(const ZSrc& zsrc, int d,
   // ---- inverse H stage and the block tail: one warp tile = 16 H rows of
   // one column, y1, p, q, ds, t and out in registers; a warp keeps its H
   // rows (ht) from tile to tile where nht divides the warps
-  const unsigned* x32 = reinterpret_cast<const unsigned*>(a.x);
+  const unsigned* x32 = reinterpret_cast<const unsigned*>(io.x);
   float bconv[NC][2], bcc[NC][2];
 #pragma unroll
   for (int nc = 0; nc < NC; ++nc)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      bconv[nc][e] = __ldg(a.bias + 8 * nc + 2 * tq + e);
-      bcc[nc][e] = __ldg(a.bias + C + 8 * nc + 2 * tq + e);
+      bconv[nc][e] = __ldg(io.bias + 8 * nc + 2 * tq + e);
+      bcc[nc][e] = __ldg(io.bias + C + 8 * nc + 2 * tq + e);
     }
   // units u = (ht, w) with w < nw
   const int n_units = g.nht * nw;
@@ -714,7 +738,7 @@ __device__ __forceinline__ void tower_block_mma_body(const ZSrc& zsrc, int d,
         o[0] = reinterpret_cast<const bf16*>(&ot)[0];
         o[g.ph] = reinterpret_cast<const bf16*>(&ot)[1];
         if (ok[rh])
-          *reinterpret_cast<unsigned*>(a.out + vox[rh] * C + c) = ov;
+          *reinterpret_cast<unsigned*>(io.out + vox[rh] * C + c) = ov;
       }
     }
     if (a.nds > 0)
@@ -729,9 +753,9 @@ __device__ __forceinline__ void tower_block_mma_body(const ZSrc& zsrc, int d,
           }
         }
   }
-  if (!forward) return;
   __syncthreads();  // the out tile is whole; the y tile is dead
   phase_clock(blk, 2);
+  if (!forward) return;
 
   // ---- forward H stage: F (2KH rows) x (C) = Mh^T out, per column, a
   // warp tile = one m tile of 4 columns; F rounded (or split) into the F

@@ -67,8 +67,21 @@
 // values, the depth stages' too; the spectra and the operator mix stay
 // fp32, as the TPU kernel's spectrum scratch) and 'mixed' (bf16 volumes,
 // the rest fp32); each gives the bits of its tower_block_s blocks.
+//
+// The bf16 instances run tower_block_mma.cuh's tensor-core body in phase
+// 1 (tower_resident_mma_kernel): items of (plane, kMmaTW = 16 columns),
+// blocks of kMmaThreads = 512 threads, one an SM (the body's shared
+// memory, 161 KB in 'bfloat16' and 231 KB in 'mixed' at HNOSeg's shape),
+// x and z read through L2 (kL2), each block's weights one slice of a
+// stack of packed B fragments. Its other phases are the fp32 kernel's,
+// over 512 threads a block. What bounds them there: the volume streams
+// through device memory, 24 reads and 24 writes of 54.8 MB of bf16 at
+// HNOSeg's shape, 0.785 ms at 3.35 TB/s, above the body's operations
+// (0.323 ms at 989 TFLOP/s); neither the 50 MB L2 nor the SMs' 30 MB of
+// shared memory hold the volume, which the TPU kernel keeps in VMEM.
 #include <cooperative_groups.h>
 
+#include "tower_block_mma.cuh"
 #include "tower_spectrum.cuh"
 
 namespace {
@@ -145,24 +158,24 @@ __device__ __forceinline__ void mix_point(const float* s_f,
   }
 }
 
-template <int C, class T, class TW>
-__global__ void __launch_bounds__(kThreads, 2)
-tower_resident_kernel(const T* __restrict__ x0, float* s_cur,
-                      const float* __restrict__ ops,
-                      const TW* __restrict__ wcat,
-                      const TW* __restrict__ wcc,
-                      const float* __restrict__ bias, Mats m,
-                      const float* __restrict__ mi,
-                      const float4* __restrict__ mf4, T* out, T* tmp,
-                      float* partial, float* z, int D, int H, int W, int KH,
-                      int KW, int KS, int nb, int fourier) {
-  constexpr bool kRound = kRoundOps<TW>;
+// The tower's loop over blocks of kT threads: for each block b, phase z,
+// phase 1 (body(b, forward, x, y): the block's (plane, tile) items from x
+// into y), phase 2 and phase 3 (the header), with a grid barrier after
+// each. partial: the n_tiles tiles' partial spectra, then s_f.
+template <int C, int kT, bool kRound, class T, class Body>
+__device__ __forceinline__ void tower_loop(const T* x0, float* s_cur,
+                                           const float* __restrict__ ops,
+                                           const float* __restrict__ mi,
+                                           const float4* __restrict__ mf4,
+                                           T* out, T* tmp, float* partial,
+                                           float* z, int D, int n_tiles,
+                                           int KH, int KW, int KS, int nb,
+                                           int fourier, Body&& body) {
   cg::grid_group grid = cg::this_grid();
-  const int n_tiles = (W + kTW - 1) / kTW, n_items = D * n_tiles;
   const int khw = KH * KW, ng = C * khw;
   const int pr = fourier ? 2 : 1;
-  const int n_e = (ng + kThreads - 1) / kThreads;
-  const int n_e4 = (ng / 4 + kThreads - 1) / kThreads;
+  const int n_e = (ng + kT - 1) / kT;
+  const int n_e4 = (ng / 4 + kT - 1) / kT;
   const int n_rows = (KS + kDepthRows - 1) / kDepthRows;
   const int per4 = 2 * ng / 4;
   float* s_f = partial + (size_t)D * n_tiles * 2 * ng;
@@ -171,7 +184,7 @@ tower_resident_kernel(const T* __restrict__ x0, float* s_cur,
   clock.mark(-1);
   for (int b = 0; b < nb; ++b) {
     for (int item = blockIdx.x; item < n_e4 * kZGroups; item += gridDim.x) {
-      const int e4 = 4 * ((item % n_e4) * kThreads + threadIdx.x);
+      const int e4 = 4 * ((item % n_e4) * kT + threadIdx.x);
       if (e4 < ng)
         z_group_element<true, kRound>(s_cur, mi, z, D, ng, KS, e4,
                                       item / n_e4);
@@ -181,27 +194,18 @@ tower_resident_kernel(const T* __restrict__ x0, float* s_cur,
     // the volumes ping-pong so that the last block writes out
     T* y = ((nb - 1 - b) & 1) ? tmp : out;
     const bool forward = b + 1 < nb;
-    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-      const int d = item / n_tiles, tile = item % n_tiles;
-      const ZFromTensor<true, kRound> zsrc{z + (size_t)d * 2 * ng, C, KH,
-                                           KW};
-      tower_block_body<C, T, TW>(zsrc, d, tile, n_tiles, forward, x,
-                          wcat + (size_t)b * 2 * C * C,
-                          wcc + (size_t)b * C * C, bias + (size_t)b * 2 * C,
-                          m, nullptr, y, partial, nullptr, H, W, KH, KW, 0);
-      __syncthreads();  // the next item rewrites the shared memory
-    }
+    body(b, forward, x, y);
     x = y;
     grid.sync();
     clock.mark(forward ? 0 : 3);
     if (!forward) break;
     // f over z, which no thread reads any more
-    for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
-         i < (long long)D * per4; i += (long long)gridDim.x * kThreads)
+    for (long long i = blockIdx.x * (long long)kT + threadIdx.x;
+         i < (long long)D * per4; i += (long long)gridDim.x * kT)
       tile_sum4<true, float, kRound>(partial, z, n_tiles, per4, i);
     grid.sync();
     for (int item = blockIdx.x; item < n_e * n_rows; item += gridDim.x) {
-      const int e = (item % n_e) * kThreads + threadIdx.x, r = item / n_e;
+      const int e = (item % n_e) * kT + threadIdx.x, r = item / n_e;
       if (e < ng)
         depth_rows<true>(z, mf4 + (size_t)r * D * 2, s_f, D, ng, KS, e,
                          r * kDepthRows);
@@ -210,98 +214,210 @@ tower_resident_kernel(const T* __restrict__ x0, float* s_cur,
     clock.mark(1);
     const int points = (fourier ? KS / 2 : KS) * khw;
     const float* op = ops + (size_t)(b + 1) * pr * C * C;
-    for (int i = blockIdx.x * kThreads + threadIdx.x; i < points;
-         i += gridDim.x * kThreads)
+    for (int i = blockIdx.x * kT + threadIdx.x; i < points;
+         i += gridDim.x * kT)
       mix_point<C>(s_f, op, s_cur, KS, khw, i / khw, i % khw, fourier);
     grid.sync();
     clock.mark(2);
   }
 }
 
-// Resident blocks per SM at the kernel's dynamic shared memory (set here),
-// and registers per thread.
-template <int C, class T, class TW>
-cudaError_t resident_occupancy(int KH, int KW, size_t* smem, int* blocks,
-                               int* regs) {
-  *smem = sizeof(float) * smem_floats(C, KH, KW);
-  return kernel_occupancy(tower_resident_kernel<C, T, TW>, *smem, blocks,
-                          regs);
+// The fp32 instance's kernel: phase 1 the FMA body.
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+tower_resident_kernel(const float* __restrict__ x0, float* s_cur,
+                      const float* __restrict__ ops,
+                      const float* __restrict__ wcat,
+                      const float* __restrict__ wcc,
+                      const float* __restrict__ bias, Mats m,
+                      const float* __restrict__ mi,
+                      const float4* __restrict__ mf4, float* out,
+                      float* tmp, float* partial, float* z, int D, int H,
+                      int W, int KH, int KW, int KS, int nb, int fourier) {
+  const int n_tiles = (W + kTW - 1) / kTW, n_items = D * n_tiles;
+  const int ng = C * KH * KW;
+  tower_loop<C, kThreads, false>(
+      x0, s_cur, ops, mi, mf4, out, tmp, partial, z, D, n_tiles, KH, KW,
+      KS, nb, fourier, [&](int b, bool forward, const float* x, float* y) {
+        for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+          const int d = item / n_tiles, tile = item % n_tiles;
+          const ZFromTensor<true> zsrc{z + (size_t)d * 2 * ng, C, KH, KW};
+          tower_block_body<C>(
+              zsrc, d, tile, n_tiles, forward, x,
+              wcat + (size_t)b * 2 * C * C, wcc + (size_t)b * C * C,
+              bias + (size_t)b * 2 * C, m, nullptr, y, partial, nullptr, H,
+              W, KH, KW, 0);
+          __syncthreads();  // the next item rewrites the shared memory
+        }
+      });
 }
 
-template <int C, class T, class TW>
-cudaError_t launch(const void* xv, float* s_cur, const float* ops,
-                   const void* wcatv, const void* wccv, const float* bias,
-                   Mats m, const float* mi, const float4* mf4, void* outv,
-                   void* tmpv, float* partial, float* z, int D, int H, int W,
-                   int KH, int KW, int KS, int nb, int fourier,
-                   cudaStream_t stream) {
+// The bf16 instances' kernel: the same loop over kMmaThreads threads a
+// block, phase 1 the tensor-core body (x and z read through L2). a: what
+// the body's launches share (partial as above); wcat and wcc: the stacks
+// of packed B fragments, block b's at a fixed stride; bias (nb, 2C). Both
+// instances spill under the 128-register cap; 'bfloat16''s body spills
+// less with a read from a copy of a in local memory (HNOSeg's tower: 6.1
+// against 7.1 ms of bodies on an H100), 'mixed''s from the parameters
+// themselves (10.6 against 11.7 ms), so each takes its own.
+template <int C, int NP>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+tower_resident_mma_kernel(const bf16* __restrict__ x0, float* s_cur,
+                          const float* __restrict__ ops,
+                          const uint2* __restrict__ wcat,
+                          const uint2* __restrict__ wcc,
+                          const float* __restrict__ bias,
+                          const float* __restrict__ mi,
+                          const float4* __restrict__ mf4, bf16* out,
+                          bf16* tmp, float* z, const MmaArgs a, int D,
+                          int KS, int nb, int fourier) {
+  constexpr int KSC = (C + 15) / 16, NC = C / 8;
+  const int n_tiles = a.g.n_tiles, n_items = D * n_tiles;
+  const int ng = C * a.KH * a.KW;
+  tower_loop<C, kMmaThreads, NP == 1>(
+      x0, s_cur, ops, mi, mf4, out, tmp, a.partial, z, D, n_tiles, a.KH,
+      a.KW, KS, nb, fourier, [&](int b, bool forward, const bf16* x, bf16* y) {
+        const MmaIo io{x, y, wcat + (size_t)b * NP * KSC * 2 * NC * 32,
+                       wcc + (size_t)b * NP * KSC * NC * 32,
+                       bias + (size_t)b * 2 * C};
+        auto items = [&](const MmaArgs& args) {
+          for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+            const int d = item / n_tiles, tile = item % n_tiles;
+            const ZTensorMma<true> zsrc{z + (size_t)d * 2 * ng, C, a.KH,
+                                        a.KW};
+            tower_block_mma_body<C, NP, true>(zsrc, d, tile, forward, args,
+                                              io);
+            __syncthreads();  // the next item rewrites the shared memory
+          }
+        };
+        if constexpr (NP == 1) {
+          MmaArgs local = a;
+          items(local);
+        } else {
+          items(a);
+        }
+      });
+}
+
+// Launches `kernel` cooperatively, `threads` a block and `smem` bytes of
+// dynamic shared memory (set for the occupancy query and again right
+// before the launch: another query may have lowered it), as many blocks
+// as reside on an SM times the SM count; a grid that cannot reside
+// returns its error.
+template <class Kernel>
+cudaError_t launch_cooperative(Kernel kernel, size_t smem, int threads,
+                               void** args, cudaStream_t stream) {
   int dev = 0, sms = 0, coop = 0, blocks = 0, regs = 0;
-  size_t smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = resident_occupancy<C, T, TW>(KH, KW, &smem, &blocks, &regs);
+    err = kernel_occupancy(kernel, smem, &blocks, &regs, threads);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
-  // the kernel's parameters, in its order and types
-  const T* x = static_cast<const T*>(xv);
-  const TW* wcat = static_cast<const TW*>(wcatv);
-  const TW* wcc = static_cast<const TW*>(wccv);
-  T* out = static_cast<T*>(outv);
-  T* tmp = static_cast<T*>(tmpv);
-  void* args[] = {&x,  &s_cur, &ops, &wcat,    &wcc, &bias, &m,
-                  &mi, &mf4,   &out, &tmp,     &partial, &z, &D,
-                  &H,  &W,     &KH,  &KW,      &KS,  &nb,   &fourier};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(tower_resident_kernel<C, T, TW>),
-      dim3(blocks * sms), dim3(kThreads), args, smem, stream);
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(blocks * sms), dim3(threads), args,
+                                    smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <int C>
+cudaError_t launch(const void* xv, float* s_cur, const float* ops,
+                   const void* wcatv, const void* wccv, const float* bias,
+                   Mats m, const float* mi, const float4* mf4, void* outv,
+                   void* tmpv, float* partial, float* z, int D, int H, int W,
+                   int KH, int KW, int KS, int nb, int fourier,
+                   cudaStream_t stream) {
+  // the kernel's parameters, in its order and types
+  const float* x = static_cast<const float*>(xv);
+  const float* wcat = static_cast<const float*>(wcatv);
+  const float* wcc = static_cast<const float*>(wccv);
+  float* out = static_cast<float*>(outv);
+  float* tmp = static_cast<float*>(tmpv);
+  void* args[] = {&x,  &s_cur, &ops, &wcat,    &wcc, &bias, &m,
+                  &mi, &mf4,   &out, &tmp,     &partial, &z, &D,
+                  &H,  &W,     &KH,  &KW,      &KS,  &nb,   &fourier};
+  return launch_cooperative(tower_resident_kernel<C>,
+                            sizeof(float) * smem_floats(C, KH, KW), kThreads,
+                            args, stream);
+}
+
+// The bf16 instances: wcat (nb, NP, ceil(C/16), 2C/8, 32 lanes) and wcc
+// (nb, NP, ceil(C/16), C/8, 32 lanes) packed B fragments (kernels/
+// tower_block.py mma_weight_stack), mma the packed stage matrices.
+template <int C, int NP>
+cudaError_t launch_mma(const void* xv, float* s_cur, const float* ops,
+                       const void* wcat, const void* wcc, const float* bias,
+                       const void* mma, const float* mi, const float4* mf4,
+                       void* outv, void* tmpv, float* partial, float* z,
+                       int D, int H, int W, int KH, int KW, int KS, int nb,
+                       int fourier, cudaStream_t stream) {
+  if (KW > kMmaMaxKW || mma == nullptr) return cudaErrorInvalidValue;
+  const MmaGeom g = mma_geom(C, H, W, KH, KW, NP);
+  if (g.smem > kMmaMaxSmem) return cudaErrorInvalidValue;
+  // the kernel's parameters, in its order and types
+  const bf16* x = static_cast<const bf16*>(xv);
+  const uint2* wcat2 = static_cast<const uint2*>(wcat);
+  const uint2* wcc2 = static_cast<const uint2*>(wcc);
+  bf16* out = static_cast<bf16*>(outv);
+  bf16* tmp = static_cast<bf16*>(tmpv);
+  MmaArgs a{mma_mats(mma, g, NP), nullptr, partial, nullptr, H, W, KH, KW, 0,
+            g};
+  void* args[] = {&x,   &s_cur, &ops, &wcat2, &wcc2, &bias, &mi, &mf4,
+                  &out, &tmp,   &z,   &a,     &D,    &KS,   &nb, &fourier};
+  return launch_cooperative(tower_resident_mma_kernel<C, NP>, g.smem,
+                            kMmaThreads, args, stream);
+}
+
+template <int C>
 cudaError_t launch_mode(int mode, const void* x, float* s_cur,
                         const float* ops, const void* wcat, const void* wcc,
-                        const float* bias, Mats m, const float* mi,
-                        const float4* mf4, void* out, void* tmp,
-                        float* partial, float* z, int D, int H, int W,
-                        int KH, int KW, int KS, int nb, int fourier,
+                        const float* bias, Mats m, const void* mma,
+                        const float* mi, const float4* mf4, void* out,
+                        void* tmp, float* partial, float* z, int D, int H,
+                        int W, int KH, int KW, int KS, int nb, int fourier,
                         cudaStream_t stream) {
   switch (mode) {
     case kFp32:
-      return launch<C, float, float>(x, s_cur, ops, wcat, wcc, bias, m, mi,
-                                     mf4, out, tmp, partial, z, D, H, W, KH,
-                                     KW, KS, nb, fourier, stream);
+      return launch<C>(x, s_cur, ops, wcat, wcc, bias, m, mi, mf4, out, tmp,
+                       partial, z, D, H, W, KH, KW, KS, nb, fourier, stream);
     case kBf16:
-      return launch<C, bf16, bf16>(x, s_cur, ops, wcat, wcc, bias, m, mi,
-                                   mf4, out, tmp, partial, z, D, H, W, KH,
-                                   KW, KS, nb, fourier, stream);
+      return launch_mma<C, 1>(x, s_cur, ops, wcat, wcc, bias, mma, mi, mf4,
+                              out, tmp, partial, z, D, H, W, KH, KW, KS, nb,
+                              fourier, stream);
     case kMixed:
-      return launch<C, bf16, float>(x, s_cur, ops, wcat, wcc, bias, m, mi,
-                                    mf4, out, tmp, partial, z, D, H, W, KH,
-                                    KW, KS, nb, fourier, stream);
+      return launch_mma<C, 3>(x, s_cur, ops, wcat, wcc, bias, mma, mi, mf4,
+                              out, tmp, partial, z, D, H, W, KH, KW, KS, nb,
+                              fourier, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <int C>
-cudaError_t occupancy_mode(int mode, int KH, int KW, int* blocks,
+cudaError_t occupancy_mode(int mode, int H, int KH, int KW, int* blocks,
                            int* regs) {
-  size_t smem = 0;
   switch (mode) {
     case kFp32:
-      return resident_occupancy<C, float, float>(KH, KW, &smem, blocks,
-                                                 regs);
+      return kernel_occupancy(tower_resident_kernel<C>,
+                              sizeof(float) * smem_floats(C, KH, KW), blocks,
+                              regs);
     case kBf16:
-      return resident_occupancy<C, bf16, bf16>(KH, KW, &smem, blocks, regs);
+      return kernel_occupancy(tower_resident_mma_kernel<C, 1>,
+                              mma_smem_bytes(C, H, KH, KW, 1), blocks, regs,
+                              kMmaThreads);
     case kMixed:
-      return resident_occupancy<C, bf16, float>(KH, KW, &smem, blocks,
-                                                regs);
+      return kernel_occupancy(tower_resident_mma_kernel<C, 3>,
+                              mma_smem_bytes(C, H, KH, KW, 3), blocks, regs,
+                              kMmaThreads);
     default:
       return cudaErrorInvalidValue;
   }
@@ -312,22 +428,24 @@ cudaError_t occupancy_mode(int mode, int KH, int KW, int* blocks,
 // x, out, tmp: (D, H, W, c) (tmp unused when nb == 1); s_cur: (ks, c, kh,
 // kw) fp32, block 0's operator on the entry spectrum of x, overwritten;
 // ops: (nb, 1 or 2, c, c) fp32 operator weights, rows = outputs (Fourier:
-// real, imaginary); wcat: (nb, 2c, c), wcc: (nb, c, c); bias: (nb, 2c)
-// fp32; mats: the fp32 stage matrices in the order of unpack_mats, then mi
-// (D, 2, ks) and mf packed (ceil(ks / 4), D, 2, 4) (bf16-rounded values
-// for mode kBf16); partial: fp32 scratch of D ceil(W / 8) 2 c kh kw + ks c
-// kh kw floats (the partial spectra, then s_f); z: fp32 scratch (D, 2, c,
-// kh, kw) (z, then f). mode: kFp32 (x, out, tmp, wcat, wcc fp32), kBf16
-// (all five bf16) or kMixed (the volumes bf16, wcat and wcc fp32).
-// Contiguous. fourier: ks = 2 kd, [re; im].
+// real, imaginary); bias: (nb, 2c) fp32; mats: the fp32 stage matrices in
+// the order of unpack_mats, then mi (D, 2, ks) and mf packed (ceil(ks /
+// 4), D, 2, 4) (bf16-rounded values for mode kBf16); z: fp32 scratch (D,
+// 2, c, kh, kw) (z, then f). mode kFp32: x, out, tmp, wcat (nb, 2c, c)
+// and wcc (nb, c, c) fp32; mma unused; partial: fp32 scratch of D
+// ceil(W / 8) 2 c kh kw + ks c kh kw floats (the partial spectra, then
+// s_f). kBf16 and kMixed (the volumes bf16): wcat and wcc the stacks of
+// the tensor-core body's packed weights (launch_mma), mma its packed
+// stage matrices, 16-byte aligned; partial D ceil(W / 16) 2 c kh kw + ks
+// c kh kw floats. Contiguous. fourier: ks = 2 kd, [re; im].
 M3SEG_API int m3seg_tower_resident(const void* x, float* s_cur,
                                    const float* ops, const void* wcat,
                                    const void* wcc, const float* bias,
-                                   const float* mats, void* out, void* tmp,
-                                   float* partial, float* z, int D, int H,
-                                   int W, int c, int kh, int kw, int ks,
-                                   int nb, int fourier, int mode,
-                                   void* stream) {
+                                   const float* mats, const void* mma,
+                                   void* out, void* tmp, float* partial,
+                                   float* z, int D, int H, int W, int c,
+                                   int kh, int kw, int ks, int nb,
+                                   int fourier, int mode, void* stream) {
   if (D <= 0 || H <= 0 || W <= 0 || kh <= 0 || kh > kMaxKH || (kh & 1) ||
       kw <= 0 || ks <= 0 || ks > kMaxKS || nb <= 0 || z == nullptr ||
       (fourier && (ks & 1)) || (nb > 1 && tmp == nullptr))
@@ -339,28 +457,30 @@ M3SEG_API int m3seg_tower_resident(const void* x, float* s_cur,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
     case 8:
-      return (int)launch_mode<8>(mode, x, s_cur, ops, wcat, wcc, bias, m, mi,
-                                 mf4, out, tmp, partial, z, D, H, W, kh, kw,
-                                 ks, nb, fourier, s);
+      return (int)launch_mode<8>(mode, x, s_cur, ops, wcat, wcc, bias, m,
+                                 mma, mi, mf4, out, tmp, partial, z, D, H, W,
+                                 kh, kw, ks, nb, fourier, s);
     case 24:
       return (int)launch_mode<24>(mode, x, s_cur, ops, wcat, wcc, bias, m,
-                                  mi, mf4, out, tmp, partial, z, D, H, W, kh,
-                                  kw, ks, nb, fourier, s);
+                                  mma, mi, mf4, out, tmp, partial, z, D, H,
+                                  W, kh, kw, ks, nb, fourier, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // Resident blocks per SM and registers per thread of the c-channel
-// instance of `mode` at (kh, kw); launches nothing. The launch's grid is
-// the blocks per SM times the SM count.
-M3SEG_API int m3seg_tower_resident_occupancy(int c, int kh, int kw, int mode,
-                                             int* blocks, int* regs) {
+// instance of `mode` at (h, kh, kw) (h: the tensor-core body's out tile);
+// launches nothing. The launch's grid is the blocks per SM times the SM
+// count.
+M3SEG_API int m3seg_tower_resident_occupancy(int c, int h, int kh, int kw,
+                                             int mode, int* blocks,
+                                             int* regs) {
   switch (c) {
     case 8:
-      return (int)occupancy_mode<8>(mode, kh, kw, blocks, regs);
+      return (int)occupancy_mode<8>(mode, h, kh, kw, blocks, regs);
     case 24:
-      return (int)occupancy_mode<24>(mode, kh, kw, blocks, regs);
+      return (int)occupancy_mode<24>(mode, h, kh, kw, blocks, regs);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -376,4 +496,13 @@ M3SEG_API int m3seg_tower_resident_phase_ns(unsigned long long* out,
     err = cudaMemcpyToSymbol(g_phase_ns, zero, sizeof(zero));
   }
   return (int)err;
+}
+
+// The tensor-core body's phase clock of this kernel's last bf16 launch
+// (tower_block_mma.cuh phase_clock; its last tower block's items write
+// their first two phases): n_blocks x 5 readings, ns, into dst (host);
+// launches nothing.
+M3SEG_API int m3seg_tower_resident_mma_phase_ns(long long* dst,
+                                                int n_blocks) {
+  return (int)read_mma_clock(dst, n_blocks);
 }

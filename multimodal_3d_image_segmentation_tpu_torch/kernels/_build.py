@@ -55,16 +55,18 @@ _SIGNATURES = {
     "m3seg_conv3_plan": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "m3seg_conv3_mma_plan": [_I] * 8 + [ctypes.POINTER(_I)],
     "m3seg_tower_block": [_P] * 11 + [_I] * 8 + [_P],
-    "m3seg_tower_block_s": [_P] * 11 + [_I] * 9 + [_P],
-    "m3seg_tower_resident": [_P] * 11 + [_I] * 10 + [_P],
+    "m3seg_tower_block_s": [_P] * 12 + [_I] * 9 + [_P],
+    "m3seg_tower_resident": [_P] * 12 + [_I] * 10 + [_P],
     "m3seg_tower_block_occupancy": [_I] * 6 + [ctypes.POINTER(_I)] * 2,
-    "m3seg_tower_block_s_occupancy": [_I] * 5 + [ctypes.POINTER(_I)] * 2,
-    "m3seg_tower_resident_occupancy": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
+    "m3seg_tower_block_s_occupancy": [_I] * 6 + [ctypes.POINTER(_I)] * 2,
+    "m3seg_tower_resident_occupancy": [_I] * 5 + [ctypes.POINTER(_I)] * 2,
     "m3seg_tower_smem_bytes": [_I] * 5 + [ctypes.POINTER(_I)],
     "m3seg_tower_spectrum_groups": [ctypes.POINTER(_I)] * 2,
     "m3seg_tail_smem_bytes": [_I] * 6 + [ctypes.POINTER(_I)],
     "m3seg_tower_resident_phase_ns": [_P, _I],
     "m3seg_tower_block_phase_ns": [_P, _I],
+    "m3seg_tower_block_s_phase_ns": [_P, _I],
+    "m3seg_tower_resident_mma_phase_ns": [_P, _I],
 }
 
 # the bf16 instances (and the towers' and conv3's 'mixed' ones) count apart

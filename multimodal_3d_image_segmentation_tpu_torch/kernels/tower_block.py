@@ -43,7 +43,8 @@ as bf16, the TPU kernel's f in the volume's dtype); 'mixed' (x bf16, the
 weights fp32: the reference's fp32 islands on a bf16 volume, f fp32).
 z, the biases, ds_prev and ds are fp32 in every instance. The fp32
 instance runs the FMA body (``csrc/tower_block.cuh``); the two bf16
-instances run the tensor-core body (``csrc/tower_block_mma.cuh``: every
+instances (here and in tower_block_s and tower_resident) run the
+tensor-core body (``csrc/tower_block_mma.cuh``: every
 product as ``mma.sync``, one pass of bf16 values in 'bfloat16'; in
 'mixed' each fp32 value as three bf16 parts, ``parts3``, and the six
 products of order up to 2^-16, fp32-class sums), on the stage matrices
@@ -73,7 +74,8 @@ __all__ = ["TowerSpec", "make_tower_spec", "fused_tower_block",
            "tower_block_plain", "entry_forward_hw", "d_stage_forward",
            "d_stage_inverse", "spectrum_mix", "block_spectrum_update",
            "spectrum_rows", "kernel_smem_bytes", "occupancy", "instance",
-           "mma_geom", "mma_mats", "mma_weights", "mma_phase_us",
+           "mma_geom", "mma_mats", "mma_weights", "mma_weight_stack",
+           "mma_clock", "mma_phase_us",
            "MMA_PHASES", "MMA_TILE_W", "MMA_THREADS", "MMA_MAX_KW",
            "MMA_PARTS", "parts3",
            "INSTANCES", "SUPPORTED_CHANNELS", "MAX_DS_ROWS", "MAX_KH"]
@@ -353,37 +355,63 @@ def mma_mats(spec: TowerSpec, device: torch.device,
         return flat.to(device)
 
 
+def _mma_pack(t: torch.Tensor) -> torch.Tensor:
+    """A channel-mix weight (rows = outputs) as the tensor-core body's B
+    fragments of t^T: one part of a bf16 weight's values, three of an fp32
+    weight's (``parts3``)."""
+    return torch.stack([_b_fragments(p) for p in (
+        (t.t(),) if t.dtype == _BF16 else parts3(t.float().t()))])
+
+
 def mma_weights(w_cat: torch.Tensor, w_cc_t: torch.Tensor):
     """The channel-mix weights as the tensor-core body's B fragments, kept
     per weight version (``conv3._kept``): (NP, ceil(C/16), ceil((2C +
-    n_ds)/8), ...) of w_cat^T and (NP, ceil(C/16), C/8, ...) of w_cc_t^T;
-    one part of a bf16 weight's values, three of an fp32 weight's
-    (``parts3``)."""
-    def pack(t):
-        return torch.stack([_b_fragments(p) for p in (
-            (t.t(),) if t.dtype == _BF16 else parts3(t.float().t()))])
-    return (_kept(w_cat, "_m3seg_tower_mma", pack),
-            _kept(w_cc_t, "_m3seg_tower_mma", pack))
+    n_ds)/8), ...) of w_cat^T and (NP, ceil(C/16), C/8, ...) of w_cc_t^T
+    (``_mma_pack``)."""
+    return (_kept(w_cat, "_m3seg_tower_mma", _mma_pack),
+            _kept(w_cc_t, "_m3seg_tower_mma", _mma_pack))
+
+
+def mma_weight_stack(wcat_stack: torch.Tensor, wcc_stack: torch.Tensor):
+    """A tower's stacked weights (B, 2C, C) and (B, C, C) as one stack of
+    packed B fragments each, block b's slice ``mma_weights(wcat_stack[b],
+    wcc_stack[b])``'s, so that the resident kernel finds block b's at a
+    fixed stride; kept per weight version of the stacks."""
+    def stack(s):
+        return torch.stack([_mma_pack(w) for w in s])
+    return (_kept(wcat_stack, "_m3seg_tower_mma_stack", stack),
+            _kept(wcc_stack, "_m3seg_tower_mma_stack", stack))
 
 
 # the tensor-core body's phases, in the order its phase clock reads them
 MMA_PHASES = ("inverse W", "inverse H and tail", "forward H", "forward W")
 
 
-def mma_phase_us(spec: TowerSpec):
-    """The tensor-core body's phase clock of its last launch at ``spec``
-    (thread 0 of each block reads the card's globaltimer at the block's
-    start and after each phase): ({phase: mean us a block}, the launch's
-    span in us from the first block's start to the last block's end, the
-    blocks' summed us). Waits for the device; launches nothing."""
+def mma_clock(spec: TowerSpec, entry: str) -> np.ndarray:
+    """The raw phase clock of one kernel's tensor-core body (each .cu keeps
+    its own; ``entry`` its reader): (D x n_tiles, 5) globaltimer readings
+    in us, one row per (plane, tile) item of the last launch. Waits for
+    the device; launches nothing."""
     n = spec.sizes[0] * mma_geom(spec).n_tiles
     buf = (ctypes.c_longlong * (5 * n))()
-    _build.call("m3seg_tower_block_phase_ns",
-                ctypes.cast(buf, ctypes.c_void_p), n)
-    t = np.frombuffer(buf, np.int64).reshape(n, 5).astype(np.float64) / 1e3
-    phases = dict(zip(MMA_PHASES, np.diff(t, axis=1).mean(0).tolist()))
-    return phases, float(t[:, 4].max() - t[:, 0].min()), float(
-        (t[:, 4] - t[:, 0]).sum())
+    _build.call(entry, ctypes.cast(buf, ctypes.c_void_p), n)
+    return np.frombuffer(buf, np.int64).reshape(n, 5).astype(
+        np.float64) / 1e3
+
+
+def mma_phase_us(spec: TowerSpec, entry: str = "m3seg_tower_block_phase_ns",
+                 phases: int = 4):
+    """The tensor-core body's phase clock of its last launch at ``spec``
+    (thread 0 of each block reads the card's globaltimer at the block's
+    start and after each phase): ({phase: mean us a block} of the first
+    ``phases`` phases, the launch's span in us from the first block's start
+    to the last block's end of them, the blocks' summed us). ``entry``:
+    the kernel's reader (tower_block's by default). Waits for the device;
+    launches nothing."""
+    t = mma_clock(spec, entry)[:, :phases + 1]
+    got = dict(zip(MMA_PHASES, np.diff(t, axis=1).mean(0).tolist()))
+    return got, float(t[:, -1].max() - t[:, 0].min()), float(
+        (t[:, -1] - t[:, 0]).sum())
 
 
 def entry_forward_hw(x: torch.Tensor, spec: TowerSpec,
@@ -592,16 +620,15 @@ def _check_operands(spec: TowerSpec, x, w_cat, w_cc_t, b_cat, ds_prev,
 
 
 def kernel_smem_bytes(spec: TowerSpec, inst: str = "float32") -> int:
-    """Shared memory of one block of the kernels' instance ``inst``; raises
-    where it exceeds a block's 227 KB. 'float32' (tower_block's, and every
-    instance of tower_block_s and tower_resident): the FMA body's
-    (``csrc/tower_block.cuh`` smem_floats: the y tile, one chunk of
+    """Shared memory of one block of the three tower kernels' instance
+    ``inst``; raises where it exceeds a block's 227 KB. 'float32': the FMA
+    body's (``csrc/tower_block.cuh`` smem_floats: the y tile, one chunk of
     voxels, the chunk's (A, B) and Mh rows, the weights with room for
     MAX_DS_ROWS deep-supervision rows, and the tile's W-stage columns).
-    tower_block's 'bfloat16' and 'mixed': the tensor-core body's
-    (``csrc/tower_block_mma.cuh`` mma_smem_bytes: the y tile, reused by the
-    F tile, each one bf16 buffer a pass, and the tile's out for all H
-    rows)."""
+    'bfloat16' and 'mixed': the tensor-core body's
+    (``csrc/tower_block_mma.cuh`` mma_smem_bytes: the weights' and the
+    tile's W stages' fragments, the y tile, reused by the F tile, and the
+    tile's out for all H rows)."""
     c, kh, kw = spec.channels, spec.kh, spec.kw
     if inst == "float32":
         smem = 4 * (2 * kh * _TILE_W * c + _TILE_H * _TILE_W * c

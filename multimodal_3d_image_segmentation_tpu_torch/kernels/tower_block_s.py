@@ -24,9 +24,14 @@ depth matrices mi = ``d_inv`` and mf = ``d_fwd`` are (D, 2, KS), one row
 per plane. The instances are tower_block's (``instance``); the resident
 spectrum sy and s_f stay fp32 in all three. In 'bfloat16' the depth
 stages' operands are bf16 values too, as the TPU kernel's two depth dots
-take them: sy, mi, f and mf are rounded to bf16 and the sums stay fp32. The TPU kernel's probe of a Mosaic miscompile (``_hw_probe_ok``)
-has no counterpart here: ``chip_smoke.py`` holds the kernel against the
-plain version on the card.
+take them: sy, mi, f and mf are rounded to bf16 and the sums stay fp32.
+The fp32 instance runs tower_block's FMA body on tiles of 8 columns; the
+'bfloat16' and 'mixed' instances run its tensor-core body
+(``csrc/tower_block_mma.cuh``) on tiles of 16, on the stage matrices and
+weights packed as tower_block packs them (``mma_mats``, ``mma_weights``),
+between the same z pass, tile sum and depth pass. The TPU kernel's probe
+of a Mosaic miscompile (``_hw_probe_ok``) has no counterpart here:
+``chip_smoke.py`` holds the kernel against the plain version on the card.
 """
 from __future__ import annotations
 
@@ -37,18 +42,20 @@ import numpy as np
 import torch
 
 from . import _build
-from .tower_block import (_BF16, INSTANCES, MAX_DS_ROWS, _TILE_W,
-                          TowerSpec, _buffer, _check_operands, _kernel_mats,
-                          _operands, _plain_mats, _spec_mats, _stage,
-                          _tower_block_plain_bf16,
-                          check_cuda_operands, check_kernel_spec,
-                          d_stage_forward, entry_forward_hw, instance,
-                          make_tower_spec, spectrum_mix, spectrum_rows,
+from .tower_block import (_BF16, INSTANCES, MAX_DS_ROWS, MMA_PARTS,
+                          MMA_TILE_W, _TILE_W, TowerSpec, _buffer,
+                          _check_operands, _kernel_mats, _operands,
+                          _plain_mats, _spec_mats, _stage,
+                          _tower_block_plain_bf16, check_cuda_operands,
+                          check_kernel_spec, d_stage_forward,
+                          entry_forward_hw, instance, make_tower_spec,
+                          mma_mats, mma_phase_us as _mma_phase_us,
+                          mma_weights, spectrum_mix, spectrum_rows,
                           tower_block_plain)
 
 __all__ = ["make_tower_spec_s", "fused_tower_block_s", "tower_block_s_plain",
-           "spectrum_mix_s", "entry_spectrum_s", "occupancy",
-           "MAX_SPECTRUM_ROWS"]
+           "spectrum_mix_s", "entry_spectrum_s", "occupancy", "tile_width",
+           "partial_floats", "mma_phase_us", "MAX_SPECTRUM_ROWS"]
 
 MAX_SPECTRUM_ROWS = 64  # csrc/tower_spectrum.cuh kMaxKS
 _DEPTH_ROWS = 4         # csrc/tower_spectrum.cuh kDepthRows
@@ -116,12 +123,42 @@ def _kernel_mats_s(spec: TowerSpec, device: torch.device,
         return torch.cat([_kernel_mats(spec, device, rounded), depth])
 
 
+def tile_width(inst: str) -> int:
+    """Columns of W a block of the tower bodies takes in instance ``inst``:
+    the FMA body's 8 ('float32'), the tensor-core body's 16."""
+    return _TILE_W if inst == "float32" else MMA_TILE_W
+
+
+def partial_floats(spec: TowerSpec, inst: str,
+                   kernel: str = "tower_block_s") -> int:
+    """fp32 floats of the ``partial`` scratch of ``kernel`` in instance
+    ``inst``: one partial spectrum (2, C, KH, KW) per plane and W tile of
+    ``tile_width(inst)`` columns, then tower_block_s's z and f (D, 2, C,
+    KH, KW) or tower_resident's folded spectrum s_f (KS, C, KH, KW)."""
+    d, _, w = spec.sizes
+    ng = spec.channels * spec.kh * spec.kw
+    tiles = d * -(-w // tile_width(inst)) * 2 * ng
+    if kernel == "tower_block_s":
+        return tiles + d * 2 * ng
+    if kernel == "tower_resident":
+        return tiles + spectrum_rows(spec) * ng
+    raise ValueError(f"no partial scratch for {kernel!r}")
+
+
 def occupancy(spec: TowerSpec, inst: str = "float32"):
     """(blocks per SM, registers per thread) of the kernel's instance
-    ``inst`` at ``spec``'s channels, modes and ds rows, as the CUDA runtime
-    reports them."""
+    ``inst`` at ``spec``'s channels, H, modes and ds rows, as the CUDA
+    runtime reports them."""
     return _build.occupancy("m3seg_tower_block_s_occupancy", spec.channels,
-                            spec.kh, spec.kw, spec.n_ds, INSTANCES[inst][0])
+                            spec.sizes[1], spec.kh, spec.kw, spec.n_ds,
+                            INSTANCES[inst][0])
+
+
+def mma_phase_us(spec: TowerSpec):
+    """The tensor-core body's phase clock of this kernel's last
+    'bfloat16' or 'mixed' launch at ``spec`` (``tower_block.mma_phase_us``;
+    tower_block_s.cu keeps its own clock)."""
+    return _mma_phase_us(spec, "m3seg_tower_block_s_phase_ns")
 
 
 def _tower_block_s_forward(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
@@ -138,7 +175,7 @@ def _tower_block_s_forward(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
     check_cuda_operands(x, (("x", x), ("sy", sy), ("w_cat", w_cat),
                             ("w_cc_t", w_cc_t), ("b_cat", b_cat),
                             ("ds_prev", ds_prev)), inst)
-    check_kernel_spec(spec, "tower_block_s")
+    check_kernel_spec(spec, "tower_block_s", inst)
     if n_ds > MAX_DS_ROWS:
         raise ValueError(f"n_ds={n_ds} > {MAX_DS_ROWS}")
     if ks > MAX_SPECTRUM_ROWS:
@@ -150,13 +187,21 @@ def _tower_block_s_forward(x, sy, w_cat, w_cc_t, b_cat, spec: TowerSpec,
     # per (plane, W-tile) partial spectra, then each plane's z, which the
     # tile sum overwrites with f: the passes after the body fold them into
     # s_f through the depth forward stage in a fixed order
-    partial = torch.empty(d * (-(-w // _TILE_W) + 1) * 2 * c * kh * kw,
-                          dtype=torch.float32, device=x.device)
+    partial = torch.empty(partial_floats(spec, inst), dtype=torch.float32,
+                          device=x.device)
+    # mi and mf for the passes; the bf16 instances' body reads its packed
+    # stage matrices and weights, alive until the launch
     mats = _kernel_mats_s(spec, x.device, inst == "bfloat16")
+    if inst == "float32":
+        mma, wcat, wcc = None, w_cat, w_cc_t
+    else:
+        mma = mma_mats(spec, x.device, MMA_PARTS[inst])
+        wcat, wcc = mma_weights(w_cat, w_cc_t)
     mode, suffix = INSTANCES[inst]
     _build.launch("tower_block_s" + suffix, "m3seg_tower_block_s", x.device,
-                  x.data_ptr(), sy.data_ptr(), w_cat.data_ptr(),
-                  w_cc_t.data_ptr(), b_cat.data_ptr(), mats.data_ptr(),
+                  x.data_ptr(), sy.data_ptr(), wcat.data_ptr(),
+                  wcc.data_ptr(), b_cat.data_ptr(), mats.data_ptr(),
+                  mma.data_ptr() if mma is not None else None,
                   ds_prev.data_ptr() if n_ds else None, out.data_ptr(),
                   s_f.data_ptr(), ds.data_ptr() if n_ds else None,
                   partial.data_ptr(), d, h, w, c, kh, kw, n_ds, ks, mode)

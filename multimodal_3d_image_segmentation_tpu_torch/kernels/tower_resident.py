@@ -19,11 +19,16 @@ caller builds it in XLA (``_prep_s0``). The TPU kernel's lane-padded
 channels-last (D, H, W, C). The instances are tower_block_s's
 (``tower_block.instance`` of x and wcat_stack): fp32; 'bfloat16' (bf16
 volume and body weights, the TPU kernel's bf16 serving class); 'mixed'
-(bf16 volume, fp32 weights). The operator weights and the spectra stay
-fp32 in all three, and block 0's entry spectrum is computed at the body
-weights' dtype, as the model's block_s path computes it, so each instance
-gives its tower_block_s blocks' bits. The backward, as the TPU kernel's, is
-a replay of the reference chain (``resident_tower_plain``) under autograd.
+(bf16 volume, fp32 weights). The fp32 instance runs tower_block's FMA
+body in its phase 1; 'bfloat16' and 'mixed' run its tensor-core body
+(``csrc/tower_block_mma.cuh``, blocks of 512 threads, one an SM) on the
+packed stage matrices (``tower_block.mma_mats``) and one stack of packed
+weights (``tower_block.mma_weight_stack``). The operator weights and the
+spectra stay fp32 in all three, and block 0's entry spectrum is computed
+at the body weights' dtype, as the model's block_s path computes it, so
+each instance gives its tower_block_s blocks' bits. The backward, as the
+TPU kernel's, is a replay of the reference chain (``resident_tower_plain``)
+under autograd.
 """
 from __future__ import annotations
 
@@ -32,15 +37,17 @@ import ctypes
 import torch
 
 from . import _build
-from .tower_block import (_BF16, INSTANCES, _TILE_W, TowerSpec,
+from .tower_block import (_BF16, INSTANCES, MMA_PARTS, TowerSpec,
                           check_cuda_operands, check_kernel_spec, instance,
-                          spectrum_rows)
+                          mma_mats, mma_phase_us as _mma_phase_us,
+                          mma_weight_stack, spectrum_rows)
 from .tower_block_s import (MAX_SPECTRUM_ROWS, _kernel_mats_s,
-                            entry_spectrum_s, spectrum_mix_s,
-                            tower_block_s_plain)
+                            entry_spectrum_s, partial_floats,
+                            spectrum_mix_s, tower_block_s_plain)
 
 __all__ = ["resident_tower", "resident_tower_plain", "occupancy",
-           "resident_grid", "phase_ms", "PHASES", "z_scratch_shape"]
+           "resident_grid", "phase_ms", "PHASES", "z_scratch_shape",
+           "mma_phase_us"]
 
 # the kernel's phases, as phase_ms reports them
 PHASES = ("body", "depth", "mix", "last_body", "z")
@@ -71,10 +78,11 @@ def resident_tower_plain(x, op_stack, wcat_stack, wcc_stack, b_stack,
 
 def occupancy(spec: TowerSpec, inst: str = "float32"):
     """(blocks per SM, registers per thread) of the kernel's instance
-    ``inst`` at ``spec``'s channels and modes, as the CUDA runtime reports
-    them."""
+    ``inst`` at ``spec``'s channels, H and modes, as the CUDA runtime
+    reports them."""
     return _build.occupancy("m3seg_tower_resident_occupancy", spec.channels,
-                            spec.kh, spec.kw, INSTANCES[inst][0])
+                            spec.sizes[1], spec.kh, spec.kw,
+                            INSTANCES[inst][0])
 
 
 def resident_grid(spec: TowerSpec, inst: str = "float32") -> int:
@@ -103,6 +111,15 @@ def phase_ms(reset: bool = False) -> dict:
     _build.call("m3seg_tower_resident_phase_ns",
                 ctypes.cast(buf, ctypes.c_void_p), int(reset))
     return {k: v / 1e6 for k, v in zip(PHASES, buf)}
+
+
+def mma_phase_us(spec: TowerSpec):
+    """The tensor-core body's phase clock of this kernel's last 'bfloat16'
+    or 'mixed' launch at ``spec``: its last tower block's items, which stop
+    at out, so the first two of ``tower_block.MMA_PHASES`` (inverse W,
+    inverse H and tail); as ``tower_block.mma_phase_us`` otherwise
+    (tower_resident.cu keeps its own clock)."""
+    return _mma_phase_us(spec, "m3seg_tower_resident_mma_phase_ns", 2)
 
 
 def _check_operands(spec: TowerSpec, x, op_stack, wcat_stack, wcc_stack,
@@ -150,25 +167,31 @@ def _resident_forward(x, op_stack, wcat_stack, wcc_stack, b_stack,
     d, h, w = spec.sizes
     c, kh, kw = spec.channels, spec.kh, spec.kw
     ks, nb = spectrum_rows(spec), op_stack.shape[0]
-    check_kernel_spec(spec, "tower_resident")
+    check_kernel_spec(spec, "tower_resident", inst)
     if ks > MAX_SPECTRUM_ROWS:
         raise ValueError(f"KS={ks} spectrum rows > {MAX_SPECTRUM_ROWS}")
     # block 0's spectrum; the kernel overwrites it with each next block's
     s_cur = _entry(x, op_stack, wcat_stack, spec).contiguous()
     out = torch.empty_like(x)
     tmp = torch.empty_like(x) if nb > 1 else None
-    ng = c * kh * kw
-    partial = torch.empty(d * -(-w // _TILE_W) * 2 * ng + ks * ng,
+    partial = torch.empty(partial_floats(spec, inst, "tower_resident"),
                           dtype=torch.float32, device=x.device)
     z = torch.empty(z_scratch_shape(spec), dtype=torch.float32,
                     device=x.device)
+    # mi and mf for the z and depth phases; the bf16 instances' body reads
+    # its packed stage matrices and weight stacks, alive until the launch
     mats = _kernel_mats_s(spec, x.device, inst == "bfloat16")
+    if inst == "float32":
+        mma, wcat, wcc = None, wcat_stack, wcc_stack
+    else:
+        mma = mma_mats(spec, x.device, MMA_PARTS[inst])
+        wcat, wcc = mma_weight_stack(wcat_stack, wcc_stack)
     mode, suffix = INSTANCES[inst]
     _build.launch("tower_resident" + suffix, "m3seg_tower_resident", x.device,
                   x.data_ptr(), s_cur.data_ptr(), op_stack.data_ptr(),
-                  wcat_stack.data_ptr(), wcc_stack.data_ptr(),
-                  b_stack.data_ptr(), mats.data_ptr(), out.data_ptr(),
-                  tmp.data_ptr() if tmp is not None else None,
+                  wcat.data_ptr(), wcc.data_ptr(), b_stack.data_ptr(),
+                  mats.data_ptr(), mma.data_ptr() if mma is not None else None,
+                  out.data_ptr(), tmp.data_ptr() if tmp is not None else None,
                   partial.data_ptr(), z.data_ptr(), d, h, w, c, kh, kw, ks,
                   nb, int(spec.transform == "Fourier"), mode)
     return out

@@ -71,8 +71,9 @@ OWN_KERNELS = ("conv_in_kernel", "freq_chain_kernel", "tail_kernel",
                "conv3_brick", "conv3_split_sum", "tower_block_kernel",
                "tower_block_mma_kernel",
                "tower_spectrum_tiles", "tower_block_s_kernel",
+               "tower_block_s_mma_kernel",
                "tower_spectrum_z", "tower_spectrum_depth",
-               "tower_resident_kernel")
+               "tower_resident_kernel", "tower_resident_mma_kernel")
 N_PROFILED = 5
 
 

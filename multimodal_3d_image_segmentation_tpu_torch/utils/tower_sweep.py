@@ -16,10 +16,12 @@ On seeded random inputs at the 121x121x78 tower grid with C 24, it times
 - both again in their 'bfloat16' and 'mixed' instances on the bf16
   volume (the weights made outside inference mode, as a model's are), also
   back to back and as ``torch.profiler`` device time (every device event
-  of a call), with tower_block's phase clock where the checkout has one;
-- ``resident_tower`` (24 blocks) at HNOSeg's and FNOSeg's shapes, in all
-  three instances, with the phase clock's mean per call where the
+  of a call), with each kernel's tensor-core phase clock where the
   checkout has one;
+- ``resident_tower`` (24 blocks) at HNOSeg's and FNOSeg's shapes, in all
+  three instances, with the phase clock's mean per call (and in the bf16
+  instances the last block's tensor-core phases) where the checkout has
+  them;
 - ``fused_tail_softmax`` at the serving shape, (1, 4, 121, 121, 78) logits
   to 240 x 240 x 155 probabilities, with its rate against 3.35 TB/s;
 - ``conv_in_s2d`` on a (1, 4, 240, 240, 155) volume with and without the
@@ -54,6 +56,7 @@ import torch
 
 from .. import kernels
 from ..kernels import tower_block as tb
+from ..kernels import tower_block_s as tbs
 from ..kernels import tower_resident as tr
 from .profiling import step_ms
 
@@ -83,7 +86,8 @@ def median_ms(fn):
 
 
 TOWER_KINDS = ("tower_resident_kernel", "tower_block_s_kernel",
-               "tower_block_kernel", "tower_block_mma_kernel")
+               "tower_block_kernel", "tower_block_mma_kernel",
+               "tower_block_s_mma_kernel", "tower_resident_mma_kernel")
 EDGE_KINDS = ("conv_in_kernel", "freq_chain_kernel")
 
 
@@ -103,9 +107,10 @@ def build_report(kinds=TOWER_KINDS + EDGE_KINDS):
         if kind is None:
             continue
         c = "24" if "ILi24E" in name else "8" if "ILi8E" in name else "?"
-        # the FMA body's instances: <C, volume type, weight type>; the
-        # tensor-core body's: <C, passes>
-        if kind == "tower_block_mma_kernel":
+        # the tensor-core body's instances: <C, passes>; the FMA body's:
+        # <C> (fp32), or <C, volume type, weight type> in a checkout whose
+        # FMA body still has bf16 instances
+        if kind.endswith("_mma_kernel"):
             inst = " bf16" if "ELi1EE" in name else " mixed"
         else:
             inst = ("" if "__nv_bfloat16" not in name else
@@ -226,7 +231,8 @@ def _bf16_block_calls(label, spec, x, s, z, w_cat, w_cc_t, b_cat, ds_prev,
                       outputs):
     """tower_block and tower_block_s in both bf16 instances at one shape:
     each output saved, each timed a call, back to back and as device
-    time, tower_block's phase clock printed where the checkout has one."""
+    time, each kernel's tensor-core phase clock printed where the checkout
+    has one."""
     xb = x.to(torch.bfloat16)
     for mode, wd, suffix in BF16_MODES:
         wc, wcc = kept_weights(wd, w_cat, w_cc_t)
@@ -244,9 +250,10 @@ def _bf16_block_calls(label, spec, x, s, z, w_cat, w_cc_t, b_cat, ds_prev,
             ms, s_ms = median_ms(run), stream_ms(run)
             _, dev_ms = device_ms(run, name)
             clock = ""
-            if name == "tower_block" and hasattr(tb, "mma_phase_us"):
+            mod = tb if name == "tower_block" else tbs
+            if hasattr(mod, "mma_phase_us"):
                 run()
-                phases, span, _ = tb.mma_phase_us(spec)
+                phases, span, _ = mod.mma_phase_us(spec)
                 clock = "; phase clock, us a block: " + ", ".join(
                     f"{k} {v:.2f}" for k, v in phases.items()) + (
                     f"; span {span:.1f} us")
@@ -320,8 +327,18 @@ def main(argv=None):
                 wb = (ops[1],) + kept_weights(wd, ops[2], ops[3]) + (ops[4],)
                 outputs[f"tower_resident{suffix} {label} out"] = \
                     kernels.resident_tower(xb, *wb, spec)
+                tr.phase_ms(reset=True)
                 ms = median_ms(lambda: kernels.resident_tower(xb, *wb, spec))
-                print(f"tower_resident{suffix} {label}: {ms:.4f} ms",
+                phases = {k: v / (N_TIMED + N_WARMUP)
+                          for k, v in tr.phase_ms(reset=True).items()}
+                clock = ""
+                if hasattr(tr, "mma_phase_us"):
+                    body, _, _ = tr.mma_phase_us(spec)
+                    clock = "; the last block's body, us an item: " + (
+                        ", ".join(f"{k} {v:.2f}" for k, v in body.items()))
+                print(f"tower_resident{suffix} {label}: {ms:.4f} ms; phases "
+                      f"per call (ms): " + ", ".join(
+                          f"{k} {v:.4f}" for k, v in phases.items()) + clock,
                       flush=True)
         logits = _t(np.random.default_rng(300), TAIL_IN, dev, 3.0)
         outputs["tail_resize out"] = kernels.fused_tail_softmax(logits,

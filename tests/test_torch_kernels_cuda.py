@@ -1532,49 +1532,152 @@ def test_tower_block_mma_ragged_tiles_match_twins(dev, mode, wdtype):
     assert all(v > 0 for v in phases.values()) and 0 < span <= busy
 
 
-def _mma_clock(spec):
-    """The tensor-core body's phase clock (raw globaltimer readings of its
-    last launch's blocks): a launch of that body rewrites it, a launch of
-    the FMA body leaves it."""
-    n = spec.sizes[0] * tb.mma_geom(spec).n_tiles
-    buf = (ctypes.c_longlong * (5 * n))()
-    _build.call("m3seg_tower_block_phase_ns",
-                ctypes.cast(buf, ctypes.c_void_p), n)
-    return list(buf)
+# each tower kernel's reader of its own tensor-core phase clock
+MMA_CLOCKS = {"tower_block": "m3seg_tower_block_phase_ns",
+              "tower_block_s": "m3seg_tower_block_s_phase_ns",
+              "tower_resident": "m3seg_tower_resident_mma_phase_ns"}
+
+
+def _mma_clocks(spec):
+    """Each tower kernel's tensor-core phase clock (raw globaltimer
+    readings of its last bf16 launch's items): a launch of that body
+    rewrites the kernel's own, a launch of the FMA body none."""
+    return {k: tb.mma_clock(spec, e).tolist() for k, e in MMA_CLOCKS.items()}
 
 
 def test_tower_bodies_by_instance(dev):
-    """tower_block's 'bfloat16' and 'mixed' instances launch the
-    tensor-core body (its phase clock moves); its fp32 instance and every
-    instance of tower_block_s launch the FMA body (the clock stays); a KW
-    the tensor-core body does not take (above 32) raises before a launch
-    in the bf16 instances only."""
+    """The 'bfloat16' and 'mixed' instances of all three tower kernels
+    launch the tensor-core body (the kernel's own phase clock moves, and
+    no other kernel's); their fp32 instances launch the FMA body (no clock
+    moves); a KW the tensor-core body does not take (above 32) raises
+    before a launch in the bf16 instances of all three, and the fp32
+    instances take it."""
     spec, x, s, z, w_cat, w_cc_t, b_cat, ds_prev = _tower_block_args(
         "Fourier", (13, 40, 17), (3, 6, 5), 8, 0, 160, dev)
+    ops = _t((1, 2, 8, 8), 162, dev, 0.3)
     for wd, xd in ((torch.float32, torch.float32),
                    (torch.bfloat16, torch.bfloat16),
                    (torch.float32, torch.bfloat16)):
         a = (x.to(xd), z, w_cat.to(wd), w_cc_t.to(wd), b_cat, spec, ds_prev)
-        with torch.no_grad():
-            before = _mma_clock(spec)
-            kernels.fused_tower_block(*a)
-            torch.cuda.synchronize()
-            after = _mma_clock(spec)
-            kernels.fused_tower_block_s(a[0], s, *a[2:])
-            torch.cuda.synchronize()
-            after_s = _mma_clock(spec)
-        assert (after != before) == (xd == torch.bfloat16)
-        assert after_s == after
+        calls = {
+            "tower_block": lambda: kernels.fused_tower_block(*a),
+            "tower_block_s": lambda: kernels.fused_tower_block_s(a[0], s,
+                                                                 *a[2:]),
+            "tower_resident": lambda: kernels.resident_tower(
+                a[0], ops, a[2][None], a[3][None], b_cat[None], spec)}
+        for name, call in calls.items():
+            with torch.no_grad():
+                before = _mma_clocks(spec)
+                call()
+                torch.cuda.synchronize()
+                after = _mma_clocks(spec)
+            moved = {k for k in MMA_CLOCKS if after[k] != before[k]}
+            assert moved == ({name} if xd == torch.bfloat16 else set()), (
+                name, wd, xd)
     wide, xw, sw, zw, wcw, wccw, bw, _ = _tower_block_args(
         "Hartley", (6, 9, 40), (2, 3, 17), 8, 0, 161, dev)
+    opw = _t((1, 1, 8, 8), 163, dev, 0.3)
+
+    def three(xv, wc, wcc):
+        return ((kernels.fused_tower_block, (xv, zw, wc, wcc, bw, wide)),
+                (kernels.fused_tower_block_s, (xv, sw, wc, wcc, bw, wide)),
+                (kernels.resident_tower, (xv, opw, wc[None], wcc[None],
+                                          bw[None], wide)))
     with torch.no_grad():
-        kernels.fused_tower_block(xw, zw, wcw, wccw, bw, wide)  # fp32: KW 34
+        for fn, args in three(xw, wcw, wccw):  # fp32: KW 34
+            fn(*args)
         for wd in (torch.bfloat16, torch.float32):
-            before = dict(kernels.LAUNCHES)
-            with pytest.raises(ValueError, match="KW=34"):
-                kernels.fused_tower_block(xw.bfloat16(), zw, wcw.to(wd),
-                                          wccw.to(wd), bw, wide)
-            assert kernels.LAUNCHES == before
+            for fn, args in three(xw.bfloat16(), wcw.to(wd), wccw.to(wd)):
+                before = dict(kernels.LAUNCHES)
+                with pytest.raises(ValueError, match="KW=34"):
+                    fn(*args)
+                assert kernels.LAUNCHES == before
+
+
+# tower_block_s's bf16 instances on the tensor-core body: W tiles of 16
+# columns with a short last one, ds rows, Fourier's odd KW (z read one
+# value at a time), C 8 and 24
+TOWER_S_MMA_CASES = [
+    ("Hartley", (7, 37, 41), (2, 14, 14), 24, 4),  # 41 = 2 x 16 + 9, KH 28
+    ("Fourier", (9, 20, 29), (3, 6, 5), 8, 0),     # KW 5, 29 = 16 + 13
+    ("Hartley", (11, 18, 21), (3, 4, 5), 8, 3),    # D 11, 21 = 16 + 5
+    ("Fourier", (12, 30, 33), (4, 14, 14), 24, 0)]  # KS 16, 33 = 32 + 1
+TOWER_S_MMA_IDS = [f"{t}-c{c}-ds{n}-w{s[2]}"
+                   for t, s, _, c, n in TOWER_S_MMA_CASES]
+
+
+@pytest.mark.parametrize("mode,wdtype", TOWER_MODES,
+                         ids=[m for m, _ in TOWER_MODES])
+@pytest.mark.parametrize("transform,sizes,modes,c,n_ds", TOWER_S_MMA_CASES,
+                         ids=TOWER_S_MMA_IDS)
+def test_tower_block_s_mma_instances_match_twins(dev, transform, sizes,
+                                                 modes, c, n_ds, mode,
+                                                 wdtype):
+    """Each output against its twin (``_held_bf16_tower``), a second run
+    bit-identical, and the kernel's own phase clock read. 'bfloat16''s
+    s_f is the depth stage of f after its bf16 rounding, so a flip of that
+    rounding moves s_f by a depth-matrix entry times an ulp of f: about
+    1e-4 of s_f's largest magnitude at D 7, the size of the twin summed
+    in float64's own distance from the fp32 twin there. It is held by the
+    float64 rule with the fp32 bar as its floor: its distance from that
+    float64 twin at most 2x the fp32 twin's plus 1e-4 of its largest
+    magnitude."""
+    spec, x, s, z, w_cat, w_cc_t, b_cat, ds_prev = _tower_block_args(
+        transform, sizes, modes, c, n_ds, 170, dev)
+    args = (x.bfloat16(), s, w_cat.to(wdtype), w_cc_t.to(wdtype), b_cat,
+            spec, ds_prev)
+    suffix = "_bf16" if mode == "bfloat16" else "_mixed"
+    with torch.no_grad():
+        got = _launched("tower_block_s" + suffix,
+                        lambda: kernels.fused_tower_block_s(*args))
+        phases, span, busy = tbs.mma_phase_us(spec)
+        want = kernels.tower_block_s_plain(*args)
+        ref = kernels.tower_block_s_plain(*args, acc=torch.float64)
+        again = kernels.fused_tower_block_s(*args)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    held = (got, want)
+    if mode == "bfloat16":
+        k64, t64 = (float((g.double() - ref[1].double()).abs().max())
+                    for g in (got[1], want[1]))
+        assert k64 <= 2 * t64 + 1e-4 * float(want[1].abs().max()), (k64,
+                                                                     t64)
+        held = ((got[0],) + got[2:], (want[0],) + want[2:])
+    _held_bf16_tower(*held)
+    for a, b in zip(again, got):
+        assert torch.equal(a, b)
+    assert list(phases) == list(tb.MMA_PHASES)
+    assert all(v > 0 for v in phases.values()) and 0 < span <= busy
+
+
+@pytest.mark.parametrize("mode,wdtype", TOWER_MODES,
+                         ids=[m for m, _ in TOWER_MODES])
+@pytest.mark.parametrize("transform,sizes,modes,c", [
+    ("Hartley", (11, 37, 41), (3, 14, 14), 24),
+    ("Fourier", (9, 20, 29), (3, 6, 5), 8)])
+def test_tower_resident_one_block_is_block_s(dev, transform, sizes, modes, c,
+                                             mode, wdtype):
+    """One block of the resident tower and tower_block_s on block 0's
+    spectrum give the same bits: the same body, z pass and order of sums;
+    the resident kernel's body phase clock is read."""
+    spec = tb.make_tower_spec(transform, sizes, modes, c)
+    pr = 1 if transform == "Hartley" else 2
+    x = _t(sizes + (c,), 180, dev, 0.5).bfloat16()
+    w = (_t((1, pr, c, c), 181, dev, 0.3),
+         _t((1, 2 * c, c), 182, dev, 0.3).to(wdtype),
+         _t((1, c, c), 183, dev, 0.3).to(wdtype),
+         _t((1, 2 * c), 184, dev, 0.1))
+    suffix = "_bf16" if mode == "bfloat16" else "_mixed"
+    with torch.no_grad():
+        got = _launched("tower_resident" + suffix,
+                        lambda: kernels.resident_tower(x, *w, spec))
+        phases, span, busy = tr.mma_phase_us(spec)
+        s = tr._entry(x, w[0], w[1], spec).contiguous()
+        want = _launched("tower_block_s" + suffix,
+                         lambda: kernels.fused_tower_block_s(
+                             x, s, w[1][0], w[2][0], w[3][0], spec))
+    assert torch.equal(got, want[0])
+    assert list(phases) == list(tb.MMA_PHASES[:2])
+    assert all(v > 0 for v in phases.values()) and 0 < span <= busy
 
 
 @pytest.mark.parametrize("mode,wdtype", TOWER_MODES,
