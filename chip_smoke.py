@@ -37,14 +37,18 @@ training size. It checks them:
               registers and spills from the build log, their occupancy
               and tower_resident's persistent grid;
   3b. bf16   the bf16 instances of conv_in (also at 239x239x155, batch
-              element 1 of two), freq_chain and tail_resize (fp32 and bf16
-              probabilities) against their plain twins in the working type
-              (one bf16 ulp; the chain one more ulp of its largest
-              magnitude; at most 1e-3 of the elements more than one ulp
-              of their own magnitude apart, which the chain rounded once
-              at its end or with its first stage unrounded must fail),
-              with their times, bounds and the fp32 instances' times in
-              the same run;
+              element 1 of two, and with 'mixed' fp32 weights), freq_chain
+              and tail_resize (fp32 and bf16 probabilities) against their
+              plain twins in the working type (one bf16 ulp; the chain one
+              more ulp of its largest magnitude; at most 1e-3 of the
+              elements more than one ulp of their own magnitude apart,
+              which the chain rounded once at its end or with its first
+              stage unrounded must fail; conv_in's 'mixed' weights also at
+              most 1e-3 of the elements differing at all, which their hi
+              part alone must fail), with their times, bounds and the fp32
+              instances' times in the same run, conv_in's and the tail's
+              also back to back and as profiler device time, with their
+              phase clocks;
   3c. towers  the 'bfloat16' and 'mixed' instances of tower_block and
               tower_block_s at the three shapes, and of tower_resident at
               HNOSeg's and FNOSeg's, against their plain twins in the
@@ -219,11 +223,13 @@ to run without CUDA. The line before the last is a JSON object with the
 kernels' numbers (``launches`` summed over the serving runs, both ranks
 of the sharded one, and the runs; conv3_halo's times are of the first
 rank's calls of a sharded forward; the bf16 instances carry ``fp32_ms``, the fp32 instance's time in
-the same run, and conv_in_bf16 the odd shape's numbers (``odd_*``),
-tail_resize_bf16 the bf16 output's (``out_*``); ``backward_ms`` and
-``backward_plain_ms`` from phase 13; times are
-medians of CUDA-event runs, conv3's of back-to-back calls, and conv_in and
-freq_chain also give ``stream_ms``, back to back; ``bound_ms`` is
+the same run, and conv_in_bf16 the odd shape's numbers (``odd_*``) and
+the 'mixed' weights' (``mixed_*``), tail_resize_bf16 the bf16 output's
+(``out_*``); ``backward_ms`` and ``backward_plain_ms`` from phase 13; times
+are medians of CUDA-event runs, conv3's of back-to-back calls, and conv_in
+and freq_chain (and the bf16 instances of conv_in and the tail, with
+``device_ms``, the profiler's) also give ``stream_ms``, back to back;
+``bound_ms`` is
 the larger of the bytes over 3.35 TB/s and the operations over 67 TFLOP/s
 fp32, the H100 SXM's data sheet rates); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -286,7 +292,7 @@ KERNELS = [
      "multimodal_3d_image_segmentation_tpu/kernels/tower_resident.py:244"),
     # the bf16 instances ([model] compute_dtype 'bfloat16' and 'mixed')
     ("conv_in_bf16",
-     "multimodal_3d_image_segmentation_tpu_torch/csrc/conv_in.cu",
+     "multimodal_3d_image_segmentation_tpu_torch/csrc/conv_in_mma.cu",
      "multimodal_3d_image_segmentation_tpu/kernels/conv_in.py:277"),
     ("freq_chain_bf16",
      "multimodal_3d_image_segmentation_tpu_torch/csrc/freq_chain.cu",
@@ -371,6 +377,10 @@ BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative
 # end read 0.141 and with its first stage unrounded 0.147 (the controls of
 # phase_kernels_bf16, which must fail)
 BF16_SHARE = 1e-3
+# conv_in_bf16 with 'mixed' weights (fp32, three bf16 parts a weight, so
+# exact): the share of elements that differ from the twin at all, which
+# the weights' hi part alone must exceed
+MIXED_SHARE = 1e-3
 # the tower kernels' fp32 outputs of a bf16 instance (s_f, 'mixed''s f, ds):
 # a rounding flipped upstream moves them by about one bf16 ulp of one
 # operand's contribution, 1.3e-5 of the largest magnitude at most on an
@@ -471,7 +481,8 @@ def kernel_case(torch, kernels, name, kern, plain, tol, bnd, lib):
     time the kernel, the
     plain version and the library call ``lib``; returns the result and
     the kernel's output."""
-    launched = name.removesuffix("_odd").removesuffix("_out")
+    launched = name.removesuffix("_odd").removesuffix("_out").removesuffix(
+        "_mixed")
     before = kernels.LAUNCHES[launched]
     got = kern()
     torch.cuda.synchronize()
@@ -893,11 +904,17 @@ def phase_kernels_bf16(torch, kernels, dev, fp32):
     """The bf16 instances against their plain twins (the same function in
     fp32 from the exact bf16 values, rounded where the kernel rounds) at
     the serving shapes, in the working type: conv_in also at the odd
-    239x239x155 (batch element 1 of two, 8 bytes past a 16-byte boundary),
-    the tail with fp32 and bf16 probabilities; each with its time, bound
-    and the fp32 instance's time in this run (``fp32``)."""
+    239x239x155 (batch element 1 of two, 8 bytes past a 16-byte boundary)
+    and with 'mixed' weights (fp32; also held by the share of elements
+    that differ at all, with the weights' hi part alone as a control that
+    must fail), the tail with fp32 and bf16 probabilities; each with its
+    time, bound and the fp32 instance's time in this run (``fp32``);
+    conv_in's and the tail's also back to back and as profiler device time,
+    with their phase clocks."""
     header("== kernels, bf16 instances")
     import torch.nn.functional as F
+    from multimodal_3d_image_segmentation_tpu_torch.kernels import \
+        conv_in as ci, tail_resize as tr
     rng = np.random.default_rng(SEED + 5)
     bf16 = torch.bfloat16
 
@@ -918,6 +935,8 @@ def phase_kernels_bf16(torch, kernels, dev, fp32):
     ws = [t(rng.standard_normal((24, 24)) / np.sqrt(24), bf16)
           for _ in range(3)]
     logits = t(rng.standard_normal((1, 4) + GRID) * 3, bf16)
+    # 'mixed''s conv_in weights: fp32, not bf16 values (three parts a weight)
+    wm = t(rng.standard_normal((24, 4, 2, 2, 2)) / np.sqrt(32))
     out_cl = int(np.prod(GRID))
     rows = spec.numel() // 24
     n_out = int(np.prod(SHAPE))
@@ -928,16 +947,23 @@ def phase_kernels_bf16(torch, kernels, dev, fp32):
             lambda: kernels.conv_in_s2d(x, w, b),
             lambda: kernels.conv_in_plain(x, w, b), ulp,
             bound(2 * out_cl * 8 * 4 * 24,
-                  nbytes(x, w, b) + out_cl * 24 * 2),
+                  nbytes(x, w, b) + out_cl * 24 * 2, BF16_FLOPS),
             lambda: F.conv3d(x, w.to(bf16), b.to(bf16), stride=2,
                              padding=1), "conv_in"),
         "conv_in_bf16_odd": (
             lambda: kernels.conv_in_s2d(x_odd, w, b),
             lambda: kernels.conv_in_plain(x_odd, w, b), ulp,
             bound(2 * out_odd * 8 * 4 * 24,
-                  nbytes(x_odd, w, b) + out_odd * 24 * 2),
+                  nbytes(x_odd, w, b) + out_odd * 24 * 2, BF16_FLOPS),
             lambda: F.conv3d(x_odd, w.to(bf16), b.to(bf16), stride=2,
                              padding=1), "conv_in_odd"),
+        "conv_in_bf16_mixed": (
+            lambda: kernels.conv_in_s2d(x, wm, b),
+            lambda: kernels.conv_in_plain(x, wm, b), ulp,
+            bound(2 * out_cl * 8 * 4 * 24,
+                  nbytes(x, wm, b) + out_cl * 24 * 2, BF16_FLOPS),
+            lambda: F.conv3d(x, wm.to(bf16), b.to(bf16), stride=2,
+                             padding=1), "conv_in"),
         # a rounding flipped at one stage moves the next stage's inputs by
         # one ulp: one more ulp of the largest magnitude
         "freq_chain_bf16": (
@@ -969,7 +995,29 @@ def phase_kernels_bf16(torch, kernels, dev, fp32):
                   "this run")
             if name.startswith("tail"):
                 print_rate(name, logits, got, results[name]["ms"])
+            if name in ("conv_in_bf16", "conv_in_bf16_mixed",
+                        "tail_resize_bf16", "tail_resize_bf16_out"):
+                edge_times(torch, results[name], name, kern,
+                           "conv_in" if name.startswith("conv") else "tail",
+                           ci.phase_us if name.startswith("conv")
+                           else tr.phase_us)
             del got
+        # 'mixed' weights: at most MIXED_SHARE of the elements differ from
+        # the twin at all; the weights' hi part alone (one bf16 part) must
+        # differ on more
+        want = kernels.conv_in_plain(x, wm, b)
+        for label, wk in (("mixed weights", wm),
+                          ("control, the hi part alone", r16(wm))):
+            got = kernels.conv_in_s2d(x, wk, b)
+            share = float((got.float() != want.float()).float().mean())
+            print(f"conv_in_bf16, {label}: {share:.3e} of the elements "
+                  f"differ from the twin (bar {MIXED_SHARE:g})")
+            check((share <= MIXED_SHARE) == (wk is wm),
+                  f"conv_in_bf16 {label}: share {share} against "
+                  f"{MIXED_SHARE}")
+            if wk is wm:
+                results["conv_in_bf16_mixed"]["share_differing"] = share
+        del got, want
         # controls of the chain's rounding after every stage: the chain
         # rounded once at its end, or with its first stage's rounding
         # skipped, must fail the check the kernel passed
@@ -990,13 +1038,34 @@ def phase_kernels_bf16(torch, kernels, dev, fp32):
     out = {k: results[k] for k in ("conv_in_bf16", "freq_chain_bf16",
                                    "tail_resize_bf16")}
     for k, extra in (("conv_in_bf16", "conv_in_bf16_odd"),
+                     ("conv_in_bf16", "conv_in_bf16_mixed"),
                      ("tail_resize_bf16", "tail_resize_bf16_out")):
         tag = extra.removeprefix(k + "_")
         out[k] = dict(out[k], **{f"{tag}_{f}": v for f, v in
                                  results[extra].items()
                                  if f in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms")})
+                                          "bound_ms", "stream_ms",
+                                          "device_ms", "library_ms")})
     return out
+
+
+def edge_times(torch, res, name, kern, kernel, clock):
+    """The redesigned bf16 instances of conv_in and the tail: back to back
+    (``stream_ms``) and as ``torch.profiler`` device time beside the bound
+    (into ``res``), and their phase clock after one more call."""
+    from multimodal_3d_image_segmentation_tpu_torch.utils.tower_sweep import \
+        device_ms, stream_ms
+    res["stream_ms"] = stream_ms(kern)
+    res["device_ms"] = device_ms(kern, kernel)[0]
+    kern()
+    phases, span, resident, grid = clock()
+    print(f"{name}: {res['stream_ms']:.4f} ms back to back, device "
+          f"{res['device_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}): {res['bound_ms'] / res['stream_ms']:.0%} "
+          f"of the bound back to back; phase clock, us an item: " +
+          ", ".join(f"{k} {v:.3f}" for k, v in phases.items()) +
+          f"; span {span:.1f} us, a block resident {resident:.1f} us, grid "
+          f"{grid}")
 
 
 # the tower kernels' bf16 instances by compute_dtype: (name suffix, the

@@ -14,6 +14,27 @@ __device__ __forceinline__ float selu(float v) {
   return kSeluScale * (v > 0.f ? v : kSeluAlpha * expm1f(v));
 }
 
+// SELU with a branch-free expm1 of the negative branch: a Taylor
+// polynomial on [-0.5, 0] (its truncation 1e-8 relative), exp2 (ex2.approx)
+// less 1 below; within a few fp32 ulps of expm1f, where torch.selu's and
+// the FMA bodies' expm1f costs about twice the instructions and a branch.
+// The tensor-core bodies' SELU (tower_block_mma.cuh, conv_in_mma.cu).
+__device__ __forceinline__ float selu_fast(float v) {
+  const float x = v > 0.f ? 0.f : v;  // NaN stays NaN
+  float p = 1.f / 40320.f;
+  p = fmaf(p, x, 1.f / 5040.f);
+  p = fmaf(p, x, 1.f / 720.f);
+  p = fmaf(p, x, 1.f / 120.f);
+  p = fmaf(p, x, 1.f / 24.f);
+  p = fmaf(p, x, 1.f / 6.f);
+  p = fmaf(p, x, 0.5f);
+  p = fmaf(p, x, 1.f);
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(x * 1.4426950408889634f));
+  const float em1 = x > -0.5f ? p * x : e - 1.f;
+  return kSeluScale * (v > 0.f ? v : kSeluAlpha * em1);
+}
+
 // fp32 <-> the element type of a kernel instance (float or bf16), through
 // the conversion intrinsics only; from_float rounds to nearest even.
 __device__ __forceinline__ float to_float(float v) { return v; }

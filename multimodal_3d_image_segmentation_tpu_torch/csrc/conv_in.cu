@@ -46,14 +46,8 @@
 // Padded taps are skipped, not read as zeros, since a 0 * w term can turn
 // a -0 into +0 or an infinite weight into NaN.
 //
-// bf16 (the JAX kernel under compute_dtype 'bfloat16' and 'mixed'): x and
-// out bf16, the weights and bias fp32 (the caller passes them rounded
-// through bf16 in 'bfloat16'). Each span is read in 16-byte loads of 8
-// values over its aligned interior (one value at a time at its ends, a span
-// keeping its offset modulo 8 values), every span's loads in flight before
-// any is widened to fp32 into shared memory, so the sums are the fp32
-// kernel's on the exact bf16 values; each output is rounded once, to
-// nearest even, as the band leaves in 16-byte stores of 8 values.
+// The bf16 instance (compute_dtype 'bfloat16' and 'mixed') is
+// conv_in_mma.cu, on the tensor cores.
 //
 // Limits: a band's spans and outputs must fit the 227 KB of shared memory a
 // block can have at R = 1, about (16 C + 2 F) W bytes (W <= 2,000 at C = 4,
@@ -86,8 +80,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // A band of R output rows: nt threads a row, the block's threads, the
 // pitch of an input span in shared memory (floats, a multiple of 4, with
-// room for the span's offset modulo 16 bytes of the input type) and the
-// shared memory of a block.
+// room for the span's offset modulo 16 bytes) and the shared memory of a
+// block.
 struct Plan {
   int R, nt, threads, pitch;
   size_t smem;
@@ -123,11 +117,11 @@ __device__ __forceinline__ float4 selu4(float4 y) {
 }
 
 // CT: the channel count where the instance fixes it (the channel loops
-// unroll), else 0. T: the input and output type, float or bf16.
-template <int F, int CT, class T>
+// unroll), else 0.
+template <int F, int CT>
 __global__ void __launch_bounds__(kMaxThreads, 4)
-conv_in_kernel(const T* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, T* __restrict__ out,
+conv_in_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ bias, float* __restrict__ out,
                int C_, int D, int H, int W, int D2, int H2, int W2, int R,
                int nt, int pitch, int apply_selu) {
   const int C = CT > 0 ? CT : C_;
@@ -149,9 +143,9 @@ conv_in_kernel(const T* __restrict__ x, const float* __restrict__ w,
   // keeps its offset modulo 16 bytes (kVec values, from its address) in
   // shared memory, so that its aligned interior moves in 16-byte words;
   // head and tail values go one at a time.
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVec = 4;
   struct Span {
-    const T* src;
+    const float* src;
     int dst, head, nv, tail;  // dst: its first value's place in s_in
   };
   auto span_of = [&](int s, Span& sp) -> bool {
@@ -160,7 +154,7 @@ conv_in_kernel(const T* __restrict__ x, const float* __restrict__ w,
     sp.src = x + ((long long)(b * C + c) * D + iz) * plane +
              (long long)iy_lo * W;
     const int shift = (int)((reinterpret_cast<uintptr_t>(sp.src) /
-                             sizeof(T)) & (kVec - 1));
+                             sizeof(float)) & (kVec - 1));
     sp.head = min((kVec - shift) & (kVec - 1), n_span);
     sp.nv = (n_span - sp.head) / kVec;
     sp.tail = n_span - sp.head - kVec * sp.nv;
@@ -171,64 +165,13 @@ conv_in_kernel(const T* __restrict__ x, const float* __restrict__ w,
     Span sp;
     if (!span_of(s, sp)) continue;
     if (tid == 0) sbase[s] = sp.dst - iy_lo * W;
-    if constexpr (sizeof(T) == 4) {
-      float* dst = s_in + sp.dst;
-      const float* src = sp.src;
-      for (int e = tid; e < sp.nv; e += nthr)
-        cp_async16(dst + sp.head + 4 * e, src + sp.head + 4 * e);
-      if (tid < sp.head) cp_async4(dst + tid, src + tid);
-      if (tid < sp.tail) cp_async4(dst + sp.head + 4 * sp.nv + tid,
-                                   src + sp.head + 4 * sp.nv + tid);
-    }
-  }
-  if constexpr (sizeof(T) == 2) {
-    // bf16, widened to fp32 on the way in. The block's loads are items:
-    // per span kVec head slots, kVec tail slots, then its words; each
-    // thread issues kBatch items' loads before it converts and stores any,
-    // so that loads of every span are in flight together (one span is
-    // about one word a thread at the serving shape)
-    constexpr int kBatch = 4;
-    const int per_span = 2 * kVec + (n_span + kVec - 1) / kVec;
-    const int n_items = 2 * C * per_span;
-    for (int f0 = tid; f0 < n_items; f0 += kBatch * nthr) {
-      uint4 q[kBatch];
-      int at[kBatch];  // a value's place in s_in; -1: none; a word: -2 - place
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int f = f0 + u * nthr;
-        at[u] = -1;
-        Span sp;
-        if (f >= n_items || !span_of(f / per_span, sp)) continue;
-        const int j = f % per_span;
-        const unsigned short* raw =
-            reinterpret_cast<const unsigned short*>(sp.src);
-        if (j < kVec) {  // a head value
-          if (j < sp.head) {
-            q[u].x = __ldg(raw + j);
-            at[u] = sp.dst + j;
-          }
-        } else if (j < 2 * kVec) {  // a tail value
-          const int k = sp.head + kVec * sp.nv + j - kVec;
-          if (j - kVec < sp.tail) {
-            q[u].x = __ldg(raw + k);
-            at[u] = sp.dst + k;
-          }
-        } else if (j - 2 * kVec < sp.nv) {  // a 16-byte word
-          const int k = sp.head + kVec * (j - 2 * kVec);
-          q[u] = __ldg(reinterpret_cast<const uint4*>(raw + k));
-          at[u] = -2 - (sp.dst + k);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        if (at[u] >= 0)
-          s_in[at[u]] = __bfloat162float(
-              __ushort_as_bfloat16((unsigned short)q[u].x));
-        else if (at[u] != -1)
-          m3seg::bf16x8_to_float4x2(
-              q[u], reinterpret_cast<float4*>(s_in - 2 - at[u]));
-      }
-    }
+    float* dst = s_in + sp.dst;
+    const float* src = sp.src;
+    for (int e = tid; e < sp.nv; e += nthr)
+      cp_async16(dst + sp.head + 4 * e, src + sp.head + 4 * e);
+    if (tid < sp.head) cp_async4(dst + tid, src + tid);
+    if (tid < sp.tail) cp_async4(dst + sp.head + 4 * sp.nv + tid,
+                                 src + sp.head + 4 * sp.nv + tid);
   }
   // weights, (F, C, kz, ky, kx) -> [((kz*2+ky)*2+kx)*C + c][f]
   for (int e = tid; e < 8 * C * F; e += nthr) {
@@ -284,63 +227,34 @@ conv_in_kernel(const T* __restrict__ x, const float* __restrict__ w,
   // the band's rows are one contiguous span of the output; the SELU here,
   // on every thread's share of the band
   const int n4 = min(R, H2 - oy0) * W2 * (F / 4);
-  T* const band = out + (((long long)b * D2 + oz) * H2 + oy0) * W2 * F;
+  float* const band = out + (((long long)b * D2 + oz) * H2 + oy0) * W2 * F;
   const float4* src = reinterpret_cast<const float4*>(s_out);
-  if constexpr (sizeof(T) == 4) {
-    float4* dst = reinterpret_cast<float4*>(band);
-    if (apply_selu) {
-      for (int e = tid; e < n4; e += nthr) dst[e] = selu4(src[e]);
-    } else {
-      for (int e = tid; e < n4; e += nthr) dst[e] = src[e];
-    }
-  } else {  // 8 values (16 bytes) a store; F is a multiple of 8
-    uint4* dst = reinterpret_cast<uint4*>(band);
-    for (int e = tid; e < n4 / 2; e += nthr) {
-      const float4 a = src[2 * e], c = src[2 * e + 1];
-      dst[e] = apply_selu ? m3seg::float4x2_to_bf16x8(selu4(a), selu4(c))
-                          : m3seg::float4x2_to_bf16x8(a, c);
-    }
+  float4* dst = reinterpret_cast<float4*>(band);
+  if (apply_selu) {
+    for (int e = tid; e < n4; e += nthr) dst[e] = selu4(src[e]);
+  } else {
+    for (int e = tid; e < n4; e += nthr) dst[e] = src[e];
   }
 }
 
-template <int F, int CT, class T>
-cudaError_t launch(const T* x, const float* w, const float* bias, T* out,
-                   int B, int C, int D, int H, int W, int apply_selu,
-                   cudaStream_t stream) {
+template <int F, int CT>
+cudaError_t launch(const float* x, const float* w, const float* bias,
+                   float* out, int B, int C, int D, int H, int W,
+                   int apply_selu, cudaStream_t stream) {
   const int D2 = D / 2 + 1, H2 = H / 2 + 1, W2 = W / 2 + 1;
-  const Plan p = make_plan(C, H2, W, W2, F, 16 / (int)sizeof(T) - 1);
+  const Plan p = make_plan(C, H2, W, W2, F, 3);
   if (p.R == 0) return cudaErrorInvalidValue;
   if (p.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv_in_kernel<F, CT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        conv_in_kernel<F, CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)p.smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((H2 + p.R - 1) / p.R, D2, B);
-  conv_in_kernel<F, CT, T><<<grid, p.threads, p.smem, stream>>>(
+  conv_in_kernel<F, CT><<<grid, p.threads, p.smem, stream>>>(
       x, w, bias, out, C, D, H, W, D2, H2, W2, p.R, p.nt, p.pitch,
       apply_selu);
   return cudaGetLastError();
-}
-
-template <class T>
-int entry(const void* x, const float* w, const float* bias, void* out,
-          int B, int C, int D, int H, int W, int F, int apply_selu,
-          void* stream) {
-  if (B <= 0 || C <= 0 || D <= 0 || H <= 0 || W <= 0 || B > 65535 ||
-      D / 2 + 1 > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
-  // C = 4: the four MRI modalities of every config, channel loops unrolled
-  switch (F * (C == 4 ? -1 : 1)) {
-    case -8: return (int)launch<8, 4>(xt, w, bias, ot, B, C, D, H, W, apply_selu, s);
-    case 8: return (int)launch<8, 0>(xt, w, bias, ot, B, C, D, H, W, apply_selu, s);
-    case -24: return (int)launch<24, 4>(xt, w, bias, ot, B, C, D, H, W, apply_selu, s);
-    case 24: return (int)launch<24, 0>(xt, w, bias, ot, B, C, D, H, W, apply_selu, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -352,15 +266,16 @@ M3SEG_API int m3seg_conv_in(const float* x, const float* w,
                             const float* bias, float* out, int B, int C,
                             int D, int H, int W, int F, int apply_selu,
                             void* stream) {
-  return entry<float>(x, w, bias, out, B, C, D, H, W, F, apply_selu, stream);
-}
-
-// The bf16 instance: x and out bf16 (x at any 2-byte alignment, out
-// 16-byte aligned), w and bias fp32, as above.
-M3SEG_API int m3seg_conv_in_bf16(const void* x, const float* w,
-                                 const float* bias, void* out, int B, int C,
-                                 int D, int H, int W, int F, int apply_selu,
-                                 void* stream) {
-  return entry<__nv_bfloat16>(x, w, bias, out, B, C, D, H, W, F, apply_selu,
-                              stream);
+  if (B <= 0 || C <= 0 || D <= 0 || H <= 0 || W <= 0 || B > 65535 ||
+      D / 2 + 1 > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // C = 4: the four MRI modalities of every config, channel loops unrolled
+  switch (F * (C == 4 ? -1 : 1)) {
+    case -8: return (int)launch<8, 4>(x, w, bias, out, B, C, D, H, W, apply_selu, s);
+    case 8: return (int)launch<8, 0>(x, w, bias, out, B, C, D, H, W, apply_selu, s);
+    case -24: return (int)launch<24, 4>(x, w, bias, out, B, C, D, H, W, apply_selu, s);
+    case 24: return (int)launch<24, 0>(x, w, bias, out, B, C, D, H, W, apply_selu, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

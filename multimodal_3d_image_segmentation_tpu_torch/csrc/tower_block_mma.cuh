@@ -271,25 +271,8 @@ __device__ __forceinline__ void fold(float (&acc)[4], const float (&c)[4],
   for (int e = 0; e < 4; ++e) acc[e] = first ? c[e] : __fadd_rn(acc[e], c[e]);
 }
 
-// SELU with a branch-free expm1 of the negative branch: a Taylor
-// polynomial on [-0.5, 0] (its truncation 1e-8 relative), exp2 (ex2.approx)
-// less 1 below; within a few fp32 ulps of expm1f, where torch.selu's and
-// the FMA body's expm1f costs about twice the instructions and a branch.
-__device__ __forceinline__ float selu_fast(float v) {
-  const float x = v > 0.f ? 0.f : v;  // NaN stays NaN
-  float p = 1.f / 40320.f;
-  p = fmaf(p, x, 1.f / 5040.f);
-  p = fmaf(p, x, 1.f / 720.f);
-  p = fmaf(p, x, 1.f / 120.f);
-  p = fmaf(p, x, 1.f / 24.f);
-  p = fmaf(p, x, 1.f / 6.f);
-  p = fmaf(p, x, 0.5f);
-  p = fmaf(p, x, 1.f);
-  float e;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(x * 1.4426950408889634f));
-  const float em1 = x > -0.5f ? p * x : e - 1.f;
-  return m3seg::kSeluScale * (v > 0.f ? v : m3seg::kSeluAlpha * em1);
-}
+// the branch-free SELU of the tensor-core bodies (common.cuh)
+using m3seg::selu_fast;
 
 // (a, b) rounded to bf16, a in the low half
 __device__ __forceinline__ unsigned bf2(float a, float b) {

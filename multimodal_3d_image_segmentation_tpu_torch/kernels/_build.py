@@ -28,7 +28,7 @@ import torch
 
 __all__ = ["LAUNCHES", "library", "launch", "reset_launch_counts",
            "check_cuda_input", "needs_grad", "replay_grads", "call",
-           "occupancy"]
+           "occupancy", "phase_clock"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -42,7 +42,9 @@ _SIGNATURES = {
     "m3seg_conv_in": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "m3seg_tail_resize_softmax": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _P],
-    "m3seg_conv_in_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "m3seg_conv_in_bf16": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
+    "m3seg_conv_in_phase_ns": [_P, _I, ctypes.POINTER(_I)],
     "m3seg_freq_chain_bf16": [_P, _P, _P, _LL, _I, _I, _P],
     "m3seg_tail_resize_softmax_bf16": [_P, _P, _I, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _I, _P],
@@ -62,7 +64,8 @@ _SIGNATURES = {
     "m3seg_tower_resident_occupancy": [_I] * 5 + [ctypes.POINTER(_I)] * 2,
     "m3seg_tower_smem_bytes": [_I] * 5 + [ctypes.POINTER(_I)],
     "m3seg_tower_spectrum_groups": [ctypes.POINTER(_I)] * 2,
-    "m3seg_tail_smem_bytes": [_I] * 6 + [ctypes.POINTER(_I)],
+    "m3seg_tail_smem_bytes": [_I] * 7 + [ctypes.POINTER(_I)],
+    "m3seg_tail_phase_ns": [_P, _I, ctypes.POINTER(_I)],
     "m3seg_tower_resident_phase_ns": [_P, _I],
     "m3seg_tower_block_phase_ns": [_P, _I],
     "m3seg_tower_block_s_phase_ns": [_P, _I],
@@ -249,6 +252,25 @@ def call(entry: str, *args) -> None:
     if rc != 0:
         msg = lib.cdll.m3seg_error_string(rc).decode()
         raise RuntimeError(f"{entry} failed: {msg} ({rc})")
+
+
+def phase_clock(entry: str, phases, n: int = 4096):
+    """A persistent kernel's phase clock of its last launch, read by C
+    entry ``entry`` (n blocks x 6: globaltimer at the block's start and
+    end, the summed ns of its items' three ``phases``, its item count):
+    ({phase: mean us an item}, the launch's span in us, the mean us a block
+    was resident, the grid). Waits for the device; launches nothing."""
+    buf = (ctypes.c_longlong * (6 * n))()
+    grid = _I(0)
+    call(entry, ctypes.cast(buf, ctypes.c_void_p), n, ctypes.byref(grid))
+    g = min(grid.value, n)
+    t = [buf[6 * i:6 * i + 6] for i in range(g)]
+    items = max(sum(r[5] for r in t), 1)
+    return ({k: sum(r[2 + i] for r in t) / items / 1e3
+             for i, k in enumerate(phases)},
+            (max(r[1] for r in t) - min(r[0] for r in t)) / 1e3 if t
+            else 0.0,
+            sum(r[1] - r[0] for r in t) / max(g, 1) / 1e3, grid.value)
 
 
 def occupancy(entry: str, *args: int):

@@ -383,6 +383,25 @@ def _kept(t: torch.Tensor, name: str, make) -> torch.Tensor:
     return cached[1]
 
 
+def _cached(owner, name: str, params, build):
+    """``build()``, kept on ``owner`` under ``name`` between forwards and
+    made again when a tensor of ``params`` changes storage or version, so
+    the kernel path packs its weights once per weight version, not per
+    call. Where autograd would track one of ``params``, or on inference
+    tensors (no version counter), it is built anew on every call."""
+    if any(p.is_inference() for p in params) or (
+            torch.is_grad_enabled() and any(p.requires_grad for p in params)):
+        return build()
+    key = tuple((p.data_ptr(), p._version, p.device) for p in params)
+    cache = owner.__dict__.setdefault("_m3seg_packed", {})
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        # normal tensors, also under inference mode
+        with torch.inference_mode(False), torch.no_grad():
+            hit = cache[name] = (key, build())
+    return hit[1]
+
+
 def packed_weight(weight: torch.Tensor) -> torch.Tensor:
     """(co, ci, 3, 3, 3) -> the FMA body's (27 * ci, co) fp32 layout, row
     ((kz*3+ky)*3+kx)*ci + c, kept per weight version (``_kept``)."""

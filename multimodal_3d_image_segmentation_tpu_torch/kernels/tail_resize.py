@@ -4,7 +4,10 @@
 Every model family ends with conv_out at the small internal grid, a
 trilinear resize (align_corners=False) to the image size, a center
 pad/crop that is a no-op at that size, and a softmax over channels. The
-CUDA kernel (``csrc/tail_resize.cu``) does the resize and the softmax in
+CUDA kernel (``csrc/tail_resize.cu``: for fp32 logits a block per band
+of output rows; for bf16 logits persistent blocks over (plane, band)
+tiles, the next tile's logits copied while the current one's
+probabilities are computed and stored) does the resize and the softmax in
 one pass, reading the float64-derived tap tables of
 ``ops/resize.py::_linear_taps_np``; ``tail_plain`` is ``resize_linear``
 (interpolation matrices) + ``torch.softmax``.
@@ -34,33 +37,51 @@ from ..ops.resize import (_linear_taps_np, resize_linear,
 from . import _build
 
 __all__ = ["fused_tail_softmax", "tail_plain", "tail_smem_bytes",
-           "tail_supported"]
+           "tail_supported", "phase_us", "PHASES"]
 
 _MAX_CHANNELS = 8  # per-thread register bound in the kernel
 _SMEM_BYTES = 232448  # shared memory a block may use on an H100
-_MIN_BAND_ROWS = 4    # csrc/tail_resize.cu: the fewest output rows a block
-_STAGED_VOXELS = 1024  # csrc/tail_resize.cu: 8 warps x 128 voxels
+_MIN_BAND_ROWS = 4    # csrc/tail_resize.cu band: the fewest output rows a block
+_STAGED_VOXELS = 1024  # csrc/tail_resize.cu band: 8 warps x 128 voxels
+# csrc/tail_resize.cu, the bf16-logit instance: warps a block, bytes a warp
+# stages a channel
+_WARPS, _STAGE_BYTES = 8, 512
+
+
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
 
 
 def tail_smem_bytes(c: int, rows: int, h: int, w: int, out_h: int,
-                    out_w: int) -> int:
+                    out_w: int, in_bytes: int = 4) -> int:
     """Shared memory of a block of ``rows`` output rows, in bytes: the
-    layout of csrc/tail_resize.cu ``tail_smem_floats`` (the band's input
-    rows along D or the staged probabilities, the W and H taps, the rows
-    along H). The CUDA tests hold it to the C side's
-    ``m3seg_tail_smem_bytes``."""
-    in_rows = min(h, (rows - 1) * h // out_h + 3)
-    floats = (max(c * in_rows * w, c * _STAGED_VOXELS) + 3 * out_w
-              + 3 * rows + c * rows * w)
-    return 4 * floats
+    layouts of csrc/tail_resize.cu. fp32 logits (``in_bytes`` 4,
+    ``band::tail_smem_floats``): the band's input rows along D or the
+    staged probabilities, the W and H taps, the rows along H. bf16 logits
+    (2, ``tail_smem``): the W taps; the stage: the D and H taps and the 2C
+    spans of input rows, each its covering 16-byte words; the band's rows
+    along H, C padded to 1, 2, 4 or 8; the staging room: each warp's
+    probabilities or the rows along D. The CUDA tests hold both to the C
+    side's ``m3seg_tail_smem_bytes``."""
+    if in_bytes == 4:
+        in_rows = min(h, (rows - 1) * h // out_h + 3)
+        floats = (max(c * in_rows * w, c * _STAGED_VOXELS) + 3 * out_w
+                  + 3 * rows + c * rows * w)
+        return 4 * floats
+    in_rows = min(h, ((rows - 1) * h + out_h - 1) // out_h + 2)
+    stage = 16 + _up16(12 * rows) + 2 * c * _up16(14 + in_rows * w * 2)
+    cp = c if c <= 2 else 4 if c <= 4 else 8
+    staging = _up16(max(_WARPS * c * _STAGE_BYTES, 4 * c * in_rows * w))
+    return _up16(8 * out_w) + stage + _up16(rows * w * cp * 4) + staging
 
 
 def tail_supported(shape: Sequence[int], sizes: Sequence[int]) -> bool:
     """Routing predicate of the fused tail: batch 1, 1 <= C <= 8, 3D, no
-    empty axis, and a block's shared memory within the card's at its
-    fewest rows (``tail_smem_bytes``: input widths to about 860 at C 8 and
-    1,650 at C 4 when the size is kept; the Pallas kernel's VMEM budget in
-    its place)."""
+    empty axis, and a block of the fp32-logit instance's fewest rows within
+    the card's shared memory (``tail_smem_bytes``: input widths to about
+    860 at C 8 and 1,650 at C 4 when the size is kept; the Pallas kernel's
+    VMEM budget in its place); the bf16-logit instance's block of one row
+    is never larger (``tests/test_torch_tail_plan.py``)."""
     if len(shape) != 5 or len(sizes) != 3:
         return False
     b, c = shape[:2]
@@ -69,6 +90,21 @@ def tail_supported(shape: Sequence[int], sizes: Sequence[int]) -> bool:
         return False
     return tail_smem_bytes(c, _MIN_BAND_ROWS, shape[3], shape[4],
                            int(sizes[1]), int(sizes[2])) <= _SMEM_BYTES
+
+
+# the phases a tile, in the order the kernel's phase clock sums them
+PHASES = ("wait", "D and H lerps", "W lerp, softmax, stores")
+
+
+def phase_us():
+    """The bf16-logit kernel's phase clock of its last launch (thread 0
+    of each persistent block reads the card's globaltimer around each
+    tile's phases): ({phase: mean us a tile} over the blocks' tiles, the
+    launch's
+    span in us from the first block's start to the last block's end,
+    the mean us a block was resident, the grid). Waits for the device;
+    launches nothing."""
+    return _build.phase_clock("m3seg_tail_phase_ns", PHASES)
 
 
 def tail_plain(x_cf: torch.Tensor, sizes: Sequence[int],

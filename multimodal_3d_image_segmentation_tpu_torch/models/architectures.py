@@ -90,7 +90,7 @@ from torch import nn
 
 from .. import device as _device  # noqa: F401  (fp32 policy)
 from .. import not_ported
-from ..kernels.conv3 import KERNEL_ACTS, _moments, conv3
+from ..kernels.conv3 import KERNEL_ACTS, _cached, _moments, conv3
 from ..kernels.conv_in import conv_in_s2d
 from ..kernels.tail_resize import fused_tail_softmax, tail_supported
 from ..kernels.tower_block import (d_stage_forward, d_stage_inverse,
@@ -155,25 +155,6 @@ def _gn_affine(stats, n_voxels, norm, eps=1e-5):
     scale = inv * norm.weight.to(stats.dtype)
     shift = norm.bias.to(stats.dtype) - m * scale
     return scale, shift
-
-
-def _cached(owner: nn.Module, name: str, params, build):
-    """``build()``, kept on ``owner`` under ``name`` between forwards and
-    made again when a tensor of ``params`` changes storage or version, so
-    the kernel path packs its weights once per weight version, not per
-    call. Where autograd would track one of ``params``, or on inference
-    tensors (no version counter), it is built anew on every call."""
-    if any(p.is_inference() for p in params) or (
-            torch.is_grad_enabled() and any(p.requires_grad for p in params)):
-        return build()
-    key = tuple((p.data_ptr(), p._version, p.device) for p in params)
-    cache = owner.__dict__.setdefault("_m3seg_packed", {})
-    hit = cache.get(name)
-    if hit is None or hit[0] != key:
-        # normal tensors, also under inference mode
-        with torch.inference_mode(False), torch.no_grad():
-            hit = cache[name] = (key, build())
-    return hit[1]
 
 
 class VNetDS(nn.Module):
@@ -861,7 +842,11 @@ class _TransSegBase(nn.Module):
         x = x.to(dtype).contiguous()
         if self.conv_in is not None:
             w, b = self.conv_in.op.weight, self.conv_in.op.bias
-            x = conv_in_s2d(x, w.to(isl).to(w.dtype), b.to(isl).to(b.dtype))
+            # kept between forwards, so that the bf16 instance packs them
+            # once per weight version
+            w, b = _cached(self, f"conv_in_{isl}", [w, b], lambda: (
+                w.to(isl).to(w.dtype), b.to(isl).to(b.dtype)))
+            x = conv_in_s2d(x, w, b)
         else:
             x = x.permute(0, 2, 3, 4, 1)
         return self.conv1(x)[0].contiguous()

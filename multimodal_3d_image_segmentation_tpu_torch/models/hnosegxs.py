@@ -30,6 +30,7 @@ from torch import nn
 
 from .. import device as _device  # noqa: F401  (fp32 policy)
 from .. import not_ported
+from ..kernels.conv3 import _cached
 from ..kernels.conv_in import conv_in_s2d
 from ..kernels.freq_chain import fused_freq_chain
 from ..kernels.tail_resize import fused_tail_softmax, tail_supported
@@ -237,8 +238,11 @@ class HNOSegXS(nn.Module):
             # instance sums in fp32)
             image_size = tuple(x.shape[2:])
             w, b = self.conv_in.op.weight, self.conv_in.op.bias
-            x = conv_in_s2d(x.to(dtype).contiguous(),
-                            w.to(isl).to(w.dtype), b.to(isl).to(b.dtype))
+            # kept between forwards, so that the bf16 instance packs them
+            # once per weight version
+            w, b = _cached(self, f"conv_in_{isl}", [w, b], lambda: (
+                w.to(isl).to(w.dtype), b.to(isl).to(b.dtype)))
+            x = conv_in_s2d(x.to(dtype).contiguous(), w, b)
         else:
             if self.channel_first_io:
                 x = x.permute(0, 2, 3, 4, 1)

@@ -67,7 +67,8 @@ SIZE = (240, 240, 155)
 TRAIN_SIZE = (120, 120, 78)
 SEED = 0
 N_TIMED = 20
-OWN_KERNELS = ("conv_in_kernel", "freq_chain_kernel", "tail_kernel",
+OWN_KERNELS = ("conv_in_kernel", "conv_in_mma_kernel", "freq_chain_kernel",
+               "tail_kernel",
                "conv3_brick", "conv3_split_sum", "tower_block_kernel",
                "tower_block_mma_kernel",
                "tower_spectrum_tiles", "tower_block_s_kernel",

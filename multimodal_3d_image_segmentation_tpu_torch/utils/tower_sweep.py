@@ -23,14 +23,20 @@ On seeded random inputs at the 121x121x78 tower grid with C 24, it times
   instances the last block's tensor-core phases) where the checkout has
   them;
 - ``fused_tail_softmax`` at the serving shape, (1, 4, 121, 121, 78) logits
-  to 240 x 240 x 155 probabilities, with its rate against 3.35 TB/s;
+  to 240 x 240 x 155 probabilities: fp32 logits, and bf16 logits to fp32
+  and to bf16 probabilities, with each one's rate against 3.35 TB/s;
 - ``conv_in_s2d`` on a (1, 4, 240, 240, 155) volume with and without the
-  SELU and on the odd (1, 4, 239, 239, 155), and ``fused_freq_chain`` on
-  HNOSeg-XS's (1, 20, 28, 28, 24) spectrum with 3 weights: each also back
+  SELU and on the odd (1, 4, 239, 239, 155); its bf16 instance on the bf16
+  volume with 'bfloat16' weights (bf16 values) and 'mixed' ones (fp32,
+  made outside inference mode, as a model's are) and on batch element 1
+  of the odd bf16 volume; and ``fused_freq_chain`` on HNOSeg-XS's (1, 20,
+  28, 28, 24) spectrum with 3 weights: the tail and these each also back
   to back (the mean of 20 calls between two events, the median of 5 such
   runs), as ``torch.profiler``'s device time per call (the kernel's own
   and all of the call's device work) and as host time per call (the
-  host clock around 50 calls that are not waited for).
+  host clock around 50 calls that are not waited for), with the phase
+  clock of conv_in's bf16 instance and of the tail where the checkout's
+  kernels have one (``phase_us``: mean us a band or tile per phase).
 
 ``--save DIR`` writes
 every output there (``torch.save``); ``--compare DIR`` loads another run's
@@ -55,6 +61,8 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..kernels import conv_in as kci
+from ..kernels import tail_resize as ktail
 from ..kernels import tower_block as tb
 from ..kernels import tower_block_s as tbs
 from ..kernels import tower_resident as tr
@@ -88,7 +96,8 @@ def median_ms(fn):
 TOWER_KINDS = ("tower_resident_kernel", "tower_block_s_kernel",
                "tower_block_kernel", "tower_block_mma_kernel",
                "tower_block_s_mma_kernel", "tower_resident_mma_kernel")
-EDGE_KINDS = ("conv_in_kernel", "freq_chain_kernel")
+EDGE_KINDS = ("conv_in_kernel", "conv_in_mma_kernel", "freq_chain_kernel",
+              "tail_kernel")
 
 
 def build_report(kinds=TOWER_KINDS + EDGE_KINDS):
@@ -107,7 +116,14 @@ def build_report(kinds=TOWER_KINDS + EDGE_KINDS):
         if kind is None:
             continue
         c = "24" if "ILi24E" in name else "8" if "ILi8E" in name else "?"
-        # the tensor-core body's instances: <C, passes>; the FMA body's:
+        props = [ln.split(":", 1)[-1].strip() for ln in log[i + 1:i + 4]
+                 if "spill" in ln or "Used" in ln]
+        if kind == "tail_kernel":  # <C, logits' type, probabilities' type>
+            print(f"build: {name.split('tail_kernel')[-1][:40]}: "
+                  f"{'; '.join(props)}")
+            continue
+        # the tensor-core bodies' instances: <C, passes> (conv_in's <F, C,
+        # parts>); the FMA body's:
         # <C> (fp32), or <C, volume type, weight type> in a checkout whose
         # FMA body still has bf16 instances
         if kind.endswith("_mma_kernel"):
@@ -115,8 +131,6 @@ def build_report(kinds=TOWER_KINDS + EDGE_KINDS):
         else:
             inst = ("" if "__nv_bfloat16" not in name else
                     " mixed" if "__nv_bfloat16fE" in name else " bf16")
-        props = [ln.split(":", 1)[-1].strip() for ln in log[i + 1:i + 4]
-                 if "spill" in ln or "Used" in ln]
         print(f"build: {kind.removesuffix('_kernel')}{inst} width {c}: "
               f"{'; '.join(props)}")
 
@@ -175,8 +189,9 @@ def host_us(fn, calls=N_HOST):
 
 
 def edge_calls(dev):
-    """(label, kernel name, call) of conv_in and freq_chain on seeded
-    inputs at the serving shapes."""
+    """(label, kernel name, call, phase clock or None) of conv_in (fp32
+    and bf16 instances) and freq_chain on seeded inputs at the serving
+    shapes."""
     rng = np.random.default_rng(400)
     x = _t(rng, VOLUME, dev)
     x_odd = _t(rng, VOLUME_ODD, dev)
@@ -184,15 +199,42 @@ def edge_calls(dev):
     b = _t(rng, (24,), dev, 0.1)
     spec = _t(rng, SPECTRUM, dev)
     ws = [_t(rng, (24, 24), dev, 1 / np.sqrt(24)) for _ in range(3)]
+    xb = x.to(torch.bfloat16)
+    # batch element 1 of two: 8 bytes past a 16-byte boundary
+    xb_odd = torch.cat([x_odd, x_odd.flip(2)]).to(torch.bfloat16)[1:]
+    # 'bfloat16''s weights are bf16 values (in fp32), 'mixed''s fp32
+    wb, = kept_weights(torch.float32, w.to(torch.bfloat16).float())
+    wm, = kept_weights(torch.float32, w)
+    clock = getattr(kci, "phase_us", None)
     return [
-        ("conv_in", "conv_in_kernel", lambda: kernels.conv_in_s2d(x, w, b)),
+        ("conv_in", "conv_in_kernel", lambda: kernels.conv_in_s2d(x, w, b),
+         None),
         ("conv_in odd", "conv_in_kernel",
-         lambda: kernels.conv_in_s2d(x_odd, w, b)),
+         lambda: kernels.conv_in_s2d(x_odd, w, b), None),
         ("conv_in no SELU", "conv_in_kernel",
-         lambda: kernels.conv_in_s2d(x, w, b, apply_selu=False)),
+         lambda: kernels.conv_in_s2d(x, w, b, apply_selu=False), None),
+        ("conv_in_bf16", "conv_in",
+         lambda: kernels.conv_in_s2d(xb, wb, b), clock),
+        ("conv_in_mixed", "conv_in",
+         lambda: kernels.conv_in_s2d(xb, wm, b), clock),
+        ("conv_in_bf16 odd", "conv_in",
+         lambda: kernels.conv_in_s2d(xb_odd, wb, b), clock),
         ("freq_chain", "freq_chain_kernel",
-         lambda: kernels.fused_freq_chain(spec, ws)),
+         lambda: kernels.fused_freq_chain(spec, ws), None),
     ]
+
+
+def _clock_text(clock, call):
+    """A persistent kernel's phase clock after one more ``call`` (``clock``:
+    the module's ``phase_us``; "" where the checkout has none)."""
+    if clock is None:
+        return ""
+    call()
+    phases, span, resident, grid = clock()
+    return ("; phase clock, us an item: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in phases.items()) +
+        f"; span {span:.1f} us, a block resident {resident:.1f} us, "
+        f"grid {grid}")
 
 
 def _t(rng, shape, dev, scale=1.0):
@@ -341,22 +383,34 @@ def main(argv=None):
                           f"{k} {v:.4f}" for k, v in phases.items()) + clock,
                       flush=True)
         logits = _t(np.random.default_rng(300), TAIL_IN, dev, 3.0)
-        outputs["tail_resize out"] = kernels.fused_tail_softmax(logits,
-                                                                TAIL_OUT)
-        ms = median_ms(lambda: kernels.fused_tail_softmax(logits, TAIL_OUT))
-        moved = 4 * (logits.numel() + TAIL_IN[1] * int(np.prod(TAIL_OUT)))
-        rate = moved / (ms * 1e-3)
-        print(f"tail_resize {TAIL_IN} -> {TAIL_OUT}: {ms:.4f} ms, "
-              f"{rate / 1e9:.1f} GB/s of {moved / 1e6:.1f} MB, "
-              f"{rate / HBM_BYTES_PER_S:.1%} of 3.35 TB/s", flush=True)
-        for label, kernel, call in edge_calls(dev):
+        lb = logits.to(torch.bfloat16)
+        clock = getattr(ktail, "phase_us", None)
+        for label, lg, out_dtype in (
+                ("tail_resize", logits, None),
+                ("tail_resize_bf16", lb, None),
+                ("tail_resize_bf16 bf16", lb, torch.bfloat16)):
+            def call(lg=lg, out_dtype=out_dtype):
+                return kernels.fused_tail_softmax(lg, TAIL_OUT, out_dtype)
+            got = outputs[f"{label} out"] = call()
+            ms, s_ms = median_ms(call), stream_ms(call)
+            own, _ = device_ms(call, "tail_kernel")
+            moved = lg.numel() * lg.element_size() + got.numel() * \
+                got.element_size()
+            print(f"{label} {TAIL_IN} -> {TAIL_OUT}: {ms:.4f} ms a call, "
+                  f"{s_ms:.4f} ms back to back, profiler device time "
+                  f"{own:.4f} ms, {moved / (s_ms * 1e-3) / 1e9:.1f} GB/s "
+                  f"of {moved / 1e6:.1f} MB back to back, "
+                  f"{moved / (s_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 "
+                  f"TB/s{_clock_text(clock, call)}", flush=True)
+        for label, kernel, call, clock in edge_calls(dev):
             outputs[f"{label} out"] = call()
             ms, s_ms = median_ms(call), stream_ms(call)
             own, total = device_ms(call, kernel)
             print(f"{label}: {ms:.4f} ms a call, {s_ms:.4f} ms back to "
                   f"back, profiler device time {own:.4f} ms ({kernel}) of "
                   f"{total:.4f} ms (every device event of a call), host "
-                  f"{host_us(call):.1f} us a call", flush=True)
+                  f"{host_us(call):.1f} us a call"
+                  f"{_clock_text(clock, call)}", flush=True)
     if args.save:
         args.save.mkdir(parents=True, exist_ok=True)
         torch.save({k: v.cpu() for k, v in outputs.items()},
@@ -369,9 +423,11 @@ def main(argv=None):
                 continue
             v, w = v.cpu(), other[k]
             # bits, so that a NaN equals itself
-            same = bool(torch.equal(v.view(torch.int32), w.view(torch.int32)))
+            bits = torch.int16 if v.element_size() == 2 else torch.int32
+            same = v.dtype == w.dtype and bool(torch.equal(v.view(bits),
+                                                           w.view(bits)))
             print(f"{k}: bit-identical {same}, max abs diff "
-                  f"{float((v - w).abs().max()):.3e}")
+                  f"{float((v.float() - w.float()).abs().max()):.3e}")
 
 
 if __name__ == "__main__":

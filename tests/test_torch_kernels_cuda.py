@@ -275,20 +275,24 @@ def test_tail_kernel_wide_rows_match_plain(dev, shape, sizes):
 
 
 @pytest.mark.parametrize("c", [1, 4, 8])
-@pytest.mark.parametrize("rows", [4, 8, 16])
+@pytest.mark.parametrize("rows", [1, 4, 8, 16])
+@pytest.mark.parametrize("in_bytes", [4, 2])
 @pytest.mark.parametrize("sizes_in,sizes", [
     ((121, 121, 78), (240, 240, 155)),  # the serving shape
     ((3, 6, 600), (4, 9, 700)),
     ((12, 40, 22), (7, 19, 11)),       # downsampling
 ])
-def test_tail_smem_bytes_follow_the_c_layout(dev, c, rows, sizes_in, sizes):
+def test_tail_smem_bytes_follow_the_c_layout(dev, c, rows, sizes_in, sizes,
+                                             in_bytes):
     """tail_smem_bytes, which tail_supported bounds, equals the shared
-    memory that the C side gives a block of the tail kernel."""
+    memory that the C side gives a block of the tail kernel (rows and the
+    logits' bytes a value)."""
     got = ctypes.c_int(0)
-    _build.call("m3seg_tail_smem_bytes", c, rows, sizes_in[1], sizes_in[2],
-                sizes[1], sizes[2], ctypes.byref(got))
-    assert tail_resize.tail_smem_bytes(c, rows, sizes_in[1], sizes_in[2],
-                                       sizes[1], sizes[2]) == got.value
+    _build.call("m3seg_tail_smem_bytes", c, rows, in_bytes, sizes_in[1],
+                sizes_in[2], sizes[1], sizes[2], ctypes.byref(got))
+    assert tail_resize.tail_smem_bytes(
+        c, rows, sizes_in[1], sizes_in[2], sizes[1], sizes[2],
+        in_bytes) == got.value
 
 
 @pytest.mark.parametrize("c", [4, 8])
@@ -1365,6 +1369,102 @@ def test_tail_bf16_kernel_matches_plain(dev, sizes_in, sizes, c, out_dtype):
             x, sizes, out_dtype))
         want = kernels.tail_plain(x, sizes, out_dtype)
     assert got.dtype == want.dtype == out_dtype
+    rtol = BF16_ULP if out_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-6)
+
+
+# conv_in's bf16 instance with 'mixed' weights (fp32, not bf16 values):
+# three bf16 parts a weight carry it exactly, so the kernel and its twin
+# differ only by fp32 sums in another order; at most this share of the
+# elements differ at all, which the weights' hi part alone must exceed.
+MIXED_SHARE = 1e-3
+
+
+def _share_differing(got, want):
+    return float((got.float() != want.float()).float().mean())
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 4, 24, 30, 155),   # the serving W, ragged last bands (H2 16)
+    (2, 3, 10, 21, 64),    # C 3 (K padded), batch 2, odd H
+])
+@pytest.mark.parametrize("f", [8, 24])
+def test_conv_in_bf16_mixed_weights_hold_the_twin(dev, shape, f):
+    c = shape[1]
+    x = _bf16(shape, 130, dev)
+    w = _t((f, c, 2, 2, 2), 131, dev, 1 / np.sqrt(8 * c))
+    b = _t((f,), 132, dev, 0.1)
+    with torch.no_grad():
+        got = _launched("conv_in_bf16", lambda: kernels.conv_in_s2d(x, w, b))
+        want = kernels.conv_in_plain(x, w, b)
+        # the control: the weights' hi part alone (bf16 values, one part)
+        hi = kernels.conv_in_s2d(x, w.to(torch.bfloat16).float(), b)
+    assert kernels.conv_in.mma_weight(w).shape[2] == 3
+    assert _share_differing(got, want) <= MIXED_SHARE
+    assert _share_differing(hi, want) > MIXED_SHARE
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 4, 6, 21, 11),     # H2 11: bands of 8 rows, the last of 3
+    (3, 4, 17, 9, 31),     # more bands than blocks: each block walks several
+    (1, 3, 5, 33, 17),     # C 3, odd D and H
+    (1, 4, 3, 2, 1030),    # rows wider than four blocks an SM take
+])
+@pytest.mark.parametrize("f", [8, 24])
+@pytest.mark.parametrize("selu", [True, False])
+def test_conv_in_bf16_kernel_bands_match_plain(dev, shape, f, selu):
+    c = shape[1]
+    x = _bf16(shape, 133, dev)
+    w = _t((f, c, 2, 2, 2), 134, dev, 1 / np.sqrt(8 * c))
+    w = w.to(torch.bfloat16).float()
+    b = _t((f,), 135, dev, 0.1)
+    with torch.no_grad():
+        got = _launched("conv_in_bf16", lambda: kernels.conv_in_s2d(
+            x, w, b, apply_selu=selu))
+        want = kernels.conv_in_plain(x, w, b, apply_selu=selu)
+        again = kernels.conv_in_s2d(x, w, b, apply_selu=selu)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ULP,
+                               atol=1e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("sizes_in,sizes,c", [
+    ((6, 20, 9), (11, 37, 18), 4),     # H 37: bands of 16, the last of 5
+    ((5, 9, 7), (9, 37, 15), 3),       # H W odd: one value at a time
+    ((40, 30, 26), (80, 60, 51), 4),   # more tiles than blocks
+    ((121, 121, 78), (240, 240, 155), 4),  # the serving shape
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_tail_bf16_kernel_repeats_bit_for_bit(dev, sizes_in, sizes, c,
+                                             out_dtype):
+    x = _bf16((1, c) + sizes_in, 136, dev, 3.0)
+    with torch.no_grad():
+        got = _launched("tail_resize_bf16", lambda: kernels.fused_tail_softmax(
+            x, sizes, out_dtype))
+        want = kernels.tail_plain(x, sizes, out_dtype)
+        again = kernels.fused_tail_softmax(x, sizes, out_dtype)
+    rtol = BF16_ULP if out_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-6)
+    assert torch.equal(got.view(torch.int16 if out_dtype == torch.bfloat16
+                                else torch.int32),
+                       again.view(torch.int16 if out_dtype == torch.bfloat16
+                                  else torch.int32))
+
+
+@pytest.mark.parametrize("c", [4, 8])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_tail_bf16_kernel_takes_the_widest_rows_it_routes(dev, c, out_dtype):
+    """The widest input row that tail_supported accepts launches the bf16
+    instance and matches the plain version."""
+    w = next(w for w in range(1, 4096)
+             if not kernels.tail_supported((1, c, 3, 6, w + 1), (4, 9, w + 1)))
+    x = _bf16((1, c, 3, 6, w), 137, dev, 3.0)
+    with torch.no_grad():
+        got = _launched("tail_resize_bf16", lambda: kernels.fused_tail_softmax(
+            x, (4, 9, w), out_dtype))
+        want = kernels.tail_plain(x, (4, 9, w), out_dtype)
     rtol = BF16_ULP if out_dtype == torch.bfloat16 else 0.0
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=1e-6)
